@@ -1,0 +1,59 @@
+"""Carry a scene across from the reference package.
+
+The counterpart of a weights converter: the reference's ``Octree`` is
+handed over as plain numpy arrays (``scene_lo``, ``scene_size``, ``depth``
+and, per level, ``codes``, ``full``, ``child_start``, ``child_mask``) and
+becomes this package's :class:`repro_torch.core.octree.Octree`, so both
+packages can run on one scene without this package importing the other.
+"""
+from __future__ import annotations
+
+from typing import Mapping, Sequence
+
+import numpy as np
+
+from repro_torch.core.octree import MAX_DEPTH, Octree, OctreeLevel
+
+
+def octree_from_arrays(scene_lo, scene_size: float, depth: int,
+                       levels: Sequence[Mapping[str, np.ndarray]]) -> Octree:
+    """Build an :class:`Octree` from the reference's level arrays.
+
+    ``levels[l]`` maps ``codes`` (uint32, sorted), ``full`` (bool),
+    ``child_start`` (int32) and ``child_mask`` (uint8) of level ``l``.
+    The point storage (ball query only) is left empty.
+    """
+    depth = int(depth)
+    if not 1 <= depth <= MAX_DEPTH or len(levels) != depth + 1:
+        raise ValueError(f"need depth in [1, {MAX_DEPTH}] and depth + 1 "
+                         f"levels, got depth {depth} and {len(levels)}")
+    out = []
+    for lv_i, lv in enumerate(levels):
+        codes = np.asarray(lv["codes"], np.uint32)
+        n = codes.shape[0]
+        fields = dict(full=np.asarray(lv["full"], bool),
+                      child_start=np.asarray(lv["child_start"], np.int32),
+                      child_mask=np.asarray(lv["child_mask"], np.uint8))
+        for name, arr in fields.items():
+            if arr.shape != (n,):
+                raise ValueError(f"level {lv_i}: {name} has shape "
+                                 f"{arr.shape}, want ({n},)")
+        if n > 1 and not (codes[1:] > codes[:-1]).all():
+            raise ValueError(f"level {lv_i}: codes must be strictly sorted")
+        out.append(OctreeLevel(codes=codes, **fields))
+    empty_i = np.zeros(0, np.int32)
+    return Octree(scene_lo=np.asarray(scene_lo, np.float32),
+                  scene_size=float(scene_size), depth=depth, levels=out,
+                  points_sorted=np.zeros((0, 3), np.float32),
+                  point_index=empty_i, leaf_point_start=empty_i,
+                  leaf_point_count=empty_i)
+
+
+def octree_from_reference(tree) -> Octree:
+    """Convert any object with the reference ``Octree``'s attributes
+    (``scene_lo``, ``scene_size``, ``depth``, ``levels[l].codes`` ...)."""
+    return octree_from_arrays(
+        np.asarray(tree.scene_lo), tree.scene_size, tree.depth,
+        [dict(codes=np.asarray(lv.codes), full=np.asarray(lv.full),
+              child_start=np.asarray(lv.child_start),
+              child_mask=np.asarray(lv.child_mask)) for lv in tree.levels])

@@ -1,0 +1,161 @@
+"""Query planning: lower front-end batch shapes to one canonical pool.
+
+Counterpart of ``repro.engine.plan``.  A :class:`QueryPlan` is a flat OBB
+pool ``(Q, 3)/(Q, 3)/(Q, 3, 3)`` of tensors, optional scene / owner /
+payload lanes, and an un-flattening recipe that maps the flat verdicts back
+to the front end's shape.  This slice lowers single query sets
+(:func:`plan_queries`) and (B, M) batches (:func:`plan_batch`); the other
+front ends land with ROADMAP A.4 and A.7.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.geometry import OBBs
+from repro_torch.core.sact import PAYLOAD_INF
+
+#: Front-end workloads a plan can carry (the reference's tuple).
+WORKLOADS = ("queries", "batch", "scenes", "trajectory", "edges")
+
+
+class PlanValidationError(ValueError):
+    """A plan's OBB pool is malformed (shape/dtype/NaN/inf/degenerate)."""
+
+
+@dataclasses.dataclass(frozen=True)
+class QueryPlan:
+    """One lowered collision query batch (see module docstring)."""
+
+    kind: str                     # workload tag, one of WORKLOADS
+    obb_c: torch.Tensor           # (Q, 3) flat query OBB pool
+    obb_h: torch.Tensor           # (Q, 3)
+    obb_r: torch.Tensor           # (Q, 3, 3)
+    out_shape: Tuple[int, ...]    # group verdicts reshape to this
+    num_scenes: int = 1
+    scene_of_query: Optional[torch.Tensor] = None   # (Q,) int32
+    owner_of_query: Optional[torch.Tensor] = None   # (Q,) int32
+    num_groups: Optional[int] = None                # None = Q
+    payload: Optional[torch.Tensor] = None          # (Q,) int32
+    reduce_last: bool = False     # any() over out_shape's last axis
+
+    def __post_init__(self):
+        if self.kind not in WORKLOADS:
+            raise ValueError(
+                f"unknown workload {self.kind!r}; allowed: "
+                f"{', '.join(WORKLOADS)}")
+        if math.prod(self.out_shape) != self.groups:
+            raise ValueError(
+                f"out_shape {self.out_shape} does not hold {self.groups} "
+                f"verdict groups")
+
+    @property
+    def num_queries(self) -> int:
+        return self.obb_c.shape[0]
+
+    @property
+    def groups(self) -> int:
+        return self.num_groups if self.num_groups is not None \
+            else self.num_queries
+
+    @property
+    def grouped(self) -> bool:
+        """True when the plan carries owner or payload lanes."""
+        return self.owner_of_query is not None or self.payload is not None
+
+    @property
+    def obbs(self) -> OBBs:
+        return OBBs(center=self.obb_c, half=self.obb_h, rot=self.obb_r)
+
+    @property
+    def shape_tag(self) -> str:
+        """One-line plan-shape descriptor for logs."""
+        lanes = [n for n, v in (("scene", self.scene_of_query),
+                                ("owner", self.owner_of_query),
+                                ("payload", self.payload))
+                 if v is not None]
+        return (f"{self.kind}[Q={self.num_queries} S={self.num_scenes} "
+                f"G={self.groups} lanes={'+'.join(lanes) or 'none'}]")
+
+    def work_units(self, scene_nodes: int) -> int:
+        """Predicted traversal work: scene node count x query count."""
+        return int(scene_nodes) * self.num_queries
+
+    def unflatten(self, flat) -> np.ndarray:
+        """Map flat (G,) group verdicts back to the front end's shape."""
+        if isinstance(flat, torch.Tensor):
+            flat = flat.cpu().numpy()
+        out = np.asarray(flat).reshape(self.out_shape)
+        if self.reduce_last:
+            out = out.any(axis=-1)
+        return out
+
+
+def _np(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
+def validate_plan(plan: QueryPlan) -> QueryPlan:
+    """Reject malformed OBB pools, naming the first offending field."""
+    q = plan.num_queries
+    fields = (("obb_c", plan.obb_c, (q, 3)), ("obb_h", plan.obb_h, (q, 3)),
+              ("obb_r", plan.obb_r, (q, 3, 3)))
+    for name, arr, want in fields:
+        a = _np(arr)
+        if a.shape != want:
+            raise PlanValidationError(
+                f"plan.{name} has shape {a.shape}, want {want}")
+        if a.dtype != np.float32:
+            raise PlanValidationError(
+                f"plan.{name} has dtype {a.dtype}, want float32 (the "
+                f"engine's pool dtype; cast before submitting)")
+        if not np.isfinite(a).all():
+            bad = int(np.flatnonzero(
+                ~np.isfinite(a).reshape(q, -1).all(1))[0])
+            raise PlanValidationError(
+                f"plan.{name} contains NaN/inf (first bad query slot "
+                f"{bad}); non-finite OBBs poison every SACT test in the "
+                f"coalesced pool")
+    h = _np(plan.obb_h)
+    if not (h > 0).all():
+        bad = int(np.flatnonzero(~(h > 0).all(axis=1))[0])
+        raise PlanValidationError(
+            f"plan.obb_h must be strictly positive (first degenerate "
+            f"query slot {bad}); zero/negative half extents make the "
+            f"separating-axis margins meaningless")
+    for name, lane in (("scene_of_query", plan.scene_of_query),
+                       ("owner_of_query", plan.owner_of_query),
+                       ("payload", plan.payload)):
+        if lane is None:
+            continue
+        a = _np(lane)
+        if a.shape != (q,) or a.dtype != np.int32:
+            raise PlanValidationError(
+                f"plan.{name} must be ({q},) int32, got {a.shape} "
+                f"{a.dtype}")
+    return plan
+
+
+def plan_queries(obbs: OBBs) -> QueryPlan:
+    """Single flat query set: (M,) OBBs against one scene."""
+    assert obbs.center.ndim == 2, "plan_queries wants flat (M, 3) fields"
+    return QueryPlan(kind="queries", obb_c=obbs.center, obb_h=obbs.half,
+                     obb_r=obbs.rot, out_shape=(obbs.n,))
+
+
+def plan_batch(obbs: OBBs) -> QueryPlan:
+    """(B, M) query sets against one scene, lowered to one flat pool."""
+    assert obbs.center.ndim == 3, "plan_batch wants (B, M, 3) fields"
+    B, M = obbs.center.shape[:2]
+    return QueryPlan(kind="batch", obb_c=obbs.center.reshape(-1, 3),
+                     obb_h=obbs.half.reshape(-1, 3),
+                     obb_r=obbs.rot.reshape(-1, 3, 3), out_shape=(B, M))
+
+
+__all__ = ["PAYLOAD_INF", "PlanValidationError", "QueryPlan", "WORKLOADS",
+           "plan_batch", "plan_queries", "validate_plan"]

@@ -1,0 +1,204 @@
+"""Port parity: the whole slice, ``CollisionEngine`` in
+``mode="wavefront_persistent"``, against the JAX reference engine.
+
+Both sides get the same scene (carried across by ``repro_torch.convert``)
+and the same OBB arrays.  The JAX engine runs under ``jax.disable_jit()``
+(XLA:CPU's jit contracts ``a*b+c`` into fused multiply-adds; eager
+PyTorch does not) with the resident fp32 rows pinned.  Against its Pallas
+kernel arm (``use_pallas_traverse=True``, interpreted) verdicts and every
+``Counters`` field must agree; against its default global-pool ref arm
+``escalations`` may differ, since the two count overflow differently
+(one shared pool vs per tile).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import geometry as jgeo
+from repro.core import octree as joct
+from repro.data import robotics as jrob
+from repro.engine import executor as jexe
+from repro_torch.convert import octree_from_reference
+from repro_torch.core.geometry import OBBs
+from repro_torch.engine import plan as tplan
+from repro_torch.engine.executor import CollisionEngine, EngineConfig
+from repro_torch.kernels import _build
+
+# One intra-op thread: the suite runs several test processes at once.
+torch.set_num_threads(1)
+
+PERSIST = "wavefront_persistent"
+
+
+@pytest.fixture(scope="module")
+def scene():
+    sc = jrob.make_scene("cubby", num_points=8192)
+    tree = joct.build_octree(sc.points, depth=4)
+    obbs = jrob.scene_trajectories(sc, num_trajectories=2, waypoints=8)
+    arrays = [np.asarray(x) for x in (obbs.center, obbs.half, obbs.rot)]
+    return tree, octree_from_reference(tree), arrays
+
+
+def _torch_obbs(arrays):
+    return OBBs(*(torch.from_numpy(x.copy()) for x in arrays))
+
+
+def _jax_query(tree, arrays, **cfg):
+    cfg = dict(mode=PERSIST, stream_meta=False, meta_format="fp32", **cfg)
+    with jax.disable_jit():
+        return jexe.CollisionEngine(tree, jexe.EngineConfig(**cfg)).query(
+            jgeo.OBBs(*map(jnp.asarray, arrays)))
+
+
+def _assert_same(got, want, skip=()):
+    (v, c), (wv, wc) = got, want
+    assert np.array_equal(v, np.asarray(wv))
+    a, b = c.as_dict(), wc.as_dict()
+    assert a.keys() == b.keys()
+    for k in a:
+        if k not in ("wall_time_s",) + tuple(skip):
+            assert a[k] == b[k], k
+
+
+@pytest.mark.parametrize("use_spheres", [False, True])
+def test_engine_matches_reference_kernel_arm(scene, use_spheres):
+    tree, ttree, arrays = scene
+    got = CollisionEngine(ttree, EngineConfig(mode=PERSIST,
+                                              use_spheres=use_spheres),
+                          device="cpu").query(_torch_obbs(arrays))
+    want = _jax_query(tree, arrays, use_spheres=use_spheres,
+                      use_pallas_traverse=True)
+    _assert_same(got, want)
+    assert got[0].any() and not got[0].all()
+    assert got[1].nodes_per_level[0] == arrays[0].shape[0]
+
+
+def _big_obbs(n=16, seed=4):
+    """A few large OBBs: one tile whose frontier outgrows a small bucket."""
+    rs = np.random.RandomState(seed)
+    rot = np.asarray(jgeo.rotation_from_euler(jnp.asarray(
+        rs.uniform(-3, 3, (n, 3)).astype(np.float32))))
+    return [rs.uniform(0.2, 0.8, (n, 3)).astype(np.float32),
+            rs.uniform(0.04, 0.1, (n, 3)).astype(np.float32), rot]
+
+
+def test_engine_escalation_matches_reference_kernel_arm(scene):
+    """A tiny first bucket overflows per tile and climbs the 4x replay
+    ladder exactly as the reference kernel arm does."""
+    tree, ttree, _ = scene
+    arrays = _big_obbs()
+    cfg = dict(min_bucket=64)
+    eng = CollisionEngine(ttree, EngineConfig(mode=PERSIST, **cfg),
+                          device="cpu")
+    got = eng.query(_torch_obbs(arrays))
+    want = _jax_query(tree, arrays, use_pallas_traverse=True, **cfg)
+    _assert_same(got, want)
+    assert got[1].escalations >= 1 and got[1].frontier_overflow == 0
+    # the clean capacity is remembered: a repeat query replays nothing
+    again = eng.query(_torch_obbs(arrays))
+    assert again[1].escalations == 0
+    assert np.array_equal(again[0], got[0])
+
+
+def test_engine_pinned_capacity_counts_overflow_like_reference(scene):
+    tree, ttree, _ = scene
+    arrays = _big_obbs()
+    cfg = dict(frontier_capacity=16)
+    got = CollisionEngine(ttree, EngineConfig(mode=PERSIST, **cfg),
+                          device="cpu").query(_torch_obbs(arrays))
+    want = _jax_query(tree, arrays, use_pallas_traverse=True, **cfg)
+    _assert_same(got, want)
+    assert got[1].frontier_overflow > 0
+
+
+def test_engine_matches_reference_ref_arm(scene):
+    """The reference's default CPU arm (global pool): everything but
+    ``escalations`` agrees."""
+    tree, ttree, arrays = scene
+    got = CollisionEngine(ttree, EngineConfig(mode=PERSIST),
+                          device="cpu").query(_torch_obbs(arrays))
+    want = _jax_query(tree, arrays)
+    _assert_same(got, want, skip=("escalations",))
+
+
+def test_query_batched_equals_flat_query(scene):
+    _, ttree, arrays = scene
+    eng = CollisionEngine(ttree, EngineConfig(mode=PERSIST), device="cpu")
+    flat_v, flat_c = eng.query(_torch_obbs(arrays))
+    B = 2
+    obbs = _torch_obbs([x.reshape((B, -1) + x.shape[1:]) for x in arrays])
+    v, c = eng.query_batched(obbs)
+    assert v.shape == (B, arrays[0].shape[0] // B)
+    assert np.array_equal(v.reshape(-1), flat_v)
+    assert c.nodes_per_level == flat_c.nodes_per_level
+
+
+def test_cpu_engine_launches_no_kernel(scene):
+    _, ttree, arrays = scene
+    before = _build.launch_counts()
+    CollisionEngine(ttree, EngineConfig(mode=PERSIST),
+                    device="cpu").query(_torch_obbs(arrays))
+    assert _build.launch_counts() == before
+
+
+def test_engine_cuda_raises_without_cuda(scene):
+    if torch.cuda.is_available():
+        pytest.skip("this check is for machines without a CUDA device")
+    _, ttree, _ = scene
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CollisionEngine(ttree, EngineConfig(mode=PERSIST))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CollisionEngine(ttree, EngineConfig(mode=PERSIST), device="cuda")
+
+
+def test_unported_modes_and_options_raise(scene):
+    _, ttree, arrays = scene
+    for mode in ("wavefront", "wavefront_fused", "naive", "wavefront_host"):
+        with pytest.raises(NotImplementedError, match="A.6"):
+            CollisionEngine(ttree, EngineConfig(mode=mode), device="cpu")
+    with pytest.raises(NotImplementedError, match="A.8"):
+        CollisionEngine(ttree, EngineConfig(mode=PERSIST, shards=2),
+                        device="cpu")
+    with pytest.raises(NotImplementedError, match="A.5.6"):
+        CollisionEngine([ttree, ttree], EngineConfig(mode=PERSIST),
+                        device="cpu")
+    eng = CollisionEngine(ttree, EngineConfig(mode=PERSIST), device="cpu")
+    plan = tplan.plan_queries(_torch_obbs(arrays))
+    with pytest.raises(NotImplementedError, match="A.6"):
+        eng.execute(plan, max_depth=2)
+    with pytest.raises(NotImplementedError, match="A.5.3"):
+        eng.execute(tplan.QueryPlan(
+            kind="edges", obb_c=plan.obb_c, obb_h=plan.obb_h,
+            obb_r=plan.obb_r, out_shape=(plan.num_queries,),
+            payload=torch.zeros(plan.num_queries, dtype=torch.int32)))
+    eng = CollisionEngine(ttree, EngineConfig(mode=PERSIST, stream_meta=True),
+                          device="cpu")
+    assert eng.meta_layout == "streamed"
+    with pytest.raises(NotImplementedError, match="A.5.4"):
+        eng.query(_torch_obbs(arrays))
+    with pytest.raises(ValueError, match="unknown engine mode"):
+        EngineConfig(mode="bogus")
+
+
+def test_plan_validation_matches_reference_messages(scene):
+    _, _, arrays = scene
+    obbs = _torch_obbs(arrays)
+    plan = tplan.validate_plan(tplan.plan_queries(obbs))
+    assert plan.shape_tag == f"queries[Q={obbs.n} S=1 G={obbs.n} lanes=none]"
+    assert plan.work_units(10) == 10 * obbs.n
+    bad = arrays[0].copy()
+    bad[5, 1] = np.nan
+    with pytest.raises(tplan.PlanValidationError, match="slot 5"):
+        tplan.validate_plan(tplan.plan_queries(
+            OBBs(torch.from_numpy(bad), obbs.half, obbs.rot)))
+    neg = arrays[1].copy()
+    neg[2, 0] = 0.0
+    with pytest.raises(tplan.PlanValidationError, match="slot 2"):
+        tplan.validate_plan(tplan.plan_queries(
+            OBBs(obbs.center, torch.from_numpy(neg), obbs.rot)))
+    with pytest.raises(tplan.PlanValidationError, match="float32"):
+        tplan.validate_plan(tplan.plan_queries(
+            OBBs(obbs.center.double(), obbs.half, obbs.rot)))
+    assert tplan.WORKLOADS == jexe.plan_queries.__globals__["WORKLOADS"]

@@ -1,0 +1,157 @@
+"""Port parity: the persistent megakernel's plain version and dispatch.
+
+``persist_tiles_ref`` is held bitwise against the reference Pallas kernel
+(``make_persist_call`` under ``interpret=True``, run eagerly inside
+``jax.disable_jit()``) on the same packed inputs: per-slot ``best``,
+per-level counts, exit histogram, work scalars, and the spill ring of
+every tile whose total spill fits the ring (where one level spills more
+than ``ring_cap`` pairs, several pairs share a ring slot and neither
+side defines which one stays).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import octree as joct
+from repro.kernels.persist import ops as jops
+from repro.kernels.persist.kernel import make_persist_call
+from repro.kernels.persist.ref import csr_child_slots as j_csr_child_slots
+from repro_torch.convert import octree_from_reference
+from repro_torch.core.geometry import rotation_from_euler
+from repro_torch.core.octree import build_octree, device_octree
+from repro_torch.kernels.persist import ops
+from repro_torch.kernels.persist.ref import csr_child_slots, popcount8
+
+# One intra-op thread: the suite runs several test processes at once.
+torch.set_num_threads(1)
+
+DEPTH = 4
+
+
+def _scene_and_queries(M=40, seed=3):
+    rs = np.random.RandomState(seed)
+    pts = rs.uniform(-1, 1, (4000, 3)).astype(np.float32)
+    tree = joct.build_octree(pts, depth=DEPTH)
+    c = rs.uniform(-1, 1, (M, 3)).astype(np.float32)
+    h = rs.uniform(0.05, 0.3, (M, 3)).astype(np.float32)
+    r = rotation_from_euler(torch.from_numpy(
+        rs.uniform(-3, 3, (M, 3)).astype(np.float32))).numpy()
+    return tree, c, h, r
+
+
+def _reference_outputs(ins, tree, T, bq, fcap, ring_cap, use_spheres):
+    L = DEPTH + 1
+    off = np.zeros(L, np.int32)
+    cnt = np.asarray([len(lv.codes) for lv in tree.levels], np.int32)
+    call = make_persist_call(T, bq, fcap, DEPTH, ins["meta"].shape[1],
+                             ring_cap, use_spheres, True, False)
+    a = {k: jnp.asarray(v.numpy()) for k, v in ins.items()}
+    with jax.disable_jit():
+        out = call(a["scal"], jnp.asarray(off), jnp.asarray(cnt), a["sot"],
+                   a["nvalid"], a["obb"], a["meta"], a["payload"],
+                   a["owner"])
+    return [np.asarray(x) for x in out]
+
+
+@pytest.mark.parametrize("bq,fcap,ring_cap,use_spheres,overflows", [
+    (16, 32, 1024, False, True),    # spills, every spill fits the ring
+    (16, 32, 16, True, True),       # ring overrun (ring not compared)
+    (16, 2048, 64, False, False),   # overflow-free
+])
+def test_persist_tiles_ref_matches_pallas_kernel(bq, fcap, ring_cap,
+                                                 use_spheres, overflows):
+    tree, c, h, r = _scene_and_queries()
+    dev = device_octree(octree_from_reference(tree), device="cpu")
+    ins = ops.pack_kernel_inputs(torch.from_numpy(c), torch.from_numpy(h),
+                                 torch.from_numpy(r), dev, bq)
+    T = ins["sot"].shape[0]
+    got = [x.numpy() for x in ops.persist_tiles(
+        **ins, bq=bq, fcap=fcap, depth=DEPTH, ring_cap=ring_cap,
+        use_spheres=use_spheres)]
+    ref = _reference_outputs(ins, tree, T, bq, fcap, ring_cap, use_spheres)
+    for name, g, w in zip(("best", "per_level", "hist", "scalars"), got, ref):
+        assert g.shape == w.shape and np.array_equal(g, w), name
+    spill = got[3][:, 6]
+    assert (spill.sum() > 0) == overflows
+    fits = spill <= ring_cap
+    assert np.array_equal(got[4][fits], ref[4][fits])
+    if ring_cap == 1024:
+        assert fits.all() and (got[4] != 0).any()
+
+
+def test_persist_tiles_ref_live_prefix_and_pad_tiles():
+    """Slots past the live count seed nothing: a padded pool traverses
+    like its unpadded prefix, tile by tile."""
+    tree, c, h, r = _scene_and_queries(M=48)
+    dev = device_octree(octree_from_reference(tree), device="cpu")
+    args = [torch.from_numpy(x) for x in (c, h, r)]
+    full = ops.pack_kernel_inputs(*args, dev, 16, num_valid=30)
+    pre = ops.pack_kernel_inputs(*[x[:30] for x in args], dev, 16)
+    kw = dict(bq=16, fcap=256, depth=DEPTH, ring_cap=64, use_spheres=False)
+    a = ops.persist_tiles(**full, **kw)
+    b = ops.persist_tiles(**pre, **kw)
+    assert torch.equal(a[1][:2], b[1][:2]) and int(a[1][2].sum()) == 0
+    assert torch.equal(a[0].reshape(-1)[:30], b[0].reshape(-1)[:30])
+
+
+def test_csr_child_slots_and_popcount_match_reference():
+    masks = np.arange(256, dtype=np.int32)
+    occ, offs = csr_child_slots(torch.from_numpy(masks))
+    jocc, joffs = j_csr_child_slots(jnp.asarray(masks))
+    assert np.array_equal(occ.numpy(), np.asarray(jocc))
+    assert np.array_equal(offs.numpy(), np.asarray(joffs))
+    assert np.array_equal(popcount8(torch.from_numpy(masks)).numpy(),
+                          np.asarray(jax.lax.population_count(
+                              jnp.asarray(masks))))
+
+
+def test_choose_meta_layout_rules_match_reference():
+    for depth, n_max in ((4, 900), (7, 114047), (7, 29797), (9, 3_000_000)):
+        for budget in (1 << 20, 8 << 20, ops.H100_L2_BYTES):
+            for fmt in (None, "fp32", "bf16", "u8"):
+                for layout in (None, "resident", "streamed"):
+                    try:
+                        want = jops.choose_meta_layout(depth, n_max, budget,
+                                                       fmt=fmt, layout=layout)
+                    except ValueError:
+                        with pytest.raises(ValueError):
+                            ops.choose_meta_layout(depth, n_max, budget,
+                                                   fmt=fmt, layout=layout)
+                        continue
+                    got = ops.choose_meta_layout(depth, n_max, budget,
+                                                 fmt=fmt, layout=layout)
+                    assert tuple(got) == tuple(want)
+    assert ops.META_FORMAT_BYTES == jops.META_FORMAT_BYTES
+    assert ops.meta_table_bytes(7, 114047) == jops.meta_table_bytes(7, 114047)
+
+
+def test_l2_budget_keeps_paper_scale_scenes_resident_fp32():
+    """Widest-level rows of the four paper-scale scenes at depth 7: under
+    the H100's L2 budget every one runs resident fp32 rows (the reference's
+    8 MiB TPU budget would pick bf16 for the two widest)."""
+    for n_max in (114047, 100438, 55132, 29797):
+        assert ops.choose_meta_layout(7, n_max) == ("resident", "fp32")
+    assert jops.choose_meta_layout(7, 114047).fmt == "bf16"
+
+
+def test_traverse_whole_unported_options_raise():
+    tree = build_octree(np.random.RandomState(0).uniform(
+        -1, 1, (500, 3)).astype(np.float32), depth=3)
+    dev = device_octree(tree, device="cpu")
+    x = torch.zeros(4, 3)
+    r = torch.eye(3).expand(4, 3, 3)
+    with pytest.raises(NotImplementedError, match="A.5.3"):
+        ops.traverse_whole(x, x + 1, r, dev, 64, use_spheres=False,
+                           payload=torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(NotImplementedError, match="A.5.6"):
+        ops.traverse_whole(x, x + 1, r, dev, 64, use_spheres=False,
+                           scene_of_query=torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(NotImplementedError, match="A.5.4"):
+        ops.traverse_whole(x, x + 1, r, dev, 64, use_spheres=False,
+                           streamed=True)
+    bf16 = device_octree(tree, meta_format="bf16", device="cpu")
+    with pytest.raises(NotImplementedError, match="A.5.5"):
+        ops.traverse_whole(x, x + 1, r, bf16, 64, use_spheres=False,
+                           streamed=False)
