@@ -17,6 +17,7 @@ becomes -1) and decode them through int64.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Tuple
 
 import numpy as np
@@ -175,7 +176,9 @@ class DeviceOctree:
 
     Rows are tail-padded to the widest level, rounded up to
     :data:`META_ROW_ALIGN`.  ``codes`` holds the uint32 Morton codes as
-    their int32 bit pattern (``PAD_CODE`` reads as -1).
+    their int32 bit pattern (``PAD_CODE`` reads as -1).  ``host_cells``
+    and ``host_lo`` are host copies of ``cell_sizes`` and ``scene_lo``
+    (the same float32 values), for kernels that take them as arguments.
     """
 
     codes: torch.Tensor        # (depth+1, n_max) int32 bit patterns
@@ -188,10 +191,23 @@ class DeviceOctree:
     node_meta: torch.Tensor    # (depth+1, n_max, words) int32 packed rows
     depth: int
     meta_format: str = "fp32"
+    host_cells: Tuple[float, ...] = ()
+    host_lo: Tuple[float, ...] = ()
 
     @property
     def device(self) -> torch.device:
         return self.node_meta.device
+
+    @functools.cached_property
+    def codes_unsigned(self) -> torch.Tensor:
+        """``codes`` as unsigned values in int64, (depth+1, n_max).
+
+        The int32 bit patterns are not sorted: the pad ``PAD_CODE`` reads
+        as -1, below every real code, so ``torch.searchsorted`` on an int32
+        row returns wrong slots.  Masked to 32 bits the pad reads
+        4294967295, above every 30-bit code, and each row is sorted.
+        """
+        return self.codes.to(torch.int64) & 0xFFFFFFFF
 
 
 def device_octree(tree: Octree, meta_format: str = "fp32",
@@ -224,7 +240,10 @@ def device_octree(tree: Octree, meta_format: str = "fp32",
                         scene_lo=t(np.asarray(tree.scene_lo, np.float32)),
                         child_start=t(child_start), child_mask=t(child_mask),
                         node_meta=t(meta), depth=tree.depth,
-                        meta_format=meta_format)
+                        meta_format=meta_format,
+                        host_cells=tuple(float(c) for c in cells),
+                        host_lo=tuple(float(x) for x in
+                                      np.asarray(tree.scene_lo, np.float32)))
 
 
 def node_centers_from_xyz(xyz: torch.Tensor, scene_lo: torch.Tensor,
@@ -243,6 +262,14 @@ def node_centers_from_xyz(xyz: torch.Tensor, scene_lo: torch.Tensor,
     center = lo + (xyz + 0.5) * cell
     half = torch.broadcast_to(cell / 2.0, center.shape)
     return center, half
+
+
+def node_centers_from_codes(codes: torch.Tensor, scene_lo: torch.Tensor,
+                            cell_size) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Codes (K,) at a level (int32 bit patterns) -> (centers (K, 3),
+    halves (K, 3)): :func:`morton_decode` then :func:`node_centers_from_xyz`.
+    """
+    return node_centers_from_xyz(morton_decode(codes), scene_lo, cell_size)
 
 
 def build_octree(points: np.ndarray, depth: int = 6,

@@ -186,6 +186,16 @@ def mask_frontier_result(res: SactResult, valid) -> SactResult:
                         else torch.where(valid, x, 0) for x in res))
 
 
+def sact_frontier(obb_center, obb_half, obb_rot, aabb_center, aabb_half,
+                  valid, use_spheres: bool = False) -> SactResult:
+    """Staged SACT over a frontier of gathered pairs with a validity mask:
+    :func:`sact` on every lane, then invalid (padding) lanes cleared.  The
+    unstaged test of ``mode="wavefront"``."""
+    res = sact(obb_center, obb_half, obb_rot, aabb_center, aabb_half,
+               use_spheres=use_spheres)
+    return mask_frontier_result(res, valid)
+
+
 def sact_frontier_staged(obb_center, obb_half, obb_rot, aabb_center,
                          aabb_half, valid, use_spheres: bool = False
                          ) -> SactResult:

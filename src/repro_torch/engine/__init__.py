@@ -1,7 +1,20 @@
-"""Plan/execute split: query plans and the collision engine."""
-from repro_torch.engine.executor import CollisionEngine, EngineConfig, MODES
-from repro_torch.engine.plan import (PlanValidationError, QueryPlan,
-                                     plan_batch, plan_queries, validate_plan)
+"""Collision engine: query-plan lowering + mode-dispatching executor.
 
-__all__ = ["CollisionEngine", "EngineConfig", "MODES", "PlanValidationError",
-           "QueryPlan", "plan_batch", "plan_queries", "validate_plan"]
+``plan`` lowers the front-end batch shapes to one canonical flat pool;
+``executor`` owns mode dispatch, capacity escalation and counter assembly.
+``repro_torch.core.wavefront`` re-exports the executor's public names.
+"""
+from repro_torch.engine.executor import (CSR_MODES, DEPTH_CAP_MODES,
+                                         DEVICE_MODES, MODES,
+                                         CollisionEngine, EngineConfig,
+                                         frontier_capacity_bound)
+from repro_torch.engine.plan import (PAYLOAD_INF, PlanValidationError,
+                                     QueryPlan, WORKLOADS, plan_batch,
+                                     plan_queries, validate_plan)
+
+__all__ = [
+    "CSR_MODES", "CollisionEngine", "DEPTH_CAP_MODES", "DEVICE_MODES",
+    "EngineConfig", "MODES", "PAYLOAD_INF", "PlanValidationError",
+    "QueryPlan", "WORKLOADS", "frontier_capacity_bound", "plan_batch",
+    "plan_queries", "validate_plan",
+]

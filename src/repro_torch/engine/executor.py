@@ -1,10 +1,28 @@
 """Plan executor: one engine consuming :class:`repro_torch.engine.plan.QueryPlan`.
 
-Counterpart of ``repro.engine.executor`` for ``mode="wavefront_persistent"``:
-mode checks, capacity escalation (the frontier runs in a fixed-capacity
+Counterpart of ``repro.engine.executor`` for the three device modes: mode
+checks, capacity escalation (the frontier runs in a fixed-capacity
 buffer; overflow is counted on the device and the query replays at 4x
-capacity until clean) and counter assembly, around the persistent
-megakernel of :mod:`repro_torch.kernels.persist`.
+capacity until clean) and counter assembly, around
+
+* ``wavefront_persistent``: the persistent megakernel of
+  :mod:`repro_torch.kernels.persist`, the whole walk in one launch;
+* ``wavefront`` (the paper's "RoboCore (CR)" arm): a level loop over a
+  (query, Morton code) frontier, the staged SACT and both
+  ``searchsorted`` probes as plain tensor ops, and the stream-compaction
+  kernel of :mod:`repro_torch.kernels.compact` between levels;
+* ``wavefront_fused`` ("RoboCore (CR+CU)"): a level loop over a (query,
+  CSR node) frontier, each level one
+  :func:`repro_torch.kernels.traverse.ops.traverse_step` (the traversal
+  step kernel, then the compaction kernel).
+
+The level loops never wait for the device: they run every level up to
+the tree's (or the cap's) depth with the live count kept on the device.
+A level after the frontier empties has no live lane, so it adds 0 to
+every counter and leaves its ``per_level`` slot at 0 -- the same result,
+bit for bit, as the reference's ``lax.while_loop`` stopping at
+``n_live == 0``.  A run waits for the device only where the host needs a
+value: ``_escalate``'s overflow check and the counters' readout.
 
 The engine runs on the card (``device="cuda"``, the default) or, when the
 caller asks, on the CPU through the kernels' plain PyTorch versions; the
@@ -22,22 +40,29 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.core import sact as sact_mod
 from repro_torch.core.counters import (BYTES_FUSED_STEP, BYTES_META_STREAM,
                                        BYTES_META_STREAM_BF16,
                                        BYTES_META_STREAM_U8,
                                        BYTES_PAYLOAD_LANE,
                                        BYTES_PERSIST_QUERY,
                                        BYTES_PERSIST_SPILL,
-                                       BYTES_UNFUSED_TEST, Counters)
+                                       BYTES_UNFUSED_TEST, NUM_EXIT_CODES,
+                                       Counters)
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.core.geometry import OBBs
-from repro_torch.core.octree import DeviceOctree, Octree, device_octree
+from repro_torch.core.octree import (MAX_DEPTH, DeviceOctree, Octree,
+                                     device_octree, node_centers_from_codes)
 from repro_torch.core.quantize import META_FORMATS
+from repro_torch.core.sact import NUM_AXES
 from repro_torch.engine.plan import QueryPlan, plan_batch, plan_queries
+from repro_torch.kernels.compact.ops import compact_pairs
 from repro_torch.kernels.persist.ops import (H100_L2_BYTES,
                                              choose_meta_layout,
                                              require_ported_layout,
                                              traverse_whole)
+from repro_torch.kernels.sact.ops import pack_obbs
+from repro_torch.kernels.traverse.ops import traverse_step
 
 MODES = ("naive", "rta_like", "staged_noexit", "predicated", "wavefront_host",
          "wavefront", "wavefront_fused", "wavefront_persistent")
@@ -45,8 +70,13 @@ MODES = ("naive", "rta_like", "staged_noexit", "predicated", "wavefront_host",
 DEVICE_MODES = ("wavefront", "wavefront_fused", "wavefront_persistent")
 #: CSR-frontier modes.
 CSR_MODES = ("wavefront_fused", "wavefront_persistent")
+#: Modes whose traversal accepts a ``max_depth`` cap (the degraded
+#: service mode): every cap-level overlap counts as a hit, so capped
+#: verdicts are a conservative superset of full-depth ones.  The
+#: persistent megakernel has no cap.
+DEPTH_CAP_MODES = ("wavefront_host", "wavefront", "wavefront_fused")
 #: Modes this port runs so far.
-PORTED_MODES = ("wavefront_persistent",)
+PORTED_MODES = ("wavefront", "wavefront_fused", "wavefront_persistent")
 
 
 def _unported(what: str, item: str):
@@ -61,8 +91,10 @@ class EngineConfig:
     min_bucket: int = 1024         # smallest frontier allocation
     query_block: int = 128         # naive-mode OBB block size
     frontier_capacity: Optional[int] = None  # static capacity (no escalation)
-    use_pallas_compact: Optional[bool] = None   # reference field, unused here
-    use_pallas_traverse: Optional[bool] = None  # reference field, unused here
+    # Reference fields, accepted and ignored: a CUDA engine always runs
+    # the kernels, a CPU engine their plain versions.
+    use_pallas_compact: Optional[bool] = None
+    use_pallas_traverse: Optional[bool] = None
     # Budget of the resident node-metadata table.  The field keeps the
     # reference's name; on the H100 the table is read through L2, so the
     # default is the card's L2 size, not the TPU's VMEM.
@@ -146,6 +178,146 @@ def _escalate(run, num_queries: int, worst: int, cfg: EngineConfig,
         replays += 1
 
 
+# ---------------------------------------------------------------------------
+# Per-level device arms (a level loop on the host, no waits on the device)
+# ---------------------------------------------------------------------------
+
+def _empty_stats(device) -> dict:
+    """Device-side work counters of one traversal, all int64 zeros."""
+    z = dict(dtype=torch.int64, device=device)
+    stats = {k: torch.zeros((), **z) for k in (
+        "nodes", "leaf", "axis_exec", "axis_dec", "sphere", "overflow")}
+    stats["per_level"] = torch.zeros(MAX_DEPTH + 1, **z)
+    stats["exit_hist"] = torch.zeros(NUM_EXIT_CODES, **z)
+    return stats
+
+
+def _verdict_init(num_queries: int, device) -> torch.Tensor:
+    """Boolean verdicts, one per query, as int32 for ``scatter_reduce_``
+    (owner/payload verdict groups land with ROADMAP A.5.3)."""
+    return torch.zeros(num_queries, dtype=torch.int32, device=device)
+
+
+def _count_level(st: dict, level: int, valid, is_term, res, n_new,
+                 capacity: int) -> None:
+    """Add one level's work to ``st`` in place (the reference's formulas;
+    an empty level adds 0)."""
+    n_valid = valid.sum()
+    term_valid = valid & is_term
+    st["nodes"] += n_valid
+    st["leaf"] += term_valid.sum()
+    st["axis_exec"] += res.axis_tests.sum()
+    st["axis_dec"] += n_valid * NUM_AXES
+    st["sphere"] += res.sphere_tests.sum()
+    st["overflow"] += (n_new - capacity).clamp(min=0)
+    st["per_level"][level] = n_valid
+    st["exit_hist"].index_add_(0, res.exit_code.to(torch.int64),
+                               term_valid.to(torch.int64))
+
+
+def _seed(num_queries: int, capacity: int, device):
+    """Level-0 frontier: query ``i`` on lane ``i`` against the root, the
+    lanes past the queries on query 0 (in range for every gather)."""
+    lane = torch.arange(capacity, dtype=torch.int32, device=device)
+    q0 = torch.where(lane < num_queries, lane, 0)
+    n_live = torch.tensor(min(num_queries, capacity), dtype=torch.int32,
+                          device=device)
+    return n_live, q0, torch.zeros(capacity, dtype=torch.int32,
+                                   device=device)
+
+
+def _traverse(obb_c, obb_h, obb_r, dev: DeviceOctree, capacity: int,
+              use_spheres: bool, max_depth: Optional[int] = None):
+    """Multi-level wavefront traversal (``mode="wavefront"``) for one query
+    set against one scene; returns ``(verdict (M,) bool, stats)``.
+
+    The frontier carries (query, Morton code) pairs.  Per level: the
+    staged SACT of :func:`repro_torch.core.sact.sact_frontier`, the
+    terminal probe and the 8-child occupancy probe by ``searchsorted`` on
+    the level's sorted codes (:attr:`DeviceOctree.codes_unsigned`), and
+    the compaction kernel.  ``max_depth`` caps the walk at that level,
+    where every node counts as terminal.
+    """
+    device = dev.device
+    M = obb_c.shape[0]
+    depth = dev.depth if max_depth is None else min(dev.depth, max_depth)
+    n_max = dev.codes.shape[-1]
+    lane = torch.arange(capacity, device=device)
+    eight = torch.arange(8, dtype=torch.int64, device=device)
+    verdict = _verdict_init(M, device)
+    st = _empty_stats(device)
+    n_live, q_idx, codes = _seed(M, capacity, device)
+    for level in range(depth + 1):
+        valid = lane < n_live
+        q64 = q_idx.to(torch.int64)
+        node_c, node_h = node_centers_from_codes(codes, dev.scene_lo,
+                                                 dev.cell_sizes[level])
+        res = sact_mod.sact_frontier(obb_c[q64], obb_h[q64], obb_r[q64],
+                                     node_c, node_h, valid,
+                                     use_spheres=use_spheres)
+        # Terminal nodes: leaves (or the cap level), or full subtrees.
+        codes_u = codes.to(torch.int64) & 0xFFFFFFFF
+        if level == depth:
+            is_term = torch.ones_like(valid)
+        else:
+            pos = torch.searchsorted(dev.codes_unsigned[level], codes_u)
+            is_term = dev.full[level][pos.clamp(0, n_max - 1)]
+        overlap = res.collide & valid
+        verdict.scatter_reduce_(0, q64, (overlap & is_term).to(torch.int32),
+                                "amax")
+        undecided = verdict[q64] == 0
+
+        # Expansion: the 8 candidate child codes, probed on the next level.
+        child_codes_l = dev.codes_unsigned[min(level + 1, depth)]
+        cand = ((codes_u[:, None] << 3) | eight).reshape(-1)     # (cap*8,)
+        cpos = torch.searchsorted(child_codes_l, cand).clamp(0, n_max - 1)
+        found = (child_codes_l[cpos] == cand).reshape(capacity, 8)
+        # Early exit: decided queries retire their whole wavefront share.
+        expand = overlap & ~is_term & undecided
+        child_mask = (expand[:, None] & found).reshape(-1)
+        n_new = child_mask.sum()
+        _count_level(st, level, valid, is_term, res, n_new, capacity)
+        n_live, q_idx, codes = compact_pairs(
+            child_mask, q_idx.repeat_interleave(8), cand.to(torch.int32),
+            capacity)
+    return verdict != 0, st
+
+
+def _traverse_fused(obb: torch.Tensor, dev: DeviceOctree, capacity: int,
+                    use_spheres: bool, max_depth: Optional[int] = None):
+    """Fused multi-level wavefront traversal (``mode="wavefront_fused"``):
+    the frontier carries (query, CSR node index) pairs and each level is
+    one :func:`repro_torch.kernels.traverse.ops.traverse_step`.  ``obb``
+    is the packed (M, 15) table.  Returns ``(verdict (M,) bool, stats)``.
+
+    ``max_depth`` stops the walk at that level.  The step treats only true
+    leaves and full subtrees as terminal, so the cap level's other hits
+    are folded into the verdicts here and do not count as leaf tests (the
+    reference's accounting, which differs from :func:`_traverse`'s under a
+    cap in ``leaf_tests`` and the exit histogram).
+    """
+    device = dev.device
+    M = obb.shape[0]
+    depth = dev.depth if max_depth is None else min(dev.depth, max_depth)
+    capped = depth < dev.depth
+    verdict = _verdict_init(M, device)
+    st = _empty_stats(device)
+    n_live, q_idx, node_idx = _seed(M, capacity, device)
+    for level in range(depth + 1):
+        n_next, q_next, idx_next, verdict, info = traverse_step(
+            obb, dev, level, n_live, q_idx, node_idx, verdict,
+            use_spheres=use_spheres)
+        res, valid, is_term = info["res"], info["valid"], info["is_term"]
+        if capped and level == depth:
+            cap_hit = res.collide & valid & ~is_term
+            verdict.scatter_reduce_(0, q_idx.to(torch.int64),
+                                    cap_hit.to(torch.int32), "amax")
+        _count_level(st, level, valid, is_term, res, info["n_new"],
+                     capacity)
+        n_live, q_idx, node_idx = n_next, q_next, idx_next
+    return verdict != 0, st
+
+
 def _stats_to_counters(st, mode: str, replays: int = 0,
                        extra_lanes: int = 0,
                        meta_format: str = "fp32") -> Counters:
@@ -227,6 +399,12 @@ class CollisionEngine:
         self._cap_memo = {k: v for k, v in self._cap_memo.items()
                           if k[-1] == self._scene_sig}
 
+    @property
+    def supports_depth_cap(self) -> bool:
+        """Whether ``execute(plan, max_depth=...)`` can cap this engine's
+        traversal depth (the coarser half of the degraded mode)."""
+        return self.cfg.mode in DEPTH_CAP_MODES
+
     def _device_tree(self, fmt: str) -> DeviceOctree:
         if fmt not in self._dev:
             self._dev[fmt] = device_octree(self.octree, meta_format=fmt,
@@ -235,7 +413,8 @@ class CollisionEngine:
 
     @property
     def device_tree(self) -> DeviceOctree:
-        """Packed level tensors on this engine's device, in its format."""
+        """Packed level tensors on this engine's device, in
+        :attr:`meta_format`."""
         return self._device_tree(self.meta_format)
 
     def _choose_meta(self):
@@ -255,10 +434,18 @@ class CollisionEngine:
 
     @property
     def meta_format(self) -> str:
-        """Packed node-metadata row format ("fp32" | "bf16" | "u8")."""
+        """Packed node-metadata row format ("fp32" | "bf16" | "u8"):
+        always fp32 for the Morton-code frontier of ``mode="wavefront"``
+        (it never reads the packed rows); else ``cfg.meta_format`` when
+        pinned, the chooser's pick for the persistent megakernel and fp32
+        for ``wavefront_fused``."""
+        if self.cfg.mode not in CSR_MODES:
+            return "fp32"
         if self.cfg.meta_format is not None:
             return self.cfg.meta_format
-        return self._choose_meta().fmt
+        if self.cfg.mode == "wavefront_persistent":
+            return self._choose_meta().fmt
+        return "fp32"
 
     def _capacity(self, num_queries: int) -> int:
         counts = [len(lv.codes) for lv in self.octree.levels]
@@ -282,34 +469,57 @@ class CollisionEngine:
                 f"plan carries {plan.num_scenes} scene(s) but the engine "
                 f"holds {len(self.octrees)}")
         if max_depth is not None:
-            raise _unported("max_depth (depth-capped traversal)", "A.6")
+            if not self.supports_depth_cap:
+                raise ValueError(
+                    f"max_depth needs a depth-cappable mode "
+                    f"({', '.join(DEPTH_CAP_MODES)}), not "
+                    f"{self.cfg.mode!r}")
+            if plan.grouped or plan.num_scenes > 1:
+                raise ValueError(
+                    "max_depth serves single-scene boolean plans (the "
+                    "degraded service path); grouped/multi-scene plans "
+                    "run at full depth")
+            if max_depth < 1:
+                raise ValueError(f"max_depth must be >= 1, got {max_depth}")
         if plan.grouped:
             raise _unported("owner/payload plans", "A.5.3")
-        value, counters = self._exec_device(plan)
+        value, counters = self._exec_device(plan, max_depth)
         counters.wall_time_s = time.perf_counter() - t0
         counters.num_queries = plan.num_queries
         return plan.unflatten(value), counters
 
-    def _exec_device(self, plan: QueryPlan):
+    def _exec_device(self, plan: QueryPlan,
+                     max_depth: Optional[int] = None):
         cfg = self.cfg
         Q = plan.num_queries
-        choice = self._choose_meta()
-        require_ported_layout(choice)
+        if cfg.mode == "wavefront_persistent":
+            require_ported_layout(self._choose_meta())
+        fmt = self.meta_format
         dev = self.device_tree
         obb_c, obb_h, obb_r = (
             torch.as_tensor(x, dtype=torch.float32).to(self.device)
             for x in (plan.obb_c, plan.obb_h, plan.obb_r))
-        memo_key = ("single", Q, plan.grouped, None, self._scene_sig)
+        memo_key = ("single", Q, plan.grouped, max_depth, self._scene_sig)
 
-        def run(cap):
-            return traverse_whole(obb_c, obb_h, obb_r, dev, cap,
-                                  use_spheres=cfg.use_spheres,
-                                  streamed=False)
+        if cfg.mode == "wavefront_persistent":
+            def run(cap):
+                return traverse_whole(obb_c, obb_h, obb_r, dev, cap,
+                                      use_spheres=cfg.use_spheres,
+                                      streamed=False)
+        elif cfg.mode == "wavefront_fused":
+            obb = pack_obbs(obb_c, obb_h, obb_r)
+
+            def run(cap):
+                return _traverse_fused(obb, dev, cap, cfg.use_spheres,
+                                       max_depth)
+        else:
+            def run(cap):
+                return _traverse(obb_c, obb_h, obb_r, dev, cap,
+                                 cfg.use_spheres, max_depth)
 
         verdict, st, cap, replays = _escalate(
             run, Q, self._capacity(Q), cfg, start=self._cap_memo.get(memo_key))
         self._cap_memo[memo_key] = cap
         self.last_capacity = cap
-        counters = _stats_to_counters(st, cfg.mode, replays,
-                                      meta_format=choice.fmt)
+        counters = _stats_to_counters(st, cfg.mode, replays, meta_format=fmt)
         return verdict.cpu().numpy(), counters

@@ -33,6 +33,8 @@ _PKG = Path(__file__).resolve().parents[1]          # .../src/repro_torch
 SOURCES: Dict[str, str] = {
     "sact_dense": "kernels/sact/csrc/sact_dense.cu",
     "persist": "kernels/persist/csrc/persist.cu",
+    "traverse": "kernels/traverse/csrc/traverse.cu",
+    "compact": "kernels/compact/csrc/compact.cu",
 }
 
 NVCC_FLAGS: List[str] = [

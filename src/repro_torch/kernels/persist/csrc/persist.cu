@@ -35,6 +35,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../../sact/csrc/node_box.cuh"
 #include "../../sact/csrc/sact_tile.cuh"
 
 namespace {
@@ -43,15 +44,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kExitCodes = 18;
 constexpr int kPayloadInf = 0x7fffffff;
-
-__device__ __forceinline__ uint32_t compact1by2(uint32_t x) {
-  x &= 0x09249249u;
-  x = (x | (x >> 2)) & 0x030C30C3u;
-  x = (x | (x >> 4)) & 0x0300F00Fu;
-  x = (x | (x >> 8)) & 0x030000FFu;
-  x = (x | (x >> 16)) & 0x000003FFu;
-  return x;
-}
 
 // Exclusive scan of one int per thread over the block; *total gets the sum.
 __device__ int block_exclusive_scan(int v, int* warp_sums, int* total) {
@@ -143,11 +135,8 @@ __global__ void __launch_bounds__(kThreads) persist_kernel(
       const int idx = fn[slot][lane];
       const int ql = q - q_base;
       const int4 row = meta_l[min(max(idx, 0), n_max - 1)];
-      const uint32_t code = (uint32_t)row.x;
-      const float node_c[3] = {
-          lo0 + ((float)compact1by2(code) + 0.5f) * cell,
-          lo1 + ((float)compact1by2(code >> 1) + 0.5f) * cell,
-          lo2 + ((float)compact1by2(code >> 2) + 0.5f) * cell};
+      float node_c[3];
+      node_centre((uint32_t)row.x, lo0, lo1, lo2, cell, node_c);
       const float* o = obb + (int64_t)q * 15;
       SactPair p;
       for (int i = 0; i < 3; ++i) {

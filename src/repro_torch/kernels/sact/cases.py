@@ -31,22 +31,15 @@ def _codes(oc, oh, R, ac, ah, use_spheres):
     return code
 
 
-def grazing_plane(n: int, seed: int, use_spheres: bool
-                  ) -> Tuple[np.ndarray, np.ndarray]:
-    """(obb (2n, 15), aabb (2n, 6)) float32; pairs (k, k) graze a test.
-
-    Pairs 2i and 2i+1 are the same boxes at the two neighbouring ray
-    positions around one exit-code change.
+def graze(ac: torch.Tensor, ah: torch.Tensor, oh: torch.Tensor,
+          R: torch.Tensor, d: torch.Tensor, use_spheres: bool
+          ) -> torch.Tensor:
+    """OBB centres (2n, 3) that graze n boxes: OBB i (half ``oh[i]``,
+    rotation ``R[i]``) moves from the centre of box i (``ac[i]``, ``ah[i]``)
+    along the unit ray ``d[i]``; rows 2i and 2i+1 are the two neighbouring
+    float32 positions around one change of its exit code.
     """
-    g = torch.Generator().manual_seed(seed)
-
-    def u(shape, lo, hi):
-        return lo + (hi - lo) * torch.rand(shape, generator=g)
-    ac = u((n, 3), -1.0, 1.0)
-    ah = u((n, 3), 0.02, 0.25)
-    oh = u((n, 3), 0.02, 0.25)
-    R = rotation_from_euler(u((n, 3), -np.pi, np.pi))
-    d = torch.nn.functional.normalize(u((n, 3), -1.0, 1.0), dim=-1)
+    n = ac.shape[0]
 
     def centre(bits):
         lam = bits.to(torch.int32).view(torch.float32)[:, None]
@@ -67,9 +60,27 @@ def grazing_plane(n: int, seed: int, use_spheres: bool
         to_lo = same != from_hi          # mid lies on lo's side
         lo = torch.where(to_lo, mid, lo)
         hi = torch.where(to_lo, hi, mid)
-    oc = torch.stack([centre(lo), centre(hi)], 1).reshape(2 * n, 3)
+    return torch.stack([centre(lo), centre(hi)], 1).reshape(2 * n, 3)
+
+
+def grazing_plane(n: int, seed: int, use_spheres: bool
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """(obb (2n, 15), aabb (2n, 6)) float32; pairs (k, k) graze a test.
+
+    Pairs 2i and 2i+1 are the same boxes at the two neighbouring ray
+    positions around one exit-code change.
+    """
+    g = torch.Generator().manual_seed(seed)
+
+    def u(shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=g)
+    ac = u((n, 3), -1.0, 1.0)
+    ah = u((n, 3), 0.02, 0.25)
+    oh = u((n, 3), 0.02, 0.25)
+    R = rotation_from_euler(u((n, 3), -np.pi, np.pi))
+    d = torch.nn.functional.normalize(u((n, 3), -1.0, 1.0), dim=-1)
+    oc = graze(ac, ah, oh, R, d, use_spheres)
     rep = [x.repeat_interleave(2, 0) for x in (oh, R, ac, ah)]
     obb = torch.cat([oc, rep[0], rep[1].reshape(2 * n, 9)], -1)
     aabb = torch.cat([rep[2], rep[3]], -1)
     return obb.numpy(), aabb.numpy()
-

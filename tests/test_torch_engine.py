@@ -1,5 +1,5 @@
-"""Port parity: the whole slice, ``CollisionEngine`` in
-``mode="wavefront_persistent"``, against the JAX reference engine.
+"""Port parity: ``CollisionEngine`` in its three device modes against the
+JAX reference engine, and the modes against each other.
 
 Both sides get the same scene (carried across by ``repro_torch.convert``)
 and the same OBB arrays.  The JAX engine runs under ``jax.disable_jit()``
@@ -8,7 +8,9 @@ PyTorch does not) with the resident fp32 rows pinned.  Against its Pallas
 kernel arm (``use_pallas_traverse=True``, interpreted) verdicts and every
 ``Counters`` field must agree; against its default global-pool ref arm
 ``escalations`` may differ, since the two count overflow differently
-(one shared pool vs per tile).
+(one shared pool vs per tile).  The per-level arms are held against the
+reference with its Pallas compaction (and, for ``wavefront_fused``, its
+Pallas step kernel), interpreted.
 """
 import jax
 import jax.numpy as jnp
@@ -20,6 +22,7 @@ from repro.core import geometry as jgeo
 from repro.core import octree as joct
 from repro.data import robotics as jrob
 from repro.engine import executor as jexe
+from repro.engine import plan as jplan
 from repro_torch.convert import octree_from_reference
 from repro_torch.core.geometry import OBBs
 from repro_torch.engine import plan as tplan
@@ -30,6 +33,11 @@ from repro_torch.kernels import _build
 torch.set_num_threads(1)
 
 PERSIST = "wavefront_persistent"
+LEVEL_MODES = ("wavefront", "wavefront_fused")
+#: The reference's Pallas arms of each per-level mode.
+PALLAS_ARMS = {"wavefront": dict(use_pallas_compact=True),
+               "wavefront_fused": dict(use_pallas_traverse=True,
+                                       use_pallas_compact=True)}
 
 
 @pytest.fixture(scope="module")
@@ -135,10 +143,11 @@ def test_query_batched_equals_flat_query(scene):
     assert c.nodes_per_level == flat_c.nodes_per_level
 
 
-def test_cpu_engine_launches_no_kernel(scene):
+@pytest.mark.parametrize("mode", (PERSIST,) + LEVEL_MODES)
+def test_cpu_engine_launches_no_kernel(scene, mode):
     _, ttree, arrays = scene
     before = _build.launch_counts()
-    CollisionEngine(ttree, EngineConfig(mode=PERSIST),
+    CollisionEngine(ttree, EngineConfig(mode=mode),
                     device="cpu").query(_torch_obbs(arrays))
     assert _build.launch_counts() == before
 
@@ -155,7 +164,8 @@ def test_engine_cuda_raises_without_cuda(scene):
 
 def test_unported_modes_and_options_raise(scene):
     _, ttree, arrays = scene
-    for mode in ("wavefront", "wavefront_fused", "naive", "wavefront_host"):
+    for mode in ("naive", "wavefront_host", "rta_like", "staged_noexit",
+                 "predicated"):
         with pytest.raises(NotImplementedError, match="A.6"):
             CollisionEngine(ttree, EngineConfig(mode=mode), device="cpu")
     with pytest.raises(NotImplementedError, match="A.8"):
@@ -166,13 +176,23 @@ def test_unported_modes_and_options_raise(scene):
                         device="cpu")
     eng = CollisionEngine(ttree, EngineConfig(mode=PERSIST), device="cpu")
     plan = tplan.plan_queries(_torch_obbs(arrays))
-    with pytest.raises(NotImplementedError, match="A.6"):
+    assert not eng.supports_depth_cap
+    with pytest.raises(ValueError, match="depth-cappable"):
         eng.execute(plan, max_depth=2)
-    with pytest.raises(NotImplementedError, match="A.5.3"):
-        eng.execute(tplan.QueryPlan(
-            kind="edges", obb_c=plan.obb_c, obb_h=plan.obb_h,
-            obb_r=plan.obb_r, out_shape=(plan.num_queries,),
-            payload=torch.zeros(plan.num_queries, dtype=torch.int32)))
+    edges = tplan.QueryPlan(
+        kind="edges", obb_c=plan.obb_c, obb_h=plan.obb_h, obb_r=plan.obb_r,
+        out_shape=(plan.num_queries,),
+        payload=torch.zeros(plan.num_queries, dtype=torch.int32))
+    for mode in (PERSIST,) + LEVEL_MODES:
+        eng = CollisionEngine(ttree, EngineConfig(mode=mode), device="cpu")
+        with pytest.raises(NotImplementedError, match="A.5.3"):
+            eng.execute(edges)
+    with pytest.raises(ValueError, match="max_depth"):
+        eng.execute(edges, max_depth=2)
+    with pytest.raises(ValueError, match=">= 1"):
+        eng.execute(plan, max_depth=0)
+    with pytest.raises(NotImplementedError, match="A.5.6"):
+        CollisionEngine([ttree, ttree], EngineConfig(), device="cpu")
     eng = CollisionEngine(ttree, EngineConfig(mode=PERSIST, stream_meta=True),
                           device="cpu")
     assert eng.meta_layout == "streamed"
@@ -180,6 +200,94 @@ def test_unported_modes_and_options_raise(scene):
         eng.query(_torch_obbs(arrays))
     with pytest.raises(ValueError, match="unknown engine mode"):
         EngineConfig(mode="bogus")
+
+
+def _jax_level_query(tree, arrays, mode, max_depth=None, **cfg):
+    cfg = dict(mode=mode, **PALLAS_ARMS[mode], **cfg)
+    obbs = jgeo.OBBs(*map(jnp.asarray, arrays))
+    with jax.disable_jit():
+        eng = jexe.CollisionEngine(tree, jexe.EngineConfig(**cfg))
+        return eng.execute(jplan.plan_queries(obbs), max_depth=max_depth)
+
+
+def _level_query(ttree, arrays, mode, max_depth=None, **cfg):
+    eng = CollisionEngine(ttree, EngineConfig(mode=mode, **cfg),
+                          device="cpu")
+    return eng.execute(tplan.plan_queries(_torch_obbs(arrays)),
+                       max_depth=max_depth)
+
+
+@pytest.mark.parametrize("mode", LEVEL_MODES)
+@pytest.mark.parametrize("case", ["spheres", "depth2", "escalate",
+                                  "pinned"])
+def test_level_modes_match_reference_pallas_arms(scene, mode, case):
+    """Verdicts and every counter, per-level arm against the reference's
+    Pallas arm of the same mode: with spheres, and without them under a
+    depth cap, through the escalation ladder and overflowing a pinned
+    capacity (the full-depth run without spheres is held through
+    ``test_three_modes_agree`` and the persistent mode's parity)."""
+    tree, ttree, arrays = scene
+    kw, max_depth = {}, None
+    if case == "spheres":
+        kw = dict(use_spheres=True)
+    elif case == "depth2":
+        max_depth = 2
+    elif case == "escalate":
+        arrays, kw = _big_obbs(), dict(min_bucket=64)
+    elif case == "pinned":
+        # the escalation ladder's first rung: the reference's eager ops
+        # then reuse the shapes it compiled for the "escalate" case
+        arrays, kw = _big_obbs(), dict(frontier_capacity=64)
+    got = _level_query(ttree, arrays, mode, max_depth, **kw)
+    want = _jax_level_query(tree, arrays, mode, max_depth, **kw)
+    _assert_same(got, want)
+    c = got[1]
+    assert got[0].any() and not got[0].all()
+    if case == "escalate":
+        assert c.escalations >= 1 and c.frontier_overflow == 0
+    if case == "pinned":
+        assert c.frontier_overflow > 0 and c.escalations == 0
+    if case == "depth2":
+        assert len(c.nodes_per_level) <= 3
+
+
+@pytest.mark.parametrize("use_spheres", [False, True])
+def test_three_modes_agree(scene, use_spheres):
+    """The port's device modes agree in one process on verdicts and every
+    counter but the bytes model and escalations; under a depth cap the two
+    per-level arms agree on verdicts and nodes, and cover the full-depth
+    hits."""
+    _, ttree, arrays = scene
+    runs = {m: _level_query(ttree, arrays, m, use_spheres=use_spheres)
+            for m in LEVEL_MODES + (PERSIST,)}
+    for m in LEVEL_MODES:
+        _assert_same(runs[m], runs[PERSIST],
+                     skip=("bytes_moved", "escalations"))
+    capped = {m: _level_query(ttree, arrays, m, max_depth=2,
+                              use_spheres=use_spheres) for m in LEVEL_MODES}
+    (va, ca), (vb, cb) = capped.values()
+    assert np.array_equal(va, vb)
+    assert ca.nodes_traversed == cb.nodes_traversed
+    assert (va >= runs[PERSIST][0]).all()
+    assert ca.nodes_traversed < runs[PERSIST][1].nodes_traversed
+
+
+def test_default_config_runs_on_cpu(scene):
+    _, ttree, arrays = scene
+    eng = CollisionEngine(ttree, device="cpu")
+    assert eng.cfg.mode == "wavefront" and eng.supports_depth_cap
+    assert eng.meta_format == eng.device_tree.meta_format == "fp32"
+    v, c = eng.query(_torch_obbs(arrays))
+    want = _level_query(ttree, arrays, PERSIST)
+    _assert_same((v, c), want, skip=("bytes_moved", "escalations"))
+
+
+@pytest.mark.parametrize("fmt", ["bf16", "u8"])
+def test_fused_compressed_rows_match_fp32(scene, fmt):
+    _, ttree, arrays = scene
+    got = _level_query(ttree, arrays, "wavefront_fused", meta_format=fmt)
+    want = _level_query(ttree, arrays, "wavefront_fused")
+    _assert_same(got, want)
 
 
 def test_plan_validation_matches_reference_messages(scene):
@@ -202,3 +310,19 @@ def test_plan_validation_matches_reference_messages(scene):
         tplan.validate_plan(tplan.plan_queries(
             OBBs(obbs.center.double(), obbs.half, obbs.rot)))
     assert tplan.WORKLOADS == jexe.plan_queries.__globals__["WORKLOADS"]
+
+
+@pytest.mark.parametrize("mode", (PERSIST,) + LEVEL_MODES)
+def test_core_wavefront_shim_reexports_engine(scene, mode):
+    """``repro_torch.core.wavefront`` serves the engine's public names, as
+    ``repro.core.wavefront`` does in the reference."""
+    from repro_torch.core import wavefront
+    from repro_torch.engine import executor
+    for name in wavefront.__all__:
+        assert getattr(wavefront, name) is getattr(executor, name)
+    _, ttree, arrays = scene
+    eng = wavefront.CollisionEngine(ttree, wavefront.EngineConfig(mode=mode),
+                                    device="cpu")
+    assert eng.device_tree.meta_format == eng.meta_format
+    _assert_same(eng.query(_torch_obbs(arrays)),
+                 _level_query(ttree, arrays, mode))

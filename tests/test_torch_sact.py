@@ -167,6 +167,25 @@ def test_core_sact_matches_reference(use_spheres):
             assert int((tsact.box_normal_margins(p).abs() < 1e-5).sum()) > 0
 
 
+@pytest.mark.parametrize("use_spheres", [False, True])
+def test_sact_frontier_matches_reference(use_spheres):
+    """The unstaged frontier test of ``mode="wavefront"``: random pairs and
+    exactly touching boxes, invalid lanes cleared."""
+    for boxes in (_random_pairs(400, seed=8), _touching_boxes(400, seed=9)):
+        valid = np.random.RandomState(3).rand(400) < 0.8
+        with jax.disable_jit():
+            ref = jsact.sact_frontier(*map(jnp.asarray, boxes),
+                                      jnp.asarray(valid),
+                                      use_spheres=use_spheres)
+        got = tsact.sact_frontier(*map(torch.from_numpy, boxes),
+                                  torch.from_numpy(valid),
+                                  use_spheres=use_spheres)
+        for f in ref._fields:
+            assert np.array_equal(getattr(got, f).numpy(),
+                                  np.asarray(getattr(ref, f))), f
+        assert not got.collide[~torch.from_numpy(valid)].any()
+
+
 def test_plain_sact_tile_agrees_with_core_sact_on_random_planes():
     rand = _random_pairs(400, seed=8)
     obb = sact_ops.pack_obbs(*[torch.from_numpy(x) for x in rand[:3]])
