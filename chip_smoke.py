@@ -36,7 +36,30 @@ non-zero and prints no result):
    ``wavefront_fused`` query against their bounds, plain versions and (for
    ``compact``) one PyTorch call computing the same function;
 10. ``sact_dense`` timed on the paper-scale queries against level-5 cells;
-11. one JSON line listing every kernel with its launches on the main paths
+11. ``fps`` kernel vs its plain version, indices exactly equal: B = 1 and
+   32 clouds of 2048, 2047 and 5000 points, m = 256, lattice clouds with
+   duplicates (ties, and zero distances once every distinct point is
+   taken), ``first`` != 0;
+12. ``ballquery`` kernel vs its plain version, counts and every index
+   exactly equal: the sa1 shapes (B = 32, M = 256, N = 2048, r = 0.1,
+   k = 16) on a sparse cloud (most balls short of k) and a dense one
+   (saturated), a ragged case, and points at and one ulp around the
+   radius for r = 0.05 ... 0.6 (the threshold is float32(r * r) of the
+   double product, not float32(r) ** 2);
+13. the neural-planner path of ``benchmarks/run.py::fig18_pipeline``: the
+   tabletop scene at paper scale, a 2048-point cloud, a ``Planner`` at the
+   default width (feature 256, hidden 512) with seeded weights, 20 steps,
+   ``sampling`` fps and random, the gate in ``wavefront_fused`` and
+   ``wavefront_persistent``, through ``plan_with_collision_gate`` on the
+   card; held against the same planner on the CPU (sampling and grouping
+   indices of every layer exact, features and waypoints to ``FEAT_TOL``
+   and ``WAYPOINT_ATOL``, gate verdicts and every counter bitwise on the
+   CUDA trajectory); launch counts set to 0 just before each path and read
+   just after; warm stage walls (median of 10), kernel time per launch and
+   peak memory; then one batched plan of 32 clouds for throughput;
+14. ``fps`` and ``ballquery`` timed at the batched encode's sa1 shapes
+   against their bounds and plain versions;
+15. one JSON line listing every kernel with its launches on the main paths
    (``launches``) and elsewhere (``check_launches``), error, times and
    bound; the last line is ``{"ok": true, "device": {...}}``.
 
@@ -64,6 +87,12 @@ OPS_SPHERES = 22
 OPS_AXIS = [7] * 3 + [12] * 3 + [11] * 9
 OPS_NODE_BOX = 10        # megakernel: node centre and half from the code
 
+# The neural-planner path, card against CPU: fp32 matrix products summed in
+# another order (cuBLAS vs the CPU's BLAS; TF32 off) move the last bits of
+# every MLP layer, and 20 policy steps add them up.
+FEAT_TOL = dict(rtol=1e-4, atol=1e-5)
+WAYPOINT_ATOL = 1e-4
+
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
@@ -86,6 +115,12 @@ def bound_ms(nbytes: float, ops: float):
                                        else "operations")
 
 
+def device_us(event) -> float:
+    """A profiler event's own time on the card, in microseconds."""
+    return getattr(event, "self_device_time_total",
+                   getattr(event, "self_cuda_time_total", 0))
+
+
 def cuda_time_ms(fn, reps: int, warmup: int = 1) -> float:
     import torch
     for _ in range(warmup):
@@ -102,13 +137,12 @@ def cuda_time_ms(fn, reps: int, warmup: int = 1) -> float:
 
 
 class Recorder:
-    """Within its ``with`` block, record every call of the traversal-step
-    and compaction kernels' wrappers (arguments kept, so each call can be
-    replayed and timed); the calls still run."""
+    """Within its ``with`` block, record every call of the given kernel
+    wrappers (``{name: (module, attribute)}``; arguments kept, so each call
+    can be replayed and timed); the calls still run."""
 
-    def __init__(self, traverse_ops, compact_ops):
-        self._mods = {"traverse": (traverse_ops, "traverse_test"),
-                      "compact": (compact_ops, "compact_channels")}
+    def __init__(self, targets):
+        self._mods = targets
         self.calls = {name: [] for name in self._mods}
 
     def __enter__(self):
@@ -138,17 +172,28 @@ def main() -> int:
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("FAIL: torch sees no CUDA device")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     src = Path(__file__).resolve().parent / "src"
     if not (src / "repro_torch").is_dir():
         raise SystemExit(f"FAIL: no repro_torch package under {src}")
     sys.path.insert(0, str(src))
     import numpy as np
     from repro_torch.core.octree import build_octree, device_octree
+    from repro_torch.core.pipeline import (check_trajectories,
+                                           plan_with_collision_gate)
     from repro_torch.data.robotics import make_scene, scene_trajectories
     from repro_torch.engine.executor import CollisionEngine, EngineConfig
+    from repro_torch.engine.plan import plan_trajectory
     from repro_torch.kernels import _build
+    from repro_torch.kernels.ballquery import ops as bq_ops
+    from repro_torch.kernels.ballquery.cases import radius_shell
+    from repro_torch.kernels.ballquery.ref import ball_query_ref
     from repro_torch.kernels.compact import ops as compact_ops
     from repro_torch.kernels.compact.ref import compact_ref
+    from repro_torch.kernels.fps import ops as fps_ops
+    from repro_torch.kernels.fps.cases import tie_cloud
+    from repro_torch.kernels.fps.ref import fps_ref
     from repro_torch.kernels.persist import ops as persist_ops
     from repro_torch.kernels.persist.ref import persist_tiles_ref
     from repro_torch.kernels.sact import ops as sact_ops
@@ -158,6 +203,8 @@ def main() -> int:
     from repro_torch.kernels.traverse.cases import grazing_frontier
     from repro_torch.kernels.traverse.ref import (traverse_test_ref,
                                                   unpack_verdicts)
+    from repro_torch.models import pointnet as pointnet_mod
+    from repro_torch.models.planner import Planner
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -256,10 +303,10 @@ def main() -> int:
     add_check_launches()
 
     # ---- 5. paper-scale scenes --------------------------------------------
-    scenes = {}
+    scenes, scene_objs = {}, {}
     for env in args.envs.split(","):
         t0 = time.perf_counter()
-        scene = make_scene(env, num_points=524288)
+        scene = scene_objs[env] = make_scene(env, num_points=524288)
         tree = build_octree(scene.points, depth=7)
         obbs = scene_trajectories(scene, num_trajectories=25, waypoints=60)
         scenes[env] = (tree, obbs, time.perf_counter() - t0)
@@ -397,7 +444,9 @@ def main() -> int:
                 walls.append(cw.wall_time_s)
             kernel_note = ""
             if mode != "wavefront_persistent":
-                with Recorder(traverse_ops, compact_ops) as rec:
+                with Recorder({"traverse": (traverse_ops, "traverse_test"),
+                               "compact": (compact_ops,
+                                           "compact_channels")}) as rec:
                     eng.query(obbs)
                 per_launch, per_query = {}, 0.0
                 for name, calls in rec.calls.items():
@@ -464,7 +513,6 @@ def main() -> int:
                 f"median {1e3 * statistics.median(walls):.3f} ms"
                 f"{kernel_note} | peak mem {peak / 2**20:.1f} MiB | cpu "
                 f"engine {t_cpu:.1f} s | {card}")
-    persist_line["launches"] = main_launches["persist"]
 
     # ---- 9. traverse and compact at main-path shapes -----------------------
     lines = [persist_line]
@@ -492,7 +540,7 @@ def main() -> int:
         name="traverse", route="cuda",
         source="src/repro_torch/kernels/traverse/csrc/traverse.cu",
         replaces="src/repro/kernels/traverse/kernel.py:50",
-        launches=main_launches["traverse"], max_abs_err=errs["traverse"],
+        max_abs_err=errs["traverse"],
         ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
         library_ms=None))
     log("9 traverse", f"{env0} wavefront_fused widest level ({n_live} live of "
@@ -520,7 +568,7 @@ def main() -> int:
         name="compact", route="cuda",
         source="src/repro_torch/kernels/compact/csrc/compact.cu",
         replaces="src/repro/kernels/compact/kernel.py:32",
-        launches=main_launches["compact"], max_abs_err=errs["compact"],
+        max_abs_err=errs["compact"],
         ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
         library_ms=library_ms))
     log("9 compact", f"{env0} wavefront_fused fullest level ({lanes} lanes, "
@@ -551,14 +599,344 @@ def main() -> int:
         name="sact_dense", route="cuda",
         source="src/repro_torch/kernels/sact/csrc/sact_dense.cu",
         replaces="src/repro/kernels/sact/kernel.py:112",
-        launches=main_launches["sact_dense"], max_abs_err=err, ms=ms,
+        max_abs_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None))
     log("10 sact_dense", f"{M} x {N} plane (paper-scale OBBs x level-{lvl} "
         f"cells): kernel {ms:.3f} ms, plain on card {plain_ms:.3f} ms, bound "
         f"{bms:.4f} ms ({by}); not on the main paths | {card}")
 
-    # ---- 11. result -------------------------------------------------------
+    # ---- 11. fps vs plain ---------------------------------------------------
+    g = torch.Generator().manual_seed(41)
+    m_fps = 256
+    fps_cases = []
+    for B in (1, 32):
+        for N in (2048, 2047, 5000):
+            fps_cases.append((f"uniform B={B} N={N}",
+                              torch.rand((B, N, 3), generator=g) * 2 - 1, 0))
+    ties = torch.from_numpy(np.stack([
+        tie_cloud(n_side=6, n_total=2048, spacing=0.125, seed=s)
+        for s in range(32)]))
+    fps_cases += [("ties B=1 N=2048", ties[:1], 0),
+                  ("ties B=32 N=2048", ties, 0),
+                  ("ties B=32 N=2048 first=77", ties, 77),
+                  ("uniform B=32 N=5000 first=4321", fps_cases[5][1], 4321)]
+    for name, pts, first in fps_cases:
+        pts = pts.to(cuda)
+        got = fps_ops.fps(pts, m_fps, first)
+        want = fps_ref(pts, m_fps, first)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise SystemExit(f"FAIL: fps differs from plain on {name} "
+                             f"(first mismatch at "
+                             f"{(got != want).nonzero()[0].tolist()})")
+        zeros = int((got[:, 216:] == 0).sum()) if "ties" in name else 0
+        log("11 fps", f"{name}, m={m_fps}, first={first}: kernel == plain "
+            f"on every index" + (f" (ties: {zeros} later picks of index 0)"
+                                 if "ties" in name else ""))
+    errs["fps"] = 0
+    add_check_launches()
+
+    # ---- 12. ballquery vs plain ---------------------------------------------
+    bq_cases = []
+    for name, half in (("sa1 sparse", 0.5), ("sa1 saturated", 0.1)):
+        pts = ((torch.rand((32, 2048, 3), generator=g) * 2 - 1) * half).to(cuda)
+        ctr = fps_ops.fps(pts, 256)
+        qs = pts[torch.arange(32, device=cuda)[:, None], ctr.to(torch.int64)]
+        bq_cases.append((name, qs, pts, 0.1, 16))
+    pts = torch.rand((3, 2047, 3), generator=g).to(cuda) * 2 - 1
+    bq_cases.append(("ragged B=3 M=255 N=2047", pts[:, :255].contiguous(),
+                     pts, 0.2, 16))
+    for r in (0.05, 0.1, 0.2, 0.25, 0.4, 0.6):
+        shell = torch.from_numpy(radius_shell(r))
+        filler = torch.rand((100, 3), generator=g) * 2 - 1
+        pts = torch.cat([filler[:50], shell, filler[50:]])[None].to(cuda)
+        for k in (16, pts.shape[1]):
+            bq_cases.append((f"radius shell r={r} k={k}",
+                             torch.zeros((1, 1, 3), device=cuda), pts, r, k))
+    for name, qs, pts, r, k in bq_cases:
+        idx, cnt = bq_ops.ball_query(qs, pts, r, k)
+        widx, wcnt = ball_query_ref(pts, qs, r, k)
+        torch.cuda.synchronize()
+        if not (torch.equal(idx, widx) and torch.equal(cnt, wcnt)):
+            raise SystemExit(f"FAIL: ballquery differs from plain on {name}")
+        full = float((cnt == k).float().mean())
+        log("12 ballquery", f"{name}: B={qs.shape[0]} M={qs.shape[1]} "
+            f"N={pts.shape[1]} r={r} k={k}: kernel == plain (counts and "
+            f"every index); {100 * full:.1f} % of balls full, mean count "
+            f"{float(cnt.float().mean()):.2f}")
+    errs["ballquery"] = 0
+    add_check_launches()
+
+    # ---- 13. the neural-planner path (Fig. 18) ------------------------------
+    if "tabletop" in scenes:
+        tab, tree_t = scene_objs["tabletop"], scenes["tabletop"][0]
+    else:
+        tab = make_scene("tabletop", num_points=524288)
+        tree_t = build_octree(tab.points, depth=7)
+    rs = np.random.RandomState(2)
+    cloud_np = tab.points[rs.choice(len(tab.points), 2048, replace=False)]
+    q0_np = rs.uniform(-1, 1, 7).astype(np.float32)
+    goal_np = rs.uniform(-1, 1, 7).astype(np.float32)
+    cloud = torch.from_numpy(cloud_np)
+    cloud_cuda = cloud.to(cuda)
+
+    def gen(seed):
+        return torch.Generator().manual_seed(seed)
+
+    planner = Planner(256, 512, 1, generator=gen(0), device=cuda).eval()
+    planner_cpu = Planner(256, 512, 1, generator=gen(0), device="cpu").eval()
+    for k, v in planner_cpu.state_dict().items():
+        if not torch.equal(planner.state_dict()[k].cpu(), v):
+            raise SystemExit(f"FAIL: planner weight {k} differs by device")
+    n_params = sum(p.numel() for p in planner.parameters())
+    kernel_attrs = {"fps": (pointnet_mod, "fps"),
+                    "ballquery": (pointnet_mod, "ball_query")}
+    gate_kernels = {"wavefront_fused": ("traverse", "compact"),
+                    "wavefront_persistent": ("persist",)}
+    engines = {}
+    for mode, kinds in gate_kernels.items():
+        cfg = EngineConfig(mode=mode)
+        eng = engines[mode] = CollisionEngine(tree_t, cfg, device="cuda")
+        eng_cpu = CollisionEngine(tree_t, cfg, device="cpu")
+        eng_gate = CollisionEngine(tree_t, cfg, device="cpu")
+        for sampling in ("fps", "random"):
+            want_k = kinds + ("ballquery",) + (
+                ("fps",) if sampling == "fps" else ())
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            _build.reset_launch_counts()
+            res = plan_with_collision_gate(planner, eng, cloud_cuda, q0_np,
+                                           goal_np, num_steps=20,
+                                           sampling=sampling,
+                                           generator=gen(3))
+            counts = _build.launch_counts()
+            _build.reset_launch_counts()
+            peak = torch.cuda.max_memory_allocated() - base
+            for name, k in counts.items():
+                main_launches[name] += k
+                if (k > 0) != (name in want_k):
+                    raise SystemExit(f"FAIL: fig18 {mode} {sampling}: {name} "
+                                     f"launched {k} times on the main path")
+            res_cpu = plan_with_collision_gate(planner_cpu, eng_cpu, cloud,
+                                               q0_np, goal_np, num_steps=20,
+                                               sampling=sampling,
+                                               generator=gen(3))
+            # sampling and grouping exact, features to FEAT_TOL
+            with torch.inference_mode():
+                lc = planner.pointnet.encode_layers(cloud_cuda[None],
+                                                    sampling, gen(3))
+                lh = planner_cpu.pointnet.encode_layers(cloud[None],
+                                                        sampling, gen(3))
+                fc = lc[-1].feats.max(dim=1).values.cpu()
+                fh = lh[-1].feats.max(dim=1).values
+            feat_err = 0.0
+            for li, (a, b) in enumerate(zip(lc, lh)):
+                for key in ("center_idx", "centers", "neighbor_idx", "count"):
+                    if not torch.equal(getattr(a, key).cpu(), getattr(b, key)):
+                        raise SystemExit(f"FAIL: fig18 {sampling}: layer "
+                                         f"{li + 1} {key} differs cuda/cpu")
+                for x, y in ((a.feats.cpu(), b.feats), (fc, fh)):
+                    if not torch.allclose(x, y, **FEAT_TOL):
+                        raise SystemExit(f"FAIL: fig18 {sampling}: layer "
+                                         f"{li + 1} features beyond "
+                                         f"{FEAT_TOL}")
+                    feat_err = max(feat_err, float((x - y).abs().max()))
+            traj, traj_cpu = res.trajectory, res_cpu.trajectory
+            wp_err = float(np.abs(traj - traj_cpu).max())
+            if not (traj.shape == (21, 7) and np.isfinite(traj).all()
+                    and wp_err <= WAYPOINT_ATOL):
+                raise SystemExit(f"FAIL: fig18 {mode} {sampling}: waypoints "
+                                 f"{traj.shape}, cuda/cpu max err {wp_err}")
+            # the gate: the CUDA trajectory's plan on a CPU engine
+            flags, cg = eng_gate.execute(plan_trajectory(
+                torch.from_numpy(traj).to(cuda)))
+            if not np.array_equal(flags, res.colliding_waypoints):
+                raise SystemExit(f"FAIL: fig18 {mode} {sampling}: gate "
+                                 f"verdicts differ cuda/cpu")
+            a, b = res.counters.as_dict(), cg.as_dict()
+            for k in a:
+                if k != "wall_time_s" and a[k] != b[k]:
+                    raise SystemExit(f"FAIL: fig18 {mode} {sampling}: gate "
+                                     f"counter {k}: cuda {a[k]} cpu {b[k]}")
+            walls = {"encode_s": [], "rollout_s": [], "collision_s": []}
+            for _ in range(10):
+                r10 = plan_with_collision_gate(planner, eng, cloud_cuda, q0_np,
+                                               goal_np, num_steps=20,
+                                               sampling=sampling,
+                                               generator=gen(3))
+                for key in walls:
+                    walls[key].append(r10.timings[key])
+            traj_cuda = torch.from_numpy(traj).to(cuda)
+            fk = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                plan_trajectory(traj_cuda)
+                torch.cuda.synchronize()
+                fk.append(time.perf_counter() - t0)
+            with Recorder(kernel_attrs) as rec:
+                plan_with_collision_gate(planner, eng, cloud_cuda, q0_np,
+                                         goal_np, num_steps=20,
+                                         sampling=sampling,
+                                         generator=gen(3))
+            per_launch = {name: [cuda_time_ms(lambda: fn(*ca, **ck), 20)
+                                 for fn, ca, ck in calls]
+                          for name, calls in rec.calls.items() if calls}
+            add_check_launches()
+            med = {k: 1e3 * statistics.median(v) for k, v in walls.items()}
+            log("13 fig18", f"{mode} {sampling}: {n_params} planner weights | "
+                f"{int(flags.sum())} of 21 waypoints collide (cpu planner's "
+                f"own plan: {int(res_cpu.colliding_waypoints.sum())}) | "
+                f"main-path launches {counts} | cuda==cpu: sampling and "
+                f"grouping indices of 3 layers, features max err "
+                f"{feat_err:.3g}, waypoints max err {wp_err:.3g}, gate "
+                f"verdicts + counters | warm median encode "
+                f"{med['encode_s']:.3f} ms, rollout {med['rollout_s']:.3f} "
+                f"ms, gate {med['collision_s']:.3f} ms (of which forward "
+                f"kinematics {1e3 * statistics.median(fk):.3f} ms) | per "
+                f"launch "
+                + ", ".join(f"{n} {statistics.mean(v):.4f} ms x{len(v)}"
+                            for n, v in per_launch.items())
+                + f" per plan | peak mem {peak / 2**20:.1f} MiB above the "
+                f"{base / 2**20:.1f} MiB held before the plan | {card}")
+
+    # the card's busy share of warm plans (fps sampling), per gate mode
+    for mode, eng in engines.items():
+        def plan_once(eng=eng):
+            plan_with_collision_gate(planner, eng, cloud_cuda, q0_np,
+                                     goal_np, num_steps=20, sampling="fps")
+        plan_once()
+        torch.cuda.synchronize()
+        reps = 5
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                plan_once()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / reps
+        events = prof.key_averages()
+        on_card = [e for e in events if e.device_type == DeviceType.CUDA]
+        dev_ms = sum(device_us(e) for e in on_card) / reps / 1e3
+        launches_host = sum(e.self_cpu_time_total for e in events
+                            if e.key == "cudaLaunchKernel") / reps / 1e3
+        top = sorted(on_card, key=device_us, reverse=True)[:3]
+        add_check_launches()
+        log("13 fig18", f"{mode} fps, torch.profiler over {reps} warm plans: "
+            f"traced wall {1e3 * wall:.3f} ms a plan, device time "
+            f"{dev_ms:.3f} ms (card busy {100 * dev_ms / 1e3 / wall:.1f} "
+            f"%), {sum(e.count for e in on_card) // reps} kernels and "
+            f"copies a plan, cudaLaunchKernel {launches_host:.3f} ms of host "
+            f"time; largest: " + "; ".join(
+                f"{e.key[:40]} {device_us(e) / 1e3 / reps:.4f} ms "
+                f"x{e.count // reps}" for e in top) + f" | {card}")
+
+    # one batched encode + rollout + gate, B = 32 clouds, for throughput
+    rsb = np.random.RandomState(5)
+    B = 32
+    clouds = torch.from_numpy(np.stack([
+        tab.points[rsb.choice(len(tab.points), 2048, replace=False)]
+        for _ in range(B)])).to(cuda)
+    q0s = torch.from_numpy(rsb.uniform(-1, 1, (B, 7)).astype(np.float32)
+                           ).to(cuda)
+    goals = torch.from_numpy(rsb.uniform(-1, 1, (B, 7)).astype(np.float32)
+                             ).to(cuda)
+    eng = engines["wavefront_persistent"]
+    with torch.inference_mode():
+        with Recorder(kernel_attrs) as rec_b:
+            traj_b = planner.rollout(clouds, q0s, goals, 20, "fps")
+        flags_b, _ = check_trajectories(eng, traj_b)
+        lc = planner.pointnet.encode_layers(clouds)
+        lh = planner_cpu.pointnet.encode_layers(clouds.cpu())
+        for li, (a, b) in enumerate(zip(lc, lh)):
+            for key in ("center_idx", "neighbor_idx", "count"):
+                if not torch.equal(getattr(a, key).cpu(), getattr(b, key)):
+                    raise SystemExit(f"FAIL: batched fig18: layer {li + 1} "
+                                     f"{key} differs cuda/cpu")
+        if not (traj_b.shape == (B, 21, 7) and bool(traj_b.isfinite().all())
+                and flags_b.shape == (B, 21)):
+            raise SystemExit("FAIL: batched fig18: bad trajectories")
+        wb = {"plan": [], "gate": []}
+        for _ in range(5):
+            t0 = time.perf_counter()
+            traj_b = planner.rollout(clouds, q0s, goals, 20, "fps")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            check_trajectories(eng, traj_b)
+            torch.cuda.synchronize()
+            wb["plan"].append(t1 - t0)
+            wb["gate"].append(time.perf_counter() - t1)
+    add_check_launches()
+    mp, mg = (1e3 * statistics.median(wb[k]) for k in ("plan", "gate"))
+    log("13 fig18", f"batched B={B}: encode + 20-step rollout {mp:.3f} ms, "
+        f"gate (wavefront_persistent, {B * 21 * 7} OBBs) {mg:.3f} ms, "
+        f"{B / ((mp + mg) / 1e3):.1f} plans/s; {int(flags_b.sum())} of "
+        f"{B * 21} waypoints collide; sampling and grouping indices "
+        f"cuda==cpu | {card}")
+
+    # ---- 14. fps and ballquery timed at the sa1 shapes ----------------------
+    _, fa, fk = rec_b.calls["fps"][0]
+    pts_b, m_b = fa[0], fa[1]
+    got = fps_ops.fps(*fa, **fk)
+    want = fps_ref(*fa, **fk)
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    errs["fps"] = max(errs["fps"], err)
+    ms = cuda_time_ms(lambda: fps_ops.fps(*fa, **fk), 20)
+    plain_ms = cuda_time_ms(lambda: fps_ref(*fa, **fk), 2)
+    Bf, Nf, _ = pts_b.shape
+    # read once: the clouds; written once: the indices.  Operations: each
+    # of the m-1 steps, per point, 3 subtractions, 3 products, 2 sums, a
+    # min and a compare.
+    bms, by = bound_ms(Bf * Nf * 12 + Bf * m_b * 4, Bf * (m_b - 1) * Nf * 10)
+    lines.append(dict(
+        name="fps", route="cuda",
+        source="src/repro_torch/kernels/fps/csrc/fps.cu",
+        replaces="src/repro/kernels/fps/kernel.py:15",
+        max_abs_err=errs["fps"], ms=ms,
+        plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None))
+    log("14 fps", f"sa1 of the batched encode (B={Bf}, N={Nf}, m={m_b}): "
+        f"kernel {ms:.4f} ms, plain on card {plain_ms:.3f} ms, bound "
+        f"{bms:.5f} ms ({by}); serial floor {m_b - 1} dependent block-wide "
+        f"argmax steps, {1e3 * ms / (m_b - 1):.3f} us a step | {card}")
+    _, ba, bk = rec_b.calls["ballquery"][0]
+    qs_b, pts_b, r_b, k_b = ba
+    idx, cnt = bq_ops.ball_query(*ba, **bk)
+    widx, wcnt = ball_query_ref(pts_b, qs_b, r_b, k_b)
+    err = max(int((idx.to(torch.int64) - widx.to(torch.int64)).abs().max()),
+              int((cnt - wcnt).abs().max()))
+    errs["ballquery"] = max(errs["ballquery"], err)
+    ms = cuda_time_ms(lambda: bq_ops.ball_query(*ba, **bk), 50)
+    plain_ms = cuda_time_ms(lambda: ball_query_ref(pts_b, qs_b, r_b, k_b), 5)
+    Bq, Mq, _ = qs_b.shape
+    Nq = pts_b.shape[1]
+    # The pairs this data needs: a full ball stops at its k-th hit, a short
+    # one tests every point.  Read once: the queries and, per cloud, the
+    # points up to the furthest any of its queries needs; written once:
+    # indices and counts.  9 operations a pair.
+    need = torch.where(cnt == k_b, idx[..., k_b - 1].to(torch.int64) + 1,
+                       Nq)
+    pairs = int(need.sum())
+    nbytes = (Bq * Mq * 12 + 12 * int(need.max(dim=1).values.sum())
+              + Bq * Mq * k_b * 4 + Bq * Mq * 4)
+    bms, by = bound_ms(nbytes, 9 * pairs)
+    lines.append(dict(
+        name="ballquery", route="cuda",
+        source="src/repro_torch/kernels/ballquery/csrc/ballquery.cu",
+        replaces="src/repro/kernels/ballquery/kernel.py:23",
+        max_abs_err=errs["ballquery"],
+        ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        library_ms=None))
+    log("14 ballquery", f"sa1 of the batched encode (B={Bq}, M={Mq}, N={Nq}, "
+        f"r={r_b}, k={k_b}): {100 * float((cnt == k_b).float().mean()):.1f} "
+        f"% of balls full, {pairs} pairs needed of {Bq * Mq * Nq}: kernel "
+        f"{ms:.4f} ms, plain on card {plain_ms:.3f} ms, bound {bms:.5f} ms "
+        f"({by}) | {card}")
+    add_check_launches()
+
+    # ---- 15. result -------------------------------------------------------
+    # launches on every main path (phases 8 and 13) and in the checks
     for line in lines:
+        line["launches"] = main_launches[line["name"]]
         line["check_launches"] = check_launches[line["name"]]
     print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,16 +1,19 @@
-"""Carry a scene across from the reference package.
+"""Carry a scene and planner weights across from the reference package.
 
-The counterpart of a weights converter: the reference's ``Octree`` is
-handed over as plain numpy arrays (``scene_lo``, ``scene_size``, ``depth``
-and, per level, ``codes``, ``full``, ``child_start``, ``child_mask``) and
-becomes this package's :class:`repro_torch.core.octree.Octree`, so both
-packages can run on one scene without this package importing the other.
+The reference's ``Octree`` is handed over as plain numpy arrays
+(``scene_lo``, ``scene_size``, ``depth`` and, per level, ``codes``,
+``full``, ``child_start``, ``child_mask``) and becomes this package's
+:class:`repro_torch.core.octree.Octree`; the reference planner's parameter
+tree becomes a :class:`repro_torch.models.planner.Planner` state dict.  So
+both packages can run on one scene and one planner without this package
+importing the other.
 """
 from __future__ import annotations
 
-from typing import Mapping, Sequence
+from typing import Dict, Mapping, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.core.octree import MAX_DEPTH, Octree, OctreeLevel
 
@@ -57,3 +60,23 @@ def octree_from_reference(tree) -> Octree:
         [dict(codes=np.asarray(lv.codes), full=np.asarray(lv.full),
               child_start=np.asarray(lv.child_start),
               child_mask=np.asarray(lv.child_mask)) for lv in tree.levels])
+
+
+def planner_from_reference(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The reference planner's parameters (nested dicts of arrays:
+    ``pointnet/sa{1,2,3}/{w1,b1,w2,b2}`` and ``fc1``, ``fc2``, ``fc3``,
+    ``out`` each ``{w, b}``, weights stored ``(in, out)``) as a
+    :class:`Planner` state dict (``nn.Linear`` weights, ``(out, in)``)."""
+    def linear(prefix, w, b):
+        return {f"{prefix}.weight": torch.from_numpy(
+                    np.array(w, np.float32).T.copy()),
+                f"{prefix}.bias": torch.from_numpy(np.array(b, np.float32))}
+
+    state = {}
+    for sa in ("sa1", "sa2", "sa3"):
+        p = params["pointnet"][sa]
+        state.update(linear(f"pointnet.{sa}.mlp1", p["w1"], p["b1"]))
+        state.update(linear(f"pointnet.{sa}.mlp2", p["w2"], p["b2"]))
+    for name in ("fc1", "fc2", "fc3", "out"):
+        state.update(linear(name, params[name]["w"], params[name]["b"]))
+    return state

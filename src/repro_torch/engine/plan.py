@@ -4,8 +4,9 @@ Counterpart of ``repro.engine.plan``.  A :class:`QueryPlan` is a flat OBB
 pool ``(Q, 3)/(Q, 3)/(Q, 3, 3)`` of tensors, optional scene / owner /
 payload lanes, and an un-flattening recipe that maps the flat verdicts back
 to the front end's shape.  This slice lowers single query sets
-(:func:`plan_queries`) and (B, M) batches (:func:`plan_batch`); the other
-front ends land with ROADMAP A.4 and A.7.
+(:func:`plan_queries`), (B, M) batches (:func:`plan_batch`) and joint-space
+trajectories (:func:`plan_trajectory`); the other front ends land with
+ROADMAP A.4 and A.7.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.geometry import OBBs
+from repro_torch.core.geometry import NUM_LINKS, OBBs, arm_link_obbs
 from repro_torch.core.sact import PAYLOAD_INF
 
 #: Front-end workloads a plan can carry (the reference's tuple).
@@ -157,5 +158,18 @@ def plan_batch(obbs: OBBs) -> QueryPlan:
                      obb_r=obbs.rot.reshape(-1, 3, 3), out_shape=(B, M))
 
 
+def plan_trajectory(waypoints, base_pos=None) -> QueryPlan:
+    """Joint-space waypoints (..., 7) -> link-OBB pool with an any-link
+    reduction: forward kinematics (on the waypoints' device) emits
+    ``NUM_LINKS`` query slots per waypoint, and the un-flattening recipe
+    ORs them back into per-waypoint flags."""
+    waypoints = torch.as_tensor(waypoints, dtype=torch.float32)
+    obbs = arm_link_obbs(waypoints, base_pos=base_pos)   # flat (prod*L,)
+    return QueryPlan(kind="trajectory", obb_c=obbs.center, obb_h=obbs.half,
+                     obb_r=obbs.rot,
+                     out_shape=tuple(waypoints.shape[:-1]) + (NUM_LINKS,),
+                     reduce_last=True)
+
+
 __all__ = ["PAYLOAD_INF", "PlanValidationError", "QueryPlan", "WORKLOADS",
-           "plan_batch", "plan_queries", "validate_plan"]
+           "plan_batch", "plan_queries", "plan_trajectory", "validate_plan"]

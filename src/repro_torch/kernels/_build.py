@@ -35,6 +35,8 @@ SOURCES: Dict[str, str] = {
     "persist": "kernels/persist/csrc/persist.cu",
     "traverse": "kernels/traverse/csrc/traverse.cu",
     "compact": "kernels/compact/csrc/compact.cu",
+    "fps": "kernels/fps/csrc/fps.cu",
+    "ballquery": "kernels/ballquery/csrc/ballquery.cu",
 }
 
 NVCC_FLAGS: List[str] = [

@@ -16,10 +16,17 @@ import torch
 
 from repro_torch.core.geometry import OBBs, rotation_from_euler
 from repro_torch.core.octree import build_octree, device_octree
+from repro_torch.core.pipeline import plan_with_collision_gate
 from repro_torch.engine.executor import CollisionEngine, EngineConfig
 from repro_torch.kernels import _build
+from repro_torch.kernels.ballquery import ops as bq_ops
+from repro_torch.kernels.ballquery.cases import radius_shell
+from repro_torch.kernels.ballquery.ref import ball_query_ref
 from repro_torch.kernels.compact import ops as compact_ops
 from repro_torch.kernels.compact.ref import compact_ref
+from repro_torch.kernels.fps import ops as fps_ops
+from repro_torch.kernels.fps.cases import tie_cloud
+from repro_torch.kernels.fps.ref import fps_ref
 from repro_torch.kernels.persist import ops as persist_ops
 from repro_torch.kernels.persist.ref import persist_tiles_ref
 from repro_torch.kernels.sact import ops as sact_ops
@@ -28,6 +35,7 @@ from repro_torch.kernels.sact.ref import sact_ref
 from repro_torch.kernels.traverse import ops as traverse_ops
 from repro_torch.kernels.traverse.cases import grazing_frontier
 from repro_torch.kernels.traverse.ref import traverse_test_ref
+from repro_torch.models.planner import Planner
 
 pytestmark = pytest.mark.gpu
 
@@ -151,3 +159,90 @@ def test_cuda_level_modes_match_cpu_engine(cuda, mode):
     for k in a:
         if k != "wall_time_s":
             assert a[k] == b[k], k
+
+
+@pytest.mark.parametrize("B,N,m,first", [
+    (1, 2048, 256, 0), (4, 2047, 256, 3), (3, 5000, 128, 4999),
+    (2, 100, 130, 0)])
+def test_fps_kernel_matches_plain(cuda, B, N, m, first):
+    rs = np.random.RandomState(N)
+    pts = torch.from_numpy(rs.uniform(-1, 1, (B, N, 3)).astype(
+        np.float32)).to(cuda)
+    before = _build.launch_counts()["fps"]
+    got = fps_ops.fps(pts, m, first)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["fps"] == before + 1
+    assert torch.equal(got, fps_ref(pts, m, first))
+    assert torch.equal(fps_ops.fps(pts[0], m, first), got[0])
+
+
+def test_fps_kernel_ties_go_to_the_first_index(cuda):
+    pts = torch.from_numpy(np.stack([
+        tie_cloud(n_side=5, n_total=1000, spacing=0.125, seed=s)
+        for s in range(4)])).to(cuda)
+    got = fps_ops.fps(pts, 160)
+    assert torch.equal(got, fps_ref(pts, 160))
+    assert bool((got[:, 125:] == 0).all())
+
+
+def test_fps_kernel_rejects_a_cloud_above_shared_memory(cuda):
+    with pytest.raises(ValueError, match="shared memory"):
+        fps_ops.fps(torch.zeros(fps_ops.MAX_POINTS + 1, 3, device=cuda), 4)
+    got = fps_ops.fps(torch.rand(fps_ops.MAX_POINTS, 3, device=cuda), 8)
+    torch.cuda.synchronize()
+    assert got.shape == (8,)
+
+
+@pytest.mark.parametrize("B,M,N,half,r,k", [
+    (4, 256, 2048, 0.5, 0.1, 16), (4, 256, 2048, 0.1, 0.1, 16),
+    (3, 255, 2047, 1.0, 0.25, 16), (2, 33, 100, 1.0, 0.6, 8)])
+def test_ballquery_kernel_matches_plain(cuda, B, M, N, half, r, k):
+    rs = np.random.RandomState(M + N)
+    pts = torch.from_numpy(rs.uniform(-half, half, (B, N, 3)).astype(
+        np.float32)).to(cuda)
+    qs = pts[:, :M].contiguous()
+    before = _build.launch_counts()["ballquery"]
+    idx, cnt = bq_ops.ball_query(qs, pts, r, k)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["ballquery"] == before + 1
+    widx, wcnt = ball_query_ref(pts, qs, r, k)
+    assert torch.equal(idx, widx) and torch.equal(cnt, wcnt)
+
+
+@pytest.mark.parametrize("r", [0.05, 0.1, 0.2, 0.25, 0.4, 0.6])
+def test_ballquery_kernel_at_the_radius(cuda, r):
+    pts = torch.from_numpy(radius_shell(r))[None].to(cuda)
+    qs = torch.zeros((1, 1, 3), device=cuda)
+    for k in (16, pts.shape[1]):
+        idx, cnt = bq_ops.ball_query(qs, pts, r, k)
+        widx, wcnt = ball_query_ref(pts, qs, r, k)
+        assert torch.equal(idx, widx) and torch.equal(cnt, wcnt)
+    assert 0 < int(cnt) < pts.shape[1]
+
+
+@pytest.mark.parametrize("sampling", ["fps", "random"])
+def test_cuda_planner_path_matches_cpu(cuda, sampling):
+    tree, _ = _scene_and_queries(M=8, seed=6, depth=5)
+    rs = np.random.RandomState(2)
+    cloud = rs.uniform(-1, 1, (600, 3)).astype(np.float32)
+    q0, goal = (rs.uniform(-1, 1, 7).astype(np.float32) for _ in range(2))
+    runs = []
+    for dev in (cuda, "cpu"):
+        planner = Planner(64, 64, generator=torch.Generator().manual_seed(0),
+                          device=dev)
+        eng = CollisionEngine(tree, EngineConfig(mode="wavefront_persistent"),
+                              device=dev)
+        before = _build.launch_counts()
+        res = plan_with_collision_gate(
+            planner, eng, cloud, q0, goal, num_steps=8, sampling=sampling,
+            generator=torch.Generator().manual_seed(3))
+        after = _build.launch_counts()
+        runs.append(res)
+        launched = {k for k in after if after[k] > before[k]}
+        want = set()
+        if dev == cuda:
+            want = {"ballquery", "persist"} | (
+                {"fps"} if sampling == "fps" else set())
+        assert launched == want
+    np.testing.assert_allclose(runs[0].trajectory, runs[1].trajectory,
+                               rtol=1e-4, atol=1e-4)

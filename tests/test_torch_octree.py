@@ -218,6 +218,9 @@ def test_import_leaves_jax_and_repro_out():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     assert len(mods) >= 15
+    assert {"repro_torch.core.pipeline", "repro_torch.kernels.fps.ops",
+            "repro_torch.kernels.ballquery.ops",
+            "repro_torch.models.planner"} <= set(mods)
 
 
 def test_card_scripts_import_neither_jax_nor_repro():
