@@ -59,7 +59,23 @@ non-zero and prints no result):
    peak memory; then one batched plan of 32 clouds for throughput;
 14. ``fps`` and ``ballquery`` timed at the batched encode's sa1 shapes
    against their bounds and plain versions;
-15. one JSON line listing every kernel with its launches on the main paths
+15. ``wkv6`` kernel vs its plain version on ``kernels/wkv6/cases.py``
+   (T = 1, 33, 1024; D = 16, 64; per-row and shared ``u``; ordinary,
+   strong and weak decays), fp32 and bf16 inputs, within ``cases.TOL``;
+16. the RWKV-6 1.6B model at full width cut to 2 of its 24 layers, in fp32
+   (TF32 off), on the card against the same weights on the CPU: B = 2, a
+   64-token prompt and 4 teacher-forced decode steps, logits and every
+   cache field within ``LM_FP32_TOL``;
+17. the RWKV-6 serving path: ``lm.serve.serve`` on the full 24-layer bf16
+   ``rwkv6_1_6b`` (weights drawn on the card from a seeded generator), 8
+   prompts of 1024 tokens and 32 greedy tokens; launch counts set to 0
+   just before it and read just after (24 ``wkv6`` a prefill, 0 in
+   decode); ``wkv6`` against its plain version on the 24 prefill inputs a
+   recorder captured; warm prefill and decode walls (median of 10 serves),
+   tokens/s, peak memory, a profiled serve's busy share, the kernel's time
+   per launch against its bound and its plain version, and the
+   prefill/decode consistency of the logits (``LM_CONSIST_ATOL``);
+18. one JSON line listing every kernel with its launches on the main paths
    (``launches``) and elsewhere (``check_launches``), error, times and
    bound; the last line is ``{"ok": true, "device": {...}}``.
 
@@ -68,6 +84,7 @@ It imports nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import statistics
 import subprocess
@@ -92,6 +109,18 @@ OPS_NODE_BOX = 10        # megakernel: node centre and half from the code
 # every MLP layer, and 20 policy steps add them up.
 FEAT_TOL = dict(rtol=1e-4, atol=1e-5)
 WAYPOINT_ATOL = 1e-4
+
+# RWKV-6 serving (phases 16-17).  Card against CPU in fp32: the matrix
+# products are summed in another order (cuBLAS vs the CPU's BLAS, TF32
+# off), about 1e-6 relative at these widths.  Prefill against decode in
+# bf16: cuBLAS picks other kernels for 8 rows than for 8,200, so some bf16
+# roundings of the projections differ and 24 layers carry them to the
+# logits (std ~0.9); a greedy token may differ only where the top two
+# logits lie within twice the observed difference.
+LM_FP32_TOL = dict(rtol=1e-4, atol=1e-4)
+LM_CONSIST_ATOL = 0.25
+LM_BATCH, LM_PROMPT, LM_TOKENS = 8, 1024, 32
+LM_CUT_LAYERS, LM_CUT_BATCH, LM_CUT_PROMPT, LM_CUT_STEPS = 2, 2, 64, 4
 
 
 def log(phase: str, msg: str) -> None:
@@ -203,6 +232,12 @@ def main() -> int:
     from repro_torch.kernels.traverse.cases import grazing_frontier
     from repro_torch.kernels.traverse.ref import (traverse_test_ref,
                                                   unpack_verdicts)
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.wkv6 import ops as wkv6_ops
+    from repro_torch.kernels.wkv6.cases import hard_cases, within_tol
+    from repro_torch.kernels.wkv6.ref import wkv6_ref
+    from repro_torch.lm.serve import serve
+    from repro_torch.models import api as lm_api
     from repro_torch.models import pointnet as pointnet_mod
     from repro_torch.models.planner import Planner
 
@@ -933,8 +968,244 @@ def main() -> int:
         f"({by}) | {card}")
     add_check_launches()
 
-    # ---- 15. result -------------------------------------------------------
-    # launches on every main path (phases 8 and 13) and in the checks
+    # ---- 15. wkv6 vs plain on the hard cases -------------------------------
+    n_cases = 0
+    for case in hard_cases():
+        for dtype in (torch.float32, torch.bfloat16):
+            r, k, v = (torch.from_numpy(case[n]).to(cuda, dtype)
+                       for n in "rkv")
+            logw, u = (torch.from_numpy(case[n]).to(cuda)
+                       for n in ("logw", "u"))
+            o, st = wkv6_ops.wkv6(r, k, v, logw, u)
+            wo, wst = wkv6_ref(r, k, v, logw, u)
+            torch.cuda.synchronize()
+            dname = str(dtype)[6:]
+            ex = max(within_tol(o, wo, dname), within_tol(st, wst, "float32"))
+            if ex > 0 or not (bool(o.isfinite().all())
+                              and bool(st.isfinite().all())):
+                raise SystemExit(f"FAIL: wkv6 differs from plain on "
+                                 f"{case['name']} {dname} (excess {ex:.3g} "
+                                 f"over the tolerance)")
+            n_cases += 1
+    add_check_launches()
+    log("15 wkv6", f"kernel within cases.TOL of plain on {n_cases} cases "
+        "(T 1/33/1024, D 16/64, ordinary/strong/weak decay, per-row and "
+        "shared u, fp32 and bf16)")
+
+    # ---- 16. the RWKV-6 model, 2 layers at full width, fp32, card vs CPU --
+    cfg_full = get_config("rwkv6_1_6b")
+    cfg_cut = cfg_full.replace(num_layers=LM_CUT_LAYERS,
+                               param_dtype="float32",
+                               compute_dtype="float32")
+    t0 = time.perf_counter()
+    lm_cpu = lm_api.init_params(cfg_cut, gen(7), device="cpu")
+    t_init = time.perf_counter() - t0
+    lm_cut = copy.deepcopy(lm_cpu).to(cuda)
+    rs = np.random.RandomState(1)
+    toks = torch.from_numpy(rs.randint(0, cfg_cut.vocab_size,
+                                       (LM_CUT_BATCH, LM_CUT_PROMPT)))
+    forced = torch.from_numpy(rs.randint(0, cfg_cut.vocab_size,
+                                         (LM_CUT_STEPS, LM_CUT_BATCH)))
+    prefill_c, decode_c = (lm_api.make_prefill_fn(cfg_cut),
+                           lm_api.make_decode_fn(cfg_cut))
+    outs = {}
+    for name, model, dev in (("cuda", lm_cut, cuda), ("cpu", lm_cpu, "cpu")):
+        logits, caches = prefill_c(model, {"tokens": toks.to(dev)})
+        seq = [("prefill", logits, caches)]
+        for i, tok in enumerate(forced):
+            logits, caches = decode_c(model, tok.to(dev), LM_CUT_PROMPT + i,
+                                      caches)
+            seq.append((f"step {i}", logits, caches))
+        outs[name] = seq
+    lm_err = {}
+    for (tag, lg, cg), (_, lh, ch) in zip(outs["cuda"], outs["cpu"]):
+        pairs = [("logits", lg, lh)] + [(key, cg[key], ch[key])
+                                        for key in ch]
+        for key, a, b in pairs:
+            a = a.cpu()
+            if not (a.shape == b.shape and torch.allclose(a, b,
+                                                          **LM_FP32_TOL)):
+                raise SystemExit(f"FAIL: rwkv6 2-layer fp32 {tag} {key}: "
+                                 f"card vs CPU beyond {LM_FP32_TOL} (max "
+                                 f"err {float((a - b).abs().max()):.3g})")
+            lm_err[key] = max(lm_err.get(key, 0.0),
+                              float((a - b).abs().max()))
+    del lm_cpu, lm_cut, outs
+    add_check_launches()
+    log("16 rwkv6 fp32", f"full width, {LM_CUT_LAYERS} layers, B="
+        f"{LM_CUT_BATCH}, prompt {LM_CUT_PROMPT}, {LM_CUT_STEPS} "
+        f"teacher-forced steps: card == CPU within {LM_FP32_TOL}; max err "
+        + ", ".join(f"{k} {v:.3g}" for k, v in lm_err.items())
+        + f" | weights drawn on the CPU in {t_init:.1f} s | {card}")
+
+    # ---- 17. RWKV-6 1.6B serving at full width ----------------------------
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    lm = lm_api.init_params(cfg_full,
+                            torch.Generator(device=cuda).manual_seed(0),
+                            device=cuda)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_weights = sum(p.numel() for p in lm.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+    prompts = np.random.RandomState(0).randint(
+        0, cfg_full.vocab_size, (LM_BATCH, LM_PROMPT))
+    serve(lm, prompts, 2)                                   # warm-up
+    add_check_launches()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    res = serve(lm, prompts, LM_TOKENS)
+    counts = _build.launch_counts()
+    _build.reset_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for name, n in counts.items():
+        main_launches[name] += n
+    want = {name: (cfg_full.num_layers if name == "wkv6" else 0)
+            for name in counts}
+    if counts != want:
+        raise SystemExit(f"FAIL: rwkv6 serve launched {counts}, want {want} "
+                         "(one wkv6 per layer in the prefill, none in decode)")
+    with torch.inference_mode():
+        lm.lm_decode_step(res.tokens[:, -1], LM_PROMPT + LM_TOKENS,
+                          res.caches)
+    if _build.launch_counts()["wkv6"] != 0:
+        raise SystemExit("FAIL: an rwkv6 decode step launched wkv6")
+    gen_toks = res.tokens.cpu()
+    if not (gen_toks.shape == (LM_BATCH, LM_TOKENS)
+            and bool(((gen_toks >= 0)
+                      & (gen_toks < cfg_full.vocab_size)).all())
+            and bool(res.logits.float().isfinite().all())):
+        raise SystemExit("FAIL: rwkv6 serve: bad tokens or logits")
+    # the kernel on the 24 prefill inputs of one serve, against its plain
+    # version on the same inputs
+    with Recorder({"wkv6": (wkv6_ops, "wkv6_heads")}) as rec_w:
+        serve(lm, prompts, 1)
+    add_check_launches()
+    calls = rec_w.calls["wkv6"]
+    if len(calls) != cfg_full.num_layers:
+        raise SystemExit(f"FAIL: recorder saw {len(calls)} wkv6_heads calls")
+
+    def plain(r, k, v, logw, u):
+        Bq, H, T, D = r.shape
+        fold = [x.reshape(Bq * H, T, D) for x in (r, k, v, logw)]
+        return wkv6_ref(*fold, u[None].expand(Bq, H, D).reshape(-1, D))
+
+    wkv_err = 0.0
+    with torch.inference_mode():
+        for li, (fn, ca, ck) in enumerate(calls):
+            o, st = fn(*ca, **ck)
+            wo, wst = plain(*ca)
+            o, st = o.reshape(wo.shape), st.reshape(wst.shape)
+            ex = max(within_tol(o, wo, str(o.dtype)[6:]),
+                     within_tol(st, wst, "float32"))
+            if ex > 0:
+                raise SystemExit(f"FAIL: wkv6 differs from plain on layer "
+                                 f"{li}'s prefill input (excess {ex:.3g})")
+            wkv_err = max(wkv_err, float((o.float() - wo.float()).abs().max()),
+                          float((st - wst).abs().max()))
+        fn, ca, ck = calls[0]
+        ms = cuda_time_ms(lambda: fn(*ca, **ck), 20)
+        plain_ms = cuda_time_ms(lambda: plain(*ca), 2)
+    add_check_launches()
+    r = ca[0]
+    Bq, H, T, D = r.shape
+    BH = Bq * H
+    esz = r.element_size()
+    # read once: r, k, v (their dtype), logw (fp32), u; written once: o
+    # (r's dtype) and the fp32 state.  Per row and step: r.S (D^2 products,
+    # D^2 sums), w*S + k*v (3 D^2), r*u*k and its sum (3 D), + bonus*v
+    # (2 D), exp(logw) (D).
+    wkv_bytes = BH * T * D * (4 * esz + 4) + BH * D * 4 + BH * D * D * 4
+    wkv_ops = BH * T * (5 * D * D + 6 * D)
+    bms, by = bound_ms(wkv_bytes, wkv_ops)
+    lines.append(dict(
+        name="wkv6", route="cuda",
+        source="src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
+        replaces="src/repro/kernels/wkv6/kernel.py:27",
+        max_abs_err=wkv_err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=None))
+    # warm walls: 10 serves
+    pre, dec = [], []
+    for _ in range(10):
+        rr = serve(lm, prompts, LM_TOKENS)
+        pre.append(rr.prefill_s)
+        dec.append(statistics.mean(rr.decode_s))
+    add_check_launches()
+    pre_ms, dec_ms = (1e3 * statistics.median(x) for x in (pre, dec))
+    # prefill/decode consistency: decode token S+1 after prefilling S
+    # tokens against the last logits of a forward pass over S+1 tokens
+    tokens = torch.from_numpy(prompts).to(cuda)
+    logits, caches = lm_api.make_prefill_fn(cfg_full)(lm, {"tokens": tokens})
+    nxt = logits.argmax(-1)
+    step, _ = lm_api.make_decode_fn(cfg_full)(lm, nxt, LM_PROMPT, caches)
+    with torch.inference_mode():
+        full, _ = lm.lm_forward(torch.cat([tokens, nxt[:, None]], 1),
+                                last_only=True)
+    step, full = step.float(), full[:, -1].float()
+    delta = float((step - full).abs().max())
+    top2 = full.topk(2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    agree = step.argmax(-1) == full.argmax(-1)
+    near_tie = gap <= 2 * delta
+    if not (delta <= LM_CONSIST_ATOL and bool((agree | near_tie).all())):
+        raise SystemExit(f"FAIL: rwkv6 prefill/decode consistency: max|d| "
+                         f"{delta:.4g} (bound {LM_CONSIST_ATOL}), greedy "
+                         f"agrees on {int(agree.sum())} of {LM_BATCH} rows")
+    add_check_launches()
+    # busy share: one warm prefill alone, then one warm serve; decode's
+    # share is the difference of the two
+    traced = []
+    for n_tok in (1, LM_TOKENS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            serve(lm, prompts, n_tok)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        on_card = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        traced.append((wall, sum(device_us(e) for e in on_card) / 1e6,
+                       sum(e.count for e in on_card), on_card))
+    add_check_launches()
+    (w_pre, d_pre, n_pre, _), (w_all, d_all, n_all, on_card) = traced
+    top = sorted(on_card, key=device_us, reverse=True)[:4]
+    log("17 rwkv6 serve", f"{cfg_full.name}: {n_weights} weights, "
+        f"{w_bytes / 1e9:.3f} GB bf16/fp32, drawn on the card in "
+        f"{t_init:.1f} s | B={LM_BATCH} prompt {LM_PROMPT}, {LM_TOKENS} "
+        f"greedy tokens | main-path launches {counts} (decode step: 0) | "
+        f"warm median prefill {pre_ms:.3f} ms, decode {dec_ms:.3f} ms/token"
+        f", {LM_BATCH / (dec_ms / 1e3):.1f} tokens/s | peak mem "
+        f"{peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB held before the "
+        f"serve, of which {base / 2**30:.3f} GiB before the model) | {card}")
+    log("17 rwkv6 serve", f"wkv6 on the {len(calls)} captured prefill "
+        f"inputs (BH={BH}, T={T}, D={D}, {r.dtype}): kernel within "
+        f"cases.TOL of plain, max abs err {wkv_err:.4g}; kernel {ms:.4f} "
+        f"ms a launch ({cfg_full.num_layers * ms:.3f} ms a prefill), plain "
+        f"on card "
+        f"{plain_ms:.3f} ms, bound {bms:.5f} ms ({by}: {wkv_bytes} B, "
+        f"{wkv_ops} ops) | {card}")
+    log("17 rwkv6 serve", f"prefill/decode consistency: max|d| logits "
+        f"{delta:.4g} (bound {LM_CONSIST_ATOL}), greedy agrees on "
+        f"{int(agree.sum())} of {LM_BATCH} rows, smallest top-2 gap "
+        f"{float(gap.min()):.4g}, logits std {float(full.std()):.3f}")
+    log("17 rwkv6 serve", f"torch.profiler: a warm prefill, traced wall "
+        f"{1e3 * w_pre:.3f} ms, device time {1e3 * d_pre:.3f} ms (busy "
+        f"{100 * d_pre / w_pre:.1f} %), {n_pre} kernels and copies; its "
+        f"{LM_TOKENS - 1} decode steps, traced wall "
+        f"{1e3 * (w_all - w_pre):.3f} ms, device time "
+        f"{1e3 * (d_all - d_pre):.3f} ms (busy "
+        f"{100 * (d_all - d_pre) / (w_all - w_pre):.1f} %), "
+        f"{(n_all - n_pre) // (LM_TOKENS - 1)} kernels and copies a token; "
+        f"largest over the serve: "
+        + "; ".join(f"{e.key[:48]} {device_us(e) / 1e3:.3f} ms x{e.count}"
+                    for e in top) + f" | {card}")
+    del lm, rec_w, calls
+
+    # ---- 18. result -------------------------------------------------------
+    # launches on every main path (phases 8, 13 and 17) and in the checks
     for line in lines:
         line["launches"] = main_launches[line["name"]]
         line["check_launches"] = check_launches[line["name"]]

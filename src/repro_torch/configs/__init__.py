@@ -1,0 +1,4 @@
+from repro_torch.configs.base import (ARCH_REGISTRY, ModelConfig, get_config,
+                                      get_smoke_config)
+
+__all__ = ["ARCH_REGISTRY", "ModelConfig", "get_config", "get_smoke_config"]

@@ -1,12 +1,13 @@
-"""Carry a scene and planner weights across from the reference package.
+"""Carry a scene, planner weights and LM weights across from the reference.
 
 The reference's ``Octree`` is handed over as plain numpy arrays
 (``scene_lo``, ``scene_size``, ``depth`` and, per level, ``codes``,
 ``full``, ``child_start``, ``child_mask``) and becomes this package's
 :class:`repro_torch.core.octree.Octree`; the reference planner's parameter
-tree becomes a :class:`repro_torch.models.planner.Planner` state dict.  So
-both packages can run on one scene and one planner without this package
-importing the other.
+tree becomes a :class:`repro_torch.models.planner.Planner` state dict, and
+the reference LM's a :class:`repro_torch.models.transformer.LM` state
+dict.  So both packages can run on one scene, one planner and one LM
+without this package importing the other.
 """
 from __future__ import annotations
 
@@ -79,4 +80,46 @@ def planner_from_reference(params: Mapping) -> Dict[str, torch.Tensor]:
         state.update(linear(f"pointnet.{sa}.mlp2", p["w2"], p["b2"]))
     for name in ("fc1", "fc2", "fc3", "out"):
         state.update(linear(name, params[name]["w"], params[name]["b"]))
+    return state
+
+
+def _tensor(a) -> torch.Tensor:
+    """A numpy array as a tensor of the same dtype; bfloat16 arrays (the
+    ``ml_dtypes`` type, which torch cannot read) go through their bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:
+    out = {}
+    for key, val in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(val, Mapping):
+            out.update(_flatten(val, path + "."))
+        else:
+            out[path] = val
+    return out
+
+
+def lm_from_reference(cfg, params: Mapping) -> Dict[str, torch.Tensor]:
+    """The reference LM's parameters (``init_lm``'s tree of numpy arrays:
+    ``embed``, ``ln_f``, ``lm_head`` and ``blocks``, each block leaf
+    stacked on a leading L axis; projections ``(in, out)``) as an
+    :class:`LM` state dict (``blocks.<l>.<name>``, the same layouts and
+    dtypes)."""
+    L = cfg.num_layers
+    state = {}
+    for path, leaf in _flatten(params).items():
+        if not path.startswith("blocks."):
+            state[path] = _tensor(leaf)
+            continue
+        stacked = np.asarray(leaf)
+        if stacked.shape[0] != L:
+            raise ValueError(f"{path}: leading axis {stacked.shape[0]}, "
+                             f"want num_layers={L}")
+        name = path[len("blocks."):]
+        for layer in range(L):
+            state[f"blocks.{layer}.{name}"] = _tensor(stacked[layer])
     return state

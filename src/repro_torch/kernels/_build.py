@@ -10,7 +10,9 @@ an edited kernel never loads a stale library.  Libraries land in
 ``$REPRO_TORCH_BUILD_DIR``).
 
 ``--fmad=false`` keeps every ``a*b+c`` two roundings, as in the plain
-PyTorch versions: the kernels must agree with them bit for bit.
+PyTorch versions: the collision and sampling kernels must agree with them
+bit for bit; ``wkv6``, which sums its dot products in another order, to
+the tolerance stated in ``kernels/wkv6/cases.py``.
 
 Each wrapper counts its launches here (:func:`count_launch`), so a run can
 show that its main path really went through the kernels.
@@ -37,6 +39,7 @@ SOURCES: Dict[str, str] = {
     "compact": "kernels/compact/csrc/compact.cu",
     "fps": "kernels/fps/csrc/fps.cu",
     "ballquery": "kernels/ballquery/csrc/ballquery.cu",
+    "wkv6": "kernels/wkv6/csrc/wkv6.cu",
 }
 
 NVCC_FLAGS: List[str] = [

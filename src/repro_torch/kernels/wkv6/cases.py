@@ -1,0 +1,74 @@
+"""Inputs that stress the WKV6 kernel, and the tolerance it is held to.
+
+Shared by the CPU tests and the card checks (``chip_smoke.py``,
+``tests/test_torch_kernels_gpu.py``).  Each case is a dict of numpy
+arrays ``r``, ``k``, ``v``, ``logw`` (BH, T, D) float32 and ``u`` (BH, D)
+or (D,) float32, plus its ``name``.
+"""
+from __future__ import annotations
+
+from typing import Dict, List
+
+import numpy as np
+
+#: Sequence lengths: one step, a length that is no multiple of any chunk
+#: or block, and the full-width prefill's 1024.
+LENGTHS = (1, 33, 1024)
+#: Key/value widths: narrower than a warp, and the model's 64.
+WIDTHS = (16, 64)
+#: Decay regimes as ranges of ``logw``: ordinary, strong (``w`` underflows
+#: to subnormals and 0), weak (``w`` within 1e-6 of 1, so the state keeps
+#: growing over the whole sequence).
+DECAYS = {"ordinary": (-3.0, -0.01), "strong": (-120.0, -90.0),
+          "weak": (-2e-6, -1e-7)}
+
+
+def make_case(BH: int, T: int, D: int, decay: str = "ordinary",
+              per_row_u: bool = True, seed: int = 0) -> Dict:
+    rs = np.random.RandomState(seed)
+    f32 = np.float32
+
+    def normal(scale):
+        return (rs.normal(size=(BH, T, D)) * scale).astype(f32)
+
+    lo, hi = DECAYS[decay]
+    u_shape = (BH, D) if per_row_u else (D,)
+    return dict(
+        name=f"BH={BH} T={T} D={D} {decay} "
+             f"u={'per-row' if per_row_u else 'shared'}",
+        r=normal(0.5), k=normal(0.5), v=normal(1.0),
+        logw=rs.uniform(lo, hi, (BH, T, D)).astype(f32),
+        u=(rs.normal(size=u_shape) * 0.3).astype(f32))
+
+
+def hard_cases(BH: int = 3) -> List[Dict]:
+    """Every length, width and decay regime, per-row and shared ``u``."""
+    out = []
+    seed = 0
+    for T in LENGTHS:
+        for D in WIDTHS:
+            for decay in DECAYS:
+                for per_row in (True, False):
+                    seed += 1
+                    out.append(make_case(BH, T, D, decay, per_row, seed))
+    return out
+
+
+#: Kernel against its plain version on the card, as ``|got - want| <=
+#: ATOL * max(1, max|want|) + RTOL * |want|``.  fp32: the kernel sums
+#: ``r·S`` and ``r·(u⊙k)`` per thread in four partial sums, the plain
+#: version in einsum order, about D roundings of 2**-24 each relative to
+#: the largest term; the state update is elementwise in both and the same
+#: up to the exponential.  bf16 outputs: the same, and a rounding to bf16
+#: that the fp32 difference may flip, one bf16 ulp (2**-7 relative).
+TOL = {"float32": dict(atol=2e-5, rtol=0.0),
+       "bfloat16": dict(atol=2e-5, rtol=2.0 ** -7)}
+
+
+def within_tol(got, want, dtype_name: str) -> float:
+    """The largest excess over the tolerance (<= 0 passes), as a float."""
+    tol = TOL[dtype_name]
+    got, want = got.float(), want.float()
+    scale = max(1.0, float(want.abs().max())) if want.numel() else 1.0
+    bound = tol["atol"] * scale + tol["rtol"] * want.abs()
+    return float(((got - want).abs() - bound).max()) if want.numel() else 0.0

@@ -1,0 +1,139 @@
+"""Dispatch for the WKV6 kernel.
+
+:func:`wkv6` and :func:`wkv6_heads` run the CUDA kernel (``csrc/wkv6.cu``:
+one CTA per batch·head row, the D×D state in registers, the steps in
+order) on CUDA tensors and the plain version
+(:func:`repro_torch.kernels.wkv6.ref.wkv6_ref`) on CPU tensors; a build or
+launch failure raises, and so does any other device, dtype or layout.
+
+Both start from a zero state and return ``(o, final state)``.  ``r``,
+``k``, ``v`` are fp32 or bf16 (one dtype), ``logw`` and ``u`` fp32; ``o``
+comes back in r's dtype and layout, the state in fp32.  The four inputs
+share one layout with a unit stride on the last axis, so the (B, H, T, D)
+view of a model's (B, T, H, D) projections goes in as it lies.  The
+kernel takes D <= 128 and has no backward (the reference's kernel has no
+VJP): on the card, inputs that need a gradient raise.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.wkv6.ref import wkv6_ref
+
+#: Widest key/value width the kernel takes (one thread a column).
+MAX_D = 128
+
+
+def _lib():
+    fn = _build.load("wkv6").wkv6_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                       + [ctypes.c_longlong] * 3 + [ctypes.c_int]
+                       + [ctypes.c_void_p] * 3)
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(r, k, v, logw, u_rows, rows: int) -> torch.device:
+    """Validate the common contract; returns the inputs' device."""
+    shape = r.shape
+    for name, x in (("k", k), ("v", v), ("logw", logw)):
+        if x.shape != shape:
+            raise ValueError(f"wkv6: {name} has shape {tuple(x.shape)}, r "
+                             f"{tuple(shape)}")
+    D = shape[-1]
+    if u_rows.shape not in ((D,), (rows, D)):
+        raise ValueError(f"wkv6: u has shape {tuple(u_rows.shape)}, want "
+                         f"({D},) or ({rows}, {D})")
+    devs = {x.device for x in (r, k, v, logw, u_rows)}
+    if len(devs) != 1:
+        raise ValueError(f"wkv6: inputs on several devices {devs}")
+    if r.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"wkv6 takes fp32 or bf16 r/k/v, got {r.dtype}")
+    if k.dtype != r.dtype or v.dtype != r.dtype:
+        raise ValueError(f"wkv6: r, k, v must share a dtype, got {r.dtype}, "
+                         f"{k.dtype}, {v.dtype}")
+    if logw.dtype != torch.float32 or u_rows.dtype != torch.float32:
+        raise ValueError(f"wkv6 takes fp32 logw and u, got {logw.dtype}, "
+                         f"{u_rows.dtype}")
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"wkv6: unsupported device {dev}")
+    return dev
+
+
+def _launch(r, k, v, logw, u_rows, B: int, H: int, sb: int, sh: int,
+            st: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One kernel launch over B*H rows addressed by (sb, sh, st)."""
+    T, D = r.shape[-2], r.shape[-1]
+    if not 1 <= D <= MAX_D:
+        raise ValueError(f"wkv6 kernel takes 1 <= D <= {MAX_D}, got {D}")
+    strides = r.stride()
+    for name, x in (("k", k), ("v", v), ("logw", logw)):
+        if x.stride() != strides:
+            raise ValueError(f"wkv6: {name} has strides {x.stride()}, r "
+                             f"{strides}; pass one layout")
+    if strides[-1] != 1:
+        raise ValueError(f"wkv6 needs a unit stride on the last axis, got "
+                         f"strides {strides}")
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (r, k, v, logw, u_rows)):
+        raise NotImplementedError(
+            "wkv6 kernel has no backward (training is ROADMAP A.11); call "
+            "it under torch.no_grad() or torch.inference_mode()")
+    u_rows = u_rows.contiguous()
+    o = torch.empty_strided(r.shape, strides, dtype=r.dtype, device=r.device)
+    state = torch.empty((B * H, D, D), dtype=torch.float32, device=r.device)
+    launch = _lib()
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = launch(r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        logw.data_ptr(), u_rows.data_ptr(), B, H, T, D, sb,
+                        sh, st, int(r.dtype == torch.bfloat16), o.data_ptr(),
+                        state.data_ptr(), stream)
+    _build.check(status, "wkv6")
+    _build.count_launch("wkv6")
+    return o, state
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         logw: torch.Tensor, u: torch.Tensor
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """WKV6 over (BH, T, D) rows -> ``(o (BH, T, D), state (BH, D, D))``;
+    ``u`` is one bonus row per row (BH, D) or one for all (D,)."""
+    if r.ndim != 3:
+        raise ValueError(f"wkv6 wants (BH, T, D), got {tuple(r.shape)}")
+    BH, T, D = r.shape
+    dev = _check(r, k, v, logw, u, BH)
+    if dev.type == "cpu":
+        return wkv6_ref(r, k, v, logw, u)
+    u_rows = u.expand(BH, D) if u.ndim == 1 else u
+    return _launch(r, k, v, logw, u_rows, BH, 1, r.stride(0), 0, r.stride(1))
+
+
+def wkv6_heads(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               logw: torch.Tensor, u: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """WKV6 over (B, H, T, D) with a bonus row per head ``u (H, D)`` ->
+    ``(o (B, H, T, D), state (B, H, D, D))``, all heads in one launch."""
+    if r.ndim != 4:
+        raise ValueError(f"wkv6_heads wants (B, H, T, D), got "
+                         f"{tuple(r.shape)}")
+    B, H, T, D = r.shape
+    if u.shape != (H, D):
+        raise ValueError(f"wkv6_heads: u has shape {tuple(u.shape)}, want "
+                         f"({H}, {D})")
+    u_rows = u[None].expand(B, H, D).reshape(B * H, D)
+    dev = _check(r, k, v, logw, u_rows, B * H)
+    if dev.type == "cpu":
+        def fold(x):
+            return x.reshape(B * H, T, D)
+        o, s = wkv6_ref(fold(r), fold(k), fold(v), fold(logw), u_rows)
+        return o.reshape(B, H, T, D), s.reshape(B, H, D, D)
+    sb, sh, st, _ = r.stride()
+    o, s = _launch(r, k, v, logw, u_rows, B, H, sb, sh, st)
+    return o, s.reshape(B, H, D, D)

@@ -1,0 +1,72 @@
+"""Batched LM serving: prefill, then greedy decode on O(1) state.
+
+The loop of the reference's ``examples/serve_lm.py::main`` on the card:
+one prefill of the prompt batch (its last logits give the first token),
+then ``num_tokens - 1`` greedy decode steps, each from the previous
+step's argmax.  The stage walls end in ``torch.cuda.synchronize()`` on
+the card, so they time the device's work and not the enqueue.
+
+    model = api.init_params(get_config("rwkv6_1_6b"),
+                            torch.Generator("cuda").manual_seed(0))
+    res = serve(model, prompts, num_tokens=32)      # device="cuda"
+    res.tokens, res.prefill_s, res.decode_s
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List
+
+import torch
+
+from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.models import api
+
+
+@dataclasses.dataclass
+class ServeResult:
+    tokens: torch.Tensor          # (B, num_tokens) int64, greedy picks
+    logits: torch.Tensor          # (B, V) logits of the last step
+    caches: Dict                  # decode state after the last step
+    prefill_s: float              # wall of the prefill
+    decode_s: List[float]         # wall of each decode step
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def serve(model, prompts, num_tokens: int,
+          device=DEFAULT_DEVICE) -> ServeResult:
+    """Prefill ``prompts`` (B, S) token ids and decode ``num_tokens`` greedy
+    tokens on ``device`` (the card unless the caller asks for the CPU; with
+    no card it raises).  ``model`` must already lie on that device."""
+    dev = resolve_device(device)
+    if model.device.type != dev.type:
+        raise ValueError(f"model is on {model.device}, serving on {dev}")
+    if num_tokens < 1:
+        raise ValueError(f"num_tokens must be >= 1, got {num_tokens}")
+    cfg = model.cfg
+    prefill = api.make_prefill_fn(cfg)
+    decode = api.make_decode_fn(cfg)
+    tokens = torch.as_tensor(prompts, dtype=torch.int64).to(model.device)
+    S = tokens.shape[1]
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, caches = prefill(model, {"tokens": tokens})
+    tok = logits.argmax(-1)
+    _sync(dev)
+    prefill_s = time.perf_counter() - t0
+
+    out, decode_s = [tok], []
+    for i in range(num_tokens - 1):
+        t0 = time.perf_counter()
+        logits, caches = decode(model, tok, S + i, caches)
+        tok = logits.argmax(-1)
+        _sync(dev)
+        decode_s.append(time.perf_counter() - t0)
+        out.append(tok)
+    return ServeResult(tokens=torch.stack(out, 1), logits=logits,
+                       caches=caches, prefill_s=prefill_s, decode_s=decode_s)

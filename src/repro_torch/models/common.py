@@ -1,10 +1,13 @@
-"""Shared model building blocks (PyTorch): the reference's fan-in init.
+"""Shared model building blocks (PyTorch): init, norms, dtype policy.
 
-Counterpart of ``repro.models.common.dense_init``; the norms, RoPE and the
-dtype policy wait for the LM side (ROADMAP A.11).  The port's random
-streams differ from ``jax.random``: weights that must agree with the
-reference are carried across with :func:`repro_torch.convert.
-planner_from_reference`.
+Counterpart of ``repro.models.common`` (``dtype_of``, ``dense_init``,
+``embed_init``, ``rmsnorm``, ``layernorm``, ``init_norm``, ``apply_norm``).
+RoPE, the activations and the cross entropy wait for the attention models
+and training (ROADMAP A.11).  The reference's sharding hints
+(``shard_hint``, ``shard_hint_spec``, ``BATCH_AXES``) have no counterpart:
+the port runs a model on one card.  The port's random streams differ from
+``jax.random``: weights that must agree with the reference are carried
+across with :mod:`repro_torch.convert`.
 """
 from __future__ import annotations
 
@@ -13,18 +16,82 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def draw_device(generator: Optional[torch.Generator], device):
+    """Where a weight is drawn: ``device`` if given, else the generator's
+    own device (a torch generator draws only on its device), else the CPU."""
+    if device is not None:
+        return torch.device(device)
+    return generator.device if generator is not None else torch.device("cpu")
+
 
 def dense_init(generator: Optional[torch.Generator], shape: Sequence[int],
-               in_axis: int = 0, dtype=torch.float32) -> torch.Tensor:
+               in_axis: int = 0, dtype=torch.float32,
+               device=None) -> torch.Tensor:
     """Truncated-normal fan-in init: N(0, 1/fan_in) cut at two standard
     deviations (``jax.random.truncated_normal(key, -2, 2) * std``; torch's
-    bounds are absolute, hence ``a=-2*std, b=2*std``)."""
+    bounds are absolute, hence ``a=-2*std, b=2*std``).  Drawn in fp32 on
+    the generator's device; on the ``meta`` device only the shape is made."""
     fan_in = shape[in_axis]
     std = (1.0 / max(fan_in, 1)) ** 0.5
-    out = torch.empty(tuple(shape), dtype=torch.float32)
-    nn.init.trunc_normal_(out, 0.0, std, -2.0 * std, 2.0 * std,
-                          generator=generator)
+    dev = draw_device(generator, device)
+    out = torch.empty(tuple(shape), dtype=torch.float32, device=dev)
+    if dev.type != "meta":
+        nn.init.trunc_normal_(out, 0.0, std, -2.0 * std, 2.0 * std,
+                              generator=generator)
     return out.to(dtype)
+
+
+def embed_init(generator: Optional[torch.Generator], shape: Sequence[int],
+               dtype=torch.float32, device=None) -> torch.Tensor:
+    """N(0, 0.02^2), drawn in fp32 on the generator's device, cast."""
+    dev = draw_device(generator, device)
+    out = torch.empty(tuple(shape), dtype=torch.float32, device=dev)
+    if dev.type != "meta":
+        out.normal_(0.0, 0.02, generator=generator)
+    return out.to(dtype)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm over the last axis, computed in fp32 and cast back."""
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps)
+    return (x * scale.float()).to(dt)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm over the last axis, computed in fp32 and cast back."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = (x - mu).square().mean(-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dt)
+
+
+def init_norm(cfg, dtype, device=None) -> nn.ParameterDict:
+    """A norm's parameters, named as the reference's ``init_norm``:
+    ``scale`` (ones) and, for ``layernorm``, ``bias`` (zeros)."""
+    p = {"scale": torch.ones(cfg.d_model, dtype=dtype, device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros(cfg.d_model, dtype=dtype, device=device)
+    return nn.ParameterDict({k: nn.Parameter(v) for k, v in p.items()})
+
+
+def apply_norm(params, x: torch.Tensor, cfg) -> torch.Tensor:
+    if cfg.norm == "layernorm":
+        return layernorm(x, params["scale"], params["bias"])
+    return rmsnorm(x, params["scale"])
 
 
 def dense_linear(c_in: int, c_out: int, generator: Optional[torch.Generator],

@@ -6,14 +6,17 @@ also run on a machine that has only PyTorch and the CUDA toolkit:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
-Every comparison is exact: the kernels are built with ``--fmad=false`` and
-keep the plain versions' operation order, and the SACT planes put pairs
-that graze a separating plane on their diagonal.
+The collision and sampling comparisons are exact: those kernels are built
+with ``--fmad=false`` and keep the plain versions' operation order, and
+the SACT planes put pairs that graze a separating plane on their
+diagonal.  ``wkv6`` sums its dot products in another order than its plain
+version and is held to ``kernels/wkv6/cases.py::TOL``.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.base import get_smoke_config
 from repro_torch.core.geometry import OBBs, rotation_from_euler
 from repro_torch.core.octree import build_octree, device_octree
 from repro_torch.core.pipeline import plan_with_collision_gate
@@ -35,7 +38,12 @@ from repro_torch.kernels.sact.ref import sact_ref
 from repro_torch.kernels.traverse import ops as traverse_ops
 from repro_torch.kernels.traverse.cases import grazing_frontier
 from repro_torch.kernels.traverse.ref import traverse_test_ref
+from repro_torch.kernels.wkv6 import ops as wkv6_ops
+from repro_torch.kernels.wkv6.cases import hard_cases, make_case, within_tol
+from repro_torch.kernels.wkv6.ref import wkv6_ref
+from repro_torch.models import api as lm_api
 from repro_torch.models.planner import Planner
+from repro_torch.models.transformer import LM
 
 pytestmark = pytest.mark.gpu
 
@@ -246,3 +254,89 @@ def test_cuda_planner_path_matches_cpu(cuda, sampling):
         assert launched == want
     np.testing.assert_allclose(runs[0].trajectory, runs[1].trajectory,
                                rtol=1e-4, atol=1e-4)
+
+
+def _wkv6_inputs(case, dev, dtype):
+    r, k, v = (torch.from_numpy(case[n]).to(dev, dtype) for n in "rkv")
+    logw, u = (torch.from_numpy(case[n]).to(dev) for n in ("logw", "u"))
+    return r, k, v, logw, u
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", hard_cases(), ids=lambda c: c["name"])
+def test_wkv6_kernel_matches_plain(cuda, case, dtype):
+    ins = _wkv6_inputs(case, cuda, dtype)
+    before = _build.launch_counts()["wkv6"]
+    o, s = wkv6_ops.wkv6(*ins)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["wkv6"] == before + 1
+    assert o.dtype == dtype and s.dtype == torch.float32
+    assert bool(o.isfinite().all()) and bool(s.isfinite().all())
+    want_o, want_s = wkv6_ref(*ins)
+    assert within_tol(o, want_o, str(dtype)[6:]) <= 0
+    assert within_tol(s, want_s, "float32") <= 0
+
+
+@pytest.mark.parametrize("D", [8, 64, 100, 128])
+def test_wkv6_heads_kernel_reads_the_model_layout(cuda, D):
+    """(B, H, T, D) views of (B, T, H, D) projections, a bonus row per
+    head, one launch for all heads."""
+    B, H, T = 2, 3, 45
+    case = make_case(B * H, T, D, per_row_u=False, seed=D)
+    u = torch.from_numpy(np.random.RandomState(D).normal(
+        size=(H, D)).astype(np.float32)).to(cuda)
+    views = [torch.from_numpy(case[n]).to(cuda).reshape(B, H, T, D)
+             .transpose(1, 2).contiguous().transpose(1, 2)
+             for n in ("r", "k", "v", "logw")]
+    before = _build.launch_counts()["wkv6"]
+    o, s = wkv6_ops.wkv6_heads(*views, u)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["wkv6"] == before + 1
+    assert o.stride() == views[0].stride() and s.shape == (B, H, D, D)
+    fold = [x.reshape(B * H, T, D) for x in views]
+    want_o, want_s = wkv6_ref(*fold, u[None].expand(B, H, D).reshape(-1, D))
+    assert within_tol(o.reshape(B * H, T, D), want_o, "float32") <= 0
+    assert within_tol(s.reshape(B * H, D, D), want_s, "float32") <= 0
+
+
+def test_wkv6_kernel_rejects_what_it_cannot_run(cuda):
+    case = make_case(2, 8, 16, seed=1)
+    r, k, v, logw, u = _wkv6_inputs(case, cuda, torch.float32)
+    with pytest.raises(ValueError, match="unit stride"):
+        wkv6_ops.wkv6(*(x.transpose(1, 2).contiguous().transpose(1, 2)
+                        for x in (r, k, v, logw)), u)
+    with pytest.raises(ValueError, match="one layout"):
+        wkv6_ops.wkv6(r, k.transpose(0, 1).contiguous().transpose(0, 1), v,
+                      logw, u)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        wkv6_ops.wkv6(r.requires_grad_(), k, v, logw, u)
+    big = torch.zeros((1, 4, 129), device=cuda)
+    with pytest.raises(ValueError, match="D <= 128"):
+        wkv6_ops.wkv6(big, big, big, big, torch.zeros(129, device=cuda))
+
+
+def test_cuda_rwkv_serving_matches_cpu(cuda, monkeypatch):
+    """The smoke model's prefill and decode on the card against the CPU:
+    one ``wkv6`` launch per layer in prefill, none in decode."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_smoke_config("rwkv6_1_6b")
+    cpu = LM(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = LM(cfg, torch.Generator().manual_seed(0), device=cuda)
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (2, 40)))
+    prefill, decode = (lm_api.make_prefill_fn(cfg),
+                       lm_api.make_decode_fn(cfg))
+    before = _build.launch_counts()["wkv6"]
+    logits, caches = prefill(card, {"tokens": tokens.to(cuda)})
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["wkv6"] == before + cfg.num_layers
+    want_logits, want_caches = prefill(cpu, {"tokens": tokens})
+    tok = torch.tensor([3, 7])
+    step, _ = decode(card, tok.to(cuda), 40, caches)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["wkv6"] == before + cfg.num_layers
+    want_step, _ = decode(cpu, tok, 40, want_caches)
+    for got, want in [(logits, want_logits), (step, want_step)] + [
+            (caches[key], want_caches[key]) for key in want_caches]:
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-4, atol=1e-4)
