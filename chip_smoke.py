@@ -75,9 +75,33 @@ non-zero and prints no result):
    tokens/s, peak memory, a profiled serve's busy share, the kernel's time
    per launch against its bound and its plain version, and the
    prefill/decode consistency of the logits (``LM_CONSIST_ATOL``);
-18. one JSON line listing every kernel with its launches on the main paths
-   (``launches``) and elsewhere (``check_launches``), error, times and
-   bound; the last line is ``{"ok": true, "device": {...}}``.
+18. ``flash_attention`` kernel vs its plain version on
+   ``kernels/flash_attention/cases.py`` (d = 16, 64, 128; causal with
+   Tq = Tk = 1, 63, 64, 65, 1024, 1025; non-causal Tq != Tk; 1, 4 and 16
+   query heads a KV head; (B, H, T, d) tensors and (B, H, T, d) views of
+   (B, T, H, d) ones; large-magnitude scores), fp32 and bf16, within
+   ``cases.TOL``;
+19. the GLM-4 9B model at full width cut to 2 of its 40 layers, in fp32
+   (TF32 off), weights drawn on the card and copied to a CPU twin: B = 2,
+   a 64-token prompt and 4 teacher-forced decode steps, logits and the k
+   and v caches within ``LM_FP32_TOL``;
+20. the GLM-4 9B serving path: ``lm.serve.serve`` on the full 40-layer
+   bf16 ``glm4_9b`` (weights drawn on the card from a seeded generator), 8
+   prompts of 1024 tokens and 32 greedy tokens; launch counts set to 0
+   just before it and read just after (40 ``flash_attention`` a prefill,
+   0 in decode, every other kernel 0); the kernel against its plain
+   version on the 40 prefill inputs a recorder captured; warm prefill and
+   decode walls (median of 10 serves), tokens/s, peak memory, a profiled
+   serve's busy share, the kernel's time per launch against its bound, its
+   plain version and ``scaled_dot_product_attention`` (the yardstick,
+   never used by the port), and the prefill/decode consistency of the
+   logits at 1025 tokens (``LM_CONSIST_ATOL``);
+21. one JSON line listing every kernel with its launches on the main paths
+   (``launches``, phases 8, 13, 17 and 20) and elsewhere
+   (``check_launches``), error, times and bound; the last line is
+   ``{"ok": true, "device": {...}}``.
+
+Each phase from 15 on prints its seconds.
 
 It imports nothing of the JAX package.
 """
@@ -92,9 +116,11 @@ import sys
 import time
 from pathlib import Path
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and non-tensor fp32.
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, non-tensor fp32 and
+# dense bf16 on the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+PEAK_BF16_PER_S = 989e12
 
 # fp32 operations the SACT runs per pair (adds, multiplies, compares,
 # min/max; abs is a sign-bit op and not counted): setup t and |R| + eps,
@@ -121,6 +147,11 @@ LM_FP32_TOL = dict(rtol=1e-4, atol=1e-4)
 LM_CONSIST_ATOL = 0.25
 LM_BATCH, LM_PROMPT, LM_TOKENS = 8, 1024, 32
 LM_CUT_LAYERS, LM_CUT_BATCH, LM_CUT_PROMPT, LM_CUT_STEPS = 2, 2, 64, 4
+# GLM-4 9B serving (phases 19-20) uses the same sizes and tolerances, so the
+# two LM paths read alike: the same reasons hold (fp32 products summed in
+# another order; bf16 roundings that cuBLAS places differently for 8 rows
+# than for 8,192, and here also the kernel's bf16 softmax weights, carried
+# through 40 layers).
 
 
 def log(phase: str, msg: str) -> None:
@@ -197,6 +228,7 @@ def main() -> int:
                     help="comma-separated environments for phases 5-8 "
                          "(the first one also serves phases 6, 9 and 10)")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
     if not torch.cuda.is_available():
@@ -220,6 +252,9 @@ def main() -> int:
     from repro_torch.kernels.ballquery.ref import ball_query_ref
     from repro_torch.kernels.compact import ops as compact_ops
     from repro_torch.kernels.compact.ref import compact_ref
+    from repro_torch.kernels.flash_attention import cases as flash_cases
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.fps import ops as fps_ops
     from repro_torch.kernels.fps.cases import tie_cloud
     from repro_torch.kernels.fps.ref import fps_ref
@@ -969,6 +1004,14 @@ def main() -> int:
     add_check_launches()
 
     # ---- 15. wkv6 vs plain on the hard cases -------------------------------
+    clock = [time.perf_counter()]
+
+    def lap() -> float:
+        """Seconds since the last lap (phases 15-17 together, then each)."""
+        now = time.perf_counter()
+        secs, clock[0] = now - clock[0], now
+        return secs
+
     n_cases = 0
     for case in hard_cases():
         for dtype in (torch.float32, torch.bfloat16):
@@ -1203,9 +1246,269 @@ def main() -> int:
         + "; ".join(f"{e.key[:48]} {device_us(e) / 1e3:.3f} ms x{e.count}"
                     for e in top) + f" | {card}")
     del lm, rec_w, calls
+    log("17 rwkv6 serve", f"phases 15-17 took {lap():.1f} s")
 
-    # ---- 18. result -------------------------------------------------------
-    # launches on every main path (phases 8, 13 and 17) and in the checks
+    # ---- 18. flash_attention vs plain on the hard cases --------------------
+    n_cases = 0
+    for case in flash_cases.hard_cases():
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_cases.tensors(case, cuda, dtype)
+            o = flash_ops.flash_attention(q, k, v, case["causal"])
+            want = attention_ref(q, k, v, case["causal"])
+            torch.cuda.synchronize()
+            dname = str(dtype)[6:]
+            ex = flash_cases.within_tol(o, want, dname, case["score_scale"])
+            if ex > 0 or not bool(o.isfinite().all()):
+                raise SystemExit(f"FAIL: flash_attention differs from plain "
+                                 f"on {case['name']} {dname} (excess "
+                                 f"{ex:.3g} over the tolerance)")
+            n_cases += 1
+    add_check_launches()
+    log("18 flash_attention", f"kernel within cases.TOL of plain on {n_cases} "
+        "cases (d 16/64/128; causal T 1/63/64/65/1024/1025; non-causal "
+        "Tq != Tk; groups 1/4/16; strided views; x8 scores; fp32 and bf16) "
+        f"in {lap():.1f} s")
+
+    # ---- 19. GLM-4 9B, 2 layers at full width, fp32, card vs CPU ----------
+    g_full = get_config("glm4_9b")
+    g_cut = g_full.replace(num_layers=LM_CUT_LAYERS, param_dtype="float32",
+                           compute_dtype="float32")
+    t0 = time.perf_counter()
+    g_card = lm_api.init_params(
+        g_cut, torch.Generator(device=cuda).manual_seed(7), device=cuda)
+    g_cpu = lm_api.init_params(g_cut, device="meta").to_empty(device="cpu")
+    g_cpu.load_state_dict(g_card.state_dict())
+    t_init = time.perf_counter() - t0
+    rs = np.random.RandomState(1)
+    toks = torch.from_numpy(rs.randint(0, g_cut.vocab_size,
+                                       (LM_CUT_BATCH, LM_CUT_PROMPT)))
+    forced = torch.from_numpy(rs.randint(0, g_cut.vocab_size,
+                                         (LM_CUT_STEPS, LM_CUT_BATCH)))
+    prefill_g = lm_api.make_prefill_fn(g_cut, LM_CUT_PROMPT + LM_CUT_STEPS)
+    decode_g = lm_api.make_decode_fn(g_cut)
+    g_err = {}
+
+    def compare(tag, got, want):
+        """Logits and every cache tensor, card against CPU, now: the
+        attention caches are written in place by the next step."""
+        lg, cg = got
+        lh, ch = want
+        pairs = [("logits", lg, lh)] + [
+            (f"kv.{key}", cg["kv"][key], ch["kv"][key]) for key in "kv"]
+        for key, a, b in pairs:
+            a = a.cpu()
+            if not (a.shape == b.shape and torch.allclose(a, b,
+                                                          **LM_FP32_TOL)):
+                raise SystemExit(f"FAIL: glm4 2-layer fp32 {tag} {key}: card "
+                                 f"vs CPU beyond {LM_FP32_TOL} (max err "
+                                 f"{float((a - b).abs().max()):.3g})")
+            g_err[key] = max(g_err.get(key, 0.0), float((a - b).abs().max()))
+
+    got = prefill_g(g_card, {"tokens": toks.to(cuda)})
+    want = prefill_g(g_cpu, {"tokens": toks})
+    compare("prefill", got, want)
+    for i, tok in enumerate(forced):
+        got = decode_g(g_card, tok.to(cuda), LM_CUT_PROMPT + i, got[1])
+        want = decode_g(g_cpu, tok, LM_CUT_PROMPT + i, want[1])
+        compare(f"step {i}", got, want)
+    del g_card, g_cpu, got, want
+    add_check_launches()
+    log("19 glm4 fp32", f"full width, {LM_CUT_LAYERS} layers, B="
+        f"{LM_CUT_BATCH}, prompt {LM_CUT_PROMPT}, {LM_CUT_STEPS} "
+        f"teacher-forced steps: card == CPU within {LM_FP32_TOL}; max err "
+        + ", ".join(f"{k} {v:.3g}" for k, v in g_err.items())
+        + f" | weights drawn on the card and copied to the CPU in "
+        f"{t_init:.1f} s | {lap():.1f} s | {card}")
+
+    # ---- 20. GLM-4 9B serving at full width -------------------------------
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    glm = lm_api.init_params(g_full,
+                             torch.Generator(device=cuda).manual_seed(0),
+                             device=cuda)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_weights = sum(p.numel() for p in glm.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in glm.parameters())
+    prompts = np.random.RandomState(0).randint(
+        0, g_full.vocab_size, (LM_BATCH, LM_PROMPT))
+    serve(glm, prompts, 2)                                  # warm-up
+    add_check_launches()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    res = serve(glm, prompts, LM_TOKENS)
+    counts = _build.launch_counts()
+    _build.reset_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for name, n in counts.items():
+        main_launches[name] += n
+    want = {name: (g_full.num_layers if name == "flash_attention" else 0)
+            for name in counts}
+    if counts != want:
+        raise SystemExit(f"FAIL: glm4 serve launched {counts}, want {want} "
+                         "(one flash_attention per layer in the prefill, "
+                         "none in decode)")
+    with torch.inference_mode():                 # the next free KV slot
+        glm.lm_decode_step(res.tokens[:, -1], LM_PROMPT + LM_TOKENS - 1,
+                           res.caches)
+    torch.cuda.synchronize()
+    if any(_build.launch_counts().values()):
+        raise SystemExit(f"FAIL: a glm4 decode step launched "
+                         f"{_build.launch_counts()}")
+    gen_toks = res.tokens.cpu()
+    kv_shape = tuple(res.caches["kv"]["k"].shape)
+    if not (gen_toks.shape == (LM_BATCH, LM_TOKENS)
+            and bool(((gen_toks >= 0)
+                      & (gen_toks < g_full.vocab_size)).all())
+            and bool(res.logits.float().isfinite().all())
+            and kv_shape == (g_full.num_layers, LM_BATCH,
+                             LM_PROMPT + LM_TOKENS, g_full.num_kv_heads,
+                             g_full.hd)):
+        raise SystemExit(f"FAIL: glm4 serve: bad tokens, logits or caches "
+                         f"{kv_shape}")
+    # the kernel on the 40 prefill inputs of one serve, against its plain
+    # version on the same inputs
+    with Recorder({"flash": (flash_ops, "flash_attention")}) as rec_f:
+        serve(glm, prompts, 1)
+    add_check_launches()
+    calls = rec_f.calls["flash"]
+    if len(calls) != g_full.num_layers:
+        raise SystemExit(f"FAIL: recorder saw {len(calls)} flash_attention "
+                         "calls")
+    fa_err = 0.0
+    with torch.inference_mode():
+        for li, (fn, ca, ck) in enumerate(calls):
+            o = fn(*ca, **ck)
+            wo = attention_ref(*ca, **ck)
+            ex = flash_cases.within_tol(o, wo, "bfloat16")
+            if ex > 0:
+                raise SystemExit(f"FAIL: flash_attention differs from plain "
+                                 f"on layer {li}'s prefill input (excess "
+                                 f"{ex:.3g})")
+            fa_err = max(fa_err, float((o.float() - wo.float()).abs().max()))
+        fn, ca, ck = calls[0]
+        q, k, v = ca[:3]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib_err = float((sdpa(q, k, v, is_causal=True, enable_gqa=True)
+                         .float() - attention_ref(q, k, v).float())
+                        .abs().max())
+        ms = cuda_time_ms(lambda: fn(*ca, **ck), 20)
+        plain_ms = cuda_time_ms(lambda: attention_ref(*ca, **ck), 2)
+        lib_ms = cuda_time_ms(
+            lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), 20)
+    add_check_launches()
+    Bq, Hq, T, d = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    # read once: q, k, v; written once: o (all bf16).  Operations: per
+    # query row i and key j <= i, q.k and p*v, 2 d products and 2 d sums
+    # on the bf16 tensor cores; the softmax (scale, max, exp, sum,
+    # rescale: ~6 fp32 operations a pair) runs beside them on the CUDA
+    # cores, so the least time is the larger of the two.
+    pairs = sum(min(i + 1, Tk) for i in range(T)) * Bq * Hq
+    fa_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    fa_mma, fa_fp32 = 4 * d * pairs, 6 * pairs
+    t_bytes = fa_bytes / PEAK_BYTES_PER_S
+    t_ops = max(fa_mma / PEAK_BF16_PER_S, fa_fp32 / PEAK_FP32_PER_S)
+    fa_bound, fa_by = (1e3 * max(t_bytes, t_ops),
+                       "bytes" if t_bytes >= t_ops else "operations")
+    lines.append(dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/flash_attn.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:25",
+        max_abs_err=fa_err, ms=ms, plain_ms=plain_ms, bound_ms=fa_bound,
+        bound_by=fa_by, library_ms=lib_ms))
+    # warm walls: 10 serves
+    pre, dec = [], []
+    for _ in range(10):
+        rr = serve(glm, prompts, LM_TOKENS)
+        pre.append(rr.prefill_s)
+        dec.append(statistics.mean(rr.decode_s))
+    del rr
+    add_check_launches()
+    pre_ms, dec_ms = (1e3 * statistics.median(x) for x in (pre, dec))
+    # prefill/decode consistency: decode token S+1 after prefilling S
+    # tokens against the last logits of a forward pass over S+1 tokens
+    tokens = torch.from_numpy(prompts).to(cuda)
+    logits, caches = lm_api.make_prefill_fn(g_full)(glm, {"tokens": tokens})
+    nxt = logits.argmax(-1)
+    step, _ = lm_api.make_decode_fn(g_full)(glm, nxt, LM_PROMPT, caches)
+    with torch.inference_mode():
+        full, _ = glm.lm_forward(torch.cat([tokens, nxt[:, None]], 1),
+                                 last_only=True)
+    step, full = step.float(), full[:, -1].float()
+    del caches
+    delta = float((step - full).abs().max())
+    top2 = full.topk(2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    agree = step.argmax(-1) == full.argmax(-1)
+    near_tie = gap <= 2 * delta
+    if not (delta <= LM_CONSIST_ATOL and bool((agree | near_tie).all())):
+        raise SystemExit(f"FAIL: glm4 prefill/decode consistency: max|d| "
+                         f"{delta:.4g} (bound {LM_CONSIST_ATOL}), greedy "
+                         f"agrees on {int(agree.sum())} of {LM_BATCH} rows")
+    add_check_launches()
+    # busy share: one warm prefill alone, then one warm serve; decode's
+    # share is the difference of the two
+    traced = []
+    for n_tok in (1, LM_TOKENS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            serve(glm, prompts, n_tok)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        on_card = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        traced.append((wall, sum(device_us(e) for e in on_card) / 1e6,
+                       sum(e.count for e in on_card), on_card))
+    add_check_launches()
+    (w_pre, d_pre, n_pre, on_pre), (w_all, d_all, n_all, on_card) = traced
+    top_pre = sorted(on_pre, key=device_us, reverse=True)[:5]
+    top = sorted(on_card, key=device_us, reverse=True)[:5]
+    log("20 glm4 serve", f"{g_full.name}: {n_weights} weights, "
+        f"{w_bytes / 1e9:.3f} GB bf16, drawn on the card in {t_init:.1f} s "
+        f"| B={LM_BATCH} prompt {LM_PROMPT}, {LM_TOKENS} greedy tokens, KV "
+        f"caches {kv_shape} | main-path launches {counts} (decode step: 0) "
+        f"| warm median prefill {pre_ms:.3f} ms, decode {dec_ms:.3f} "
+        f"ms/token, {LM_BATCH / (dec_ms / 1e3):.1f} tokens/s | peak mem "
+        f"{peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB held before the "
+        f"serve, of which {base / 2**30:.3f} GiB before the model) | {card}")
+    log("20 glm4 serve", f"flash_attention on the {len(calls)} captured "
+        f"prefill inputs (B={Bq}, Hq={Hq}, Hkv={Hkv}, T={T}, d={d}, "
+        f"{q.dtype}, q strides {q.stride()}, v strides {v.stride()}): "
+        f"kernel within cases.TOL of plain, max abs err {fa_err:.4g}; "
+        f"kernel {ms:.4f} ms a launch ({g_full.num_layers * ms:.3f} ms a "
+        f"prefill), plain on card {plain_ms:.3f} ms, "
+        f"scaled_dot_product_attention(enable_gqa) {lib_ms:.4f} ms (max abs "
+        f"diff to plain {lib_err:.4g}), bound {fa_bound:.5f} ms ({fa_by}: "
+        f"{fa_bytes} B, {fa_mma} bf16 tensor ops, {fa_fp32} fp32 ops) | "
+        f"{card}")
+    log("20 glm4 serve", f"prefill/decode consistency at {LM_PROMPT + 1} "
+        f"tokens: max|d| logits {delta:.4g} (bound {LM_CONSIST_ATOL}), "
+        f"greedy agrees on {int(agree.sum())} of {LM_BATCH} rows, smallest "
+        f"top-2 gap {float(gap.min()):.4g}, logits std "
+        f"{float(full.std()):.3f}")
+    log("20 glm4 serve", f"torch.profiler: a warm prefill, traced wall "
+        f"{1e3 * w_pre:.3f} ms, device time {1e3 * d_pre:.3f} ms (busy "
+        f"{100 * d_pre / w_pre:.1f} %), {n_pre} kernels and copies, largest: "
+        + "; ".join(f"{e.key[:48]} {device_us(e) / 1e3:.3f} ms x{e.count}"
+                    for e in top_pre)
+        + f" | its {LM_TOKENS - 1} decode steps, traced wall "
+        f"{1e3 * (w_all - w_pre):.3f} ms, device time "
+        f"{1e3 * (d_all - d_pre):.3f} ms (busy "
+        f"{100 * (d_all - d_pre) / (w_all - w_pre):.1f} %), "
+        f"{(n_all - n_pre) // (LM_TOKENS - 1)} kernels and copies a token; "
+        f"largest over the serve: "
+        + "; ".join(f"{e.key[:48]} {device_us(e) / 1e3:.3f} ms x{e.count}"
+                    for e in top) + f" | {lap():.1f} s | {card}")
+    del glm, rec_f, calls, q, k, v, res
+
+    # ---- 21. result -------------------------------------------------------
+    # launches on every main path (phases 8, 13, 17 and 20) and in the checks
+    log("21 result", f"whole script {time.perf_counter() - t_start:.1f} s")
     for line in lines:
         line["launches"] = main_launches[line["name"]]
         line["check_launches"] = check_launches[line["name"]]

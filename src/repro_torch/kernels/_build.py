@@ -9,10 +9,13 @@ an edited kernel never loads a stale library.  Libraries land in
 ``build/repro_torch/<hash>/`` at the root of the checkout (or under
 ``$REPRO_TORCH_BUILD_DIR``).
 
-``--fmad=false`` keeps every ``a*b+c`` two roundings, as in the plain
-PyTorch versions: the collision and sampling kernels must agree with them
-bit for bit; ``wkv6``, which sums its dot products in another order, to
-the tolerance stated in ``kernels/wkv6/cases.py``.
+Every kernel builds with the same flags.  ``--fmad=false`` keeps every
+``a*b+c`` two roundings, as in the plain PyTorch versions: the collision
+and sampling kernels must agree with them bit for bit; ``wkv6`` and
+``flash_attention``, which sum their dot products in another order (and
+``flash_attention``'s bf16 products on the tensor cores, which the flag does
+not touch), to the tolerances stated in ``kernels/wkv6/cases.py`` and
+``kernels/flash_attention/cases.py``.
 
 Each wrapper counts its launches here (:func:`count_launch`), so a run can
 show that its main path really went through the kernels.
@@ -40,6 +43,7 @@ SOURCES: Dict[str, str] = {
     "fps": "kernels/fps/csrc/fps.cu",
     "ballquery": "kernels/ballquery/csrc/ballquery.cu",
     "wkv6": "kernels/wkv6/csrc/wkv6.cu",
+    "flash_attention": "kernels/flash_attention/csrc/flash_attn.cu",
 }
 
 NVCC_FLAGS: List[str] = [

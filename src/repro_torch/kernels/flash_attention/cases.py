@@ -1,0 +1,104 @@
+"""Inputs that stress the flash-attention kernel, and its tolerance.
+
+Shared by the CPU tests and the card checks (``chip_smoke.py``,
+``tests/test_torch_kernels_gpu.py``).  Each case is a dict of numpy
+float32 arrays ``q`` (B, Hq, Tq, d), ``k`` and ``v`` (B, Hkv, Tk, d), with
+its ``name``, ``causal``, ``layout`` and ``score_scale``; :func:`tensors`
+turns one into torch tensors in the layout it names.
+"""
+from __future__ import annotations
+
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+#: Head widths: the smoke config's 16, 64, and glm4's 128.
+WIDTHS = (16, 64, 128)
+#: Causal lengths (Tq = Tk): one token, around the 64-row tile, the
+#: full-width prefill's 1024 and one past it (the consistency check's).
+CAUSAL_LENGTHS = (1, 63, 64, 65, 1024, 1025)
+#: Query heads per KV head: plain multi-head, the smoke config's 4,
+#: glm4's 16.
+GROUPS = (1, 4, 16)
+#: Non-causal Tq != Tk pairs: ragged on both axes, a single query.
+CROSS_LENGTHS = ((40, 72), (100, 37), (1, 130))
+#: q and k times this in the large-magnitude cases: scores with a standard
+#: deviation of ~64, so the running max moves by large steps and the
+#: rescale ``exp(m_prev - m_new)`` matters.
+LARGE = 8.0
+
+
+def make_case(B: int, Hkv: int, group: int, Tq: int, Tk: int, d: int,
+              causal: bool, layout: str = "bhtd", scale: float = 1.0,
+              seed: int = 0) -> Dict:
+    """``layout`` ``"bthd"`` asks :func:`tensors` for (B, H, T, d) views of
+    (B, T, H, d) tensors, as the model hands over its projections."""
+    rs = np.random.RandomState(seed)
+    f32 = np.float32
+    Hq = Hkv * group
+    return dict(
+        name=f"B={B} Hq={Hq} Hkv={Hkv} Tq={Tq} Tk={Tk} d={d} "
+             f"{'causal' if causal else 'full'} {layout}"
+             + (f" x{scale:g}" if scale != 1.0 else ""),
+        q=(rs.normal(size=(B, Hq, Tq, d)) * scale).astype(f32),
+        k=(rs.normal(size=(B, Hkv, Tk, d)) * scale).astype(f32),
+        v=rs.normal(size=(B, Hkv, Tk, d)).astype(f32),
+        causal=causal, layout=layout, score_scale=scale * scale)
+
+
+def hard_cases() -> List[Dict]:
+    """Every width with every causal length (the group and the layout
+    cycling), ragged non-causal pairs, and large-magnitude scores."""
+    out = []
+    seed = 0
+    for d in WIDTHS:
+        for i, T in enumerate(CAUSAL_LENGTHS):
+            seed += 1
+            group = GROUPS[(i + d // 16) % len(GROUPS)]
+            B, Hkv = (1, 1) if T >= 1024 else (2, 2)
+            out.append(make_case(B, Hkv, group, T, T, d, True,
+                                 ("bhtd", "bthd")[i % 2], seed=seed))
+        for Tq, Tk in CROSS_LENGTHS:
+            seed += 1
+            out.append(make_case(2, 1, 4, Tq, Tk, d, False, "bthd",
+                                 seed=seed))
+        seed += 1
+        out.append(make_case(1, 2, 16, 200, 200, d, True, "bthd",
+                             scale=LARGE, seed=seed))
+    return out
+
+
+def tensors(case: Dict, device, dtype=torch.float32):
+    """(q, k, v) as (B, H, T, d) tensors on ``device`` in ``dtype``; for the
+    ``bthd`` layout, views of (B, T, H, d) tensors."""
+    out = []
+    for n in "qkv":
+        x = torch.from_numpy(case[n]).to(device, dtype)
+        if case["layout"] == "bthd":
+            x = x.transpose(1, 2).contiguous().transpose(1, 2)
+        out.append(x)
+    return tuple(out)
+
+
+#: Kernel against its plain version, as ``|got - want| <= atol * scale +
+#: rtol * |want|`` with ``scale = max(1, score_scale)``.  fp32: the kernel
+#: sums each score's d products and each output's Tk terms in another order
+#: than the plain version's matrix products, a few roundings of 2**-24
+#: relative to the largest score, which the softmax carries to the output
+#: (hence the score scale).  bf16: the kernel rounds the softmax weights to
+#: bf16 for the tensor-core product (2**-9 relative each), and the output
+#: to bf16, which that difference may flip: two bf16 ulps at |o| <= 1.
+TOL = {"float32": dict(atol=1e-5, rtol=1e-5),
+       "bfloat16": dict(atol=1.6e-2, rtol=1.6e-2)}
+
+
+def within_tol(got, want, dtype_name: str, score_scale: float = 1.0
+               ) -> float:
+    """The largest excess over the tolerance (<= 0 passes), as a float."""
+    tol = TOL[dtype_name]
+    got, want = got.float(), want.float()
+    if not want.numel():
+        return 0.0
+    bound = tol["atol"] * max(1.0, score_scale) + tol["rtol"] * want.abs()
+    return float(((got - want).abs() - bound).max())

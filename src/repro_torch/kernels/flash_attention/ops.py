@@ -1,0 +1,112 @@
+"""Dispatch for the flash-attention kernel.
+
+:func:`flash_attention` runs the CUDA kernel (``csrc/flash_attn.cu``: one
+CTA per 64-row query tile, an online softmax over 64-key tiles, the
+causal loop stopping at the diagonal) on CUDA tensors and the plain
+version (:func:`repro_torch.kernels.flash_attention.ref.attention_ref`) on
+CPU tensors; a build or launch failure raises, and so do what the kernel
+cannot run: another head width than 16, 32, 64 or 128, mixed devices or
+dtypes, and inputs that need a gradient (the kernel has no backward, as
+the reference's has none; training is ROADMAP A.11).
+
+q (B, Hq, Tq, d), k and v (B, Hkv, Tk, d), fp32 or bf16, are read through
+their strides: the (B, H, T, d) views of a model's (B, T, H, d)
+projections go in as they lie, with no copy.  Each needs a unit stride on
+d and its other strides in whole 16-byte steps (the kernel's vector
+loads).  The output is (B, Hq, Tq, d) in q's dtype, a view of a
+(B, Tq, Hq, d) tensor, which a model's output projection reads as it lies.
+The reference wrapper's ``bq``, ``bk`` and ``interpret`` are TPU tiling
+choices and not part of this signature.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+#: Head widths the kernel is built for.
+WIDTHS = (16, 32, 64, 128)
+
+
+def _lib():
+    fn = _build.load("flash_attention").flash_attn_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                       + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q, k, v) -> None:
+    if not (q.ndim == k.ndim == v.ndim == 4):
+        raise ValueError(f"flash_attention wants (B, H, T, d) tensors, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, Hq, _, d = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != d:
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")
+    Hkv, Tk = k.shape[1], k.shape[2]
+    if Hkv < 1 or Hq % Hkv:
+        raise ValueError(f"flash_attention: {Hq} query heads are no "
+                         f"multiple of {Hkv} KV heads")
+    if Tk < 1:
+        raise ValueError("flash_attention needs at least one key")
+    if d not in WIDTHS:
+        raise ValueError(f"flash_attention kernel takes head width d in "
+                         f"{WIDTHS}, got {d}")
+    devs = {x.device for x in (q, k, v)}
+    if len(devs) != 1:
+        raise ValueError(f"flash_attention: inputs on several devices "
+                         f"{devs}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"flash_attention takes fp32 or bf16, got "
+                         f"{q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention: q, k, v must share a dtype, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if devs.pop().type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention has no backward (training is ROADMAP A.11); "
+            "call it under torch.no_grad() or torch.inference_mode()")
+    step = 16 // q.element_size()
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.stride(3) != 1 or any(s % step for s in x.stride()[:3]):
+            raise ValueError(
+                f"flash_attention: {name} has strides {x.stride()}; the "
+                f"kernel needs a unit stride on d and the others in "
+                f"multiples of {step} elements (16 bytes)")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """Softmax attention over (B, H, T, d); k and v may have fewer heads
+    (GQA, KV head ``h // (Hq // Hkv)``).  Returns (B, Hq, Tq, d)."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal)
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} is not 16-byte "
+                             f"aligned")
+    B, Hq, Tq, d = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    o = torch.empty((B, Tq, Hq, d), dtype=q.dtype,
+                    device=q.device).transpose(1, 2)
+    launch = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        o.data_ptr(), B, Hq, Hkv, Tq, Tk, d,
+                        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                        *o.stride()[:3], int(causal),
+                        int(q.dtype == torch.bfloat16), stream)
+    _build.check(status, "flash_attention")
+    _build.count_launch("flash_attention")
+    return o

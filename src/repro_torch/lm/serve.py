@@ -1,12 +1,14 @@
-"""Batched LM serving: prefill, then greedy decode on O(1) state.
+"""Batched LM serving: prefill, then greedy decode on the caches.
 
 The loop of the reference's ``examples/serve_lm.py::main`` on the card:
 one prefill of the prompt batch (its last logits give the first token),
 then ``num_tokens - 1`` greedy decode steps, each from the previous
-step's argmax.  The stage walls end in ``torch.cuda.synchronize()`` on
-the card, so they time the device's work and not the enqueue.
+step's argmax, over RWKV-6's O(1) state or the attention models' KV
+caches (sized to the prompt plus the tokens decoded).  The stage walls
+end in ``torch.cuda.synchronize()`` on the card, so they time the
+device's work and not the enqueue.
 
-    model = api.init_params(get_config("rwkv6_1_6b"),
+    model = api.init_params(get_config("glm4_9b"),
                             torch.Generator("cuda").manual_seed(0))
     res = serve(model, prompts, num_tokens=32)      # device="cuda"
     res.tokens, res.prefill_s, res.decode_s
@@ -48,10 +50,10 @@ def serve(model, prompts, num_tokens: int,
     if num_tokens < 1:
         raise ValueError(f"num_tokens must be >= 1, got {num_tokens}")
     cfg = model.cfg
-    prefill = api.make_prefill_fn(cfg)
-    decode = api.make_decode_fn(cfg)
     tokens = torch.as_tensor(prompts, dtype=torch.int64).to(model.device)
     S = tokens.shape[1]
+    prefill = api.make_prefill_fn(cfg, max_len=S + num_tokens)
+    decode = api.make_decode_fn(cfg)
 
     _sync(dev)
     t0 = time.perf_counter()

@@ -1,13 +1,14 @@
 """Model API used by the server.
 
-Counterpart of ``repro.models.api`` for the ``ssm`` family (RWKV-6):
-``init_params`` builds the model, ``make_prefill_fn`` and
-``make_decode_fn`` return the serving functions, which run under
-``torch.inference_mode()`` (the WKV6 kernel has no backward).  Prefill
-returns the caches as they are: the reference's ``_pad_caches`` grows
-attention KV rings and is the identity for RWKV's O(1) state.  The other
-families, training (``make_loss_fn``) and the abstract shapes of the
-dry-run are not ported (ROADMAP A.11): each function raises for them.
+Counterpart of ``repro.models.api`` for the ``dense`` (attention) and
+``ssm`` (RWKV-6) families: ``init_params`` builds the model,
+``make_prefill_fn`` and ``make_decode_fn`` return the serving functions,
+which run under ``torch.inference_mode()`` (the kernels have no
+backward).  Prefill pads the attention KV caches to the decode horizon
+with the reference's ``_pad_caches`` (the identity for RWKV's O(1)
+state).  The other families, training (``make_loss_fn``) and the
+abstract shapes of the dry-run are not ported (ROADMAP A.11): each
+function raises for them.
 """
 from __future__ import annotations
 
@@ -26,25 +27,40 @@ def init_params(cfg, generator: Optional[torch.Generator] = None,
     return tfm.LM(cfg, generator, device)
 
 
-def make_prefill_fn(cfg) -> Callable:
-    """``prefill_fn(model, batch)`` -> (last logits (B, V), caches).  The
-    RWKV state needs no decode horizon (the reference's ``max_len``)."""
+def make_prefill_fn(cfg, max_len: Optional[int] = None) -> Callable:
+    """``prefill_fn(model, batch)`` -> (last logits (B, V), caches).
+    ``max_len``: the KV-cache capacity to reserve for the decode steps
+    that follow (default: the prompt length + 128)."""
     tfm.require_ported(cfg)
 
     @torch.inference_mode()
     def prefill_fn(model: tfm.LM, batch: Dict):
         logits, caches = model.lm_forward(batch["tokens"], collect_cache=True,
                                           last_only=True)
-        return logits[:, -1], caches
+        return logits[:, -1], _pad_caches(caches, cfg, max_len)
     return prefill_fn
+
+
+def _pad_caches(caches: Dict, cfg, max_len: Optional[int]) -> Dict:
+    """End-pad the (L, B, S, K, hd) KV caches to ``max_len`` so decode
+    appends have room; RWKV's state passes through."""
+    if cfg.block_type == "rwkv":
+        return caches
+    S = caches["kv"]["k"].shape[2]
+    pad = max(0, (max_len or (S + 128)) - S)
+
+    def padder(a):
+        return torch.nn.functional.pad(a, (0, 0, 0, 0, 0, pad))
+    return dict(caches, kv={key: padder(a)
+                            for key, a in caches["kv"].items()})
 
 
 def make_decode_fn(cfg) -> Callable:
     """``decode_fn(model, token (B,), pos, caches)`` -> (logits (B, V),
-    new caches)."""
+    new caches); ``pos`` a Python int."""
     tfm.require_ported(cfg)
 
     @torch.inference_mode()
-    def decode_fn(model: tfm.LM, token: torch.Tensor, pos, caches):
-        return model.lm_decode_step(token, pos, caches)
+    def decode_fn(model: tfm.LM, token: torch.Tensor, pos: int, caches):
+        return model.lm_decode_step(token, int(pos), caches)
     return decode_fn

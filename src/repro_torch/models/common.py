@@ -1,9 +1,9 @@
-"""Shared model building blocks (PyTorch): init, norms, dtype policy.
+"""Shared model building blocks (PyTorch): init, norms, RoPE, dtype policy.
 
 Counterpart of ``repro.models.common`` (``dtype_of``, ``dense_init``,
-``embed_init``, ``rmsnorm``, ``layernorm``, ``init_norm``, ``apply_norm``).
-RoPE, the activations and the cross entropy wait for the attention models
-and training (ROADMAP A.11).  The reference's sharding hints
+``embed_init``, ``rmsnorm``, ``layernorm``, ``init_norm``, ``apply_norm``,
+``rope_freqs``, ``apply_rope``, ``activation``).  The cross entropy waits
+for training (ROADMAP A.11).  The reference's sharding hints
 (``shard_hint``, ``shard_hint_spec``, ``BATCH_AXES``) have no counterpart:
 the port runs a model on one card.  The port's random streams differ from
 ``jax.random``: weights that must agree with the reference are carried
@@ -92,6 +92,34 @@ def apply_norm(params, x: torch.Tensor, cfg) -> torch.Tensor:
     if cfg.norm == "layernorm":
         return layernorm(x, params["scale"], params["bias"])
     return rmsnorm(x, params["scale"])
+
+
+def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                         device=device) / hd))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Rotary embedding on interleaved pairs ``(x[..., 0::2], x[..., 1::2])``
+    (not the rotate-half convention); x (..., S, hd), positions (..., S) or
+    (S,).  Angles in fp32; the result is cast back to x's dtype."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                 # (hd/2,)
+    ang = positions[..., :, None].float() * freqs           # (..., S, hd/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., ::2], x[..., 1::2]
+    y1 = x1 * cos - x2 * sin
+    y2 = x1 * sin + x2 * cos
+    return torch.stack([y1, y2], -1).reshape(x.shape).to(x.dtype)
+
+
+def activation(name: str):
+    if name == "gelu":              # jax.nn.gelu's default: the tanh form
+        return lambda x: torch.nn.functional.gelu(x, approximate="tanh")
+    if name == "relu2":             # nemotron squared-ReLU
+        return lambda x: torch.relu(x).square()
+    raise ValueError(name)
 
 
 def dense_linear(c_in: int, c_out: int, generator: Optional[torch.Generator],

@@ -1,15 +1,20 @@
-"""Decoder-only LM assembly: prefill and decode (the ``rwkv`` block type).
+"""Decoder-only LM assembly: prefill and decode (``attn`` and ``rwkv`` blocks).
 
-Counterpart of ``repro.models.transformer`` for the attention-free RWKV-6
-stack: an embedding, ``num_layers`` blocks in an ``nn.ModuleList`` (the
-reference stacks them on a leading L axis for ``lax.scan``; here a Python
-loop runs them), the final norm and an untied ``lm_head``.  The ``attn``
-and ``hybrid`` block types, tied embeddings, prefix embeddings, remat and
-the sharding hints are not ported (ROADMAP A.11).
+Counterpart of ``repro.models.transformer`` for the ``attn`` block type
+(pre-norm GQA attention + dense FFN, the ``dense`` family) and the
+attention-free RWKV-6 stack (``rwkv``, the ``ssm`` family): an embedding,
+``num_layers`` blocks in an ``nn.ModuleList`` (the reference stacks them
+on a leading L axis for ``lax.scan``; here a Python loop runs them), the
+final norm and an untied ``lm_head``.  The ``hybrid`` block type, MoE,
+tied embeddings, prefix embeddings, sliding windows, remat and the
+sharding hints are not ported (ROADMAP A.11).
 
 Decode caches keep the reference's layout, stacked L-leading:
-``{"wkv": (L, B, H, D, D) fp32, "tm_shift": (L, B, d), "cm_shift":
-(L, B, d)}``.
+``{"kv": {"k": (L, B, T, K, hd), "v": ...}}`` for ``attn`` (T the decode
+horizon; a step writes its slot in place, see
+:func:`repro_torch.models.attention.cache_update`) and ``{"wkv": (L, B,
+H, D, D) fp32, "tm_shift": (L, B, d), "cm_shift": (L, B, d)}`` for
+``rwkv``.
 """
 from __future__ import annotations
 
@@ -19,20 +24,72 @@ import torch
 from torch import nn
 
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.common import (apply_norm, draw_device, dtype_of,
                                        embed_init, init_norm)
 
+#: Model families the port builds.
+PORTED_FAMILIES = ("dense", "ssm")
+
 
 def require_ported(cfg) -> None:
     """Raise for a config the port cannot build yet (ROADMAP A.11)."""
-    if cfg.block_type != "rwkv":
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: block type {cfg.block_type!r} is not ported yet "
-            "(ROADMAP A.11); the port runs the 'rwkv' block type")
+            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
+            f"A.11); the port runs {', '.join(PORTED_FAMILIES)}")
     if cfg.tie_embeddings:
         raise NotImplementedError(f"{cfg.name}: tied embeddings are not "
                                   "ported yet (ROADMAP A.11)")
+    if cfg.sliding_window:
+        raise NotImplementedError(f"{cfg.name}: sliding-window attention is "
+                                  "not ported yet (ROADMAP A.11)")
+
+
+class AttnBlock(nn.Module):
+    """The reference's ``init_block`` for ``block_type == "attn"``:
+    ``ln1``, ``attn``, ``ln2``, ``ffn``, drawn in that order."""
+
+    def __init__(self, cfg, generator: Optional[torch.Generator], dtype,
+                 device=None):
+        super().__init__()
+        dev = draw_device(generator, device)
+        self.ln1 = init_norm(cfg, dtype, dev)
+        self.attn = attn.init_attention(cfg, generator, dtype, dev)
+        self.ln2 = init_norm(cfg, dtype, dev)
+        self.ffn = ffn_mod.init_ffn(cfg, generator, dtype, dev)
+
+
+def block_seq(block, x: torch.Tensor, cfg, positions: torch.Tensor,
+              collect_cache: bool) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """One block over a full sequence: (x, cache or None)."""
+    if cfg.block_type == "rwkv":
+        x, state = block(x)
+        return x, (state if collect_cache else None)
+    h = apply_norm(block.ln1, x, cfg)
+    q, k, v = attn.compute_qkv(block.attn, h, cfg, positions)
+    ctx = attn.attention_ctx(q, k, v, cfg, causal=True)
+    x = x + attn.project_out(block.attn, ctx)
+    y, _ = ffn_mod.apply_ffn(block.ffn, apply_norm(block.ln2, x, cfg), cfg)
+    return x + y, ({"kv": {"k": k, "v": v}} if collect_cache else None)
+
+
+def block_decode(block, x: torch.Tensor, cfg, pos: int,
+                 positions: torch.Tensor, cache: Dict
+                 ) -> Tuple[torch.Tensor, Dict]:
+    """One block, one token: x (B, 1, d) at position ``pos`` (``positions``
+    the same as a (1,) tensor on x's device) -> (x, new cache)."""
+    if cfg.block_type == "rwkv":
+        return block(x, cache)
+    h = apply_norm(block.ln1, x, cfg)
+    q, k, v = attn.compute_qkv(block.attn, h, cfg, positions)
+    kv = attn.cache_update(cache["kv"], k, v, pos)
+    ctx = attn.decode_attention(q, kv, pos)
+    x = x + attn.project_out(block.attn, ctx)
+    y, _ = ffn_mod.apply_ffn(block.ffn, apply_norm(block.ln2, x, cfg), cfg)
+    return x + y, {"kv": kv}
 
 
 class LM(nn.Module):
@@ -54,12 +111,12 @@ class LM(nn.Module):
             generator = torch.Generator().manual_seed(0)
         draw = dev if dev.type == "meta" else draw_device(generator, None)
         dtype = dtype_of(cfg.param_dtype)
+        block = rwkv_mod.RWKVBlock if cfg.block_type == "rwkv" else AttnBlock
         self.cfg = cfg
         self.embed = nn.Parameter(embed_init(
             generator, (cfg.vocab_size, cfg.d_model), dtype, draw))
-        self.blocks = nn.ModuleList(
-            rwkv_mod.RWKVBlock(cfg, generator, dtype, draw)
-            for _ in range(cfg.num_layers))
+        self.blocks = nn.ModuleList(block(cfg, generator, dtype, draw)
+                                    for _ in range(cfg.num_layers))
         self.ln_f = init_norm(cfg, dtype, draw)
         self.lm_head = nn.Parameter(embed_init(
             generator, (cfg.d_model, cfg.vocab_size), dtype, draw))
@@ -81,45 +138,74 @@ class LM(nn.Module):
         """tokens (B, S) -> (logits (B, S, V), caches or None).
 
         ``last_only`` unembeds only the last position (logits (B, 1, V)),
-        all that prefill returns.  Every block's time mix runs the WKV6
-        kernel once on the card.
+        all that prefill returns.  On the card every block runs one kernel
+        launch: the WKV6 recurrence (``rwkv``) or the flash attention
+        (``attn``).
         """
         x = self._embed(tokens)
-        states = []
+        positions = torch.arange(tokens.shape[1], device=x.device)
+        caches = []
         for block in self.blocks:
-            x, state = block(x)
-            if collect_cache:
-                states.append(state)
+            x, cache = block_seq(block, x, self.cfg, positions,
+                                 collect_cache)
+            caches.append(cache)
         if last_only:
             x = x[:, -1:]
         logits = self._unembed(x)
-        return logits, (_stack(states) if collect_cache else None)
+        return logits, (_stack(caches) if collect_cache else None)
 
     forward = lm_forward
 
-    def lm_decode_step(self, token: torch.Tensor, pos, caches: Dict
+    def lm_decode_step(self, token: torch.Tensor, pos: int, caches: Dict
                        ) -> Tuple[torch.Tensor, Dict]:
-        """token (B,) -> (logits (B, V), new caches).  ``pos`` is unused by
-        the RWKV blocks (their state carries the position), as in the
-        reference."""
+        """token (B,) at position ``pos`` -> (logits (B, V), new caches).
+        The RWKV blocks ignore ``pos`` (their state carries the position),
+        as in the reference; the attention blocks write their KV slot in
+        place, so the caches returned are the ones passed in."""
         x = self._embed(token[:, None])
-        states = []
+        positions = torch.arange(pos, pos + 1, device=x.device)
+        new = []
         for layer, block in enumerate(self.blocks):
-            x, state = block(x, {key: c[layer] for key, c in caches.items()})
-            states.append(state)
-        return self._unembed(x)[:, 0], _stack(states)
+            x, cache = block_decode(block, x, self.cfg, pos, positions,
+                                    _layer(caches, layer))
+            new.append(cache)
+        logits = self._unembed(x)[:, 0]
+        return logits, (caches if self.cfg.block_type == "attn"
+                        else _stack(new))
 
 
-def _stack(states) -> Dict:
-    return {key: torch.stack([s[key] for s in states])
-            for key in ("wkv", "tm_shift", "cm_shift")}
+def _layer(tree: Dict, layer: int) -> Dict:
+    """Layer ``layer``'s caches: views of the stacked tensors."""
+    return {key: (_layer(val, layer) if isinstance(val, dict)
+                  else val[layer]) for key, val in tree.items()}
 
 
-def init_decode_caches(cfg, batch: int, device=DEFAULT_DEVICE) -> Dict:
-    """Zero decode caches, stacked L-leading.  The O(1) RWKV state needs no
-    decode horizon (the reference's ``max_len``)."""
+def _stack(caches) -> Dict:
+    """Per-layer cache dicts -> one dict of L-leading stacked tensors."""
+    first = caches[0]
+    return {key: (_stack([c[key] for c in caches])
+                  if isinstance(first[key], dict)
+                  else torch.stack([c[key] for c in caches]))
+            for key in first}
+
+
+def init_decode_caches(cfg, batch: int, max_len: Optional[int] = None,
+                       device=DEFAULT_DEVICE) -> Dict:
+    """Zero decode caches, stacked L-leading.  ``max_len`` is the KV
+    horizon of the attention caches; RWKV's O(1) state needs none."""
     require_ported(cfg)
-    one = rwkv_mod.init_rwkv_state(cfg, batch, dtype_of(cfg.compute_dtype),
-                                   resolve_device(device))
-    return {key: x[None].expand((cfg.num_layers,) + x.shape).contiguous()
-            for key, x in one.items()}
+    dev = resolve_device(device)
+    dtype = dtype_of(cfg.compute_dtype)
+    if cfg.block_type == "rwkv":
+        one = rwkv_mod.init_rwkv_state(cfg, batch, dtype, dev)
+    elif max_len is None:
+        raise ValueError(f"{cfg.name}: attention caches need a max_len")
+    else:
+        one = {"kv": attn.init_cache(cfg, batch, max_len, dtype, dev)}
+    return _broadcast(one, cfg.num_layers)
+
+
+def _broadcast(tree: Dict, L: int) -> Dict:
+    return {key: (_broadcast(val, L) if isinstance(val, dict)
+                  else val[None].expand((L,) + val.shape).contiguous())
+            for key, val in tree.items()}

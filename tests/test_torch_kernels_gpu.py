@@ -9,8 +9,9 @@ also run on a machine that has only PyTorch and the CUDA toolkit:
 The collision and sampling comparisons are exact: those kernels are built
 with ``--fmad=false`` and keep the plain versions' operation order, and
 the SACT planes put pairs that graze a separating plane on their
-diagonal.  ``wkv6`` sums its dot products in another order than its plain
-version and is held to ``kernels/wkv6/cases.py::TOL``.
+diagonal.  ``wkv6`` and ``flash_attention`` sum their dot products in
+another order than their plain versions and are held to the ``TOL`` of
+their ``cases.py``.
 """
 import numpy as np
 import pytest
@@ -27,6 +28,9 @@ from repro_torch.kernels.ballquery.cases import radius_shell
 from repro_torch.kernels.ballquery.ref import ball_query_ref
 from repro_torch.kernels.compact import ops as compact_ops
 from repro_torch.kernels.compact.ref import compact_ref
+from repro_torch.kernels.flash_attention import cases as flash_cases
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.fps import ops as fps_ops
 from repro_torch.kernels.fps.cases import tie_cloud
 from repro_torch.kernels.fps.ref import fps_ref
@@ -338,5 +342,63 @@ def test_cuda_rwkv_serving_matches_cpu(cuda, monkeypatch):
     want_step, _ = decode(cpu, tok, 40, want_caches)
     for got, want in [(logits, want_logits), (step, want_step)] + [
             (caches[key], want_caches[key]) for key in want_caches]:
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", flash_cases.hard_cases(),
+                         ids=lambda c: c["name"])
+def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
+    q, k, v = flash_cases.tensors(case, cuda, dtype)
+    before = _build.launch_counts()["flash_attention"]
+    o = flash_ops.flash_attention(q, k, v, case["causal"])
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["flash_attention"] == before + 1
+    assert o.shape == q.shape and o.dtype == dtype
+    assert bool(o.isfinite().all())
+    want = attention_ref(q, k, v, case["causal"])
+    assert flash_cases.within_tol(o, want, str(dtype)[6:],
+                                  case["score_scale"]) <= 0
+
+
+def test_flash_attention_kernel_rejects_what_it_cannot_run(cuda):
+    case = flash_cases.make_case(1, 1, 2, 8, 8, 16, True)
+    q, k, v = flash_cases.tensors(case, cuda)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        flash_ops.flash_attention(q.clone().requires_grad_(), k, v)
+    with pytest.raises(ValueError, match="several devices"):
+        flash_ops.flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="16-byte"):
+        flat = torch.zeros(q.numel() + 1, device=cuda)   # 4 bytes off
+        flash_ops.flash_attention(flat[1:].view(q.shape), k, v)
+    odd = torch.zeros((1, 2, 8, 24), device=cuda)
+    with pytest.raises(ValueError, match="head width"):
+        flash_ops.flash_attention(odd, odd[:, :1], odd[:, :1])
+
+
+def test_cuda_glm4_serving_matches_cpu(cuda, monkeypatch):
+    """The smoke model's prefill and decode on the card against the CPU:
+    one ``flash_attention`` launch per layer in prefill, none in decode."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_smoke_config("glm4_9b")
+    cpu = LM(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = LM(cfg, torch.Generator().manual_seed(0), device=cuda)
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (2, 40)))
+    prefill, decode = (lm_api.make_prefill_fn(cfg, 48),
+                       lm_api.make_decode_fn(cfg))
+    before = _build.launch_counts()["flash_attention"]
+    logits, caches = prefill(card, {"tokens": tokens.to(cuda)})
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["flash_attention"] == before + cfg.num_layers
+    want_logits, want_caches = prefill(cpu, {"tokens": tokens})
+    tok = torch.tensor([3, 7])
+    step, caches = decode(card, tok.to(cuda), 40, caches)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["flash_attention"] == before + cfg.num_layers
+    want_step, want_caches = decode(cpu, tok, 40, want_caches)
+    for got, want in [(logits, want_logits), (step, want_step)] + [
+            (caches["kv"][key], want_caches["kv"][key]) for key in "kv"]:
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
                                    rtol=1e-4, atol=1e-4)

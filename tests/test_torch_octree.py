@@ -220,7 +220,9 @@ def test_import_leaves_jax_and_repro_out():
     assert len(mods) >= 15
     assert {"repro_torch.core.pipeline", "repro_torch.kernels.fps.ops",
             "repro_torch.kernels.ballquery.ops",
-            "repro_torch.models.planner"} <= set(mods)
+            "repro_torch.models.planner",
+            "repro_torch.kernels.flash_attention.ops",
+            "repro_torch.models.attention"} <= set(mods)
 
 
 def test_card_scripts_import_neither_jax_nor_repro():
