@@ -7,7 +7,11 @@ Phases (each prints lines tagged with its number; any failure exits
 non-zero and prints no result):
 
 1. the card: ``nvidia-smi`` name and power limit, torch's device name/count;
-2. build every CUDA kernel from ``src/repro_torch/**/csrc`` (nvcc, sm_90a);
+2. build every CUDA kernel from ``src/repro_torch/**/csrc`` (nvcc, sm_90a)
+   and print ``-Xptxas -v`` for each compiled function (registers, shared
+   memory, spills), and the Hopper flash kernel's shape at each width
+   (registers a thread per role after ``setmaxnreg``, dynamic shared
+   memory, rows, keys and ring stages);
 3. ``sact_dense`` kernel vs its plain version on grazing planes (every exit
    code, both sphere settings), exactly equal;
 4. ``persist`` kernel vs ``persist_tiles_ref`` on a small scene, with and
@@ -20,8 +24,8 @@ non-zero and prints no result):
    capacity, and grazing frontiers (OBBs placed against real cells by
    bisection; all 18 exit codes), both sphere settings, words equal;
 7. ``compact`` kernel vs ``compact_ref``: mask densities 0, 1e-3, 0.5 and
-   1 over a lane count that is no multiple of the block, and an ``n_out``
-   below the total; count and every output row equal;
+   1 over a lane count that is no multiple of the kernel's tile, and an
+   ``n_out`` below the total; count and every output row equal;
 8. the main paths at paper scale, per environment, in each of the modes
    ``wavefront_persistent``, ``wavefront`` and ``wavefront_fused`` (and
    ``wavefront_fused`` on u8 rows in the first environment): two CUDA
@@ -34,7 +38,9 @@ non-zero and prints no result):
    peak device memory;
 9. ``traverse`` and ``compact`` timed at the widest level of the cubby
    ``wavefront_fused`` query against their bounds, plain versions and (for
-   ``compact``) one PyTorch call computing the same function;
+   ``compact``) one PyTorch call computing the same function; ``compact``
+   also by ``torch.profiler``, the kernel's own time on the card beside
+   the call's (which the host paces);
 10. ``sact_dense`` timed on the paper-scale queries against level-5 cells;
 11. ``fps`` kernel vs its plain version, indices exactly equal: B = 1 and
    32 clouds of 2048, 2047 and 5000 points, m = 256, lattice clouds with
@@ -76,8 +82,9 @@ non-zero and prints no result):
    per launch against its bound and its plain version, and the
    prefill/decode consistency of the logits (``LM_CONSIST_ATOL``);
 18. ``flash_attention`` kernel vs its plain version on
-   ``kernels/flash_attention/cases.py`` (d = 16, 64, 128; causal with
-   Tq = Tk = 1, 63, 64, 65, 1024, 1025; non-causal Tq != Tk; 1, 4 and 16
+   ``kernels/flash_attention/cases.py`` (d = 16, 32, 64, 128; causal with
+   Tq = Tk = 1, 63, 64, 65, 127, 128, 129, 255, 257, 1024, 1025;
+   non-causal Tq != Tk, Tk no multiple of 8 among them; 1, 4 and 16
    query heads a KV head; (B, H, T, d) tensors and (B, H, T, d) views of
    (B, T, H, d) ones; large-magnitude scores), fp32 and bf16, within
    ``cases.TOL``;
@@ -94,7 +101,8 @@ non-zero and prints no result):
    decode walls (median of 10 serves), tokens/s, peak memory, a profiled
    serve's busy share, the kernel's time per launch against its bound, its
    plain version and ``scaled_dot_product_attention`` (the yardstick,
-   never used by the port), and the prefill/decode consistency of the
+   never used by the port), its achieved TFLOP/s, share of the bound and
+   ratio to the yardstick, and the prefill/decode consistency of the
    logits at 1025 tokens (``LM_CONSIST_ATOL``);
 21. one JSON line listing every kernel with its launches on the main paths
    (``launches``, phases 8, 13, 17 and 20) and elsewhere
@@ -110,6 +118,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -173,6 +182,23 @@ def bound_ms(nbytes: float, ops: float):
     t_ops = ops / PEAK_FP32_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def kernel_name(mangled: str) -> str:
+    """``ns::kernel<N>`` of a mangled kernel name, as far as these kernels
+    need: the last of its length-prefixed names, and an int template
+    argument."""
+    names, p = [], 3 if mangled.startswith("_ZN") else 2
+    while p < len(mangled) and mangled[p].isdigit():
+        q = p
+        while mangled[q].isdigit():
+            q += 1
+        n = int(mangled[p:q])
+        names.append(mangled[q:q + n])
+        p = q + n
+    t = re.match(r"ILi(\d+)E", mangled[p:])
+    name = names[-1] if names else mangled
+    return f"{name}<{t.group(1)}>" if t else name
 
 
 def device_us(event) -> float:
@@ -296,15 +322,27 @@ def main() -> int:
 
     # ---- 2. build ---------------------------------------------------------
     secs = _build.build_all(verbose=True)
-    usage = []
-    for name, text in sorted(_build.last_build_log.items()):
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                usage.append(f"{name}: {line.strip()}")
     log("2 build", f"{len(_build.SOURCES)} kernels in {secs:.1f} s "
         f"-> {_build.build_dir()}")
-    for line in usage:
-        log("2 build", line)
+    spills = 0
+    for name, text in sorted(_build.last_build_log.items()):
+        func = "?"
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                func = kernel_name(m.group(1))
+            elif "registers" in line or "spill" in line:
+                log("2 build", f"{name} {func}: {line.strip()}")
+                m = re.search(r"(\d+) bytes spill stores", line)
+                spills += int(m.group(1)) if m else 0
+    for d in flash_ops.WIDTHS:
+        c = flash_ops.kernel_config(d)
+        log("2 build", f"flash_hopper<{d}>: {c['threads']} threads (a "
+            f"producer warpgroup at {c['producer_regs']} registers a thread, "
+            f"two consumer warpgroups at {c['consumer_regs']}, by setmaxnreg),"
+            f" {c['smem_bytes']} B dynamic shared memory, {c['rows']} query "
+            f"rows, {c['keys']} keys a tile, {c['stages']} ring stages")
+    log("2 build", f"spill stores over every kernel: {spills} bytes")
 
     # ---- 3. sact_dense vs plain on grazing planes -----------------------
     # Launches made to compare a kernel with its plain version are counted
@@ -516,7 +554,7 @@ def main() -> int:
             if mode != "wavefront_persistent":
                 with Recorder({"traverse": (traverse_ops, "traverse_test"),
                                "compact": (compact_ops,
-                                           "compact_channels")}) as rec:
+                                           "compact_columns")}) as rec:
                     eng.query(obbs)
                 per_launch, per_query = {}, 0.0
                 for name, calls in rec.calls.items():
@@ -619,17 +657,28 @@ def main() -> int:
         f"{plain_ms:.3f} ms, bound {bms:.5f} ms ({by}) | {card}")
     # compaction: the level that keeps the most pairs
     _, ca, ck = max(calls_c, key=lambda call: int(call[1][0].sum()))
-    mask, chans, n_out = ca
-    count, out = compact_ops.compact_channels(*ca, **ck)
-    want_count, want = compact_ref(mask, chans.t(), n_out)
+    mask, cols, n_out = ca
+    rows = torch.stack(list(cols), 1)
+    count, out = compact_ops.compact_columns(*ca, **ck)
+    want_count, want = compact_ref(mask, rows, n_out)
     err = max(abs(int(count) - int(want_count)),
               int((out.t().to(torch.int64) - want.to(torch.int64))
                   .abs().max()))
     errs["compact"] = max(errs["compact"], err)
-    rows = chans.t().contiguous()
-    ms = cuda_time_ms(lambda: compact_ops.compact_channels(*ca, **ck), 50)
-    plain_ms = cuda_time_ms(lambda: compact_ref(mask, chans.t(), n_out), 5)
+    ms = cuda_time_ms(lambda: compact_ops.compact_columns(*ca, **ck), 50)
+    plain_ms = cuda_time_ms(lambda: compact_ref(mask, rows, n_out), 5)
     library_ms = cuda_time_ms(lambda: rows[mask][:n_out], 50)
+    # the kernel's own time on the card (the call above is paced by the
+    # host: one dispatch a call, back to back)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(50):
+            compact_ops.compact_columns(*ca, **ck)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if "compact_kernel" in e.key]
+    if not ev or sum(e.count for e in ev) != 50:
+        raise SystemExit(f"FAIL: the profiler saw {sum(e.count for e in ev)}"
+                         f" compact kernels in 50 calls")
+    device_ms = sum(device_us(e) for e in ev) / 1e3 / 50
     # Read once: the mask and the rows of the kept survivors; written
     # once: all n_out output rows (zero past the count).
     lanes = mask.shape[0]
@@ -642,9 +691,11 @@ def main() -> int:
         ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
         library_ms=library_ms))
     log("9 compact", f"{env0} wavefront_fused fullest level ({lanes} lanes, "
-        f"{int(count)} kept, n_out {n_out}): kernel {ms:.4f} ms, plain on "
-        f"card {plain_ms:.3f} ms, vals[mask][:n_out] {library_ms:.4f} ms, "
-        f"bound {bms:.5f} ms ({by}) | {card}")
+        f"{int(count)} kept, n_out {n_out}): call {ms:.4f} ms (back to back, "
+        f"one launch each), kernel on the card {device_ms:.4f} ms "
+        f"(torch.profiler, {device_ms / bms:.2f}x the bound), plain on card "
+        f"{plain_ms:.3f} ms, vals[mask][:n_out] {library_ms:.4f} ms (call / "
+        f"library {ms / library_ms:.3f}), bound {bms:.5f} ms ({by}) | {card}")
     add_check_launches()
 
     # ---- 10. sact_dense timed at main-path widths -------------------------
@@ -1265,9 +1316,11 @@ def main() -> int:
             n_cases += 1
     add_check_launches()
     log("18 flash_attention", f"kernel within cases.TOL of plain on {n_cases} "
-        "cases (d 16/64/128; causal T 1/63/64/65/1024/1025; non-causal "
-        "Tq != Tk; groups 1/4/16; strided views; x8 scores; fp32 and bf16) "
-        f"in {lap():.1f} s")
+        f"cases (d {'/'.join(map(str, sorted(flash_cases.WIDTHS)))}; causal "
+        f"T {'/'.join(map(str, sorted(flash_cases.CAUSAL_LENGTHS)))}; "
+        f"non-causal (Tq, Tk) {flash_cases.CROSS_LENGTHS}; groups "
+        f"{'/'.join(map(str, flash_cases.GROUPS))}; strided views; x8 "
+        f"scores; fp32 and bf16) in {lap():.1f} s")
 
     # ---- 19. GLM-4 9B, 2 layers at full width, fp32, card vs CPU ----------
     g_full = get_config("glm4_9b")
@@ -1485,7 +1538,9 @@ def main() -> int:
         f"scaled_dot_product_attention(enable_gqa) {lib_ms:.4f} ms (max abs "
         f"diff to plain {lib_err:.4g}), bound {fa_bound:.5f} ms ({fa_by}: "
         f"{fa_bytes} B, {fa_mma} bf16 tensor ops, {fa_fp32} fp32 ops) | "
-        f"{card}")
+        f"achieved {fa_mma / ms / 1e9:.1f} TFLOP/s on the tensor cores, "
+        f"{100 * fa_bound / ms:.1f} % of the bound, {ms / lib_ms:.3f}x "
+        f"scaled_dot_product_attention | {card}")
     log("20 glm4 serve", f"prefill/decode consistency at {LM_PROMPT + 1} "
         f"tokens: max|d| logits {delta:.4g} (bound {LM_CONSIST_ATOL}), "
         f"greedy agrees on {int(agree.sum())} of {LM_BATCH} rows, smallest "

@@ -13,16 +13,21 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-#: Head widths: the smoke config's 16, 64, and glm4's 128.
-WIDTHS = (16, 64, 128)
-#: Causal lengths (Tq = Tk): one token, around the 64-row tile, the
-#: full-width prefill's 1024 and one past it (the consistency check's).
-CAUSAL_LENGTHS = (1, 63, 64, 65, 1024, 1025)
+#: Head widths: the smoke config's 16, 64, glm4's 128, and 32, the one
+#: other width the wrapper admits.
+WIDTHS = (16, 64, 128, 32)
+#: Causal lengths (Tq = Tk): one token, around the fp32 kernel's 64-row
+#: tile, the full-width prefill's 1024 and one past it (the consistency
+#: check's), then around the bf16 kernel's 128-row and 128-key tiles (one
+#: tile, one past, two, two and one past).
+CAUSAL_LENGTHS = (1, 63, 64, 65, 1024, 1025, 127, 128, 129, 255, 257)
 #: Query heads per KV head: plain multi-head, the smoke config's 4,
 #: glm4's 16.
 GROUPS = (1, 4, 16)
-#: Non-causal Tq != Tk pairs: ragged on both axes, a single query.
-CROSS_LENGTHS = ((40, 72), (100, 37), (1, 130))
+#: Non-causal Tq != Tk pairs: ragged on both axes, a single query, and two
+#: query tiles over two key tiles with Tk no multiple of 8 (the TMA loads'
+#: zero fill past Tk, the TMA store's clipping past Tq).
+CROSS_LENGTHS = ((40, 72), (100, 37), (1, 130), (200, 203))
 #: q and k times this in the large-magnitude cases: scores with a standard
 #: deviation of ~64, so the running max moves by large steps and the
 #: rescale ``exp(m_prev - m_new)`` matters.
@@ -49,23 +54,45 @@ def make_case(B: int, Hkv: int, group: int, Tq: int, Tk: int, d: int,
 
 def hard_cases() -> List[Dict]:
     """Every width with every causal length (the group and the layout
-    cycling), ragged non-causal pairs, and large-magnitude scores."""
+    cycling), ragged non-causal pairs, and large-magnitude scores.  The
+    cases of d 16, 64 and 128 at the first six lengths and three pairs
+    come first, in their own order and with their own seeds; the rest
+    (the tile edges, the last pair, d 32) follow."""
     out = []
     seed = 0
-    for d in WIDTHS:
-        for i, T in enumerate(CAUSAL_LENGTHS):
+
+    def causal(d, i, T):
+        group = GROUPS[(i + d // 16) % len(GROUPS)]
+        B, Hkv = (1, 1) if T >= 1024 else (2, 2)
+        return make_case(B, Hkv, group, T, T, d, True,
+                         ("bhtd", "bthd")[i % 2], seed=seed)
+
+    def cross(d, Tq, Tk):
+        return make_case(2, 1, 4, Tq, Tk, d, False, "bthd", seed=seed)
+
+    for d in WIDTHS[:3]:
+        for i, T in enumerate(CAUSAL_LENGTHS[:6]):
             seed += 1
-            group = GROUPS[(i + d // 16) % len(GROUPS)]
-            B, Hkv = (1, 1) if T >= 1024 else (2, 2)
-            out.append(make_case(B, Hkv, group, T, T, d, True,
-                                 ("bhtd", "bthd")[i % 2], seed=seed))
-        for Tq, Tk in CROSS_LENGTHS:
+            out.append(causal(d, i, T))
+        for Tq, Tk in CROSS_LENGTHS[:3]:
             seed += 1
-            out.append(make_case(2, 1, 4, Tq, Tk, d, False, "bthd",
-                                 seed=seed))
+            out.append(cross(d, Tq, Tk))
         seed += 1
         out.append(make_case(1, 2, 16, 200, 200, d, True, "bthd",
                              scale=LARGE, seed=seed))
+    for d in WIDTHS:
+        first = 6 if d in WIDTHS[:3] else 0
+        for i, T in enumerate(CAUSAL_LENGTHS):
+            if i >= first:
+                seed += 1
+                out.append(causal(d, i, T))
+        for Tq, Tk in CROSS_LENGTHS[3 if first else 0:]:
+            seed += 1
+            out.append(cross(d, Tq, Tk))
+        if not first:
+            seed += 1
+            out.append(make_case(1, 2, 16, 200, 200, d, True, "bthd",
+                                 scale=LARGE, seed=seed))
     return out
 
 

@@ -14,44 +14,75 @@
 // it, fully masked key tiles skipped, keys past kv_len masked after the
 // wrapper pads both sequence axes to the tile).  TPU grid steps run in
 // order; CTAs here run in no order, so the key tiles become a loop inside
-// one CTA and nothing is carried between CTAs:
-//
-//   one CTA per (b, h, 64-row query tile), 4 warps, each warp owning 16
-//   query rows with their max, sum and accumulator slice in registers; the
-//   CTAs of the last (largest causal) query tile of every head go first
-//   the loop over 64-key tiles stops after the last key any row of the
-//   tile may see: the diagonal tile when causal (the TPU kernel's skip of
-//   fully masked tiles) and Tk otherwise
-//   K and V tiles are staged through shared memory, zero past Tk; rows
-//   past Tq compute on zeros and write nothing: no padding copy, nothing
-//   read or written out of bounds
-//   masked scores are the reference's finite NEG_INF = -1e30, so
-//   exp(m_prev - m_new) stays defined while a row has seen only masked
-//   keys (no live row can: key 0 is in the first tile and seen by all)
-//
-// bf16 inputs: both products on the tensor cores (mma.sync m16n8k16, bf16
-// operands, fp32 sums).  Q stays in registers as A fragments for the whole
-// loop; the score fragments become the A fragments of P V without leaving
-// registers (P rounded to bf16 for the product, the denominator summed in
-// fp32); V is stored transposed in shared memory so each B fragment is one
-// 32-bit load.  fp32 inputs: the same loop on the CUDA cores in fp32, each
-// thread a 4 x 8 block of the score tile and 4 rows x d/8 columns of the
-// output (the products cannot go to the bf16 tensor cores and keep the
-// fp32 contract).
-//
-// Tensors are addressed by strides with a unit stride on d, so the
-// (B, H, T, d) views of the model's (B, T, H, d) projections are read
-// where they lie and o can be written in that layout; every other stride
-// is a multiple of 16 bytes and the bases 16-byte aligned (the wrapper
-// checks), for 16-byte loads.
+// one CTA, which stops after the last key any of its rows may see (the
+// diagonal when causal: the TPU kernel's skip of fully masked tiles), and
+// nothing is carried between CTAs.  Masked scores are the reference's
+// finite NEG_INF = -1e30, so exp(m_prev - m_new) stays defined.
 //
 // Bound on the H100 at the glm4 prefill (B 8, Hq 32, Hkv 2, T 1024, d 128,
 // causal): 4 d T(T+1)/2 B Hq = 68.8 GFLOP against 142.6 MB read and
 // written: 0.0696 ms at 989 TFLOP/s bf16 and 0.0426 ms at 3.35 TB/s, so
-// the operations bound it; the design puts both products on the tensor
-// cores and never stores the (T, T) scores.  What it leaves for later
-// (ROADMAP B.7): wgmma and TMA, a pipeline of K/V tiles (cp.async),
-// ldmatrix in place of the transposing V store, warp specialisation.
+// the tensor cores bound it, and only wgmma reaches their rate.
+//
+// bf16 inputs: flash_hopper<D>, persistent and warp-specialised: one CTA
+// of three warpgroups an SM, walking work items (b, h, 128-row query tile)
+// w = blockIdx.x, + gridDim.x, ..., the last (largest causal) query tile
+// of every head first.
+//
+//   producer   warpgroup 0 gives its registers away (setmaxnreg) and one
+//              thread issues every copy: an item's Q once its last S
+//              product is done with the previous Q, and the K and V tiles
+//              through a ring of STAGES buffers that runs on across
+//              items, each buffer with a full and an empty mbarrier (K and
+//              V apart, so S = Q K^T starts while V is in flight).  Copies
+//              are TMA loads through 4-D tensor maps over (d, T, H, B) at
+//              the tensors' own strides, so strided views are read where
+//              they lie and rows past T arrive as zeros (no padding copy,
+//              no bounds tests).  So the next item's loads run under this
+//              item's products: a CTA's start-up latency is paid once an
+//              SM, not once a query tile.
+//   consumers  warpgroups 1 and 2 own 64 query rows each: S = Q K^T on
+//              wgmma with both operands in shared memory (K-major), the
+//              online softmax in registers in base 2 (log2(e) / sqrt(d)
+//              folded into one explicit fmaf, then ex2.approx.ftz), the
+//              mask applied only on tiles that cross the diagonal or Tk,
+//              and O += P V on wgmma with P packed to bf16 from the S
+//              accumulator in registers and V read as it lies, [key][d],
+//              as an MN-major B operand (the transpose bit): no
+//              transposing store.  The two warpgroups take turns issuing
+//              products (named barriers), so one's softmax runs under the
+//              other's products.  O is normalised, rounded to bf16, staged
+//              in shared memory and written by a TMA store, which drops
+//              rows past Tq and runs on under the next item.
+//
+// Keys a tile: 128.  A tile's P V product is issued and waited for before
+// the next tile's S = Q K^T: at d = 128 a 64 x 128 fp32 score tile, a P
+// and the 64 x 128 accumulator do not fit the consumers' registers all at
+// once (issuing the two together spilled 232 bytes and "serialized wgmma
+// due to insufficient register resources"; 64-key tiles avoided that but
+// ran slower), and one after the other they do, with no spill.
+//
+// Shared tiles are stored as the TMA swizzle leaves them: rows of
+// min(d, 64) bf16 (128, 64 or 32 bytes) in panels, with the 128B, 64B or
+// 32B swizzle that matches the row; d = 128 takes two panels.  The wgmma
+// descriptors name the same swizzle.
+//
+// What holds it back (H100, the glm4 prefill, PERF.md): about
+// scaled_dot_product_attention's time and ~2x its bound.  Each item pays
+// a prologue (its first S product alone) and an epilogue (normalise,
+// stage, store) that nothing overlaps, and the causal items are short (4.5
+// key tiles on average); K and V are re-read from L2 by every CTA of the
+// 16 query heads of a KV head (no cluster multicast).
+//
+// fp32 inputs: flash_fp32<D>, the same loop on the CUDA cores in fp32, 64
+// rows a CTA of 4 warps, each thread a 4 x 8 block of the score tile and 4
+// rows x d/8 columns of the output (the products cannot go to the bf16
+// tensor cores and keep the fp32 contract).  No main path runs it.
+//
+// Tensors are addressed by strides with a unit stride on d; every other
+// stride is a multiple of 16 bytes and the bases 16-byte aligned (the
+// wrapper checks), as TMA and the fp32 kernel's 16-byte loads need.
+#include <cuda.h>   // CUtensorMap and its enums only: no link to libcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -59,11 +90,702 @@
 
 namespace {
 
+constexpr float NEG_INF = -1e30f;
+
+// ---------------------------------------------------------------- bf16 --
+namespace hop {
+
+constexpr int BQ = 128;       // query rows a CTA: two consumer warpgroups
+constexpr int BK = 128;       // keys a tile
+constexpr int STAGES = 2;     // K and V buffers in the ring
+constexpr int NT = 384;       // producer + two consumer warpgroups
+constexpr int CONSUMER_WARPS = 8;
+constexpr int PRODUCER_REGS = 40;    // setmaxnreg: 128 x 40 + 256 x 232
+constexpr int CONSUMER_REGS = 232;   // = 384 x 168, the launch's share
+
+// Dynamic shared memory at head width d: Q, O's staging tile, the K and V
+// rings, the alignment slack (tiles sit on 1024-byte swizzle patterns),
+// the barriers.
+__host__ __device__ constexpr int smem_bytes(int d) {
+  return (2 * BQ + 2 * STAGES * BK) * d * 2 + 1024 +
+         (2 + 4 * STAGES) * 8;
+}
+
+struct Args {
+  int B, Hq, group, Tq, Tk, causal;
+  int nq;                     // query tiles a head
+  float scale_log2;           // log2(e) / sqrt(d)
+};
+
+// Work item w: head (b, h) and query tile; the last (largest causal) query
+// tile of every head first, so the persistent CTAs, which take items w =
+// blockIdx.x, + gridDim.x, ..., start on the longest ones.
+struct Item {
+  int b, h, hk, q0, n;        // n: key tiles, visited last first
+};
+
+__device__ __forceinline__ Item item_of(const Args& a, int w) {
+  const int heads = a.B * a.Hq, bh = w % heads;
+  Item x;
+  x.b = bh / a.Hq;
+  x.h = bh % a.Hq;
+  x.hk = x.h / a.group;
+  x.q0 = (a.nq - 1 - w / heads) * BQ;
+  const int kend =
+      a.causal ? min(a.Tk, min(a.Tq, x.q0 + BQ)) : a.Tk;
+  x.n = (kend + BK - 1) / BK;
+  return x;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Spins on an mbarrier phase; a wait of more than ~10 s (a broken
+// pipeline) traps, so it fails the launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const long long start = clock64();
+  uint32_t done;
+  do {
+    if (clock64() - start > 20000000000LL) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// One box of a 4-D tensor map (coordinates innermost first) into shared
+// memory, completing on bar.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const void* src, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving reads or writes of wgmma registers across
+// the asynchronous products (their registers are only defined after the
+// wait).
+template <int N>
+__device__ __forceinline__ void pin(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// Shared-memory matrix descriptor (wgmma): the low word holds the start
+// address and the leading byte offset, the high word the stride byte
+// offset and the swizzle mode (1 = 128B, 2 = 64B, 3 = 32B); offsets in
+// 16-byte units, base offset 0 (every tile sits on its swizzle pattern).
+// The high word is the same for every operand here, so a descriptor is a
+// 32-bit add away from its tile's first one.
+__host__ __device__ constexpr uint32_t desc_lo(uint32_t addr, uint32_t lbo) {
+  return ((addr & 0x3FFFFu) >> 4) | ((lbo >> 4) << 16);
+}
+__host__ __device__ constexpr uint32_t desc_hi(uint32_t sbo, int mode) {
+  return (sbo >> 4) | (static_cast<uint32_t>(mode) << 30);
+}
+__device__ __forceinline__ uint64_t desc(uint32_t lo, uint32_t hi) {
+  return static_cast<uint64_t>(hi) << 32 | lo;
+}
+// A value the compiler must recompute where it is used: keeps it from
+// hoisting two dozen descriptors out of the loop into registers that the
+// accumulators need.
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+// 2^x by the special-function unit, results below 2^-126 flushed to 0.
+// exp2f differs only there (it rebuilds subnormal results, at ~3 more
+// instructions a call, a few per cent of the kernel's time at the glm4
+// prefill); a softmax weight below 2^-126 next to the row maximum's
+// weight of 1 adds nothing to a sum in fp32.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&t);
+}
+
+// -------------------------------------------------- wgmma wrappers --
+// d (64 x 128, fp32) = A (64 x 16, smem) * B (16 x 128, smem), both
+// K-major: the first step of a product (d's old values are dead).
+__device__ __forceinline__ void wgmma_ss_n128_first(float* d, uint64_t da,
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
+        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]),
+        "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]),
+        "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
+        "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]),
+        "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
+        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]),
+        "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+// d (64 x 128, fp32) += A (64 x 16, smem) * B (16 x 128, smem), both
+// K-major.
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 16, fp32) += A (64 x 16, registers) * B (16 x 16, smem,
+// MN-major: the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 32, fp32) += A (64 x 16, registers) * B (16 x 32, smem,
+// MN-major: the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 64, fp32) += A (64 x 16, registers) * B (16 x 64, smem,
+// MN-major: the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128, fp32) += A (64 x 16, registers) * B (16 x 128, smem,
+// MN-major: the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (N == 16) wgmma_rs_n16(d, a, db);
+  if constexpr (N == 32) wgmma_rs_n32(d, a, db);
+  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  if constexpr (N == 128) wgmma_rs_n128(d, a, db);
+}
+
+__device__ __forceinline__ void release(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+}
+
+constexpr int TURN = 3;   // named barriers TURN, TURN + 1: whose products
+
+// Accumulator layout of wgmma m64nN (and the A operand from registers):
+// warp w of the warpgroup holds rows 16 w + g and 16 w + g + 8 (g = lane /
+// 4); register 4 j + e holds column 8 j + 2 (lane % 4) + (e & 1) of row
+// 16 w + g + 8 (e >> 1), as mma.sync's m16n8 fragments side by side.
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+    flash_hopper(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap to, const Args a) {
+  constexpr int PC = D < 64 ? D : 64;   // bf16 columns a panel row
+  constexpr int NP = D / PC;            // panels a tile
+  constexpr int ROWB = PC * 2;          // bytes a panel row
+  constexpr int MODE = ROWB == 128 ? 1 : (ROWB == 64 ? 2 : 3);
+  constexpr int SWB = ROWB == 128 ? 3 : (ROWB == 64 ? 2 : 1);
+  constexpr uint32_t SBO = 8 * ROWB;    // next 8 rows of a panel
+  constexpr uint32_t TILE = BK * D * 2;
+  static_assert(BQ == BK, "one box shape serves Q, K and V");
+  static_assert(BK == 128, "S = Q K^T is one m64n128 product a step");
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(base);  // [NP][BQ][PC]
+  __nv_bfloat16* Os = Qs + BQ * D;             // [NP][BQ][PC]
+  __nv_bfloat16* Ks = Os + BQ * D;             // [STAGES][NP][BK][PC]
+  __nv_bfloat16* Vs = Ks + STAGES * BK * D;    // [STAGES][NP][BK][PC]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + STAGES * BK * D);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* k_full = q_empty + 1;
+  uint64_t* k_empty = k_full + STAGES;
+  uint64_t* v_full = k_empty + STAGES;
+  uint64_t* v_empty = v_full + STAGES;
+
+  // The warpgroup, read from lane 0 so the compiler knows it is uniform
+  // across the warp (setmaxnreg needs the role branches to be).
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x >> 7),
+                             0);
+  const int items = a.B * a.Hq * a.nq;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, CONSUMER_WARPS);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(v_full + s, 1);
+      mbar_init(k_empty + s, CONSUMER_WARPS);
+      mbar_init(v_empty + s, CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ------------------------------------------------------- producer --
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+                     PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      prefetch_map(&tq);
+      prefetch_map(&tk);
+      prefetch_map(&tv);
+      prefetch_map(&to);
+      int kv = 0;   // position in the K/V ring, over every item
+#pragma unroll 1
+      for (int w = blockIdx.x, j = 0; w < items; w += gridDim.x, ++j) {
+        const Item x = item_of(a, w);
+        mbar_wait(q_empty, (j & 1) ^ 1);   // the last item's S products
+        mbar_expect_tx(q_full, BQ * D * 2);
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          tma_load(Qs + p * BQ * PC, &tq, q_full, p * PC, x.q0, x.h, x.b);
+        }
+#pragma unroll 1
+        for (int it = 0; it < x.n; ++it, ++kv) {
+          const int s = kv % STAGES;
+          const uint32_t ph = (kv / STAGES) & 1;
+          const int k0 = (x.n - 1 - it) * BK;
+          mbar_wait(k_empty + s, ph ^ 1);
+          mbar_expect_tx(k_full + s, TILE);
+#pragma unroll
+          for (int p = 0; p < NP; ++p) {
+            tma_load(Ks + (s * NP + p) * BK * PC, &tk, k_full + s, p * PC,
+                     k0, x.hk, x.b);
+          }
+          mbar_wait(v_empty + s, ph ^ 1);
+          mbar_expect_tx(v_full + s, TILE);
+#pragma unroll
+          for (int p = 0; p < NP; ++p) {
+            tma_load(Vs + (s * NP + p) * BK * PC, &tv, v_full + s, p * PC,
+                     k0, x.hk, x.b);
+          }
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------------------- consumers --
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+                     CONSUMER_REGS));
+    const int cw = wg - 1, tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const float sl2 = a.scale_log2;
+
+    float sacc[BK / 2], oacc[D / 2];
+    uint32_t pa[BK / 16][4];
+    float m0, m1, l0, l1;
+    int rmin, row0, row1;
+
+    // Descriptors, first tile of each operand: this warpgroup's Q rows; K
+    // and V of stage 0 (V's leading byte offset: one panel, the distance
+    // between its MN-major atoms of 64 columns).
+    constexpr uint32_t HI = desc_hi(SBO, MODE);
+    constexpr uint32_t STAGE = TILE >> 4;   // one K or V stage, 16-B units
+    const uint32_t q_lo = desc_lo(smem_u32(Qs + cw * 64 * PC), 16);
+    const uint32_t k_lo = desc_lo(smem_u32(Ks), 16);
+    const uint32_t v_lo = desc_lo(smem_u32(Vs), BK * ROWB);
+
+    // S = Q K^T on stage s: D / 16 products of 16 columns of d.
+    auto issue_s = [&](int s) {
+      const uint32_t qd = opaque(q_lo), kd = opaque(k_lo + s * STAGE);
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const int p = ks * 16 / PC, c = ks * 16 % PC;
+        const uint64_t da = desc(qd + (p * BQ * ROWB + c * 2) / 16, HI);
+        const uint64_t db = desc(kd + (p * BK * ROWB + c * 2) / 16, HI);
+        if (ks == 0) {
+          wgmma_ss_n128_first(sacc, da, db);
+        } else {
+          wgmma_ss_n128(sacc, da, db);
+        }
+      }
+    };
+    // O += P V on stage s: BK / 16 products of 16 keys.
+    auto issue_pv = [&](int s) {
+      const uint32_t vd = opaque(v_lo + s * STAGE);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        wgmma_rs<D>(oacc, pa[kk], desc(vd + kk * 16 * ROWB / 16, HI));
+      }
+    };
+    // Online softmax of the score tile of keys k0 ..: mask (edge tiles
+    // only), row max over the quad, rescale, P packed as A fragments.
+    auto softmax = [&](int k0) {
+      const bool edge = k0 + BK > a.Tk || (a.causal && k0 + BK - 1 > rmin);
+      if (edge) {
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = k0 + j * 8 + 2 * t + (e & 1);
+            const int row = e < 2 ? row0 : row1;
+            if (col >= a.Tk || (a.causal && col > row)) {
+              sacc[4 * j + e] = NEG_INF;
+            }
+          }
+        }
+      }
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(sacc[4 * j], sacc[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      // exp(s / sqrt(d) - m / sqrt(d)) = exp2(s * sl2 - m * sl2); a row
+      // that has seen only masked keys gets weights exp2(NEG_INF * sl2) =
+      // 0 (not exp2 of the rounding residual of NEG_INF * sl2 twice)
+      const float nb0 = mx0 == NEG_INF ? 0.f : -mx0 * sl2;
+      const float nb1 = mx1 == NEG_INF ? 0.f : -mx1 * sl2;
+      const float al0 = exp2_ftz(fmaf(m0, sl2, nb0));
+      const float al1 = exp2_ftz(fmaf(m1, sl2, nb1));
+      m0 = mx0;
+      m1 = mx1;
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        const float p0 = exp2_ftz(fmaf(sacc[4 * j], sl2, nb0));
+        const float p1 = exp2_ftz(fmaf(sacc[4 * j + 1], sl2, nb0));
+        const float p2 = exp2_ftz(fmaf(sacc[4 * j + 2], sl2, nb1));
+        const float p3 = exp2_ftz(fmaf(sacc[4 * j + 3], sl2, nb1));
+        sum0 += p0 + p1;
+        sum1 += p2 + p3;
+        pa[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);
+        pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+      }
+      // this thread's part of each row sum; the quad's parts are added at
+      // the end (each is rescaled by the same alpha)
+      l0 = l0 * al0 + sum0;
+      l1 = l1 * al1 + sum1;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        oacc[4 * i] *= al0;
+        oacc[4 * i + 1] *= al0;
+        oacc[4 * i + 2] *= al1;
+        oacc[4 * i + 3] *= al1;
+      }
+    };
+    auto hand_over = [&]() {
+      asm volatile("bar.arrive %0, 256;\n" ::"r"(TURN + 1 - cw) : "memory");
+    };
+
+    // The warpgroups take turns issuing products: the first turn is
+    // warpgroup 0's, and each turn hands the next to the other (across
+    // items too), so one's softmax runs while the other's products occupy
+    // the tensor cores.  A turn issues tile it - 1's O += P V, waits for it
+    // (its P registers are free again), then tile it's S = Q K^T.
+    if (cw == 1) asm volatile("bar.arrive %0, 256;\n" ::"r"(TURN) : "memory");
+    int kv = 0;   // position in the K/V ring, over every item
+#pragma unroll 1
+    for (int w = blockIdx.x, j = 0; w < items; w += gridDim.x, ++j) {
+      const Item x = item_of(a, w);
+      const bool last_item = w + static_cast<int>(gridDim.x) >= items;
+      rmin = x.q0 + cw * 64;                 // this warpgroup's rows
+      row0 = rmin + warp * 16 + g;
+      row1 = row0 + 8;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+      m0 = m1 = NEG_INF;
+      l0 = l1 = 0.f;
+      mbar_wait(q_full, j & 1);
+
+      // the first tile: S alone
+      {
+        const int s = kv % STAGES;
+        mbar_wait(k_full + s, (kv / STAGES) & 1);
+        named_sync(TURN + cw, 256);
+        wgmma_fence();
+        issue_s(s);
+        wgmma_commit();
+        hand_over();
+        wgmma_wait0();
+        pin<BK / 2>(sacc);
+        release(k_empty + s, lane);
+        if (x.n == 1) release(q_empty, lane);   // the item's last S
+        softmax((x.n - 1) * BK);
+      }
+#pragma unroll 1
+      for (int it = 1; it < x.n; ++it) {
+        const int s = (kv + it) % STAGES, sp = (kv + it - 1) % STAGES;
+        mbar_wait(k_full + s, ((kv + it) / STAGES) & 1);
+        mbar_wait(v_full + sp, ((kv + it - 1) / STAGES) & 1);
+        named_sync(TURN + cw, 256);
+        wgmma_fence();
+        issue_pv(sp);
+        wgmma_commit();
+        wgmma_wait0();
+        pin<D / 2>(oacc);
+        release(v_empty + sp, lane);
+        wgmma_fence();
+        issue_s(s);
+        wgmma_commit();
+        hand_over();
+        wgmma_wait0();
+        pin<BK / 2>(sacc);
+        release(k_empty + s, lane);
+        if (it == x.n - 1) release(q_empty, lane);
+        softmax((x.n - 1 - it) * BK);
+      }
+      // the last tile's O += P V; warpgroup 1's last turn of all hands
+      // over nothing
+      {
+        const int sp = (kv + x.n - 1) % STAGES;
+        mbar_wait(v_full + sp, ((kv + x.n - 1) / STAGES) & 1);
+        named_sync(TURN + cw, 256);
+        wgmma_fence();
+        issue_pv(sp);
+        wgmma_commit();
+        if (!(last_item && cw == 1)) hand_over();
+        wgmma_wait0();
+        pin<D / 2>(oacc);
+        release(v_empty + sp, lane);
+      }
+      kv += x.n;
+
+      // ---- epilogue: normalise, round, stage in this warpgroup's rows of
+      // Os once its last store has read them, one TMA store (rows past Tq
+      // dropped), left in flight under the next item
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+      // one division a row, then multiplies (64 IEEE divisions a thread
+      // would cost the epilogue more than the rest of it)
+      const float r0 = 1.f / fmaxf(l0, 1e-30f);
+      const float r1 = 1.f / fmaxf(l1, 1e-30f);
+      if (tid == 0) {
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      }
+      named_sync(1 + cw, 128);
+      unsigned char* ob = reinterpret_cast<unsigned char*>(Os);
+#pragma unroll
+      for (int jj = 0; jj < D / 8; ++jj) {
+        const int col = jj * 8 + 2 * t, p = col / PC, cin = col % PC;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int r = cw * 64 + warp * 16 + g + 8 * hf;
+          uint32_t off = r * ROWB + cin * 2;
+          off ^= ((off >> 7) & ((1u << SWB) - 1u)) << 4;
+          const float inv = hf ? r1 : r0;
+          *reinterpret_cast<uint32_t*>(ob + p * BQ * ROWB + off) = pack_bf16(
+              oacc[4 * jj + 2 * hf] * inv, oacc[4 * jj + 2 * hf + 1] * inv);
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      named_sync(1 + cw, 128);
+      if (tid == 0) {
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          tma_store(&to, Os + p * BQ * PC + cw * 64 * PC, p * PC, rmin, x.h,
+                    x.b);
+        }
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      }
+    }
+    if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  }
+}
+
+}  // namespace hop
+
+// ---------------------------------------------------------------- fp32 --
 constexpr int BQ = 64;    // query rows a CTA
 constexpr int BK = 64;    // keys a tile
 constexpr int NT = 128;   // threads a CTA (4 warps)
-constexpr int PAD = 8;    // bf16 elements of padding a shared-memory row
-constexpr float NEG_INF = -1e30f;
 
 struct Args {
   const void* q;
@@ -80,193 +802,6 @@ __device__ __forceinline__ int key_end(const Args& a, int q0) {
   return a.causal ? min(a.Tk, min(a.Tq, q0 + BQ)) : a.Tk;
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&t);
-}
-
-// c (16 x 8, fp32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
-                                          const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// ---------------------------------------------------------------- bf16 --
-// Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4): A regs
-// {row g, row g+8} x {cols 2t.., cols 2t+8..}; B regs {rows 2t.., rows
-// 2t+8..} at col g; C {row g, row g+8} x cols 2t, 2t+1.
-template <int D>
-__global__ void __launch_bounds__(NT) flash_bf16(const Args a) {
-  constexpr int LDQ = D + PAD, LDK = D + PAD, LDV = BK + PAD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + BQ * LDQ;   // [BK][LDK]
-  __nv_bfloat16* Vt = Ks + BK * LDK;   // [D][LDV], V transposed
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.x, b = bh / a.Hq, h = bh % a.Hq;
-  const int hk = h / a.group;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q) +
-                           b * a.sqb + h * a.sqh;
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k) +
-                           b * a.skb + hk * a.skh;
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v) +
-                           b * a.svb + hk * a.svh;
-  constexpr int VEC = D / 8;           // 16-byte vectors a row
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-
-  for (int idx = tid; idx < BQ * VEC; idx += NT) {
-    const int r = idx / VEC, c = (idx % VEC) * 8;
-    *reinterpret_cast<uint4*>(Qs + r * LDQ + c) =
-        q0 + r < a.Tq ? *reinterpret_cast<const uint4*>(
-                            q + (int64_t)(q0 + r) * a.sqt + c)
-                      : zero;
-  }
-  __syncthreads();
-  const int r0 = warp * 16 + g;        // this thread's rows r0, r0 + 8
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    const int c = ks * 16 + 2 * t;
-    qa[ks][0] = ld32(Qs + r0 * LDQ + c);
-    qa[ks][1] = ld32(Qs + (r0 + 8) * LDQ + c);
-    qa[ks][2] = ld32(Qs + r0 * LDQ + c + 8);
-    qa[ks][3] = ld32(Qs + (r0 + 8) * LDQ + c + 8);
-  }
-
-  float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
-  float oacc[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) oacc[dn][e] = 0.f;
-  }
-  const int row0 = q0 + r0, row1 = row0 + 8;
-  const int kend = key_end(a, q0);
-
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();                   // the last tile's readers are done
-    for (int idx = tid; idx < BK * VEC; idx += NT) {
-      const int r = idx / VEC, c = (idx % VEC) * 8;
-      *reinterpret_cast<uint4*>(Ks + r * LDK + c) =
-          k0 + r < a.Tk ? *reinterpret_cast<const uint4*>(
-                              k + (int64_t)(k0 + r) * a.skt + c)
-                        : zero;
-    }
-    for (int idx = tid; idx < BK * VEC; idx += NT) {
-      const int r = idx % BK, c = (idx / BK) * 8;   // lanes on rows
-      uint4 val = k0 + r < a.Tk ? *reinterpret_cast<const uint4*>(
-                                      v + (int64_t)(k0 + r) * a.svt + c)
-                                : zero;
-      const __nv_bfloat16* e8 = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) Vt[(c + e) * LDV + r] = e8[e];
-    }
-    __syncthreads();
-
-    float s[BK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks) {
-        const __nv_bfloat16* kr = Ks + (nt * 8 + g) * LDK + ks * 16 + 2 * t;
-        const uint32_t kb[2] = {ld32(kr), ld32(kr + 8)};
-        mma_16816(s[nt], qa[ks], kb);
-      }
-    }
-    float mx0 = m_r[0], mx1 = m_r[1];
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = k0 + nt * 8 + 2 * t + (e & 1);
-        const int i = e < 2 ? row0 : row1;
-        const bool ok = j < a.Tk && (!a.causal || i >= j);
-        s[nt][e] = ok ? s[nt][e] * a.scale : NEG_INF;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float al0 = expf(m_r[0] - mx0), al1 = expf(m_r[1] - mx1);
-    m_r[0] = mx0;
-    m_r[1] = mx1;
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      s[nt][0] = expf(s[nt][0] - mx0);
-      s[nt][1] = expf(s[nt][1] - mx0);
-      s[nt][2] = expf(s[nt][2] - mx1);
-      s[nt][3] = expf(s[nt][3] - mx1);
-      sum0 += s[nt][0] + s[nt][1];
-      sum1 += s[nt][2] + s[nt][3];
-    }
-    // this thread's part of each row sum; the four threads of a row are
-    // added at the end (every part is rescaled by the same alpha)
-    l_r[0] = l_r[0] * al0 + sum0;
-    l_r[1] = l_r[1] * al1 + sum1;
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      oacc[dn][0] *= al0;
-      oacc[dn][1] *= al0;
-      oacc[dn][2] *= al1;
-      oacc[dn][3] *= al1;
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        const __nv_bfloat16* vr = Vt + (dn * 8 + g) * LDV + kk * 16 + 2 * t;
-        const uint32_t vb[2] = {ld32(vr), ld32(vr + 8)};
-        mma_16816(oacc[dn], pa, vb);
-      }
-    }
-  }
-
-  float l0 = l_r[0], l1 = l_r[1];
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  l0 = fmaxf(l0, 1e-30f);
-  l1 = fmaxf(l1, 1e-30f);
-  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(a.o) + b * a.sob +
-                     h * a.soh;
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
-    const int c = dn * 8 + 2 * t;
-    if (row0 < a.Tq) {
-      *reinterpret_cast<uint32_t*>(o + (int64_t)row0 * a.sot + c) =
-          pack_bf16(oacc[dn][0] / l0, oacc[dn][1] / l0);
-    }
-    if (row1 < a.Tq) {
-      *reinterpret_cast<uint32_t*>(o + (int64_t)row1 * a.sot + c) =
-          pack_bf16(oacc[dn][2] / l1, oacc[dn][3] / l1);
-    }
-  }
-}
-
-// ---------------------------------------------------------------- fp32 --
 // Thread (tr, tc) = (tid / 8, tid % 8) owns rows 4 tr .. 4 tr + 3 of the
 // tile, keys tc + 8 c (c < 8) of the score tile and output columns
 // tc + 8 c (c < D / 8); a row's eight owners are eight neighbouring lanes.
@@ -410,25 +945,106 @@ __global__ void __launch_bounds__(NT) flash_fp32(const Args a) {
 }
 
 template <int D>
-int launch(const Args& a, int B, int bf16, cudaStream_t s) {
+int launch_fp32(const Args& a, int B, cudaStream_t s) {
   const dim3 grid(B * a.Hq, (a.Tq + BQ - 1) / BQ);
-  cudaError_t err;
-  if (bf16) {
-    const int smem = (BQ * (D + PAD) + BK * (D + PAD) + D * (BK + PAD)) *
-                     (int)sizeof(__nv_bfloat16);
-    err = cudaFuncSetAttribute(
-        flash_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_bf16<D><<<grid, NT, smem, s>>>(a);
-  } else {
-    const int smem = (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1)) *
-                     (int)sizeof(float);
-    err = cudaFuncSetAttribute(
-        flash_fp32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_fp32<D><<<grid, NT, smem, s>>>(a);
-  }
+  const int smem = (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1)) *
+                   (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fp32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_fp32<D><<<grid, NT, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// cuTensorMapEncodeTiled, looked up in libcuda at run time (the runtime's
+// entry-point query), so the library needs no link to it.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// A 4-D map over (d, T, H, B) of a bf16 tensor at element strides (t, h,
+// b), boxes of rows x cols; out-of-bounds elements load as zeros and are
+// not stored.
+bool tensor_map(CUtensorMap* m, const void* ptr, int d, int T, int H, int B,
+                long long st, long long sh, long long sb, int cols, int rows,
+                CUtensorMapSwizzle swizzle) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)T, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st * 2, (cuuint64_t)sh * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_bf16(const Args& a, int B, int Hkv, cudaStream_t s) {
+  constexpr int PC = D < 64 ? D : 64;
+  const CUtensorMapSwizzle sw = PC == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : PC == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                           : CU_TENSOR_MAP_SWIZZLE_32B;
+  CUtensorMap mq, mk, mv, mo;
+  if (!tensor_map(&mq, a.q, D, a.Tq, a.Hq, B, a.sqt, a.sqh, a.sqb, PC,
+                  hop::BQ, sw) ||
+      !tensor_map(&mk, a.k, D, a.Tk, Hkv, B, a.skt, a.skh, a.skb, PC,
+                  hop::BK, sw) ||
+      !tensor_map(&mv, a.v, D, a.Tk, Hkv, B, a.svt, a.svh, a.svb, PC,
+                  hop::BK, sw) ||
+      !tensor_map(&mo, a.o, D, a.Tq, a.Hq, B, a.sot, a.soh, a.sob, PC, 64,
+                  sw)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int nq = (a.Tq + hop::BQ - 1) / hop::BQ;
+  const hop::Args ha{B,  a.Hq,     a.group, a.Tq, a.Tk, a.causal, nq,
+                     static_cast<float>(1.4426950408889634 /
+                                        sqrt(static_cast<double>(D)))};
+  const int smem = hop::smem_bytes(D);
+  cudaError_t err = cudaFuncSetAttribute(
+      hop::flash_hopper<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // persistent: one CTA an SM (or an item), each walking its items
+  const long long items = static_cast<long long>(B) * a.Hq * nq;
+  const int grid = static_cast<int>(items < sms ? items : sms);
+  hop::flash_hopper<D><<<grid, hop::NT, smem, s>>>(mq, mk, mv, mo, ha);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch(const Args& a, int B, int Hkv, int bf16, cudaStream_t s) {
+  return bf16 ? launch_bf16<D>(a, B, Hkv, s) : launch_fp32<D>(a, B, s);
 }
 
 }  // namespace
@@ -443,8 +1059,12 @@ extern "C" int flash_attn_launch(
     long long sqt, long long skb, long long skh, long long skt,
     long long svb, long long svh, long long svt, long long sob,
     long long soh, long long sot, int causal, int bf16, void* stream) {
+  // the fp32 kernel's grid has a y axis of query tiles; the bf16 kernel
+  // numbers its work items in an int
   if (B < 0 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 || Tq < 0 || Tk < 1 ||
-      (Tq + BQ - 1) / BQ > 65535) {
+      (!bf16 && (Tq + BQ - 1) / BQ > 65535) ||
+      (bf16 && static_cast<long long>(B) * Hq * ((Tq + hop::BQ - 1) /
+                                                  hop::BQ) >= (1LL << 31))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0 || Tq == 0) return 0;
@@ -453,10 +1073,28 @@ extern "C" int flash_attn_launch(
          soh, sot, 1.0f / sqrtf(static_cast<float>(d))};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 16: return launch<16>(a, B, bf16, s);
-    case 32: return launch<32>(a, B, bf16, s);
-    case 64: return launch<64>(a, B, bf16, s);
-    case 128: return launch<128>(a, B, bf16, s);
+    case 16: return launch<16>(a, B, Hkv, bf16, s);
+    case 32: return launch<32>(a, B, Hkv, bf16, s);
+    case 64: return launch<64>(a, B, Hkv, bf16, s);
+    case 128: return launch<128>(a, B, Hkv, bf16, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The bf16 kernel's shape at head width d, for reports: info[0..6] =
+// dynamic shared memory bytes, threads a CTA, producer and consumer
+// registers a thread (setmaxnreg), query rows a CTA, keys a tile, ring
+// stages.  Returns cudaErrorInvalidValue for another d.
+extern "C" int flash_attn_config(int d, int* info) {
+  if (d != 16 && d != 32 && d != 64 && d != 128) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  info[0] = hop::smem_bytes(d);
+  info[1] = hop::NT;
+  info[2] = hop::PRODUCER_REGS;
+  info[3] = hop::CONSUMER_REGS;
+  info[4] = hop::BQ;
+  info[5] = hop::BK;
+  info[6] = hop::STAGES;
+  return 0;
 }

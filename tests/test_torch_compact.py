@@ -93,3 +93,18 @@ def test_cpu_compaction_launches_no_kernel_and_validates():
     with pytest.raises(ValueError, match="n_out"):
         ops.compact_channels(torch.from_numpy(mask),
                              torch.from_numpy(vals.T.copy()), -1)
+
+
+@pytest.mark.parametrize("channels", [1, 3, 4])
+def test_compact_columns_matches_pallas_kernel(channels):
+    """The by-pointer entry point (one tensor a channel) on the CPU: the
+    reference kernel's rows, one channel a row, zero past the count."""
+    mask, vals = _inputs(1500, 0.4, channels=channels, seed=channels)
+    count, out = ops.compact_columns(
+        torch.from_numpy(mask),
+        [torch.from_numpy(vals[:, c].copy()) for c in range(channels)], 700)
+    want_count, want = _reference(mask, vals, 700)
+    assert int(count) == want_count == min(int(mask.sum()), 700)
+    assert out.shape == (channels, 700) and out.dtype == torch.int32
+    assert np.array_equal(out.numpy().T[:want_count], want[:want_count])
+    assert not out[:, want_count:].any()

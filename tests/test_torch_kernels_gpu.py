@@ -134,6 +134,113 @@ def test_compact_kernel_matches_plain(cuda, n, density, n_out):
     assert torch.equal(out, want.t())
 
 
+def _poisoned_compaction(cuda, mask, cols, n_out):
+    """compact_columns after the allocator's cache was filled with -1 at
+    the output's size, so a slot the kernel fails to write shows."""
+    junk = torch.full((len(cols) * n_out + 1,), -1, dtype=torch.int32,
+                      device=cuda)
+    del junk
+    before = _build.launch_counts()["compact"]
+    count, out = compact_ops.compact_columns(mask, cols, n_out)
+    assert _build.launch_counts()["compact"] == before + 1
+    return count, out
+
+
+def _check_compaction(mask, cols, n_out, count, out):
+    want_count, want = compact_ref(mask, torch.stack(list(cols), 1), n_out)
+    assert int(count) == int(want_count) == min(int(mask.sum()), n_out)
+    assert out.shape == (len(cols), n_out)
+    assert torch.equal(out, want.t())
+
+
+_TILE = compact_ops.TILE
+
+
+@pytest.mark.parametrize("density", [0.0, 0.3, 1.0])
+@pytest.mark.parametrize("n", [_TILE - 1, _TILE, _TILE + 1, 37 * _TILE + 5])
+def test_compact_kernel_at_tile_edges(cuda, n, density):
+    """One tile, one tile +- 1, many tiles; every density from none to
+    all, n_out = N: count and every slot, the zero tail included."""
+    rs = np.random.RandomState(n + int(10 * density))
+    mask = torch.from_numpy(rs.uniform(size=n) < density).to(cuda)
+    cols = [torch.from_numpy(rs.randint(-2**31, 2**31 - 1, n).astype(
+        np.int32)).to(cuda) for _ in range(2)]
+    count, out = _poisoned_compaction(cuda, mask, cols, n)
+    _check_compaction(mask, cols, n, count, out)
+
+
+@pytest.mark.parametrize("n_out", [0, 1, 3000, 9 * _TILE + 7])
+@pytest.mark.parametrize("channels", [1, 3, 4])
+def test_compact_kernel_n_out_and_channels(cuda, n_out, channels):
+    """n_out 0, below the count (survivors dropped) and above N (a zero
+    tail longer than the lanes), with 1, 3 and 4 channels."""
+    n = 5 * _TILE + 333
+    rs = np.random.RandomState(n_out + channels)
+    mask = torch.from_numpy(rs.uniform(size=n) < 0.4).to(cuda)
+    cols = [torch.from_numpy(rs.randint(-2**31, 2**31 - 1, n).astype(
+        np.int32)).to(cuda) for _ in range(channels)]
+    count, out = _poisoned_compaction(cuda, mask, cols, n_out)
+    _check_compaction(mask, cols, n_out, count, out)
+
+
+@pytest.mark.parametrize("n_out", [0, 1, 5000])
+def test_compact_kernel_no_lanes(cuda, n_out):
+    mask = torch.zeros(0, dtype=torch.bool, device=cuda)
+    cols = [torch.zeros(0, dtype=torch.int32, device=cuda)] * 2
+    count, out = _poisoned_compaction(cuda, mask, cols, n_out)
+    assert int(count) == 0 and out.shape == (2, n_out)
+    assert not out.any()
+
+
+def test_compact_kernel_back_to_back_calls_reuse_scratch(cuda):
+    """Many calls of different sizes on one stream with no sync between
+    them: the reused status words and ticket must not leak from one call
+    into the next (a later call with fewer tiles finds an earlier call's
+    words past its own tiles and before them)."""
+    rs = np.random.RandomState(99)
+    calls = []
+    for i in range(40):
+        n = int(rs.choice([1, 100, _TILE - 1, _TILE + 1, 3 * _TILE,
+                           40 * _TILE + 17, 7 * _TILE]))
+        n_out = int(rs.choice([0, n // 3, n, 2 * n + 5]))
+        mask = torch.from_numpy(rs.uniform(size=n) < rs.uniform()).to(cuda)
+        cols = [torch.from_numpy(rs.randint(-2**31, 2**31 - 1, n).astype(
+            np.int32)).to(cuda) for _ in range(2)]
+        calls.append((mask, cols, n_out,
+                      compact_ops.compact_columns(mask, cols, n_out)))
+    torch.cuda.synchronize()
+    for mask, cols, n_out, (count, out) in calls:
+        _check_compaction(mask, cols, n_out, count, out)
+
+
+def test_compact_pairs_is_one_launch_and_matches_plain(cuda):
+    """The frontier pair compaction passes its two columns as they are
+    (one launch, no stack) and equals compact_ref on the stacked
+    channels."""
+    n = 2_097_152
+    rs = np.random.RandomState(5)
+    mask = torch.from_numpy(rs.uniform(size=n) < 0.03).to(cuda)
+    q = torch.from_numpy(rs.randint(0, 10500, n).astype(np.int32)).to(cuda)
+    codes = torch.from_numpy(rs.randint(-2**31, 2**31 - 1, n).astype(
+        np.int32)).to(cuda)
+    before = _build.launch_counts()["compact"]
+    count, q_out, c_out = compact_ops.compact_pairs(mask, q, codes, 262_144)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["compact"] == before + 1
+    want_count, want = compact_ref(mask, torch.stack([q, codes], 1), 262_144)
+    assert int(count) == int(want_count)
+    assert torch.equal(q_out, want[:, 0]) and torch.equal(c_out, want[:, 1])
+
+
+def test_compact_kernel_rejects_what_it_cannot_run(cuda):
+    mask = torch.ones(10, dtype=torch.bool, device=cuda)
+    col = torch.zeros(10, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="at most 4 channels"):
+        compact_ops.compact_columns(mask, [col] * 5, 10)
+    with pytest.raises(ValueError, match="int32"):
+        compact_ops.compact_columns(mask, [col.long()], 10)
+
+
 @pytest.mark.parametrize("use_spheres", [False, True])
 def test_traverse_kernel_matches_plain(cuda, use_spheres):
     tree, _ = _scene_and_queries(M=8, depth=5)
