@@ -21,8 +21,10 @@ non-zero and prints no result):
    OBBs) for each environment;
 6. ``traverse`` kernel vs ``traverse_test_ref`` on the cubby scene: the
    10,500 OBBs against level-5 cells with a live prefix short of the
-   capacity, and grazing frontiers (OBBs placed against real cells by
-   bisection; all 18 exit codes), both sphere settings, words equal;
+   capacity, of 0, 1 and the whole capacity, a capacity that is no
+   multiple of 4 with queries out of range, and grazing frontiers (OBBs
+   placed against real cells by bisection; all 18 exit codes), both
+   sphere settings, words equal;
 7. ``compact`` kernel vs ``compact_ref``: mask densities 0, 1e-3, 0.5 and
    1 over a lane count that is no multiple of the kernel's tile, and an
    ``n_out`` below the total; count and every output row equal;
@@ -38,9 +40,9 @@ non-zero and prints no result):
    peak device memory;
 9. ``traverse`` and ``compact`` timed at the widest level of the cubby
    ``wavefront_fused`` query against their bounds, plain versions and (for
-   ``compact``) one PyTorch call computing the same function; ``compact``
-   also by ``torch.profiler``, the kernel's own time on the card beside
-   the call's (which the host paces);
+   ``compact``) one PyTorch call computing the same function; both also
+   by ``torch.profiler``, the kernel's own time on the card beside the
+   call's (which the host paces);
 10. ``sact_dense`` timed on the paper-scale queries against level-5 cells;
 11. ``fps`` kernel vs its plain version, indices exactly equal: B = 1 and
    32 clouds of 2048, 2047 and 5000 points, m = 256, lattice clouds with
@@ -66,8 +68,10 @@ non-zero and prints no result):
 14. ``fps`` and ``ballquery`` timed at the batched encode's sa1 shapes
    against their bounds and plain versions;
 15. ``wkv6`` kernel vs its plain version on ``kernels/wkv6/cases.py``
-   (T = 1, 33, 1024; D = 16, 64; per-row and shared ``u``; ordinary,
-   strong and weak decays), fp32 and bf16 inputs, within ``cases.TOL``;
+   (T = 1, 33, 1024 at D = 16, 64; the chunk edges T = 31, 32, 33, 64,
+   65 at D = 16, 32, 33, 64, 128; T = 1, 1024 at D = 32, 128; per-row
+   and shared ``u``; ordinary, strong and weak decays), fp32 and bf16
+   inputs, within ``cases.TOL``;
 16. the RWKV-6 1.6B model at full width cut to 2 of its 24 layers, in fp32
    (TF32 off), on the card against the same weights on the CPU: B = 2, a
    64-token prompt and 4 teacher-forced decode steps, logits and every
@@ -79,7 +83,11 @@ non-zero and prints no result):
    decode); ``wkv6`` against its plain version on the 24 prefill inputs a
    recorder captured; warm prefill and decode walls (median of 10 serves),
    tokens/s, peak memory, a profiled serve's busy share, the kernel's time
-   per launch against its bound and its plain version, and the
+   per launch (the call, and the kernel alone by ``torch.profiler``)
+   against its bound (bytes, or the
+   chunked form's operations: products at the TF32 rate three times for
+   the split, elementwise work at the fp32 rate; the step form's
+   operations printed beside it) and its plain version, and the
    prefill/decode consistency of the logits (``LM_CONSIST_ATOL``);
 18. ``flash_attention`` kernel vs its plain version on
    ``kernels/flash_attention/cases.py`` (d = 16, 32, 64, 128; causal with
@@ -125,11 +133,16 @@ import sys
 import time
 from pathlib import Path
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, non-tensor fp32 and
-# dense bf16 on the tensor cores.
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, non-tensor fp32, and
+# dense bf16 and TF32 on the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 PEAK_BF16_PER_S = 989e12
+PEAK_TF32_PER_S = 495e12
+# A profiled window (kernel_device_ms) opens with this many kernels that it
+# does not count, and leaves this much idle time on either side of its calls.
+PROFILER_LEAD_IN = 4
+PROFILER_PAUSE_S = 0.05
 
 # fp32 operations the SACT runs per pair (adds, multiplies, compares,
 # min/max; abs is a sign-bit op and not counted): setup t and |R| + eps,
@@ -205,6 +218,60 @@ def device_us(event) -> float:
     """A profiler event's own time on the card, in microseconds."""
     return getattr(event, "self_device_time_total",
                    getattr(event, "self_cuda_time_total", 0))
+
+
+def kernel_device_ms(fn, key: str, reps: int, name: str,
+                     tries: int = 3) -> float:
+    """The mean device time of a kernel whose name holds ``key``, over a
+    window of ``reps`` calls of ``fn`` (``torch.profiler``), which must
+    launch kernel ``name`` once a call (the wrappers' counters) and leave
+    exactly one record a call.  Late in this script the profiler drops
+    the first kernel record of a window (the card showed 19 records after
+    20 launches, the first one missing), so each window opens with a few
+    fills of a scratch word, which match no kernel's key, and idle time on
+    either side of the calls.  A window that still lost a record is
+    reported and taken again, up to ``tries`` windows; none is averaged.
+    A call timed back to back with CUDA events is paced by the host where
+    the kernel is short: this is the kernel alone."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch.kernels import _build
+    fn()
+    scratch = torch.empty(1, device="cuda")
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(PROFILER_LEAD_IN):
+                scratch.fill_(0.0)
+            torch.cuda.synchronize()
+            time.sleep(PROFILER_PAUSE_S)
+            before = _build.launch_counts().get(name, 0)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            launched = _build.launch_counts().get(name, 0) - before
+            time.sleep(PROFILER_PAUSE_S)
+        if launched != reps:
+            raise SystemExit(f"FAIL: {reps} calls launched {launched} {name} "
+                             f"kernels")
+        ev = [e for e in prof.key_averages() if key in e.key]
+        n = sum(e.count for e in ev)
+        if n == reps:
+            if seen:
+                log("profiler", f"{key}: windows that lost records saw "
+                    f"{seen} of {reps}; this one saw {n}")
+            return sum(device_us(e) for e in ev) / 1e3 / n
+        seen.append(n)
+        if n > reps:
+            break
+    raise SystemExit(f"FAIL: {reps} calls launched {reps} {name} kernels; "
+                     f"the profiler saw {seen} {key} kernels in "
+                     f"{len(seen)} windows")
 
 
 def cuda_time_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -295,7 +362,8 @@ def main() -> int:
                                                   unpack_verdicts)
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.wkv6 import ops as wkv6_ops
-    from repro_torch.kernels.wkv6.cases import hard_cases, within_tol
+    from repro_torch.kernels.wkv6.cases import (edge_cases, hard_cases,
+                                                within_tol)
     from repro_torch.kernels.wkv6.ref import wkv6_ref
     from repro_torch.lm.serve import serve
     from repro_torch.models import api as lm_api
@@ -437,6 +505,19 @@ def main() -> int:
                           torch.randint(0, n_l, (cap,), generator=g)],
                       n_live=cap - 1000, name="paper")]
     frontiers[0]["full"] = torch.zeros(cap, dtype=torch.int32)
+    # the live prefix at its ends, and a capacity that is no multiple of 4
+    # (nor of a CTA's 256 lanes) with queries out of range
+    for n in (0, 1, cap):
+        frontiers.append(dict(frontiers[0], n_live=n,
+                              name=f"paper n_live={n}"))
+    rag = cap - 179
+    q_rag = frontiers[0]["q_idx"][:rag].clone()
+    q_rag[::97] = -1
+    q_rag[5::101] = obbs0.n + 3
+    frontiers.append(dict(obb=obb0, q_idx=q_rag,
+                          codes=frontiers[0]["codes"][:rag],
+                          full=frontiers[0]["full"][:rag], n_live=rag - 5,
+                          name="ragged, queries out of range"))
     for sph in (False, True):
         f = grazing_frontier(dev0, lvl, 4096, seed=31 + sph, use_spheres=sph)
         frontiers.append(dict(f, n_live=f["q_idx"].shape[0] - 77,
@@ -633,8 +714,29 @@ def main() -> int:
     n_live = int(ta[4])
     err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
     errs["traverse"] = max(errs["traverse"], err)
+    # Every call is timed before the profiler's windows, so that no call is
+    # timed in a process that the profiler has attached to the card.
     ms = cuda_time_ms(lambda: traverse_ops.traverse_test(*ta, **tk), 50)
     plain_ms = cuda_time_ms(lambda: traverse_test_ref(*ta, **tk), 5)
+    # compaction: the level that keeps the most pairs
+    _, ca, ck = max(calls_c, key=lambda call: int(call[1][0].sum()))
+    mask, cols, n_out = ca
+    rows = torch.stack(list(cols), 1)
+    count, out = compact_ops.compact_columns(*ca, **ck)
+    want_count, want = compact_ref(mask, rows, n_out)
+    err = max(abs(int(count) - int(want_count)),
+              int((out.t().to(torch.int64) - want.to(torch.int64))
+                  .abs().max()))
+    errs["compact"] = max(errs["compact"], err)
+    c_ms = cuda_time_ms(lambda: compact_ops.compact_columns(*ca, **ck), 50)
+    c_plain_ms = cuda_time_ms(lambda: compact_ref(mask, rows, n_out), 5)
+    library_ms = cuda_time_ms(lambda: rows[mask][:n_out], 50)
+    t_device_ms = kernel_device_ms(
+        lambda: traverse_ops.traverse_test(*ta, **tk), "traverse_kernel", 50,
+        "traverse")
+    device_ms = kernel_device_ms(
+        lambda: compact_ops.compact_columns(*ca, **ck), "compact_kernel", 50,
+        "compact")
     exits = unpack_verdicts(got[:n_live])[2]
     hist = torch.bincount(exits, minlength=18).cpu().numpy()
     ops = float(np.dot(hist, exit_code_ops(tk["use_spheres"]))
@@ -652,33 +754,10 @@ def main() -> int:
         ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
         library_ms=None))
     log("9 traverse", f"{env0} wavefront_fused widest level ({n_live} live of "
-        f"{got.shape[0]} lanes, {n_obbs} OBBs named): kernel {ms:.4f} ms, "
-        f"plain on card "
-        f"{plain_ms:.3f} ms, bound {bms:.5f} ms ({by}) | {card}")
-    # compaction: the level that keeps the most pairs
-    _, ca, ck = max(calls_c, key=lambda call: int(call[1][0].sum()))
-    mask, cols, n_out = ca
-    rows = torch.stack(list(cols), 1)
-    count, out = compact_ops.compact_columns(*ca, **ck)
-    want_count, want = compact_ref(mask, rows, n_out)
-    err = max(abs(int(count) - int(want_count)),
-              int((out.t().to(torch.int64) - want.to(torch.int64))
-                  .abs().max()))
-    errs["compact"] = max(errs["compact"], err)
-    ms = cuda_time_ms(lambda: compact_ops.compact_columns(*ca, **ck), 50)
-    plain_ms = cuda_time_ms(lambda: compact_ref(mask, rows, n_out), 5)
-    library_ms = cuda_time_ms(lambda: rows[mask][:n_out], 50)
-    # the kernel's own time on the card (the call above is paced by the
-    # host: one dispatch a call, back to back)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(50):
-            compact_ops.compact_columns(*ca, **ck)
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages() if "compact_kernel" in e.key]
-    if not ev or sum(e.count for e in ev) != 50:
-        raise SystemExit(f"FAIL: the profiler saw {sum(e.count for e in ev)}"
-                         f" compact kernels in 50 calls")
-    device_ms = sum(device_us(e) for e in ev) / 1e3 / 50
+        f"{got.shape[0]} lanes, {n_obbs} OBBs named): call {ms:.4f} ms (back "
+        f"to back, one launch each), kernel on the card {t_device_ms:.5f} ms "
+        f"(torch.profiler, {t_device_ms / bms:.2f}x the bound), plain on card"
+        f" {plain_ms:.3f} ms, bound {bms:.5f} ms ({by}) | {card}")
     # Read once: the mask and the rows of the kept survivors; written
     # once: all n_out output rows (zero past the count).
     lanes = mask.shape[0]
@@ -688,14 +767,15 @@ def main() -> int:
         source="src/repro_torch/kernels/compact/csrc/compact.cu",
         replaces="src/repro/kernels/compact/kernel.py:32",
         max_abs_err=errs["compact"],
-        ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        ms=c_ms, plain_ms=c_plain_ms, bound_ms=bms, bound_by=by,
         library_ms=library_ms))
     log("9 compact", f"{env0} wavefront_fused fullest level ({lanes} lanes, "
-        f"{int(count)} kept, n_out {n_out}): call {ms:.4f} ms (back to back, "
-        f"one launch each), kernel on the card {device_ms:.4f} ms "
+        f"{int(count)} kept, n_out {n_out}): call {c_ms:.4f} ms (back to "
+        f"back, one launch each), kernel on the card {device_ms:.4f} ms "
         f"(torch.profiler, {device_ms / bms:.2f}x the bound), plain on card "
-        f"{plain_ms:.3f} ms, vals[mask][:n_out] {library_ms:.4f} ms (call / "
-        f"library {ms / library_ms:.3f}), bound {bms:.5f} ms ({by}) | {card}")
+        f"{c_plain_ms:.3f} ms, vals[mask][:n_out] {library_ms:.4f} ms (call "
+        f"/ library {c_ms / library_ms:.3f}), bound {bms:.5f} ms ({by}) | "
+        f"{card}")
     add_check_launches()
 
     # ---- 10. sact_dense timed at main-path widths -------------------------
@@ -1064,7 +1144,7 @@ def main() -> int:
         return secs
 
     n_cases = 0
-    for case in hard_cases():
+    for case in hard_cases() + edge_cases():
         for dtype in (torch.float32, torch.bfloat16):
             r, k, v = (torch.from_numpy(case[n]).to(cuda, dtype)
                        for n in "rkv")
@@ -1083,8 +1163,9 @@ def main() -> int:
             n_cases += 1
     add_check_launches()
     log("15 wkv6", f"kernel within cases.TOL of plain on {n_cases} cases "
-        "(T 1/33/1024, D 16/64, ordinary/strong/weak decay, per-row and "
-        "shared u, fp32 and bf16)")
+        "(T 1/33/1024 at D 16/64; the chunk edges T 31/32/33/64/65 at D "
+        "16/32/33/64/128; T 1/1024 at D 32/128; ordinary/strong/weak decay, "
+        "per-row and shared u, fp32 and bf16)")
 
     # ---- 16. the RWKV-6 model, 2 layers at full width, fp32, card vs CPU --
     cfg_full = get_config("rwkv6_1_6b")
@@ -1202,6 +1283,8 @@ def main() -> int:
                           float((st - wst).abs().max()))
         fn, ca, ck = calls[0]
         ms = cuda_time_ms(lambda: fn(*ca, **ck), 20)
+        w_device_ms = kernel_device_ms(lambda: fn(*ca, **ck), "wkv6", 20,
+                                       "wkv6")
         plain_ms = cuda_time_ms(lambda: plain(*ca), 2)
     add_check_launches()
     r = ca[0]
@@ -1209,12 +1292,28 @@ def main() -> int:
     BH = Bq * H
     esz = r.element_size()
     # read once: r, k, v (their dtype), logw (fp32), u; written once: o
-    # (r's dtype) and the fp32 state.  Per row and step: r.S (D^2 products,
-    # D^2 sums), w*S + k*v (3 D^2), r*u*k and its sum (3 D), + bonus*v
-    # (2 D), exp(logw) (D).
+    # (r's dtype) and the fp32 state.
     wkv_bytes = BH * T * D * (4 * esz + 4) + BH * D * 4 + BH * D * D * 4
-    wkv_ops = BH * T * (5 * D * D + 6 * D)
-    bms, by = bound_ms(wkv_bytes, wkv_ops)
+    # The chunked form (chunks of L steps, 8-step sub-blocks), per row and
+    # chunk.  Tensor products: r.S and the state update (2 L D^2 each), A's
+    # off-diagonal sub-blocks ((L^2 - 8 L) D) and A v with the bonus on its
+    # diagonal (L (L + 1) D), each three times for the 3xTF32 split.
+    # Elementwise fp32: the cumsum (L D), the decayed r and k (3 L D each:
+    # a difference, an exponential, a product), the diagonal sub-blocks (5
+    # a term of 28 pairs a sub-block), the bonus (3 L D), the decay of S
+    # (D^2) and the rescaling of r and k by their block factors (2 L D).
+    L_c, chunks = 32, BH * -(-T // 32)
+    wkv_tensor = 3 * chunks * (4 * L_c * D * D + (L_c * L_c - 8 * L_c) * D
+                               + L_c * (L_c + 1) * D)
+    wkv_elem = chunks * (L_c * D * (1 + 6 + 3 + 2) + (L_c // 8) * 28 * 5 * D
+                         + D * D)
+    t_ops = max(wkv_tensor / PEAK_TF32_PER_S, wkv_elem / PEAK_FP32_PER_S)
+    t_bytes = wkv_bytes / PEAK_BYTES_PER_S
+    bms, by = 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                          else "operations")
+    # the step-by-step form's operations, for the record: per row and step
+    # r.S (2 D^2), w*S + k*v (3 D^2), the bonus (5 D) and exp(logw) (D)
+    step_bms = 1e3 * BH * T * (5 * D * D + 6 * D) / PEAK_FP32_PER_S
     lines.append(dict(
         name="wkv6", route="cuda",
         source="src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
@@ -1276,11 +1375,14 @@ def main() -> int:
         f"serve, of which {base / 2**30:.3f} GiB before the model) | {card}")
     log("17 rwkv6 serve", f"wkv6 on the {len(calls)} captured prefill "
         f"inputs (BH={BH}, T={T}, D={D}, {r.dtype}): kernel within "
-        f"cases.TOL of plain, max abs err {wkv_err:.4g}; kernel {ms:.4f} "
-        f"ms a launch ({cfg_full.num_layers * ms:.3f} ms a prefill), plain "
-        f"on card "
+        f"cases.TOL of plain, max abs err {wkv_err:.4g}; call {ms:.4f} "
+        f"ms a launch ({cfg_full.num_layers * ms:.3f} ms a prefill), kernel "
+        f"on the card {w_device_ms:.4f} ms (torch.profiler, "
+        f"{w_device_ms / bms:.2f}x the bound), plain on card "
         f"{plain_ms:.3f} ms, bound {bms:.5f} ms ({by}: {wkv_bytes} B, "
-        f"{wkv_ops} ops) | {card}")
+        f"{wkv_tensor} tensor and {wkv_elem} fp32 operations of the "
+        f"chunked form); the step form's operations alone {step_bms:.4f} ms"
+        f" | {card}")
     log("17 rwkv6 serve", f"prefill/decode consistency: max|d| logits "
         f"{delta:.4g} (bound {LM_CONSIST_ATOL}), greedy agrees on "
         f"{int(agree.sum())} of {LM_BATCH} rows, smallest top-2 gap "

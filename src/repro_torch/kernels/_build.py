@@ -13,9 +13,9 @@ Every kernel builds with the same flags.  ``--fmad=false`` keeps every
 ``a*b+c`` two roundings, as in the plain PyTorch versions: the collision
 and sampling kernels must agree with them bit for bit; ``wkv6`` and
 ``flash_attention``, which sum their dot products in another order (and
-``flash_attention``'s bf16 products on the tensor cores, which the flag does
-not touch), to the tolerances stated in ``kernels/wkv6/cases.py`` and
-``kernels/flash_attention/cases.py``.
+their products on the tensor cores, which the flag does not touch; each
+writes the few ``fmaf`` its CUDA-core sums want), to the tolerances stated
+in ``kernels/wkv6/cases.py`` and ``kernels/flash_attention/cases.py``.
 
 Each wrapper counts its launches here (:func:`count_launch`), so a run can
 show that its main path really went through the kernels.

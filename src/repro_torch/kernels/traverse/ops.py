@@ -36,14 +36,43 @@ from repro_torch.kernels.traverse.ref import (traverse_test_ref,
 _ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
              + [ctypes.c_float] * 4 + [ctypes.c_int] * 2
              + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+_launch = None
+#: The raw current stream of a device, without building a Stream object
+#: (a level's call is paced by the host: a few microseconds matter here).
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 def _lib():
-    fn = _build.load("traverse").traverse_launch
-    if fn.argtypes is None:
+    global _launch
+    if _launch is None:
+        fn = _build.load("traverse").traverse_launch
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
-    return fn
+        _launch = fn
+    return _launch
+
+
+def _refuse(obb, q_idx, codes, full, n_live, lo) -> None:
+    """Raise for what neither version takes (the checks, spelled out);
+    returns for inputs the kernel takes once made contiguous, and for CPU
+    tensors."""
+    cap = q_idx.shape[0] if q_idx.ndim == 1 else -1
+    if obb.ndim != 2 or obb.shape[1] != 15:
+        raise ValueError(f"want obb (m, 15), got {tuple(obb.shape)}")
+    if q_idx.ndim != 1 or codes.shape != (cap,) or full.shape != (cap,) \
+            or len(lo) != 3 or n_live.numel() != 1:
+        raise ValueError("traverse_test: inconsistent input shapes")
+    dev = obb.device
+    if any(x.device != dev for x in (q_idx, codes, full, n_live)):
+        raise ValueError("traverse_test: inputs must share a device")
+    if dev.type == "cpu":
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if obb.dtype != torch.float32 or any(
+            x.dtype != torch.int32 for x in (q_idx, codes, full, n_live)):
+        raise ValueError("traverse_test takes a float32 OBB table and int32 "
+                         "lanes")
 
 
 def traverse_test(obb: torch.Tensor, q_idx: torch.Tensor, codes: torch.Tensor,
@@ -54,35 +83,40 @@ def traverse_test(obb: torch.Tensor, q_idx: torch.Tensor, codes: torch.Tensor,
     of :func:`traverse_test_ref`).  ``cell`` and ``lo`` are host floats
     (the level's float32 values), ``n_live`` stays on the device."""
     cap = q_idx.shape[0]
-    if obb.ndim != 2 or obb.shape[1] != 15:
-        raise ValueError(f"want obb (m, 15), got {tuple(obb.shape)}")
-    if codes.shape != (cap,) or full.shape != (cap,) or len(lo) != 3 \
-            or n_live.numel() != 1:
-        raise ValueError("traverse_test: inconsistent input shapes")
-    dev = obb.device
-    if any(x.device != dev for x in (q_idx, codes, full, n_live)):
-        raise ValueError("traverse_test: inputs must share a device")
-    if dev.type == "cpu":
-        return traverse_test_ref(obb, q_idx, codes, full, n_live, cell=cell,
-                                 lo=lo, is_leaf=is_leaf,
-                                 use_spheres=use_spheres)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    if obb.dtype != torch.float32 or any(
-            x.dtype != torch.int32 for x in (q_idx, codes, full, n_live)):
-        raise ValueError("traverse_test takes a float32 OBB table and int32 "
-                         "lanes")
-    obb, q_idx, codes, full = (x.contiguous() for x in (obb, q_idx, codes,
-                                                        full))
-    packed = torch.empty(cap, dtype=torch.int32, device=dev)
+    i32 = torch.int32
+    # The checks of _refuse in as few host operations as the happy path
+    # allows: a level's call is paced by the host.
+    idx = obb.get_device()
+    ok = (idx >= 0 and obb.dtype is torch.float32 and q_idx.dtype is i32
+          and codes.dtype is i32 and full.dtype is i32 and n_live.dtype is i32
+          and obb.ndim == 2 and obb.shape[1] == 15 and q_idx.ndim == 1
+          and codes.shape == q_idx.shape and full.shape == q_idx.shape
+          and n_live.numel() == 1 and len(lo) == 3
+          and q_idx.get_device() == idx and codes.get_device() == idx
+          and full.get_device() == idx and n_live.get_device() == idx
+          and obb.is_contiguous() and q_idx.is_contiguous()
+          and codes.is_contiguous() and full.is_contiguous())
+    if not ok:
+        _refuse(obb, q_idx, codes, full, n_live, lo)
+        if obb.device.type == "cpu":
+            return traverse_test_ref(obb, q_idx, codes, full, n_live,
+                                     cell=cell, lo=lo, is_leaf=is_leaf,
+                                     use_spheres=use_spheres)
+        obb, q_idx, codes, full = (x.contiguous() for x in (obb, q_idx,
+                                                            codes, full))
+    packed = torch.empty(cap, dtype=i32, device=obb.device)
     launch = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = launch(obb.data_ptr(), obb.shape[0], q_idx.data_ptr(),
-                        codes.data_ptr(), full.data_ptr(), n_live.data_ptr(),
-                        cell, *lo, int(is_leaf), cap, packed.data_ptr(),
-                        int(use_spheres), stream)
-    _build.check(status, "traverse")
+    stream = (_raw_stream(idx) if _raw_stream is not None
+              else torch.cuda.current_stream(obb.device).cuda_stream)
+    args = (obb.data_ptr(), obb.shape[0], q_idx.data_ptr(), codes.data_ptr(),
+            full.data_ptr(), n_live.data_ptr(), cell, lo[0], lo[1], lo[2],
+            int(is_leaf), cap, packed.data_ptr(), int(use_spheres), stream)
+    if idx == torch.cuda.current_device():
+        err = launch(*args)
+    else:
+        with torch.cuda.device(idx):
+            err = launch(*args)
+    _build.check(err, "traverse")
     _build.count_launch("traverse")
     return packed
 

@@ -41,26 +41,47 @@ def make_case(BH: int, T: int, D: int, decay: str = "ordinary",
         u=(rs.normal(size=u_shape) * 0.3).astype(f32))
 
 
-def hard_cases(BH: int = 3) -> List[Dict]:
-    """Every length, width and decay regime, per-row and shared ``u``."""
+#: The kernel's chunk edges (chunks of 16, 32 and 64 steps) ...
+EDGE_LENGTHS = (31, 32, 33, 64, 65)
+#: ... at each width it is built for (16, 32, 64 and 128 channels), and at
+#: 33, which rows of bf16 or fp32 cannot copy 16 bytes at a time.
+EDGE_WIDTHS = (16, 32, 33, 64, 128)
+
+
+def _cases(BH: int, shapes, seed: int) -> List[Dict]:
     out = []
-    seed = 0
-    for T in LENGTHS:
-        for D in WIDTHS:
-            for decay in DECAYS:
-                for per_row in (True, False):
-                    seed += 1
-                    out.append(make_case(BH, T, D, decay, per_row, seed))
+    for T, D in shapes:
+        for decay in DECAYS:
+            for per_row in (True, False):
+                seed += 1
+                out.append(make_case(BH, T, D, decay, per_row, seed))
     return out
 
 
+def hard_cases(BH: int = 3) -> List[Dict]:
+    """Every length, width and decay regime, per-row and shared ``u``."""
+    return _cases(BH, [(T, D) for T in LENGTHS for D in WIDTHS], 0)
+
+
+def edge_cases(BH: int = 3) -> List[Dict]:
+    """The chunk edges at every width, and the widths that
+    :func:`hard_cases` lacks (32, 128) at one step and at 1024, in every
+    decay regime, per-row and shared ``u``; no shape of :func:`hard_cases`
+    again."""
+    shapes = ([(T, D) for T in EDGE_LENGTHS for D in EDGE_WIDTHS
+               if (T, D) not in ((33, 16), (33, 64))]
+              + [(T, D) for T in (1, 1024) for D in (32, 128)])
+    return _cases(BH, shapes, 1000)
+
+
 #: Kernel against its plain version on the card, as ``|got - want| <=
-#: ATOL * max(1, max|want|) + RTOL * |want|``.  fp32: the kernel sums
-#: ``r·S`` and ``r·(u⊙k)`` per thread in four partial sums, the plain
-#: version in einsum order, about D roundings of 2**-24 each relative to
-#: the largest term; the state update is elementwise in both and the same
-#: up to the exponential.  bf16 outputs: the same, and a rounding to bf16
-#: that the fp32 difference may flip, one bf16 ulp (2**-7 relative).
+#: ATOL * max(1, max|want|) + RTOL * |want|``.  fp32: the kernel computes
+#: the chunked form (products in 3xTF32, about 2**-22 relative a product,
+#: summed in fp32 in another order; decays as exponentials of cumsum
+#: differences), the plain version the step-by-step recurrence in einsum
+#: order: the two differ by a few roundings of 2**-24 relative to the
+#: largest terms.  bf16 outputs: the same, and a rounding to bf16 that the
+#: fp32 difference may flip, one bf16 ulp (2**-7 relative).
 TOL = {"float32": dict(atol=2e-5, rtol=0.0),
        "bfloat16": dict(atol=2e-5, rtol=2.0 ** -7)}
 

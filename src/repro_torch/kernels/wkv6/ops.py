@@ -1,10 +1,11 @@
 """Dispatch for the WKV6 kernel.
 
 :func:`wkv6` and :func:`wkv6_heads` run the CUDA kernel (``csrc/wkv6.cu``:
-one CTA per batch·head row, the D×D state in registers, the steps in
-order) on CUDA tensors and the plain version
-(:func:`repro_torch.kernels.wkv6.ref.wkv6_ref`) on CPU tensors; a build or
-launch failure raises, and so does any other device, dtype or layout.
+the chunked form, chunks of 32 steps with their products on the tensor
+cores in 3xTF32, one CTA per batch·head row and 64 value columns) on CUDA
+tensors and the plain version (:func:`repro_torch.kernels.wkv6.ref.
+wkv6_ref`, the step-by-step recurrence) on CPU tensors; a build or launch
+failure raises, and so does any other device, dtype or layout.
 
 Both start from a zero state and return ``(o, final state)``.  ``r``,
 ``k``, ``v`` are fp32 or bf16 (one dtype), ``logw`` and ``u`` fp32; ``o``
@@ -24,7 +25,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.wkv6.ref import wkv6_ref
 
-#: Widest key/value width the kernel takes (one thread a column).
+#: Widest key/value width the kernel takes.
 MAX_D = 128
 
 
@@ -32,24 +33,34 @@ def _lib():
     fn = _build.load("wkv6").wkv6_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                       + [ctypes.c_longlong] * 3 + [ctypes.c_int]
+                       + [ctypes.c_longlong] * 5 + [ctypes.c_int] * 2
                        + [ctypes.c_void_p] * 3)
         fn.restype = ctypes.c_int
     return fn
 
 
-def _check(r, k, v, logw, u_rows, rows: int) -> torch.device:
-    """Validate the common contract; returns the inputs' device."""
+def _aligned(xs, strides, D: int) -> bool:
+    """Whether every row of ``xs`` starts 16-byte aligned (the kernel then
+    copies them with 16-byte ``cp.async``; else with plain loads)."""
+    for x in xs:
+        e = 16 // x.element_size()
+        if x.data_ptr() % 16 or D % e or any(s % e for s in strides):
+            return False
+    return True
+
+
+def _check(r, k, v, logw, u, u_shapes) -> torch.device:
+    """Validate the common contract (``u`` of one of ``u_shapes``); returns
+    the inputs' device."""
     shape = r.shape
     for name, x in (("k", k), ("v", v), ("logw", logw)):
         if x.shape != shape:
             raise ValueError(f"wkv6: {name} has shape {tuple(x.shape)}, r "
                              f"{tuple(shape)}")
-    D = shape[-1]
-    if u_rows.shape not in ((D,), (rows, D)):
-        raise ValueError(f"wkv6: u has shape {tuple(u_rows.shape)}, want "
-                         f"({D},) or ({rows}, {D})")
-    devs = {x.device for x in (r, k, v, logw, u_rows)}
+    if u.shape not in u_shapes:
+        raise ValueError(f"wkv6: u has shape {tuple(u.shape)}, want "
+                         + " or ".join(str(tuple(x)) for x in u_shapes))
+    devs = {x.device for x in (r, k, v, logw, u)}
     if len(devs) != 1:
         raise ValueError(f"wkv6: inputs on several devices {devs}")
     if r.dtype not in (torch.float32, torch.bfloat16):
@@ -57,18 +68,20 @@ def _check(r, k, v, logw, u_rows, rows: int) -> torch.device:
     if k.dtype != r.dtype or v.dtype != r.dtype:
         raise ValueError(f"wkv6: r, k, v must share a dtype, got {r.dtype}, "
                          f"{k.dtype}, {v.dtype}")
-    if logw.dtype != torch.float32 or u_rows.dtype != torch.float32:
+    if logw.dtype != torch.float32 or u.dtype != torch.float32:
         raise ValueError(f"wkv6 takes fp32 logw and u, got {logw.dtype}, "
-                         f"{u_rows.dtype}")
+                         f"{u.dtype}")
     dev = devs.pop()
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"wkv6: unsupported device {dev}")
     return dev
 
 
-def _launch(r, k, v, logw, u_rows, B: int, H: int, sb: int, sh: int,
-            st: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One kernel launch over B*H rows addressed by (sb, sh, st)."""
+def _launch(r, k, v, logw, u, B: int, H: int, sb: int, sh: int, st: int,
+            sub: int, suh: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One kernel launch over B*H rows addressed by (sb, sh, st); row b*H +
+    h's bonus is ``u``'s row at b*sub + h*suh elements (unit stride), read
+    where it lies: a bonus shared by rows is not copied out to each."""
     T, D = r.shape[-2], r.shape[-1]
     if not 1 <= D <= MAX_D:
         raise ValueError(f"wkv6 kernel takes 1 <= D <= {MAX_D}, got {D}")
@@ -81,20 +94,23 @@ def _launch(r, k, v, logw, u_rows, B: int, H: int, sb: int, sh: int,
         raise ValueError(f"wkv6 needs a unit stride on the last axis, got "
                          f"strides {strides}")
     if torch.is_grad_enabled() and any(
-            x.requires_grad for x in (r, k, v, logw, u_rows)):
+            x.requires_grad for x in (r, k, v, logw, u)):
         raise NotImplementedError(
             "wkv6 kernel has no backward (training is ROADMAP A.11); call "
             "it under torch.no_grad() or torch.inference_mode()")
-    u_rows = u_rows.contiguous()
+    if u.stride(-1) != 1:
+        raise ValueError(f"wkv6 needs u with a unit stride on its last axis, "
+                         f"got strides {u.stride()}")
     o = torch.empty_strided(r.shape, strides, dtype=r.dtype, device=r.device)
     state = torch.empty((B * H, D, D), dtype=torch.float32, device=r.device)
+    vec = _aligned((r, k, v, logw, o), (sb, sh, st), D)
     launch = _lib()
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = launch(r.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        logw.data_ptr(), u_rows.data_ptr(), B, H, T, D, sb,
-                        sh, st, int(r.dtype == torch.bfloat16), o.data_ptr(),
-                        state.data_ptr(), stream)
+                        logw.data_ptr(), u.data_ptr(), B, H, T, D, sb, sh,
+                        st, sub, suh, int(r.dtype == torch.bfloat16),
+                        int(vec), o.data_ptr(), state.data_ptr(), stream)
     _build.check(status, "wkv6")
     _build.count_launch("wkv6")
     return o, state
@@ -108,11 +124,13 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if r.ndim != 3:
         raise ValueError(f"wkv6 wants (BH, T, D), got {tuple(r.shape)}")
     BH, T, D = r.shape
-    dev = _check(r, k, v, logw, u, BH)
+    dev = _check(r, k, v, logw, u, ((D,), (BH, D)))
     if dev.type == "cpu":
         return wkv6_ref(r, k, v, logw, u)
-    u_rows = u.expand(BH, D) if u.ndim == 1 else u
-    return _launch(r, k, v, logw, u_rows, BH, 1, r.stride(0), 0, r.stride(1))
+    u = u if u.stride(-1) == 1 else u.contiguous()
+    sub = u.stride(0) if u.ndim == 2 else 0
+    return _launch(r, k, v, logw, u, BH, 1, r.stride(0), 0, r.stride(1), sub,
+                   0)
 
 
 def wkv6_heads(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -127,13 +145,14 @@ def wkv6_heads(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if u.shape != (H, D):
         raise ValueError(f"wkv6_heads: u has shape {tuple(u.shape)}, want "
                          f"({H}, {D})")
-    u_rows = u[None].expand(B, H, D).reshape(B * H, D)
-    dev = _check(r, k, v, logw, u_rows, B * H)
+    dev = _check(r, k, v, logw, u, ((H, D),))
     if dev.type == "cpu":
         def fold(x):
             return x.reshape(B * H, T, D)
-        o, s = wkv6_ref(fold(r), fold(k), fold(v), fold(logw), u_rows)
+        o, s = wkv6_ref(fold(r), fold(k), fold(v), fold(logw),
+                        u[None].expand(B, H, D).reshape(B * H, D))
         return o.reshape(B, H, T, D), s.reshape(B, H, D, D)
+    u = u if u.stride(-1) == 1 else u.contiguous()
     sb, sh, st, _ = r.stride()
-    o, s = _launch(r, k, v, logw, u_rows, B, H, sb, sh, st)
+    o, s = _launch(r, k, v, logw, u, B, H, sb, sh, st, 0, u.stride(0))
     return o, s.reshape(B, H, D, D)

@@ -41,3 +41,65 @@ def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = (torch.stack(outs, 1) if outs
          else torch.zeros((BH, 0, D), dtype=torch.float32, device=r.device))
     return o.to(r.dtype), S
+
+
+def wkv6_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     logw: torch.Tensor, u: torch.Tensor, chunk: int = 32,
+                     sub: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked form that ``csrc/wkv6.cu`` computes, in fp32, with its
+    sub-block factoring: same contract as :func:`wkv6_ref`.
+
+    Chunks of ``chunk`` steps (T padded with zero r, k, v and logw = 0,
+    which leave the state alone), sub-blocks of ``sub`` steps.  With ``lc``
+    the inclusive and ``lcp`` the exclusive cumsum of logw in the chunk,
+    every exponent below is <= 0 (logw <= 0, so lc does not increase):
+
+      rA[t]  = r[t] exp(lcp[t] - lcp[b(t)])     b(t): first step of t's block
+      kE[s]  = k[s] exp(lc[e(s)] - lc[s])       e(s): last step of s's block
+      A[t,s] = sum_d rA[t] mid[I(s), J(t)] kE[s]   blocks I(s) < J(t), with
+               mid[I, J] = exp(lcp[b_J] - lc[e_I])
+      A[t,s] = sum_d r[t] k[s] exp(min(lcp[t] - lc[s], 0))   s < t, one block
+      A[t,t] = sum_d r[t] u k[t]                             the bonus
+      o      = (rA exp(lcp[b])) S + A v
+      S'     = exp(lc[-1]) S + (kE exp(lc[-1] - lc[e]))^T v
+    """
+    BH, T, D = r.shape
+    dtype, L = r.dtype, chunk
+    if chunk % sub or sub < 1:
+        raise ValueError(f"chunk {chunk} is no multiple of sub {sub}")
+    dev = r.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    u = u.float()
+    if u.ndim == 1:
+        u = u[None].expand(BH, D)
+    pad = (-T) % L
+    r, k, v, lw = (torch.nn.functional.pad(x.float(), (0, 0, 0, pad))
+                   for x in (r, k, v, logw))
+    step = torch.arange(L, device=dev)
+    blk = step // sub                                   # J(t), I(s)
+    first, last = blk * sub, blk * sub + sub - 1        # b(t), e(s)
+    later = blk[:, None] > blk[None, :]                 # J(t) > I(s)
+    same = (blk[:, None] == blk[None, :]) & (step[:, None] > step[None, :])
+    S = torch.zeros((BH, D, D), **f32)
+    outs = []
+    for c0 in range(0, T + pad, L):
+        rc, kc, vc, lwc = (x[:, c0:c0 + L] for x in (r, k, v, lw))
+        lc = torch.cumsum(lwc, 1)
+        lcp = torch.cat([torch.zeros((BH, 1, D), **f32), lc[:, :-1]], 1)
+        lcp_b, lc_e = lcp[:, ::sub], lc[:, sub - 1::sub]     # (BH, nb, D)
+        rA = rc * torch.exp(lcp - lcp[:, first])
+        kE = kc * torch.exp(lc[:, last] - lc)
+        mid = torch.exp(torch.clamp(lcp_b[:, None] - lc_e[:, :, None],
+                                    max=0.0))            # (BH, I, J, D)
+        mid_ts = mid[:, blk][:, :, blk].transpose(1, 2)  # (BH, t, s, D)
+        A = torch.einsum("btd,btsd,bsd->bts", rA, mid_ts, kE) * later
+        e = torch.exp(torch.clamp(lcp[:, :, None] - lc[:, None], max=0.0))
+        A = A + torch.einsum("btd,bsd,btsd->bts", rc, kc, e) * same
+        A = A + torch.diag_embed((rc * u[:, None] * kc).sum(-1))
+        o = (rA * torch.exp(lcp_b)[:, blk]) @ S + A @ vc
+        kS = kE * torch.exp(lc[:, -1:] - lc_e)[:, blk]
+        S = torch.exp(lc[:, -1])[:, :, None] * S + kS.transpose(1, 2) @ vc
+        outs.append(o)
+    o = (torch.cat(outs, 1)[:, :T] if outs
+         else torch.zeros((BH, 0, D), **f32))
+    return o.to(dtype), S

@@ -43,7 +43,8 @@ from repro_torch.kernels.traverse import ops as traverse_ops
 from repro_torch.kernels.traverse.cases import grazing_frontier
 from repro_torch.kernels.traverse.ref import traverse_test_ref
 from repro_torch.kernels.wkv6 import ops as wkv6_ops
-from repro_torch.kernels.wkv6.cases import hard_cases, make_case, within_tol
+from repro_torch.kernels.wkv6.cases import (edge_cases, hard_cases,
+                                            make_case, within_tol)
 from repro_torch.kernels.wkv6.ref import wkv6_ref
 from repro_torch.models import api as lm_api
 from repro_torch.models.planner import Planner
@@ -262,6 +263,58 @@ def test_traverse_kernel_matches_plain(cuda, use_spheres):
     assert not got[-300:].any()
 
 
+@pytest.mark.parametrize("n_live", ["zero", "one", "capacity", "ragged"])
+def test_traverse_kernel_live_prefix_ends(cuda, n_live):
+    """The live prefix at 0, 1 and the whole capacity, on a capacity that is
+    no multiple of 4 (nor of a CTA's lanes), with queries out of range:
+    every word equals the plain version's, and lanes past the prefix are
+    0."""
+    tree, _ = _scene_and_queries(M=8, depth=5)
+    dev = device_octree(tree, device=cuda)
+    f = grazing_frontier(dev, 4, 1000, seed=11, use_spheres=True)
+    cap = f["q_idx"].shape[0] - 3          # 7997 lanes
+    q = f["q_idx"][:cap].clone()
+    q[::53] = -1
+    q[7::61] = f["obb"].shape[0] + 2
+    ins = [x.to(cuda) for x in (f["obb"], q, f["codes"][:cap],
+                                f["full"][:cap])]
+    n = {"zero": 0, "one": 1, "capacity": cap, "ragged": cap - 5}[n_live]
+    n_t = torch.tensor([n], dtype=torch.int32, device=cuda)
+    kw = dict(cell=dev.host_cells[4], lo=dev.host_lo, is_leaf=False,
+              use_spheres=True)
+    got = traverse_ops.traverse_test(*ins, n_t, **kw)
+    want = traverse_test_ref(*ins, n_t, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert not got[n:].any()
+
+
+def test_traverse_call_takes_strided_lanes_and_rejects_bad_ones(cuda):
+    """The call's one pass of checks: strided lanes are made contiguous and
+    launched, what the kernel cannot take raises."""
+    tree, _ = _scene_and_queries(M=8, depth=5)
+    dev = device_octree(tree, device=cuda)
+    f = grazing_frontier(dev, 4, 256, seed=5, use_spheres=False)
+    f = {k: v.to(cuda) for k, v in f.items()}
+    kw = dict(cell=dev.host_cells[4], lo=dev.host_lo, is_leaf=False,
+              use_spheres=False)
+    n = torch.tensor([1000], dtype=torch.int32, device=cuda)
+    lanes = [f[k] for k in ("q_idx", "codes", "full")]
+    strided = [torch.stack([x, x], 1)[:, 0] for x in lanes]
+    before = _build.launch_counts()["traverse"]
+    got = traverse_ops.traverse_test(f["obb"], *strided, n, **kw)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["traverse"] == before + 1
+    assert torch.equal(got, traverse_test_ref(f["obb"], *lanes, n, **kw))
+    with pytest.raises(ValueError, match="int32"):
+        traverse_ops.traverse_test(f["obb"], lanes[0].long(), *lanes[1:], n,
+                                   **kw)
+    with pytest.raises(ValueError, match="share a device"):
+        traverse_ops.traverse_test(f["obb"], *lanes, n.cpu(), **kw)
+    with pytest.raises(ValueError, match="obb"):
+        traverse_ops.traverse_test(f["obb"][:, :14], *lanes, n, **kw)
+
+
 @pytest.mark.parametrize("mode", ["wavefront", "wavefront_fused"])
 def test_cuda_level_modes_match_cpu_engine(cuda, mode):
     tree, obbs = _scene_and_queries(M=300, seed=5, depth=5)
@@ -386,6 +439,43 @@ def test_wkv6_kernel_matches_plain(cuda, case, dtype):
     want_o, want_s = wkv6_ref(*ins)
     assert within_tol(o, want_o, str(dtype)[6:]) <= 0
     assert within_tol(s, want_s, "float32") <= 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", edge_cases(), ids=lambda c: c["name"])
+def test_wkv6_kernel_at_chunk_edges(cuda, case, dtype):
+    """Lengths at the kernel's chunk edges at every width it is built for,
+    and D = 33, whose rows it cannot copy 16 bytes at a time."""
+    ins = _wkv6_inputs(case, cuda, dtype)
+    o, s = wkv6_ops.wkv6(*ins)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and s.dtype == torch.float32
+    assert bool(o.isfinite().all()) and bool(s.isfinite().all())
+    want_o, want_s = wkv6_ref(*ins)
+    assert within_tol(o, want_o, str(dtype)[6:]) <= 0
+    assert within_tol(s, want_s, "float32") <= 0
+
+
+@pytest.mark.parametrize("decay", ["ordinary", "strong"])
+def test_wkv6_heads_kernel_bf16_at_model_width(cuda, decay):
+    """bf16 (B, H, T, D) views of (B, T, H, D) projections at the model's
+    D = 64, over several chunks and a partial one, in one launch."""
+    B, H, T, D = 2, 3, 100, 64
+    case = make_case(B * H, T, D, decay, per_row_u=False, seed=7)
+    u = torch.from_numpy(np.random.RandomState(7).normal(
+        size=(H, D)).astype(np.float32)).to(cuda)
+    views = [torch.from_numpy(case[n]).to(cuda, dt).reshape(B, H, T, D)
+             .transpose(1, 2).contiguous().transpose(1, 2)
+             for n, dt in (("r", torch.bfloat16), ("k", torch.bfloat16),
+                           ("v", torch.bfloat16), ("logw", torch.float32))]
+    before = _build.launch_counts()["wkv6"]
+    o, s = wkv6_ops.wkv6_heads(*views, u)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["wkv6"] == before + 1
+    fold = [x.reshape(B * H, T, D) for x in views]
+    want_o, want_s = wkv6_ref(*fold, u[None].expand(B, H, D).reshape(-1, D))
+    assert within_tol(o.reshape(B * H, T, D), want_o, "bfloat16") <= 0
+    assert within_tol(s.reshape(B * H, D, D), want_s, "float32") <= 0
 
 
 @pytest.mark.parametrize("D", [8, 64, 100, 128])

@@ -364,3 +364,24 @@ def test_traverse_cpu_launches_no_kernel_and_validates(scene):
                           f["q_idx"], f["q_idx"], torch.zeros(16),
                           use_spheres=False,
                           payload=torch.zeros(16, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("n_live", [0, 1, 13, 64])
+def test_traverse_cpu_takes_strided_lanes_and_any_live_prefix(scene, n_live):
+    """Strided lane columns give the words of contiguous ones, and lanes
+    past ``n_live`` (0, 1, some, all 64) are 0, on the dispatcher's CPU
+    arm: the checks the card's call makes in one pass send these inputs
+    on rather than refusing them."""
+    _, ttree = scene
+    dev = toct.device_octree(ttree, device="cpu")
+    f = grazing_frontier(dev, LEVEL, 8, seed=2, use_spheres=True)
+    kw = dict(cell=dev.host_cells[LEVEL], lo=dev.host_lo, is_leaf=False,
+              use_spheres=True)
+    lanes = [f[k] for k in ("q_idx", "codes", "full")]
+    strided = [torch.stack([x, x], 1)[:, 0] for x in lanes]
+    assert not strided[0].is_contiguous()
+    n = torch.tensor([n_live], dtype=torch.int32)
+    want = traverse_test_ref(f["obb"], *lanes, n, **kw)
+    got = ops.traverse_test(f["obb"], *strided, n, **kw)
+    assert torch.equal(got, want)
+    assert not got[n_live:].any()

@@ -11,6 +11,12 @@ so fp32 outputs are held to ``atol=2e-5`` as in
 there.  The reference's ``wkv6`` keeps one bonus row (ROADMAP C.3) and its
 ``wkv6_heads`` fails for H >= 2 (ROADMAP C.12), so per-row bonuses are
 held against ``wkv6_ref`` only.
+
+The chunked form that the CUDA kernel computes, in PyTorch
+(:func:`~repro_torch.kernels.wkv6.ref.wkv6_chunked_ref`), is held to the
+kernel's own tolerance (``cases.TOL``) against the step-by-step
+recurrence on every case of ``cases.py`` at 16, 32 and 64 steps a chunk,
+and against the reference's interpreted kernel at one bonus row.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -22,8 +28,9 @@ from repro.kernels.wkv6.ops import wkv6_heads as jwkv6_heads
 from repro.kernels.wkv6.ref import wkv6_ref as jwkv6_ref
 from repro_torch.kernels import _build
 from repro_torch.kernels.wkv6 import ops
-from repro_torch.kernels.wkv6.cases import hard_cases, make_case, within_tol
-from repro_torch.kernels.wkv6.ref import wkv6_ref
+from repro_torch.kernels.wkv6.cases import (edge_cases, hard_cases,
+                                            make_case, within_tol)
+from repro_torch.kernels.wkv6.ref import wkv6_chunked_ref, wkv6_ref
 
 # One intra-op thread: the suite runs several test processes at once.
 torch.set_num_threads(1)
@@ -153,3 +160,64 @@ def test_dispatch_rejects_bad_inputs():
     with pytest.raises(ValueError, match=r"want \(1, 16\)"):
         ops.wkv6_heads(*(x.reshape(2, 1, 8, 16) for x in (r, k, v, logw)),
                        u[:1].expand(3, 16))
+
+
+@pytest.mark.parametrize("case", hard_cases() + edge_cases(),
+                         ids=lambda c: c["name"])
+def test_chunked_ref_matches_step_ref(case):
+    """Every length, width and decay regime, at 16, 32 and 64 steps a chunk
+    (the kernel runs 32, and 16 above D = 64): finite, and within the
+    kernel's tolerance."""
+    ins = _torch(case)
+    want_o, want_s = wkv6_ref(*ins)
+    for chunk in (16, 32, 64):
+        o, s = wkv6_chunked_ref(*ins, chunk=chunk)
+        assert bool(o.isfinite().all()) and bool(s.isfinite().all())
+        assert within_tol(o, want_o, "float32") <= 0, chunk
+        assert within_tol(s, want_s, "float32") <= 0, chunk
+
+
+_SHARED_U = [c for c in hard_cases() + edge_cases()
+             if c["u"].ndim == 1 and (c["r"].shape[1] in (1, 33)
+                                      and c["r"].shape[2] in (16, 64)
+                                      or c["r"].shape[1:] == (65, 33))]
+
+
+@pytest.mark.parametrize("case", _SHARED_U, ids=lambda c: c["name"])
+def test_chunked_ref_matches_interpreted_kernel(case):
+    """One bonus row (ROADMAP C.3), one step, T = 33 and 65 (no multiple
+    of the chunk), every decay regime: the reference's interpreted chunked
+    kernel at 32 steps a chunk.
+
+    Under strong decays the reference's kernel is the less exact of the
+    two (ROADMAP C.14): it takes the exclusive cumsum as ``lc - logw``,
+    which differs from the cumsum one step earlier by up to an ulp of
+    ``|lc|`` (2**-12 below 4096 = 32 steps x 128), so its decay between
+    neighbouring steps is ``exp(±2**-12)`` where the recurrence has 1; the
+    terms it scales sum to about the output, so it is held to 2**-12 of
+    the output's scale there (the port's chunked form, with the exact
+    exclusive cumsum, stays within ``cases.TOL`` of both step-by-step
+    recurrences: test_chunked_ref_matches_step_ref)."""
+    o, s = wkv6_chunked_ref(*_torch(case), chunk=32)
+    want_o, want_s = (torch.from_numpy(np.array(x)) for x in jwkv6(
+        *(jnp.asarray(case[n]) for n in ("r", "k", "v", "logw", "u")),
+        chunk=32))
+    assert within_tol(s, want_s, "float32") <= 0
+    if "strong" in case["name"]:
+        scale = max(1.0, float(want_o.abs().max()))
+        assert float((o - want_o).abs().max()) <= 2.0 ** -12 * scale
+        jo, _ = _jax(case)
+        assert within_tol(o, torch.from_numpy(jo), "float32") <= 0
+    else:
+        assert within_tol(o, want_o, "float32") <= 0
+
+
+def test_chunked_ref_keeps_dtype_and_rejects_a_ragged_sub_block():
+    case = make_case(2, 20, 16, seed=3)
+    bf = [torch.from_numpy(case[n]).to(torch.bfloat16) for n in "rkv"]
+    o, s = wkv6_chunked_ref(*bf, torch.from_numpy(case["logw"]),
+                            torch.from_numpy(case["u"]))
+    assert o.dtype == torch.bfloat16 and s.dtype == torch.float32
+    assert o.shape == (2, 20, 16) and s.shape == (2, 16, 16)
+    with pytest.raises(ValueError, match="multiple"):
+        wkv6_chunked_ref(*_torch(case), chunk=20)
