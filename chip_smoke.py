@@ -9,13 +9,17 @@ non-zero and prints no result):
 1. the card: ``nvidia-smi`` name and power limit, torch's device name/count;
 2. build every CUDA kernel from ``src/repro_torch/**/csrc`` (nvcc, sm_90a)
    and print ``-Xptxas -v`` for each compiled function (registers, shared
-   memory, spills), and the Hopper flash kernel's shape at each width
+   memory, spills), the Hopper flash kernel's shape at each width
    (registers a thread per role after ``setmaxnreg``, dynamic shared
-   memory, rows, keys and ring stages);
+   memory, rows, keys and ring stages), and ``persist``'s cluster shape
+   with ``cudaOccupancyMaxActiveClusters``;
 3. ``sact_dense`` kernel vs its plain version on grazing planes (every exit
    code, both sphere settings), exactly equal;
 4. ``persist`` kernel vs ``persist_tiles_ref`` on a small scene, with and
-   without frontier overflow, exactly equal;
+   without frontier overflow, exactly equal: identity pools, owner-group
+   pools, a skewed pool (``kernels/persist/cases.py``: one heavy tile
+   whose widest level spills part way through its children) and grazing
+   pools (OBBs against level-4 cells, both sphere settings);
 5. the paper-scale scenes: ``make_scene(env, 524288)``,
    ``build_octree(depth=7)``, ``scene_trajectories(25, 60)`` (10,500 link
    OBBs) for each environment;
@@ -36,18 +40,23 @@ non-zero and prints no result):
    also against the persistent one (all but ``bytes_moved`` and
    ``escalations``); launch counts are set to 0 just before each path and
    read just after; then warm wall time (median of 10), the kernels' time
-   per launch (CUDA events, replaying one warm query's launches) and the
-   peak device memory;
+   per launch (CUDA events, replaying one warm query's launches; for
+   ``persist`` the call, with the heaviest and the mean tile's nodes) and
+   the peak device memory;
 9. ``traverse`` and ``compact`` timed at the widest level of the cubby
    ``wavefront_fused`` query against their bounds, plain versions and (for
    ``compact``) one PyTorch call computing the same function; both also
    by ``torch.profiler``, the kernel's own time on the card beside the
-   call's (which the host paces);
+   call's (which the host paces); then ``persist`` alone by
+   ``torch.profiler`` on each environment's phase-8 inputs (after every
+   call is timed, as the profiler slows the calls timed after it);
 10. ``sact_dense`` timed on the paper-scale queries against level-5 cells;
 11. ``fps`` kernel vs its plain version, indices exactly equal: B = 1 and
    32 clouds of 2048, 2047 and 5000 points, m = 256, lattice clouds with
    duplicates (ties, and zero distances once every distinct point is
-   taken), ``first`` != 0;
+   taken), ``first`` != 0; clouds of 1000, 33, 20 and 9000 points and the
+   largest the wrapper takes (``MAX_POINTS``); one point with m = 1 and
+   5; more picks than a lattice cloud's distinct points;
 12. ``ballquery`` kernel vs its plain version, counts and every index
    exactly equal: the sa1 shapes (B = 32, M = 256, N = 2048, r = 0.1,
    k = 16) on a sparse cloud (most balls short of k) and a dense one
@@ -66,7 +75,8 @@ non-zero and prints no result):
    just after; warm stage walls (median of 10), kernel time per launch and
    peak memory; then one batched plan of 32 clouds for throughput;
 14. ``fps`` and ``ballquery`` timed at the batched encode's sa1 shapes
-   against their bounds and plain versions;
+   against their bounds and plain versions; ``fps`` also alone by
+   ``torch.profiler``;
 15. ``wkv6`` kernel vs its plain version on ``kernels/wkv6/cases.py``
    (T = 1, 33, 1024 at D = 16, 64; the chunk edges T = 31, 32, 33, 64,
    65 at D = 16, 32, 33, 64, 128; T = 1, 1024 at D = 32, 128; per-row
@@ -114,7 +124,9 @@ non-zero and prints no result):
    logits at 1025 tokens (``LM_CONSIST_ATOL``);
 21. one JSON line listing every kernel with its launches on the main paths
    (``launches``, phases 8, 13, 17 and 20) and elsewhere
-   (``check_launches``), error, times and bound; the last line is
+   (``check_launches``), error, times (for ``persist`` and ``fps`` also
+   ``kernel_ms``, the kernel alone by ``torch.profiler``) and bound; the
+   last line is
    ``{"ok": true, "device": {...}}``.
 
 Each phase from 15 on prints its seconds.
@@ -198,9 +210,9 @@ def bound_ms(nbytes: float, ops: float):
 
 
 def kernel_name(mangled: str) -> str:
-    """``ns::kernel<N>`` of a mangled kernel name, as far as these kernels
-    need: the last of its length-prefixed names, and an int template
-    argument."""
+    """``ns::kernel<N, true>`` of a mangled kernel name, as far as these
+    kernels need: the last of its length-prefixed names, and its int and
+    bool template arguments."""
     names, p = [], 3 if mangled.startswith("_ZN") else 2
     while p < len(mangled) and mangled[p].isdigit():
         q = p
@@ -209,9 +221,13 @@ def kernel_name(mangled: str) -> str:
         n = int(mangled[p:q])
         names.append(mangled[q:q + n])
         p = q + n
-    t = re.match(r"ILi(\d+)E", mangled[p:])
+    t = re.match(r"I((?:L[ib]\d+E)+)E", mangled[p:])
     name = names[-1] if names else mangled
-    return f"{name}<{t.group(1)}>" if t else name
+    if not t:
+        return name
+    args = [v if k == "i" else ("true" if v == "1" else "false")
+            for k, v in re.findall(r"L([ib])(\d+)E", t.group(1))]
+    return f"{name}<{', '.join(args)}>"
 
 
 def device_us(event) -> float:
@@ -352,6 +368,9 @@ def main() -> int:
     from repro_torch.kernels.fps.cases import tie_cloud
     from repro_torch.kernels.fps.ref import fps_ref
     from repro_torch.kernels.persist import ops as persist_ops
+    from repro_torch.kernels.persist.cases import (grazing_pool,
+                                                   owner_group_pool,
+                                                   skewed_pool)
     from repro_torch.kernels.persist.ref import persist_tiles_ref
     from repro_torch.kernels.sact import ops as sact_ops
     from repro_torch.kernels.sact.cases import grazing_plane
@@ -410,6 +429,12 @@ def main() -> int:
             f"two consumer warpgroups at {c['consumer_regs']}, by setmaxnreg),"
             f" {c['smem_bytes']} B dynamic shared memory, {c['rows']} query "
             f"rows, {c['keys']} keys a tile, {c['stages']} ring stages")
+    shape = persist_ops.kernel_shape()
+    log("2 build", f"persist: a cluster of {shape['cluster']} CTAs of "
+        f"{shape['threads']} threads a tile, {shape['smem_bytes']} B dynamic "
+        f"shared memory a CTA at bq {persist_ops.DEFAULT_BQ}; the card holds "
+        f"{shape['max_clusters']} such clusters at once "
+        f"(cudaOccupancyMaxActiveClusters)")
     log("2 build", f"spill stores over every kernel: {spills} bytes")
 
     # ---- 3. sact_dense vs plain on grazing planes -----------------------
@@ -448,13 +473,25 @@ def main() -> int:
     sobbs = scene_trajectories(small, num_trajectories=4, waypoints=20)
     sdev = device_octree(stree, device=cuda)
     spilled_compared = 0
-    for bq, fcap, ring_cap, sph in ((16, 64, 4096, False),
-                                    (16, 64, 32, True),
-                                    (128, 8192, 256, False),
-                                    (128, 8192, 256, True)):
-        ins = persist_ops.pack_kernel_inputs(
-            sobbs.center.to(cuda), sobbs.half.to(cuda), sobbs.rot.to(cuda),
-            sdev, bq)
+    pools = [("identity", bq, fcap, ring_cap, sph,
+              persist_ops.pack_kernel_inputs(
+                  sobbs.center.to(cuda), sobbs.half.to(cuda),
+                  sobbs.rot.to(cuda), sdev, bq))
+             for bq, fcap, ring_cap, sph in ((16, 64, 4096, False),
+                                             (16, 64, 32, True),
+                                             (128, 8192, 256, False),
+                                             (128, 8192, 256, True))]
+    pools += [("owner groups", 16, 64, 4096, False,
+               owner_group_pool(sdev, 16, 12, seed=3)),
+              ("owner groups", 128, 8192, 256, True,
+               owner_group_pool(sdev, 128, 6, seed=4))]
+    skewed, s_fcap, s_ring = skewed_pool(sdev, 128, 6, seed=5)
+    pools += [("skewed", 128, s_fcap, s_ring, sph, skewed)
+              for sph in (False, True)]
+    pools += [("grazing", 128, 16384, 4096, sph,
+               grazing_pool(sdev, 4, 512, seed=9 + sph, use_spheres=sph))
+              for sph in (False, True)]
+    for pool, bq, fcap, ring_cap, sph, ins in pools:
         kw = dict(bq=bq, fcap=fcap, depth=stree.depth, ring_cap=ring_cap,
                   use_spheres=sph)
         got = persist_ops.persist_tiles(**ins, **kw)
@@ -463,17 +500,22 @@ def main() -> int:
         for name, g, w in zip(("best", "per_level", "hist", "scalars"),
                               got, want):
             if not torch.equal(g, w):
-                raise SystemExit(f"FAIL: persist {name} differs at "
-                                 f"bq={bq} fcap={fcap} spheres={sph}")
+                raise SystemExit(f"FAIL: persist {name} differs on the "
+                                 f"{pool} pool at bq={bq} fcap={fcap} "
+                                 f"spheres={sph}")
         spill = got[3][:, 6]
         fits = spill <= ring_cap
         if not torch.equal(got[4][fits], want[4][fits]):
-            raise SystemExit(f"FAIL: persist ring differs at bq={bq} "
-                             f"fcap={fcap}")
+            raise SystemExit(f"FAIL: persist ring differs on the {pool} "
+                             f"pool at bq={bq} fcap={fcap}")
         spilled_compared += int(((spill > 0) & fits).sum())
-        log("4 persist", f"bq={bq} fcap={fcap} ring={ring_cap} spheres={sph}"
-            f": kernel == plain, overflow {int(spill.sum())}, nodes "
-            f"{int(got[3][:, 0].sum())}")
+        nodes = got[3][:, 0]
+        codes = (got[2].sum(0) > 0).nonzero().flatten().tolist()
+        log("4 persist", f"{pool} pool, bq={bq} fcap={fcap} ring={ring_cap} "
+            f"spheres={sph}: kernel == plain, overflow {int(spill.sum())}, "
+            f"nodes {int(nodes.sum())} (heaviest tile {int(nodes.max())}, "
+            f"widest tile level {int(got[1].max())}), terminal exit codes "
+            f"{codes}")
     if spilled_compared == 0:
         raise SystemExit("FAIL: no spilled ring was compared")
     add_check_launches()
@@ -570,6 +612,7 @@ def main() -> int:
     # ---- 8. main paths at paper scale --------------------------------------
     main_launches = {name: 0 for name in _build.SOURCES}
     persist_line = timing_inputs = None
+    persist_runs = []   # each environment's inputs, timed alone in phase 9
     paths = [("wavefront_persistent", None), ("wavefront", None),
              ("wavefront_fused", None), ("wavefront_fused", "u8")]
     for env, (tree, obbs, _) in scenes.items():
@@ -691,8 +734,13 @@ def main() -> int:
                         replaces="src/repro/kernels/persist/kernel.py:137",
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=bms, bound_by=by, library_ms=None)
-                kernel_note = (f" | persist kernel {ms:.3f} ms, plain on card "
-                               f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by})")
+                tile_nodes = got[3][:, 0].to(torch.float64)
+                persist_runs.append((env, ins, kw, ms, bms, tile_nodes))
+                kernel_note = (f" | persist call {ms:.4f} ms (the kernel "
+                               f"alone: phase 9), plain on card "
+                               f"{plain_ms:.3f} ms, bound {bms:.5f} ms ({by}); "
+                               f"{T} tiles, heaviest {int(tile_nodes.max())} "
+                               f"nodes, mean {float(tile_nodes.mean()):.1f}")
             add_check_launches()
             log("8 main", f"{env} {tag}: Q={obbs.n} hits={int(v1.sum())} "
                 f"nodes={c1.nodes_traversed} per level {c1.nodes_per_level} "
@@ -737,6 +785,19 @@ def main() -> int:
     device_ms = kernel_device_ms(
         lambda: compact_ops.compact_columns(*ca, **ck), "compact_kernel", 50,
         "compact")
+    # persist on phase 8's inputs: the kernel alone, after every call above
+    for env, ins, kw, p_ms, p_bms, tile_nodes in persist_runs:
+        p_device_ms = kernel_device_ms(
+            lambda: persist_ops.persist_tiles(**ins, **kw), "persist_kernel",
+            20, "persist")
+        if env == env0:
+            persist_line["kernel_ms"] = p_device_ms
+        log("9 persist", f"{env} wavefront_persistent query (phase 8, "
+            f"fcap {kw['fcap']}): kernel on the card {p_device_ms:.5f} ms "
+            f"(torch.profiler, {p_device_ms / p_bms:.1f}x the bound "
+            f"{p_bms:.5f} ms), call {p_ms:.4f} ms; {tile_nodes.numel()} "
+            f"tiles, heaviest {int(tile_nodes.max())} nodes, mean "
+            f"{float(tile_nodes.mean()):.1f} | {card}")
     exits = unpack_verdicts(got[:n_live])[2]
     hist = torch.bincount(exits, minlength=18).cpu().numpy()
     ops = float(np.dot(hist, exit_code_ops(tk["use_spheres"]))
@@ -817,23 +878,43 @@ def main() -> int:
     ties = torch.from_numpy(np.stack([
         tie_cloud(n_side=6, n_total=2048, spacing=0.125, seed=s)
         for s in range(32)]))
-    fps_cases += [("ties B=1 N=2048", ties[:1], 0),
-                  ("ties B=32 N=2048", ties, 0),
-                  ("ties B=32 N=2048 first=77", ties, 77),
-                  ("uniform B=32 N=5000 first=4321", fps_cases[5][1], 4321)]
-    for name, pts, first in fps_cases:
+    fps_cases = [(name, pts, first, m_fps) for name, pts, first in fps_cases]
+    fps_cases += [("ties B=1 N=2048", ties[:1], 0, m_fps),
+                  ("ties B=32 N=2048", ties, 0, m_fps),
+                  ("ties B=32 N=2048 first=77", ties, 77, m_fps),
+                  ("uniform B=32 N=5000 first=4321", fps_cases[5][1], 4321,
+                   m_fps)]
+    # ragged clouds (N no multiple of threads x points a thread, N < 32),
+    # one point, more picks than distinct points, the largest clouds
+    for N in (1000, 33, 20, 9000, fps_ops.MAX_POINTS):
+        fps_cases.append((f"uniform B=3 N={N}",
+                          torch.rand((3, N, 3), generator=g) * 2 - 1, N // 2,
+                          min(m_fps, N)))
+    one = torch.rand((4, 1, 3), generator=g)
+    fps_cases += [("one point B=4 N=1 m=1", one, 0, 1),
+                  ("one point B=4 N=1 m=5", one, 0, 5)]
+    few = torch.from_numpy(np.stack([
+        tie_cloud(n_side=3, n_total=50, spacing=0.25, seed=s)
+        for s in range(4)]))
+    fps_cases.append(("ties B=4 N=50, 27 distinct, m=64", few, 3, 64))
+    for name, pts, first, m_case in fps_cases:
         pts = pts.to(cuda)
-        got = fps_ops.fps(pts, m_fps, first)
-        want = fps_ref(pts, m_fps, first)
+        got = fps_ops.fps(pts, m_case, first)
+        want = fps_ref(pts, m_case, first)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise SystemExit(f"FAIL: fps differs from plain on {name} "
                              f"(first mismatch at "
                              f"{(got != want).nonzero()[0].tolist()})")
-        zeros = int((got[:, 216:] == 0).sum()) if "ties" in name else 0
-        log("11 fps", f"{name}, m={m_fps}, first={first}: kernel == plain "
-            f"on every index" + (f" (ties: {zeros} later picks of index 0)"
-                                 if "ties" in name else ""))
+        note = ""
+        if "ties" in name:
+            distinct = len(np.unique(pts[0].cpu().numpy(), axis=0))
+            zeros = int((got[:, distinct:] == 0).sum())
+            note = f" (ties: {zeros} picks of index 0 after the {distinct} " \
+                   f"distinct points)"
+        log("11 fps", f"{name}, m={m_case}, first={first}, "
+            f"{fps_ops.threads_for(pts.shape[1])} threads: kernel == plain "
+            f"on every index{note}")
     errs["fps"] = 0
     add_check_launches()
 
@@ -1083,22 +1164,20 @@ def main() -> int:
     err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
     errs["fps"] = max(errs["fps"], err)
     ms = cuda_time_ms(lambda: fps_ops.fps(*fa, **fk), 20)
-    plain_ms = cuda_time_ms(lambda: fps_ref(*fa, **fk), 2)
+    plain_ms = plain_ms_fps = cuda_time_ms(lambda: fps_ref(*fa, **fk), 2)
     Bf, Nf, _ = pts_b.shape
     # read once: the clouds; written once: the indices.  Operations: each
     # of the m-1 steps, per point, 3 subtractions, 3 products, 2 sums, a
     # min and a compare.
     bms, by = bound_ms(Bf * Nf * 12 + Bf * m_b * 4, Bf * (m_b - 1) * Nf * 10)
-    lines.append(dict(
+    fps_line = dict(
         name="fps", route="cuda",
         source="src/repro_torch/kernels/fps/csrc/fps.cu",
         replaces="src/repro/kernels/fps/kernel.py:15",
         max_abs_err=errs["fps"], ms=ms,
-        plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None))
-    log("14 fps", f"sa1 of the batched encode (B={Bf}, N={Nf}, m={m_b}): "
-        f"kernel {ms:.4f} ms, plain on card {plain_ms:.3f} ms, bound "
-        f"{bms:.5f} ms ({by}); serial floor {m_b - 1} dependent block-wide "
-        f"argmax steps, {1e3 * ms / (m_b - 1):.3f} us a step | {card}")
+        plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None)
+    lines.append(fps_line)
+    f_call, f_bms, f_by = ms, bms, by
     _, ba, bk = rec_b.calls["ballquery"][0]
     qs_b, pts_b, r_b, k_b = ba
     idx, cnt = bq_ops.ball_query(*ba, **bk)
@@ -1132,6 +1211,16 @@ def main() -> int:
         f"% of balls full, {pairs} pairs needed of {Bq * Mq * Nq}: kernel "
         f"{ms:.4f} ms, plain on card {plain_ms:.3f} ms, bound {bms:.5f} ms "
         f"({by}) | {card}")
+    # fps alone, after both calls above were timed
+    f_device_ms = kernel_device_ms(lambda: fps_ops.fps(*fa, **fk),
+                                   "fps_kernel", 20, "fps")
+    fps_line["kernel_ms"] = f_device_ms
+    log("14 fps", f"sa1 of the batched encode (B={Bf}, N={Nf}, m={m_b}, "
+        f"{fps_ops.threads_for(Nf)} threads): call {f_call:.4f} ms, kernel "
+        f"on the card {f_device_ms:.4f} ms (torch.profiler, "
+        f"{1e3 * f_device_ms / (m_b - 1):.3f} us a step over {m_b - 1} "
+        f"dependent steps, {f_device_ms / f_bms:.1f}x the bound), plain on "
+        f"card {plain_ms_fps:.3f} ms, bound {f_bms:.5f} ms ({f_by}) | {card}")
     add_check_launches()
 
     # ---- 15. wkv6 vs plain on the hard cases -------------------------------

@@ -1,12 +1,13 @@
 """Dispatch for the furthest-point-sampling kernel.
 
 :func:`fps` runs the CUDA kernel (``csrc/fps.cu``: one CTA per cloud, the
-whole sampling loop inside the kernel, the cloud and its distances in
-shared memory) on CUDA tensors and its plain PyTorch version
-(:func:`repro_torch.kernels.fps.ref.fps_ref`) on CPU tensors; a build or
-launch failure raises.  A cloud must fit the block's shared memory (16 B
-a point, :data:`MAX_POINTS`); a larger one raises rather than taking
-another path.
+whole sampling loop inside the kernel, each thread's points and their
+distances in registers, one barrier a step) on CUDA tensors and its plain
+PyTorch version (:func:`repro_torch.kernels.fps.ref.fps_ref`) on CPU
+tensors; a build or launch failure raises.  A cloud holds at most
+:data:`MAX_POINTS` points (1,024 threads of 16 points; the coordinates
+also sit in the block's shared memory, 12 B a point); a larger one raises
+rather than taking another path.
 """
 from __future__ import annotations
 
@@ -19,21 +20,25 @@ from repro_torch.kernels.fps.ref import fps_ref
 
 #: Shared memory one block may use on the H100 (227 KB).
 MAX_SMEM_BYTES = 232448
-#: The kernel's shared-memory use for a cloud of ``n`` points (the
-#: source's ``fps_smem_bytes``): 16 B a point for three coordinate planes
-#: and the distances, plus the per-warp argmax slots and the chosen index.
-_SMEM_FIXED = 32 * 4 + 33 * 4
+#: Threads a block and points a thread, at most (the source's instances).
+MAX_THREADS = 1024
+MAX_POINTS_A_THREAD = 16
 #: Largest cloud the kernel takes.
-MAX_POINTS = (MAX_SMEM_BYTES - _SMEM_FIXED) // 16
+MAX_POINTS = MAX_THREADS * MAX_POINTS_A_THREAD
+#: The kernel's shared memory besides the planes (the source's
+#: ``kSlotBytes``): per-warp (bits, index) slots for two step parities.
+_SMEM_FIXED = 2 * 32 * 8
 
 
 def smem_bytes(n: int) -> int:
-    return 16 * n + _SMEM_FIXED
+    """The kernel's shared memory for a cloud of ``n`` points (the
+    source's ``fps_smem_bytes``): three coordinate planes and the slots."""
+    return 12 * n + _SMEM_FIXED
 
 
 def threads_for(n: int) -> int:
     """Threads per block: about eight points a thread, 32 to 1024."""
-    return min(1024, max(32, 32 * -(-n // 256)))
+    return min(MAX_THREADS, max(32, 32 * -(-n // 256)))
 
 
 def _lib():
@@ -66,9 +71,9 @@ def fps(points: torch.Tensor, m: int, first: int = 0) -> torch.Tensor:
                          f"first={first}, m={m}")
     if N > MAX_POINTS:
         raise ValueError(
-            f"fps keeps a cloud in one block's shared memory: at most "
-            f"{MAX_POINTS} points ({MAX_SMEM_BYTES} B at 16 B a point), got "
-            f"{N}")
+            f"fps keeps a cloud in one block's registers and shared memory: "
+            f"at most {MAX_POINTS} points ({MAX_THREADS} threads of "
+            f"{MAX_POINTS_A_THREAD}), got {N}")
     out = torch.empty((B, m), dtype=torch.int32, device=dev)
     launch = _lib()
     with torch.cuda.device(dev):

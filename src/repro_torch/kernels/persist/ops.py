@@ -4,7 +4,8 @@
 "wavefront_persistent"``: the whole multi-level traversal in one call.  It
 packs the kernel's inputs as ``repro.kernels.persist.ops._kernel_whole``
 does and calls :func:`persist_tiles`, which launches the CUDA kernel
-(``csrc/persist.cu``) on CUDA tensors and runs the plain PyTorch version
+(``csrc/persist.cu``: one thread-block cluster per tile, the tile's OBBs
+in shared memory) on CUDA tensors and runs the plain PyTorch version
 (:func:`repro_torch.kernels.persist.ref.persist_tiles_ref`) on CPU tensors.
 Both follow the same per-tile contract, so verdicts and every counter are
 the same on either device.
@@ -52,7 +53,8 @@ META_FORMAT_BYTES = {"fp32": BYTES_META_STREAM,
 #: L2.  ``EngineConfig.vmem_budget`` overrides it per engine.
 H100_L2_BYTES = 50 * 1000 * 1000
 
-#: Query slots per tile (one CTA each), as in the reference's default.
+#: Query slots per tile (one thread-block cluster each), as in the
+#: reference's default.
 DEFAULT_BQ = 128
 #: Spill-ring pairs per tile, as in the reference's default.
 DEFAULT_RING_CAP = 256
@@ -181,6 +183,21 @@ def persist_tiles(scal, sot, nvalid, obb, meta, payload, owner, *, bq: int,
     _build.check(status, "persist")
     _build.count_launch("persist")
     return best, per_level, hist, scalars, ring
+
+
+def kernel_shape(bq: int = DEFAULT_BQ) -> dict:
+    """The CUDA kernel's launch shape (needs the card): CTAs a cluster,
+    threads a CTA, dynamic shared memory a CTA for ``bq`` slots, and how
+    many such clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    fn = _build.load("persist").persist_shape
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    _build.check(fn(bq, ctypes.addressof(out)), "persist")
+    return dict(zip(("cluster", "threads", "smem_bytes", "max_clusters"),
+                    out))
 
 
 def pack_kernel_inputs(obb_c, obb_h, obb_r, dev: DeviceOctree, bq: int,

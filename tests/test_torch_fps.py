@@ -86,11 +86,16 @@ def test_fps_rejects_bad_arguments():
 
 
 def test_fps_shared_memory_limit():
+    """The largest cloud is 1,024 threads of 16 points a thread, and its
+    coordinate planes (12 B a point) fit the block's shared memory."""
+    assert ops.MAX_POINTS == ops.MAX_THREADS * ops.MAX_POINTS_A_THREAD
+    assert ops.MAX_POINTS >= 14511   # clouds of 16 B a point in shared memory
     assert ops.smem_bytes(ops.MAX_POINTS) <= ops.MAX_SMEM_BYTES
-    assert ops.smem_bytes(ops.MAX_POINTS + 1) > ops.MAX_SMEM_BYTES
-    assert ops.smem_bytes(2048) == 2048 * 16 + 260          # 8 KB of dist
+    assert ops.smem_bytes(2048) == 2048 * 12 + 512          # 24 KB of planes
     assert [ops.threads_for(n) for n in (16, 256, 2048, 5000, 10**5)] == [
         32, 32, 256, 640, 1024]
+    for n in (1, 33, 2048, 5000, 8193, ops.MAX_POINTS):
+        assert -(-n // ops.threads_for(n)) <= ops.MAX_POINTS_A_THREAD
 
 
 def test_random_sampling_distinct_in_range_and_spread():

@@ -13,6 +13,10 @@ diagonal.  ``wkv6`` and ``flash_attention`` sum their dot products in
 another order than their plain versions and are held to the ``TOL`` of
 their ``cases.py``.
 """
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +25,7 @@ from repro_torch.configs.base import get_smoke_config
 from repro_torch.core.geometry import OBBs, rotation_from_euler
 from repro_torch.core.octree import build_octree, device_octree
 from repro_torch.core.pipeline import plan_with_collision_gate
+from repro_torch.core.sact import PAYLOAD_INF
 from repro_torch.engine.executor import CollisionEngine, EngineConfig
 from repro_torch.kernels import _build
 from repro_torch.kernels.ballquery import ops as bq_ops
@@ -35,6 +40,8 @@ from repro_torch.kernels.fps import ops as fps_ops
 from repro_torch.kernels.fps.cases import tie_cloud
 from repro_torch.kernels.fps.ref import fps_ref
 from repro_torch.kernels.persist import ops as persist_ops
+from repro_torch.kernels.persist.cases import (grazing_pool, owner_group_pool,
+                                               skewed_pool)
 from repro_torch.kernels.persist.ref import persist_tiles_ref
 from repro_torch.kernels.sact import ops as sact_ops
 from repro_torch.kernels.sact.cases import grazing_plane
@@ -83,14 +90,35 @@ def test_sact_dense_kernel_matches_plain(cuda, use_spheres):
     assert torch.equal(c, pc) and torch.equal(e, pe)
 
 
-@pytest.mark.parametrize("bq,fcap,ring_cap,use_spheres", [
-    (16, 32, 4096, False), (16, 32, 16, True), (128, 4096, 256, False)])
-def test_persist_kernel_matches_plain(cuda, bq, fcap, ring_cap, use_spheres):
+@pytest.mark.parametrize("pool,bq,fcap,ring_cap,use_spheres", [
+    ("identity", 16, 32, 4096, False), ("identity", 16, 32, 16, True),
+    ("identity", 128, 4096, 256, False),
+    ("owner groups", 16, 32, 4096, False),
+    ("owner groups", 128, 4096, 256, True),
+    ("skewed", 128, None, None, False), ("skewed", 128, None, None, True),
+    ("grazing", 128, 16384, 256, False), ("grazing", 128, 16384, 256, True)])
+def test_persist_kernel_matches_plain(cuda, pool, bq, fcap, ring_cap,
+                                      use_spheres):
+    """Identity pools; owner groups (``best`` and the gate shared by a
+    group's lanes, which on the card spread over a cluster's ranks); one
+    heavy tile whose widest level spans every rank and several lanes a
+    thread and spills part way through its children; OBBs that graze
+    cells of level 4, so the SACT decides within a rounding."""
     tree, obbs = _scene_and_queries(M=300)
     dev = device_octree(tree, device=cuda)
-    ins = persist_ops.pack_kernel_inputs(obbs.center.to(cuda),
-                                         obbs.half.to(cuda),
-                                         obbs.rot.to(cuda), dev, bq)
+    if pool == "identity":
+        ins = persist_ops.pack_kernel_inputs(obbs.center.to(cuda),
+                                             obbs.half.to(cuda),
+                                             obbs.rot.to(cuda), dev, bq)
+    elif pool == "owner groups":
+        ins = owner_group_pool(dev, bq, 5, seed=bq)
+    elif pool == "grazing":
+        ins = grazing_pool(dev, 3, 256, seed=7, use_spheres=use_spheres)
+    else:
+        tree = build_octree(np.random.RandomState(3).uniform(
+            -1, 1, (20000, 3)).astype(np.float32), depth=5)
+        dev = device_octree(tree, device=cuda)
+        ins, fcap, ring_cap = skewed_pool(dev, bq, 6, seed=5)
     kw = dict(bq=bq, fcap=fcap, depth=tree.depth, ring_cap=ring_cap,
               use_spheres=use_spheres)
     before = _build.launch_counts()["persist"]
@@ -102,6 +130,62 @@ def test_persist_kernel_matches_plain(cuda, bq, fcap, ring_cap, use_spheres):
         assert torch.equal(g, w)
     fits = got[3][:, 6] <= ring_cap
     assert torch.equal(got[4][fits], want[4][fits])
+    if pool == "skewed":
+        assert bool(fits.all()) and int(got[3][:, 6].sum()) > 0
+
+
+def test_persist_kernel_light_last_level_back_to_back(cuda):
+    """Owner-group tiles whose leaf level holds at most a lane a thread, so
+    the last expanding level ends with no cluster barrier and a rank can
+    reach its final folds while rank 0 is still at that level's gate;
+    every launch of many back to back must keep every rank's folds."""
+    tree, _ = _scene_and_queries(M=1)
+    dev = device_octree(tree, device=cuda)
+    ins = owner_group_pool(dev, 16, 64, seed=21, half=(0.003, 0.01))
+    kw = dict(bq=16, fcap=4096, depth=tree.depth, ring_cap=256,
+              use_spheres=False)
+    want = persist_tiles_ref(**ins, **kw)
+    leaf = want[1][:, tree.depth]
+    assert bool(((leaf > 0) & (leaf <= persist_ops.kernel_shape()["threads"]))
+                .all())
+    assert int((want[0] != PAYLOAD_INF).sum()) > 100
+    outs = [persist_ops.persist_tiles(**ins, **kw) for _ in range(200)]
+    torch.cuda.synchronize()
+    for got in outs:
+        for g, w in zip(got[:4], want[:4]):
+            assert torch.equal(g, w)
+
+
+def test_persist_kernel_with_a_rank_held_back(cuda):
+    """Copies of the kernel that spin one rank at one phase mark of every
+    level (``tools/persist_race_check.py``) equal the plain version: no
+    output depends on how far one rank runs ahead of another."""
+    root = Path(__file__).resolve().parents[1]
+    p = subprocess.run([sys.executable, str(root / "tools" /
+                                            "persist_race_check.py"),
+                        "--reps", "5"], capture_output=True, text=True,
+                       timeout=900, cwd=root)
+    assert p.returncode == 0, p.stdout + p.stderr
+    assert p.stdout.count("0 of 5 launches differ") == 12, p.stdout
+
+
+def test_persist_kernel_shape_fits_the_card(cuda):
+    """The cluster fits the card; a tile whose slots overflow a block's
+    shared memory is refused at launch and raises."""
+    shape = persist_ops.kernel_shape()
+    assert shape["cluster"] >= 1 and shape["threads"] % 32 == 0
+    assert 0 < shape["smem_bytes"] <= 232448 and shape["max_clusters"] >= 1
+    with pytest.raises(RuntimeError, match="persist"):
+        x = torch.zeros(1, device=cuda)
+        bq = 4096
+        persist_ops.persist_tiles(
+            x, torch.zeros(1, dtype=torch.int32, device=cuda),
+            torch.zeros(1, dtype=torch.int32, device=cuda),
+            torch.zeros(bq, 15, device=cuda),
+            torch.zeros(1, 1, 4, dtype=torch.int32, device=cuda),
+            torch.zeros(bq, dtype=torch.int32, device=cuda),
+            torch.zeros(bq, dtype=torch.int32, device=cuda), bq=bq, fcap=8,
+            depth=0, ring_cap=1, use_spheres=False)
 
 
 def test_cuda_engine_matches_cpu_engine(cuda):
@@ -335,8 +419,13 @@ def test_cuda_level_modes_match_cpu_engine(cuda, mode):
 
 @pytest.mark.parametrize("B,N,m,first", [
     (1, 2048, 256, 0), (4, 2047, 256, 3), (3, 5000, 128, 4999),
-    (2, 100, 130, 0)])
+    (2, 100, 130, 0), (3, 1000, 256, 7), (2, 33, 33, 32), (3, 20, 20, 5),
+    (4, 1, 1, 0), (2, 1, 4, 0), (2, 8192, 64, 100), (2, 9000, 64, 8999),
+    (2, fps_ops.MAX_POINTS, 64, 9)])
 def test_fps_kernel_matches_plain(cuda, B, N, m, first):
+    """Clouds at the encoder's shapes; N no multiple of threads x points a
+    thread and N < 32; one point; the largest clouds, whose coordinates
+    stay in shared memory."""
     rs = np.random.RandomState(N)
     pts = torch.from_numpy(rs.uniform(-1, 1, (B, N, 3)).astype(
         np.float32)).to(cuda)
@@ -355,6 +444,16 @@ def test_fps_kernel_ties_go_to_the_first_index(cuda):
     got = fps_ops.fps(pts, 160)
     assert torch.equal(got, fps_ref(pts, 160))
     assert bool((got[:, 125:] == 0).all())
+
+
+@pytest.mark.parametrize("first", [0, 3])
+def test_fps_kernel_more_picks_than_distinct_points(cuda, first):
+    pts = torch.from_numpy(np.stack([
+        tie_cloud(n_side=3, n_total=50, spacing=0.25, seed=s)
+        for s in range(4)])).to(cuda)
+    got = fps_ops.fps(pts, 64, first)
+    assert torch.equal(got, fps_ref(pts, 64, first))
+    assert bool((got[:, 27:] == 0).all())
 
 
 def test_fps_kernel_rejects_a_cloud_above_shared_memory(cuda):

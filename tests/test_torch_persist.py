@@ -6,7 +6,9 @@
 per-level counts, exit histogram, work scalars, and the spill ring of
 every tile whose total spill fits the ring (where one level spills more
 than ``ring_cap`` pairs, several pairs share a ring slot and neither
-side defines which one stays).
+side defines which one stays).  Identity pools and the owner-group pools
+of ``kernels/persist/cases.py`` (tile-local verdict groups, random
+payloads: the ``best`` fold and the expand gate at work).
 """
 import jax
 import jax.numpy as jnp
@@ -21,8 +23,9 @@ from repro.kernels.persist.ref import csr_child_slots as j_csr_child_slots
 from repro_torch.convert import octree_from_reference
 from repro_torch.core.geometry import rotation_from_euler
 from repro_torch.core.octree import build_octree, device_octree
-from repro_torch.kernels.persist import ops
-from repro_torch.kernels.persist.ref import csr_child_slots, popcount8
+from repro_torch.kernels.persist import cases, ops
+from repro_torch.kernels.persist.ref import (csr_child_slots, popcount8,
+                                             persist_tiles_ref)
 
 # One intra-op thread: the suite runs several test processes at once.
 torch.set_num_threads(1)
@@ -79,6 +82,50 @@ def test_persist_tiles_ref_matches_pallas_kernel(bq, fcap, ring_cap,
     assert np.array_equal(got[4][fits], ref[4][fits])
     if ring_cap == 1024:
         assert fits.all() and (got[4] != 0).any()
+
+
+@pytest.mark.parametrize("bq,fcap,ring_cap,use_spheres", [
+    (16, 32, 1024, False),          # spills
+    (16, 2048, 64, True),           # overflow-free
+])
+def test_persist_tiles_ref_matches_pallas_kernel_on_owner_groups(
+        bq, fcap, ring_cap, use_spheres):
+    tree, _, _, _ = _scene_and_queries()
+    dev = device_octree(octree_from_reference(tree), device="cpu")
+    ins = cases.owner_group_pool(dev, bq, num_tiles=3, seed=11)
+    own = ins["owner"].reshape(3, bq)
+    assert (own > torch.arange(bq)).sum() == 0 and (own < 0).any()
+    got = [x.numpy() for x in ops.persist_tiles(
+        **ins, bq=bq, fcap=fcap, depth=DEPTH, ring_cap=ring_cap,
+        use_spheres=use_spheres)]
+    ref = _reference_outputs(ins, tree, 3, bq, fcap, ring_cap, use_spheres)
+    for name, g, w in zip(("best", "per_level", "hist", "scalars"), got, ref):
+        assert g.shape == w.shape and np.array_equal(g, w), name
+    fits = got[3][:, 6] <= ring_cap
+    assert np.array_equal(got[4][fits], ref[4][fits])
+    # groups share a best cell: some member slot's cell never folds
+    best = got[0]
+    hit_groups = best[best != ops.PAYLOAD_INF].size
+    assert 0 < hit_groups < int((own >= 0).sum())
+
+
+def test_skewed_pool_puts_the_work_in_one_tile_and_spills_it():
+    """One tile holds most of the nodes, its widest level is several
+    times a cluster's threads wide, and the returned capacity spills that
+    level part way through its children into a ring that holds them."""
+    tree = build_octree(np.random.RandomState(3).uniform(
+        -1, 1, (20000, 3)).astype(np.float32), depth=5)
+    dev = device_octree(tree, device="cpu")
+    ins, fcap, ring_cap = cases.skewed_pool(dev, 128, 6, seed=5)
+    _, per_level, _, scalars, ring = persist_tiles_ref(
+        **ins, bq=128, fcap=fcap, depth=5, ring_cap=ring_cap,
+        use_spheres=False)
+    nodes = scalars[:, 0]
+    assert int(nodes.argmax()) == 1 and 2 * int(nodes[1]) > int(nodes.sum())
+    assert int(per_level[1].max()) == fcap > 2048
+    assert int(scalars[1, 6]) == ring_cap > 0 and int(scalars[:, 6].sum()) \
+        == ring_cap
+    assert bool((ring[1] != 0).all(1).any())
 
 
 def test_persist_tiles_ref_live_prefix_and_pad_tiles():
