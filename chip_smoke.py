@@ -14,7 +14,8 @@ non-zero and prints no result):
    memory, rows, keys and ring stages), and ``persist``'s cluster shape
    with ``cudaOccupancyMaxActiveClusters``;
 3. ``sact_dense`` kernel vs its plain version on grazing planes (every exit
-   code, both sphere settings), exactly equal;
+   code, both sphere settings), exactly equal, in every stage mode of
+   ``sact_tile.cuh`` that a kernel ships (``sact_ops.STAGE_MODES``);
 4. ``persist`` kernel vs ``persist_tiles_ref`` on a small scene, with and
    without frontier overflow, exactly equal: identity pools, owner-group
    pools, a skewed pool (``kernels/persist/cases.py``: one heavy tile
@@ -50,7 +51,9 @@ non-zero and prints no result):
    call's (which the host paces); then ``persist`` alone by
    ``torch.profiler`` on each environment's phase-8 inputs (after every
    call is timed, as the profiler slows the calls timed after it);
-10. ``sact_dense`` timed on the paper-scale queries against level-5 cells;
+10. ``sact_dense`` timed on the paper-scale queries against level-5 cells,
+   the call and the kernel alone (``torch.profiler``), with the plane's
+   exit-code histogram and the share of warp slots that run the edge stage;
 11. ``fps`` kernel vs its plain version, indices exactly equal: B = 1 and
    32 clouds of 2048, 2047 and 5000 points, m = 256, lattice clouds with
    duplicates (ties, and zero distances once every distinct point is
@@ -62,7 +65,11 @@ non-zero and prints no result):
    k = 16) on a sparse cloud (most balls short of k) and a dense one
    (saturated), a ragged case, and points at and one ulp around the
    radius for r = 0.05 ... 0.6 (the threshold is float32(r * r) of the
-   double product, not float32(r) ** 2);
+   double product, not float32(r) ** 2); and ``kernels/ballquery/
+   cases.py::cloud_cases``: clouds over one staged tile (2,049, 5,000 and
+   16,384 points), of 1, 31 and 33 points, query counts that are no
+   multiple of a query block, a block whose balls all fill within the
+   first tile, a cloud in which no ball fills;
 13. the neural-planner path of ``benchmarks/run.py::fig18_pipeline``: the
    tabletop scene at paper scale, a 2048-point cloud, a ``Planner`` at the
    default width (feature 256, hidden 512) with seeded weights, 20 steps,
@@ -75,8 +82,10 @@ non-zero and prints no result):
    just after; warm stage walls (median of 10), kernel time per launch and
    peak memory; then one batched plan of 32 clouds for throughput;
 14. ``fps`` and ``ballquery`` timed at the batched encode's sa1 shapes
-   against their bounds and plain versions; ``fps`` also alone by
-   ``torch.profiler``;
+   against their bounds and plain versions, each also alone by
+   ``torch.profiler``; ``ballquery`` also at the single plan's three
+   layers (B = 1: (M, N, r, k) = (256, 2048, 0.1, 16), (64, 256, 0.25,
+   16), (16, 64, 0.6, 8)), the call and the kernel alone;
 15. ``wkv6`` kernel vs its plain version on ``kernels/wkv6/cases.py``
    (T = 1, 33, 1024 at D = 16, 64; the chunk edges T = 31, 32, 33, 64,
    65 at D = 16, 32, 33, 64, 128; T = 1, 1024 at D = 32, 128; per-row
@@ -124,8 +133,10 @@ non-zero and prints no result):
    logits at 1025 tokens (``LM_CONSIST_ATOL``);
 21. one JSON line listing every kernel with its launches on the main paths
    (``launches``, phases 8, 13, 17 and 20) and elsewhere
-   (``check_launches``), error, times (for ``persist`` and ``fps`` also
-   ``kernel_ms``, the kernel alone by ``torch.profiler``) and bound; the
+   (``check_launches``), error, times (for ``persist``, ``sact_dense``,
+   ``fps`` and ``ballquery`` also ``kernel_ms``, the kernel alone by
+   ``torch.profiler``; for ``ballquery`` also ``single_plan``, the single
+   plan's three layers) and bound; the
    last line is
    ``{"ok": true, "device": {...}}``.
 
@@ -357,7 +368,7 @@ def main() -> int:
     from repro_torch.engine.plan import plan_trajectory
     from repro_torch.kernels import _build
     from repro_torch.kernels.ballquery import ops as bq_ops
-    from repro_torch.kernels.ballquery.cases import radius_shell
+    from repro_torch.kernels.ballquery.cases import cloud_cases, radius_shell
     from repro_torch.kernels.ballquery.ref import ball_query_ref
     from repro_torch.kernels.compact import ops as compact_ops
     from repro_torch.kernels.compact.ref import compact_ref
@@ -453,10 +464,12 @@ def main() -> int:
     for sph in (False, True):
         obb, aabb = grazing_plane(1024, seed=17, use_spheres=sph)
         o, a = torch.from_numpy(obb).to(cuda), torch.from_numpy(aabb).to(cuda)
-        c, e = sact_ops.sact_dense(o, a, use_spheres=sph)
         pc, pe = sact_ref(o, a, sph)
-        torch.cuda.synchronize()
-        mism += int((c != pc).sum()) + int((e != pe).sum())
+        # every stage mode that a kernel ships (sact_tile.cuh's SactMode)
+        for mode in sact_ops.STAGE_MODES:
+            c, e = sact_ops.sact_dense_in_mode(o, a, sph, mode)
+            torch.cuda.synchronize()
+            mism += int((c != pc).sum()) + int((e != pe).sum())
         d = torch.diagonal(e)
         if not bool((d[0::2] != d[1::2]).all()):
             raise SystemExit("FAIL: grazing plane diagonal is not grazing")
@@ -464,8 +477,9 @@ def main() -> int:
     if mism or seen != set(range(18)):
         raise SystemExit(f"FAIL: sact_dense vs plain: {mism} mismatches, "
                          f"exit codes seen {sorted(seen)}")
-    log("3 sact_dense", "kernel == plain on 2 x 2048x2048 grazing planes "
-        "(all 18 exit codes, both sphere settings)")
+    log("3 sact_dense", f"kernel == plain on 2 x 2048x2048 grazing planes "
+        f"(all 18 exit codes, both sphere settings) in every stage mode "
+        f"{sorted(sact_ops.STAGE_MODES)} (shipped: {sact_ops.STAGE_MODE})")
 
     # ---- 4. persist vs persist_tiles_ref ----------------------------------
     small = make_scene("cubby", num_points=16384)
@@ -852,20 +866,32 @@ def main() -> int:
                          "widths")
     ms = cuda_time_ms(lambda: sact_ops.sact_dense(o, a), 20)
     plain_ms = cuda_time_ms(lambda: sact_ref(o, a, False), 3)
+    s_device_ms = kernel_device_ms(lambda: sact_ops.sact_dense(o, a),
+                                   "sact_dense_kernel", 20, "sact_dense")
     add_check_launches()
     M = o.shape[0]
     hist = torch.bincount(e.reshape(-1), minlength=18).cpu().numpy()
     ops = float(np.dot(hist, exit_code_ops(False)))
     bms, by = bound_ms(M * 60 + N * 24 + M * N * 5, ops)
+    # The OBB's faces (the edges) run for a warp's box slot (boxes 4 * lane
+    # + v of a 128-box group, sact_dense.cu's kV = 4) when one of its pairs
+    # is not decided before them: exit code 5 (8) or above.
+    slots = [float((e >= first).reshape(M, N // 128, 32, 4).any(dim=2)
+                   .float().mean()) if N % 128 == 0 else float("nan")
+             for first in (5, 8)]
     lines.insert(1, dict(
         name="sact_dense", route="cuda",
         source="src/repro_torch/kernels/sact/csrc/sact_dense.cu",
         replaces="src/repro/kernels/sact/kernel.py:112",
-        max_abs_err=err, ms=ms,
+        max_abs_err=err, ms=ms, kernel_ms=s_device_ms,
         plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None))
     log("10 sact_dense", f"{M} x {N} plane (paper-scale OBBs x level-{lvl} "
-        f"cells): kernel {ms:.3f} ms, plain on card {plain_ms:.3f} ms, bound "
-        f"{bms:.4f} ms ({by}); not on the main paths | {card}")
+        f"cells): call {ms:.4f} ms, kernel on the card {s_device_ms:.5f} ms "
+        f"(torch.profiler, {s_device_ms / bms:.2f}x the bound), plain on "
+        f"card {plain_ms:.3f} ms, bound {bms:.5f} ms ({by}); exit codes "
+        f"{hist.tolist()}: {100 * slots[0]:.2f} % of warp slots run the "
+        f"OBB's faces, {100 * slots[1]:.2f} % the edges; not on the main "
+        f"paths | {card}")
 
     # ---- 11. fps vs plain ---------------------------------------------------
     g = torch.Generator().manual_seed(41)
@@ -935,6 +961,11 @@ def main() -> int:
         for k in (16, pts.shape[1]):
             bq_cases.append((f"radius shell r={r} k={k}",
                              torch.zeros((1, 1, 3), device=cuda), pts, r, k))
+    # the edges of the kernel's design (kernels/ballquery/cases.py)
+    for name, qs, pts, r, k in cloud_cases():
+        bq_cases.append((name, torch.from_numpy(qs).to(cuda),
+                         torch.from_numpy(pts).to(cuda), r, k))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name, qs, pts, r, k in bq_cases:
         idx, cnt = bq_ops.ball_query(qs, pts, r, k)
         widx, wcnt = ball_query_ref(pts, qs, r, k)
@@ -942,10 +973,11 @@ def main() -> int:
         if not (torch.equal(idx, widx) and torch.equal(cnt, wcnt)):
             raise SystemExit(f"FAIL: ballquery differs from plain on {name}")
         full = float((cnt == k).float().mean())
+        qb = bq_ops.query_block(qs.shape[0], qs.shape[1], sms)
         log("12 ballquery", f"{name}: B={qs.shape[0]} M={qs.shape[1]} "
-            f"N={pts.shape[1]} r={r} k={k}: kernel == plain (counts and "
-            f"every index); {100 * full:.1f} % of balls full, mean count "
-            f"{float(cnt.float().mean()):.2f}")
+            f"N={pts.shape[1]} r={r} k={k}, {qb} queries a CTA: kernel == "
+            f"plain (counts and every index); {100 * full:.1f} % of balls "
+            f"full, mean count {float(cnt.float().mean()):.2f}")
     errs["ballquery"] = 0
     add_check_launches()
 
@@ -1061,6 +1093,8 @@ def main() -> int:
                                          goal_np, num_steps=20,
                                          sampling=sampling,
                                          generator=gen(3))
+            if sampling == "fps":
+                bq_single = rec.calls["ballquery"]   # timed in phase 14
             per_launch = {name: [cuda_time_ms(lambda: fn(*ca, **ck), 20)
                                  for fn, ca, ck in calls]
                           for name, calls in rec.calls.items() if calls}
@@ -1178,39 +1212,69 @@ def main() -> int:
         plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None)
     lines.append(fps_line)
     f_call, f_bms, f_by = ms, bms, by
-    _, ba, bk = rec_b.calls["ballquery"][0]
-    qs_b, pts_b, r_b, k_b = ba
-    idx, cnt = bq_ops.ball_query(*ba, **bk)
-    widx, wcnt = ball_query_ref(pts_b, qs_b, r_b, k_b)
-    err = max(int((idx.to(torch.int64) - widx.to(torch.int64)).abs().max()),
-              int((cnt - wcnt).abs().max()))
-    errs["ballquery"] = max(errs["ballquery"], err)
-    ms = cuda_time_ms(lambda: bq_ops.ball_query(*ba, **bk), 50)
-    plain_ms = cuda_time_ms(lambda: ball_query_ref(pts_b, qs_b, r_b, k_b), 5)
-    Bq, Mq, _ = qs_b.shape
-    Nq = pts_b.shape[1]
-    # The pairs this data needs: a full ball stops at its k-th hit, a short
-    # one tests every point.  Read once: the queries and, per cloud, the
-    # points up to the furthest any of its queries needs; written once:
-    # indices and counts.  9 operations a pair.
-    need = torch.where(cnt == k_b, idx[..., k_b - 1].to(torch.int64) + 1,
-                       Nq)
-    pairs = int(need.sum())
-    nbytes = (Bq * Mq * 12 + 12 * int(need.max(dim=1).values.sum())
-              + Bq * Mq * k_b * 4 + Bq * Mq * 4)
-    bms, by = bound_ms(nbytes, 9 * pairs)
+
+    def bq_bound(qs, pts, k, idx, cnt):
+        """Pairs this data needs and the bound: a full ball stops at its
+        k-th hit, a short one tests every point.  Read once: the queries
+        and, per cloud, the points up to the furthest any of its queries
+        needs; written once: indices and counts.  9 operations a pair."""
+        Bq, Mq, _ = qs.shape
+        Nq = pts.shape[1]
+        need = torch.where(cnt == k, idx[..., k - 1].to(torch.int64) + 1, Nq)
+        nbytes = (Bq * Mq * 12 + 12 * int(need.max(dim=1).values.sum())
+                  + Bq * Mq * k * 4 + Bq * Mq * 4)
+        return int(need.sum()), *bound_ms(nbytes, 9 * int(need.sum()))
+
+    # sa1 of the batched encode, then the single plan's three layers
+    bq_runs = []
+    for label, (_, ba, bk) in [("sa1 of the batched encode",
+                                rec_b.calls["ballquery"][0])] + [
+            (f"sa{i + 1} of the single plan", call)
+            for i, call in enumerate(bq_single)]:
+        qs_b, pts_b, r_b, k_b = ba
+        idx, cnt = bq_ops.ball_query(*ba, **bk)
+        widx, wcnt = ball_query_ref(pts_b, qs_b, r_b, k_b)
+        err = max(int((idx.to(torch.int64) - widx.to(torch.int64)).abs()
+                      .max()), int((cnt - wcnt).abs().max()))
+        errs["ballquery"] = max(errs["ballquery"], err)
+        ms = cuda_time_ms(lambda ba=ba, bk=bk: bq_ops.ball_query(*ba, **bk),
+                          50)
+        plain_ms = cuda_time_ms(
+            lambda: ball_query_ref(pts_b, qs_b, r_b, k_b), 5)
+        pairs, bms, by = bq_bound(qs_b, pts_b, k_b, idx, cnt)
+        bq_runs.append(dict(label=label, args=(ba, bk), B=qs_b.shape[0],
+                            M=qs_b.shape[1], N=pts_b.shape[1], r=r_b, k=k_b,
+                            full=float((cnt == k_b).float().mean()),
+                            pairs=pairs, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bms, bound_by=by))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # each alone, after every call above was timed
+    for run in bq_runs:
+        ba, bk = run.pop("args")
+        run["kernel_ms"] = kernel_device_ms(
+            lambda ba=ba, bk=bk: bq_ops.ball_query(*ba, **bk),
+            "ballquery_kernel", 20, "ballquery")
+        qb = bq_ops.query_block(run["B"], run["M"], sms)
+        log("14 ballquery", f"{run['label']} (B={run['B']}, M={run['M']}, "
+            f"N={run['N']}, r={run['r']}, k={run['k']}; {qb} queries a CTA, "
+            f"{run['B'] * -(-run['M'] // qb)} CTAs): "
+            f"{100 * run['full']:.1f} % of balls full, {run['pairs']} pairs "
+            f"needed of {run['B'] * run['M'] * run['N']}: call "
+            f"{run['ms']:.4f} ms, kernel on the card {run['kernel_ms']:.5f} "
+            f"ms (torch.profiler, {run['kernel_ms'] / run['bound_ms']:.1f}x "
+            f"the bound), plain on card {run['plain_ms']:.3f} ms, bound "
+            f"{run['bound_ms']:.5f} ms ({run['bound_by']}) | {card}")
+    sa1 = bq_runs[0]
     lines.append(dict(
         name="ballquery", route="cuda",
         source="src/repro_torch/kernels/ballquery/csrc/ballquery.cu",
         replaces="src/repro/kernels/ballquery/kernel.py:23",
         max_abs_err=errs["ballquery"],
-        ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-        library_ms=None))
-    log("14 ballquery", f"sa1 of the batched encode (B={Bq}, M={Mq}, N={Nq}, "
-        f"r={r_b}, k={k_b}): {100 * float((cnt == k_b).float().mean()):.1f} "
-        f"% of balls full, {pairs} pairs needed of {Bq * Mq * Nq}: kernel "
-        f"{ms:.4f} ms, plain on card {plain_ms:.3f} ms, bound {bms:.5f} ms "
-        f"({by}) | {card}")
+        ms=sa1["ms"], kernel_ms=sa1["kernel_ms"], plain_ms=sa1["plain_ms"],
+        bound_ms=sa1["bound_ms"], bound_by=sa1["bound_by"], library_ms=None,
+        single_plan=[{key: run[key] for key in (
+            "label", "B", "M", "N", "r", "k", "ms", "kernel_ms", "plain_ms",
+            "bound_ms", "bound_by")} for run in bq_runs[1:]]))
     # fps alone, after both calls above were timed
     f_device_ms = kernel_device_ms(lambda: fps_ops.fps(*fa, **fk),
                                    "fps_kernel", 20, "fps")

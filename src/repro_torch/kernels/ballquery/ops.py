@@ -1,16 +1,18 @@
 """Dispatch for the ball-query kernel.
 
-:func:`ball_query` runs the CUDA kernel (``csrc/ballquery.cu``: one warp
-per query, ascending 32-point chunks placed by ballot ranks, exit at
-``k`` hits) on CUDA tensors and its plain PyTorch version
+:func:`ball_query` runs the CUDA kernel (``csrc/ballquery.cu``: a CTA
+stages one cloud in shared memory and walks a block of its queries over
+it, a warp a query, ascending 32-point chunks placed by ballot ranks, exit
+at ``k`` hits) on CUDA tensors and its plain PyTorch version
 (:func:`repro_torch.kernels.ballquery.ref.ball_query_ref`) on CPU
 tensors; a build or launch failure raises.  Its argument order is the
 reference kernel wrapper's, ``ball_query_tiled(queries, points, radius,
-k)``.
+k)``.  :func:`query_block` sizes the kernel's query blocks.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -20,14 +22,46 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ballquery.ref import ball_query_ref
 
 
+#: Queries a CTA at most: the block the rule picks at the batched encode's
+#: sa1 (B = 32, M = 256), the fastest there (PERF.md section 6); the
+#: kernel takes up to 64 (``kMaxBlock`` in ``csrc/ballquery.cu``).
+MAX_QUERY_BLOCK = 16
+
+
+def query_block(batch: int, m: int, sms: int) -> int:
+    """Queries a CTA of the kernel: the largest power of two up to
+    :data:`MAX_QUERY_BLOCK` whose grid, ``batch * ceil(m / qb)`` CTAs, still
+    covers all ``sms`` SMs, or 1 where no block can (``batch * m < sms``).
+    CTA ``i`` takes cloud ``i // ceil(m / qb)`` and its queries from
+    ``(i % ceil(m / qb)) * qb``, at most ``qb`` of them."""
+    qb = MAX_QUERY_BLOCK
+    while qb > 1 and batch * -(-m // qb) < sms:
+        qb //= 2
+    return qb
+
+
+@functools.lru_cache(maxsize=256)
+def _block(batch: int, m: int, index: int) -> int:
+    """:func:`query_block` on device ``index``."""
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return query_block(batch, m, sms)
+
+
+_r2 = functools.lru_cache(maxsize=64)(radius_sq)
+_launch = None
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def _lib():
-    fn = _build.load("ballquery").ballquery_launch
-    if fn.argtypes is None:
+    global _launch
+    if _launch is None:
+        fn = _build.load("ballquery").ballquery_launch
         fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
-                       + [ctypes.c_float, ctypes.c_int]
+                       + [ctypes.c_float] + [ctypes.c_int] * 2
                        + [ctypes.c_void_p] * 3)
         fn.restype = ctypes.c_int
-    return fn
+        _launch = fn
+    return _launch
 
 
 def ball_query(queries: torch.Tensor, points: torch.Tensor, radius: float,
@@ -45,13 +79,13 @@ def ball_query(queries: torch.Tensor, points: torch.Tensor, radius: float,
                          f"{tuple(points.shape)}")
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
-    if queries.device != points.device:
-        raise ValueError("queries and points must share a device")
-    dev = queries.device
-    if dev.type == "cpu":
-        return ball_query_ref(points, queries, radius, k)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
+    index = queries.get_device() if queries.is_cuda else -1
+    if index < 0 or not points.is_cuda or points.get_device() != index:
+        if queries.device != points.device:
+            raise ValueError("queries and points must share a device")
+        if queries.device.type == "cpu":
+            return ball_query_ref(points, queries, radius, k)
+        raise ValueError(f"unsupported device {queries.device}")
     if queries.dtype != torch.float32 or points.dtype != torch.float32:
         raise ValueError(f"ball_query takes float32 inputs, got "
                          f"{queries.dtype} and {points.dtype}")
@@ -62,14 +96,17 @@ def ball_query(queries: torch.Tensor, points: torch.Tensor, radius: float,
     if B * M >= 2**31 or B * M * k >= 2**31:
         raise ValueError(f"ball_query takes fewer than 2**31 queries and "
                          f"output slots, got {B * M} and {B * M * k}")
-    idx = torch.empty((B, M, k), dtype=torch.int32, device=dev)
-    count = torch.empty((B, M), dtype=torch.int32, device=dev)
+    # one allocation: the indices, then the counts
+    out = torch.empty(B * M * (k + 1), dtype=torch.int32, device=index)
+    idx, count = out[:B * M * k].view(B, M, k), out[B * M * k:].view(B, M)
+    args = (qs.data_ptr(), pts.data_ptr(), B, M, N, _r2(radius), k,
+            _block(B, M, index), idx.data_ptr(), count.data_ptr())
     launch = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = launch(qs.data_ptr(), pts.data_ptr(), B, M, N,
-                        radius_sq(radius), k, idx.data_ptr(),
-                        count.data_ptr(), stream)
+    if index == torch.cuda.current_device() and _raw_stream is not None:
+        status = launch(*args, _raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            status = launch(*args, torch.cuda.current_stream().cuda_stream)
     _build.check(status, "ballquery")
     _build.count_launch("ballquery")
     return (idx, count) if batched else (idx[0], count[0])

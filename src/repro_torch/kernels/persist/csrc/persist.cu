@@ -19,8 +19,8 @@
 // each thread a contiguous run of its rank's share:
 //   phase A  each lane loads its (query, node) pair, then the node's fp32
 //            row (software-pipelined two lanes ahead), builds the node box
-//            from the Morton code and runs sact_tile's tests branch-free
-//            (sact_flat below); a terminal hit folds its payload into this
+//            from the Morton code and runs the SACT straight through
+//            (sact_tile.cuh); a terminal hit folds its payload into this
 //            rank's best[owner], a candidate adds its child count to this
 //            rank's per-slot count (both in shared memory, by level
 //            parity), and each lane stashes (child mask | slot << 8, child
@@ -145,55 +145,6 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* warp_sums,
   *total = __shfl_sync(kFull, w, kWarps - 1);
   const int before = warp > 0 ? __shfl_sync(kFull, w, warp - 1) : 0;
   return before + x - v;
-}
-
-// sact_tile (sact_tile.cuh) without its early exits: every test is
-// evaluated, each with sact_tile's own expression in its order (so, built
-// with --fmad=false, every rounding is the same), and the exit code is the
-// first test that decides.  Straight-line code keeps one lane's tests
-// independent of one another, where sact_tile's chain of branches leaves
-// a warp waiting on each test in turn.
-template <bool USE_SPHERES>
-__device__ __forceinline__ int sact_flat(const SactPair& p, bool* collide) {
-  unsigned decided = 0;   // bit k: test k decides (exit code k)
-  if (USE_SPHERES) {
-    float d2 = 0.0f;
-    for (int i = 0; i < 3; ++i) {
-      float d = fmaxf(fabsf(p.t[i]) - p.ah[i], 0.0f);
-      d2 = d2 + d * d;
-    }
-    float r_out2 = p.oh[0] * p.oh[0] + p.oh[1] * p.oh[1] + p.oh[2] * p.oh[2];
-    float r_in = fminf(fminf(p.oh[0], p.oh[1]), p.oh[2]);
-    decided |= (unsigned)(d2 > r_out2);
-    decided |= (unsigned)(d2 < r_in * r_in) << 1;
-  }
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {  // L = A_i
-    float rb = p.oh[0] * p.A[i][0] + p.oh[1] * p.A[i][1] + p.oh[2] * p.A[i][2];
-    decided |= (unsigned)(fabsf(p.t[i]) > p.ah[i] + rb) << (2 + i);
-  }
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {  // L = B_j
-    float lhs = fabsf(p.t[0] * p.R[0][j] + p.t[1] * p.R[1][j]
-                      + p.t[2] * p.R[2][j]);
-    float ra = p.ah[0] * p.A[0][j] + p.ah[1] * p.A[1][j] + p.ah[2] * p.A[2][j];
-    decided |= (unsigned)(lhs > ra + p.oh[j]) << (5 + j);
-  }
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {  // L = A_i x B_j
-    const int i1 = (i + 1) % 3, i2 = (i + 2) % 3;
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const int j1 = (j + 1) % 3, j2 = (j + 2) % 3;
-      float ra = p.ah[i1] * p.A[i2][j] + p.ah[i2] * p.A[i1][j];
-      float rb = p.oh[j1] * p.A[i][j2] + p.oh[j2] * p.A[i][j1];
-      float lhs = fabsf(p.t[i2] * p.R[i1][j] - p.t[i1] * p.R[i2][j]);
-      decided |= (unsigned)(lhs > ra + rb) << (8 + 3 * i + j);
-    }
-  }
-  const int code = decided ? __ffs(decided) - 1 : 17;
-  *collide = code == 1 || code == 17;
-  return code;
 }
 
 template <bool USE_SPHERES>
@@ -322,21 +273,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) persist_kernel(
       const int ql = q - q_base;
       float node_c[3];
       node_centre((uint32_t)row.x, lo0, lo1, lo2, cell, node_c);
-      const float* o = obb_s + ql * 15;
-      SactPair pr;
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        pr.t[i] = o[i] - node_c[i];
-        pr.oh[i] = o[3 + i];
-        pr.ah[i] = node_h;
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          pr.R[i][j] = o[6 + 3 * i + j];
-          pr.A[i][j] = fabsf(pr.R[i][j]) + SACT_EPS;
-        }
-      }
+      SactObb ob;
+      sact_obb(obb_s + ql * 15, &ob);
+      const float tv[3] = {ob.c[0] - node_c[0], ob.c[1] - node_c[1],
+                           ob.c[2] - node_c[2]};
+      const float ah[3] = {node_h, node_h, node_h};
       bool hit;
-      const int exit_code = sact_flat<USE_SPHERES>(pr, &hit);
+      const int exit_code =
+          sact_tile<USE_SPHERES, SactMode::kStraight>(ob, tv, ah, &hit);
       const bool is_term = row.y != 0 || leaf_level;
       const int mask = (hit && !is_term) ? (row.w & 0xff) : 0;
       if (hit && is_term) {   // fold the payload into the owner's best

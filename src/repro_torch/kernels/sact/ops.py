@@ -1,8 +1,12 @@
 """Packing and dispatch for the dense SACT kernel.
 
-``sact_dense`` runs the CUDA kernel (``csrc/sact_dense.cu``) on CUDA
-tensors and its plain PyTorch version (:func:`repro_torch.kernels.sact.ref.
-sact_ref`) on CPU tensors; a build or launch failure raises.
+``sact_dense`` runs the CUDA kernel (``csrc/sact_dense.cu``: tiles of OBBs
+x AABBs, the OBBs' own terms staged once in shared memory, vector
+streaming stores) on CUDA tensors and its plain PyTorch version
+(:func:`repro_torch.kernels.sact.ref.sact_ref`) on CPU tensors; a build or
+launch failure raises.  The kernel runs the stages of ``csrc/sact_tile.cuh``
+in the mode :data:`STAGE_MODE`; :func:`sact_dense_in_mode` runs any mode of
+:data:`STAGE_MODES`, which the card checks hold to the plain version.
 """
 from __future__ import annotations
 
@@ -13,6 +17,14 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.sact.ref import sact_ref
+
+#: ``sact_tile.cuh``'s stage modes (``SactMode``), by the kernel's number:
+#: ``straight`` runs every stage (``persist.cu`` and ``traverse.cu`` ship
+#: it), ``warp_vote`` skips the edge stage for a warp whose lanes are all
+#: decided after the faces.
+STAGE_MODES = {"straight": 0, "warp_vote": 1}
+#: The mode ``sact_dense`` ships, chosen by timing (PERF.md section 6).
+STAGE_MODE = "warp_vote"
 
 
 def pack_obbs(center, half, rot) -> torch.Tensor:
@@ -30,7 +42,7 @@ def _lib():
     lib = _build.load("sact_dense")
     fn = lib.sact_dense_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -42,6 +54,17 @@ def sact_dense(obb: torch.Tensor, aabb: torch.Tensor,
 
     Returns (collide (M, N) bool, exit_code (M, N) int32).
     """
+    return sact_dense_in_mode(obb, aabb, use_spheres, STAGE_MODE)
+
+
+def sact_dense_in_mode(obb: torch.Tensor, aabb: torch.Tensor,
+                       use_spheres: bool, mode: str
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`sact_dense` with the kernel's stages run in ``mode`` (a key
+    of :data:`STAGE_MODES`); every mode gives the same outputs."""
+    if mode not in STAGE_MODES:
+        raise ValueError(f"mode must be one of {sorted(STAGE_MODES)}, got "
+                         f"{mode!r}")
     if obb.ndim != 2 or obb.shape[1] != 15 or aabb.ndim != 2 \
             or aabb.shape[1] != 6:
         raise ValueError(f"want obb (M, 15) and aabb (N, 6), got "
@@ -57,15 +80,14 @@ def sact_dense(obb: torch.Tensor, aabb: torch.Tensor,
         raise ValueError("sact_dense takes float32 tensors")
     obb, aabb = obb.contiguous(), aabb.contiguous()
     M, N = obb.shape[0], aabb.shape[0]
-    if -(-M // 8) > 65535:
-        raise ValueError(f"sact_dense takes at most {65535 * 8} OBBs")
     collide = torch.empty((M, N), dtype=torch.bool, device=obb.device)
     exit_code = torch.empty((M, N), dtype=torch.int32, device=obb.device)
     launch = _lib()
     with torch.cuda.device(obb.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = launch(obb.data_ptr(), aabb.data_ptr(), collide.data_ptr(),
-                        exit_code.data_ptr(), M, N, int(use_spheres), stream)
+                        exit_code.data_ptr(), M, N, int(use_spheres),
+                        STAGE_MODES[mode], stream)
     _build.check(status, "sact_dense")
     _build.count_launch("sact_dense")
     return collide, exit_code

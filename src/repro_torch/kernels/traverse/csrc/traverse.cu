@@ -7,15 +7,15 @@
 //      an indexed load where the TPU kernel used a one-hot matmul; an
 //      index outside [0, m) gathers zeros, as the one-hot does;
 //   2. builds the node's AABB from its Morton code (node_box.cuh);
-//   3. runs the staged SACT (sact_tile.cuh, shared with the dense and the
-//      persistent kernels);
+//   3. runs the staged SACT straight through (sact_tile.cuh, the one body
+//      of the dense and the persistent kernels too);
 //   4. marks it terminal when the node is full or the level is the leaf
 //      level, and writes collide | is_term << 1 | exit_code << 2.
 // Lanes at or past n_live write 0.  n_live is read from device memory (the
 // previous level's compaction count), so the host never waits for it.
 // The TPU kernel also skips the edge stage for a tile whose lanes are all
-// decided; here each thread returns at its own first decision, which gives
-// every lane the same word.
+// decided; here every lane runs every test (no lane waits on a chain of
+// branches), which gives every lane the same word.
 //
 // Bound on the H100: bytes -- per live lane 4 B q_idx, 4 B code, 4 B
 // full and the 4 B word, each OBB named once (60 B), and 4 B a dead lane,
@@ -87,18 +87,14 @@ __global__ void __launch_bounds__(kThreads) traverse_kernel(
     float node_c[3];
     node_centre((uint32_t)code, lo0, lo1, lo2, cell, node_c);
     const float node_h = cell * 0.5f;
-    SactPair p;
-    for (int i = 0; i < 3; ++i) {
-      p.t[i] = o[i] - node_c[i];
-      p.oh[i] = o[3 + i];
-      p.ah[i] = node_h;
-      for (int j = 0; j < 3; ++j) {
-        p.R[i][j] = o[6 + 3 * i + j];
-        p.A[i][j] = fabsf(p.R[i][j]) + SACT_EPS;
-      }
-    }
+    SactObb ob;
+    sact_obb(o, &ob);
+    const float tv[3] = {ob.c[0] - node_c[0], ob.c[1] - node_c[1],
+                         ob.c[2] - node_c[2]};
+    const float ah[3] = {node_h, node_h, node_h};
     bool hit;
-    const int exit_code = sact_tile<USE_SPHERES>(p, &hit);
+    const int exit_code =
+        sact_tile<USE_SPHERES, SactMode::kStraight>(ob, tv, ah, &hit);
     const bool is_term = fl != 0 || is_leaf != 0;
     packed[lane] = (hit ? 1 : 0) | (is_term ? 2 : 0) | (exit_code << 2);
   }

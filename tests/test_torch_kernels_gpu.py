@@ -29,7 +29,7 @@ from repro_torch.core.sact import PAYLOAD_INF
 from repro_torch.engine.executor import CollisionEngine, EngineConfig
 from repro_torch.kernels import _build
 from repro_torch.kernels.ballquery import ops as bq_ops
-from repro_torch.kernels.ballquery.cases import radius_shell
+from repro_torch.kernels.ballquery.cases import cloud_cases, radius_shell
 from repro_torch.kernels.ballquery.ref import ball_query_ref
 from repro_torch.kernels.compact import ops as compact_ops
 from repro_torch.kernels.compact.ref import compact_ref
@@ -464,6 +464,43 @@ def test_fps_kernel_rejects_a_cloud_above_shared_memory(cuda):
     assert got.shape == (8,)
 
 
+@pytest.mark.parametrize("mode", ["straight", "warp_vote"])
+@pytest.mark.parametrize("use_spheres", [False, True])
+def test_sact_dense_kernel_in_every_stage_mode(cuda, use_spheres, mode):
+    assert mode in sact_ops.STAGE_MODES
+    obb, aabb = grazing_plane(512, seed=12, use_spheres=use_spheres)
+    o, a = torch.from_numpy(obb).to(cuda), torch.from_numpy(aabb).to(cuda)
+    c, e = sact_ops.sact_dense_in_mode(o, a, use_spheres, mode)
+    pc, pe = sact_ref(o, a, use_spheres)
+    assert torch.equal(c, pc) and torch.equal(e, pe)
+    assert set(torch.unique(pe).tolist()) == set(range(18)) - (
+        set() if use_spheres else {0, 1})
+
+
+@pytest.mark.parametrize("M,N", [(1, 1), (17, 1023), (33, 5), (16, 512),
+                                 (1000, 1026), (16 * 65535 + 17, 2)])
+def test_sact_dense_kernel_at_tile_edges(cuda, M, N):
+    """OBB counts that are no multiple of a tile (and past 65,535 tiles,
+    which the grid strides over), box counts that are no multiple of a
+    thread's vector."""
+    rs = np.random.RandomState(M + N)
+    rot = rotation_from_euler(torch.from_numpy(
+        rs.uniform(-3, 3, (M, 3)).astype(np.float32)))
+    o = sact_ops.pack_obbs(
+        torch.from_numpy(rs.uniform(-1, 1, (M, 3)).astype(np.float32)),
+        torch.from_numpy(rs.uniform(0.02, 0.3, (M, 3)).astype(np.float32)),
+        rot).to(cuda)
+    a = sact_ops.pack_aabbs(
+        torch.from_numpy(rs.uniform(-1, 1, (N, 3)).astype(np.float32)),
+        torch.from_numpy(rs.uniform(0.02, 0.3, (N, 3)).astype(np.float32))
+    ).to(cuda)
+    for sph in (False, True):
+        for mode in sact_ops.STAGE_MODES:
+            c, e = sact_ops.sact_dense_in_mode(o, a, sph, mode)
+            pc, pe = sact_ref(o, a, sph)
+            assert torch.equal(c, pc) and torch.equal(e, pe), (sph, mode)
+
+
 @pytest.mark.parametrize("B,M,N,half,r,k", [
     (4, 256, 2048, 0.5, 0.1, 16), (4, 256, 2048, 0.1, 0.1, 16),
     (3, 255, 2047, 1.0, 0.25, 16), (2, 33, 100, 1.0, 0.6, 8)])
@@ -489,6 +526,46 @@ def test_ballquery_kernel_at_the_radius(cuda, r):
         widx, wcnt = ball_query_ref(pts, qs, r, k)
         assert torch.equal(idx, widx) and torch.equal(cnt, wcnt)
     assert 0 < int(cnt) < pts.shape[1]
+
+
+@pytest.mark.parametrize("name", [c[0] for c in cloud_cases()])
+def test_ballquery_kernel_on_cloud_cases(cuda, name):
+    """The design's edges (kernels/ballquery/cases.py): clouds over one
+    staged tile, of 1, 31 and 33 points, query counts that are no multiple
+    of a block, a block that stops after its first tile, no ball full."""
+    _, qs, pts, r, k = next(c for c in cloud_cases() if c[0] == name)
+    qs, pts = torch.from_numpy(qs).to(cuda), torch.from_numpy(pts).to(cuda)
+    idx, cnt = bq_ops.ball_query(qs, pts, r, k)
+    widx, wcnt = ball_query_ref(pts, qs, r, k)
+    assert torch.equal(idx, widx) and torch.equal(cnt, wcnt)
+
+
+@pytest.mark.parametrize("qb", [1, 2, 4, 8, 16, 32, 64])
+def test_ballquery_kernel_at_every_query_block(cuda, qb, monkeypatch):
+    """Every block size the rule can pick, on ragged query counts and a
+    cloud over one tile, whatever the card's SM count."""
+    monkeypatch.setattr(bq_ops, "_block", lambda *a: qb)
+    rs = np.random.RandomState(qb)
+    for B, M, N in ((3, 67, 300), (2, 130, 2500)):
+        pts = torch.from_numpy(rs.uniform(-1, 1, (B, N, 3)).astype(
+            np.float32)).to(cuda)
+        qs = pts[:, :M].contiguous()
+        idx, cnt = bq_ops.ball_query(qs, pts, 0.3, 32)
+        widx, wcnt = ball_query_ref(pts, qs, 0.3, 32)
+        assert torch.equal(idx, widx) and torch.equal(cnt, wcnt)
+
+
+def test_ballquery_kernel_takes_unaligned_clouds(cuda):
+    """Clouds that start off a 16-byte boundary (a view at an odd offset):
+    the staging copies take any alignment."""
+    rs = np.random.RandomState(7)
+    flat = torch.from_numpy(rs.uniform(-1, 1, 3 * 2 * 3001 + 1).astype(
+        np.float32)).to(cuda)
+    pts = flat[1:].view(2, 3001, 3)
+    qs = pts[:, 5:70].contiguous()
+    idx, cnt = bq_ops.ball_query(qs, pts, 0.25, 16)
+    widx, wcnt = ball_query_ref(pts, qs, 0.25, 16)
+    assert torch.equal(idx, widx) and torch.equal(cnt, wcnt)
 
 
 @pytest.mark.parametrize("sampling", ["fps", "random"])

@@ -16,6 +16,9 @@ Two input families:
   The touching boxes use power-of-two extents and signed-permutation
   rotations, so every product is exact and both orders agree.
 """
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -227,3 +230,40 @@ def test_sact_dense_validates_inputs():
     sact_ops.sact_dense(torch.zeros(4, 15), torch.zeros(3, 6))
     # the plain version is no kernel launch
     assert _build.launch_counts()["sact_dense"] == before
+
+
+_CSRC = Path(sact_ops.__file__).resolve().parents[1]   # .../kernels
+
+
+def test_sact_tile_cuh_holds_the_only_copy_of_the_tests():
+    """One SACT body: no other source under ``kernels/*/csrc`` spells out a
+    separating-axis test, and the three kernels that run the SACT include
+    ``sact_tile.cuh`` and call its ``sact_tile``."""
+    # the B_j face test's radius and the edge tests' projection, as any
+    # copy of the tests must write them
+    face = re.compile(r"ah\[0\]\s*\*\s*\w*\.?A\[0\]\[j\]")
+    edge = re.compile(r"t\[i2\]\s*\*\s*\w*\.?R\[i1\]\[j\]")
+    spelled = sorted(str(p.relative_to(_CSRC))
+                     for p in _CSRC.glob("*/csrc/*")
+                     if p.suffix in (".cu", ".cuh", ".h")
+                     and (face.search(p.read_text())
+                          or edge.search(p.read_text())))
+    assert spelled == ["sact/csrc/sact_tile.cuh"]
+    for src in ("persist/csrc/persist.cu", "traverse/csrc/traverse.cu",
+                "sact/csrc/sact_dense.cu"):
+        text = (_CSRC / src).read_text()
+        assert re.search(r'#include "[./]*(sact/csrc/)?sact_tile\.cuh"', text)
+        assert "sact_tile<" in text, src
+    assert "sact_flat" not in (_CSRC / "persist/csrc/persist.cu").read_text()
+
+
+def test_sact_dense_every_stage_mode_is_the_plain_version_on_the_cpu():
+    assert sact_ops.STAGE_MODE in sact_ops.STAGE_MODES
+    obb, aabb = grazing_plane(24, seed=5, use_spheres=True)
+    o, a = torch.from_numpy(obb), torch.from_numpy(aabb)
+    want = sact_ref(o, a, True)
+    for mode in sact_ops.STAGE_MODES:
+        c, e = sact_ops.sact_dense_in_mode(o, a, True, mode)
+        assert torch.equal(c, want[0]) and torch.equal(e, want[1])
+    with pytest.raises(ValueError, match="mode must be"):
+        sact_ops.sact_dense_in_mode(o, a, True, "branchy")

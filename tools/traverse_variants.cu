@@ -53,18 +53,13 @@ __device__ __forceinline__ int lane_word(const Level& L, const float* o,
   float node_c[3];
   node_centre((uint32_t)code, L.lo0, L.lo1, L.lo2, L.cell, node_c);
   const float node_h = L.cell * 0.5f;
-  SactPair p;
-  for (int i = 0; i < 3; ++i) {
-    p.t[i] = o[i] - node_c[i];
-    p.oh[i] = o[3 + i];
-    p.ah[i] = node_h;
-    for (int j = 0; j < 3; ++j) {
-      p.R[i][j] = o[6 + 3 * i + j];
-      p.A[i][j] = fabsf(p.R[i][j]) + SACT_EPS;
-    }
-  }
+  SactObb ob;
+  sact_obb(o, &ob);
+  const float t[3] = {ob.c[0] - node_c[0], ob.c[1] - node_c[1],
+                      ob.c[2] - node_c[2]};
+  const float ah[3] = {node_h, node_h, node_h};
   bool hit;
-  const int exit_code = sact_tile<SP>(p, &hit);
+  const int exit_code = sact_tile<SP, SactMode::kStraight>(ob, t, ah, &hit);
   const bool is_term = fl != 0 || L.is_leaf != 0;
   return (hit ? 1 : 0) | (is_term ? 2 : 0) | (exit_code << 2);
 }
