@@ -12,15 +12,20 @@ non-zero and prints no result):
    memory, spills), the Hopper flash kernel's shape at each width
    (registers a thread per role after ``setmaxnreg``, dynamic shared
    memory, rows, keys and ring stages), and ``persist``'s cluster shape
-   with ``cudaOccupancyMaxActiveClusters``;
+   with ``cudaOccupancyMaxActiveClusters`` at tiles of 128, 256, 512 and
+   1024 slots (the owner-group tiles of swept-edge CCD grow to 1024);
 3. ``sact_dense`` kernel vs its plain version on grazing planes (every exit
    code, both sphere settings), exactly equal, in every stage mode of
    ``sact_tile.cuh`` that a kernel ships (``sact_ops.STAGE_MODES``);
 4. ``persist`` kernel vs ``persist_tiles_ref`` on a small scene, with and
    without frontier overflow, exactly equal: identity pools, owner-group
-   pools, a skewed pool (``kernels/persist/cases.py``: one heavy tile
-   whose widest level spills part way through its children) and grazing
-   pools (OBBs against level-4 cells, both sphere settings);
+   pools (also at tiles of 256 and 1024 slots, with and without
+   overflow), a skewed pool (``kernels/persist/cases.py``: one heavy tile
+   whose widest level spills part way through its children), grazing
+   pools (OBBs against level-4 cells, both sphere settings) and the
+   owner-group tiled pool that ``build_tile_map`` packs from a real sweep
+   round (owners and payloads of the widest width-1 round of 32 edges at
+   R = 16 on the small scene; pads at each tile's tail);
 5. the paper-scale scenes: ``make_scene(env, 524288)``,
    ``build_octree(depth=7)``, ``scene_trajectories(25, 60)`` (10,500 link
    OBBs) for each environment;
@@ -131,8 +136,25 @@ non-zero and prints no result):
    never used by the port), its achieved TFLOP/s, share of the bound and
    ratio to the yardstick, and the prefill/decode consistency of the
    logits at 1025 tokens (``LM_CONSIST_ATOL``);
-21. one JSON line listing every kernel with its launches on the main paths
-   (``launches``, phases 8, 13, 17 and 20) and elsewhere
+21. swept-edge CCD at ``benchmarks/run.py::fig_edges``' full scale: the
+   cubby scene (524,288 points, depth 7), 64 PRM edges drawn as
+   ``fig_edges`` draws them, R = 32, ``check_edges`` in each of
+   ``wavefront_persistent``, ``wavefront`` and ``wavefront_fused`` on the
+   card; launch counts set to 0 just before each path and read just after
+   (``persist`` launches = the persistent sweep's engine calls plus their
+   escalations); held against the same engine on the CPU (first hits,
+   verdicts, every counter; the CPU sweep takes the card's FK arrays),
+   the modes against each other, the swept verdicts against dense
+   sampling of the 64 x 33 waypoints, and ``in_traversal_exit=False``
+   against the exit arm (same verdicts, at least as many nodes); every
+   ``persist`` call of a persistent sweep against ``persist_tiles_ref``;
+   the rounds with their slots and tiles, warm walls (median of 10)
+   beside the dense check's, a warm sweep's host time split into FK,
+   swept fits and engine calls, a traced sweep's busy share, the
+   ``persist`` calls timed and the largest alone by ``torch.profiler``,
+   peak memory;
+22. one JSON line listing every kernel with its launches on the main paths
+   (``launches``, phases 8, 13, 17, 20 and 21) and elsewhere
    (``check_launches``), error, times (for ``persist``, ``sact_dense``,
    ``fps`` and ``ballquery`` also ``kernel_ms``, the kernel alone by
    ``torch.profiler``; for ``ballquery`` also ``single_plan``, the single
@@ -361,9 +383,11 @@ def main() -> int:
     sys.path.insert(0, str(src))
     import numpy as np
     from repro_torch.core.octree import build_octree, device_octree
-    from repro_torch.core.pipeline import (check_trajectories,
+    from repro_torch.core import sweep as sweep_mod
+    from repro_torch.core.pipeline import (check_edges, check_trajectories,
                                            plan_with_collision_gate)
-    from repro_torch.data.robotics import make_scene, scene_trajectories
+    from repro_torch.data.robotics import (PANDA_JOINT_HI, PANDA_JOINT_LO,
+                                           make_scene, scene_trajectories)
     from repro_torch.engine.executor import CollisionEngine, EngineConfig
     from repro_torch.engine.plan import plan_trajectory
     from repro_torch.kernels import _build
@@ -381,7 +405,9 @@ def main() -> int:
     from repro_torch.kernels.persist import ops as persist_ops
     from repro_torch.kernels.persist.cases import (grazing_pool,
                                                    owner_group_pool,
-                                                   skewed_pool)
+                                                   skewed_pool,
+                                                   sweep_round_plans,
+                                                   tiled_pool)
     from repro_torch.kernels.persist.ref import persist_tiles_ref
     from repro_torch.kernels.sact import ops as sact_ops
     from repro_torch.kernels.sact.cases import grazing_plane
@@ -446,6 +472,14 @@ def main() -> int:
         f"shared memory a CTA at bq {persist_ops.DEFAULT_BQ}; the card holds "
         f"{shape['max_clusters']} such clusters at once "
         f"(cudaOccupancyMaxActiveClusters)")
+    for bq in (256, 512, 1024):
+        sh = persist_ops.kernel_shape(bq)
+        if sh["max_clusters"] < 1:
+            raise SystemExit(f"FAIL: persist does not fit the card at bq "
+                             f"{bq}: {sh}")
+        log("2 build", f"persist at bq {bq}: {sh['smem_bytes']} B dynamic "
+            f"shared memory a CTA; the card holds {sh['max_clusters']} such "
+            f"clusters at once")
     log("2 build", f"spill stores over every kernel: {spills} bytes")
 
     # ---- 3. sact_dense vs plain on grazing planes -----------------------
@@ -505,6 +539,38 @@ def main() -> int:
     pools += [("grazing", 128, 16384, 4096, sph,
                grazing_pool(sdev, 4, 512, seed=9 + sph, use_spheres=sph))
               for sph in (False, True)]
+    # owner-group tiles past 48 KB of shared memory a CTA, groups whose
+    # lanes spread over every rank, with and without overflow
+    for bq in (256, 1024):
+        pools += [("owner groups", bq, 64, 1 << 16, False,
+                   owner_group_pool(sdev, bq, 4, seed=bq, max_group=64)),
+                  ("owner groups", bq, 1 << 18, 256, True,
+                   owner_group_pool(sdev, bq, 4, seed=bq + 1,
+                                    max_group=64))]
+    # the tiled pool of a real sweep round: its widest width-1 round
+    rs = np.random.RandomState(0)
+    qf_s = rs.uniform(PANDA_JOINT_LO, PANDA_JOINT_HI,
+                      (32, 7)).astype(np.float32)
+    qt_s = np.clip(qf_s + rs.uniform(-0.35, 0.35, (32, 7)).astype(np.float32),
+                   PANDA_JOINT_LO, PANDA_JOINT_HI)
+    round_plans = sweep_round_plans(
+        CollisionEngine(stree, EngineConfig(mode="wavefront_persistent"),
+                        device="cpu"), qf_s, qt_s, 16,
+        base_pos=small.robot_base)
+    pay_plans = [p for p in round_plans if p.payload is not None]
+    if not pay_plans:
+        raise SystemExit("FAIL: the small-scene sweep ran no payload round")
+    round_tags = {}
+    for round_plan in (max(pay_plans, key=lambda p: p.num_queries),
+                       round_plans[0]):
+        round_ins, round_bq = tiled_pool(sdev, round_plan)
+        own_t = round_ins["owner"].reshape(-1, round_bq)
+        if not bool(((own_t[:, 1:] < 0) | (own_t[:, :-1] >= 0)).all()):
+            raise SystemExit("FAIL: the sweep round's pads are not at each "
+                             "tile's tail")
+        round_tags[id(round_ins)] = (f"; {own_t.shape[0]} tiles of the "
+                                     f"round {round_plan.shape_tag}")
+        pools.append(("sweep round", round_bq, 8192, 256, False, round_ins))
     for pool, bq, fcap, ring_cap, sph, ins in pools:
         kw = dict(bq=bq, fcap=fcap, depth=stree.depth, ring_cap=ring_cap,
                   use_spheres=sph)
@@ -525,11 +591,15 @@ def main() -> int:
         spilled_compared += int(((spill > 0) & fits).sum())
         nodes = got[3][:, 0]
         codes = (got[2].sum(0) > 0).nonzero().flatten().tolist()
+        if pool == "owner groups" and bq > 128 \
+                and (int(spill.sum()) > 0) != (fcap == 64):
+            raise SystemExit(f"FAIL: the {bq}-slot owner pool at fcap "
+                             f"{fcap} overflowed {int(spill.sum())} pairs")
         log("4 persist", f"{pool} pool, bq={bq} fcap={fcap} ring={ring_cap} "
             f"spheres={sph}: kernel == plain, overflow {int(spill.sum())}, "
             f"nodes {int(nodes.sum())} (heaviest tile {int(nodes.max())}, "
             f"widest tile level {int(got[1].max())}), terminal exit codes "
-            f"{codes}")
+            f"{codes}" + round_tags.get(id(ins), ""))
     if spilled_compared == 0:
         raise SystemExit("FAIL: no spilled ring was compared")
     add_check_launches()
@@ -1816,9 +1886,236 @@ def main() -> int:
                     for e in top) + f" | {lap():.1f} s | {card}")
     del glm, rec_f, calls, q, k, v, res
 
-    # ---- 21. result -------------------------------------------------------
-    # launches on every main path (phases 8, 13, 17 and 20) and in the checks
-    log("21 result", f"whole script {time.perf_counter() - t_start:.1f} s")
+    # ---- 21. swept-edge CCD at fig_edges' full scale -------------------------
+    t_ccd = time.perf_counter()
+    if "cubby" in scenes:
+        ctree, csc = scenes["cubby"][0], scene_objs["cubby"]
+    else:
+        csc = make_scene("cubby", num_points=524288)
+        ctree = build_octree(csc.points, depth=7)
+    rs = np.random.RandomState(0)      # fig_edges' PRM edges
+    E_ccd, R_ccd = 64, 32
+    qf = rs.uniform(PANDA_JOINT_LO, PANDA_JOINT_HI, (E_ccd, 7)) \
+        .astype(np.float32)
+    qt = np.clip(qf + rs.uniform(-0.35, 0.35, (E_ccd, 7)).astype(np.float32),
+                 PANDA_JOINT_LO, PANDA_JOINT_HI)
+    ccd_kw = dict(resolution=R_ccd, base_pos=csc.robot_base)
+    wps = torch.from_numpy(sweep_mod.edge_waypoints(qf, qt, R_ccd)).to(cuda)
+    # FK on the card and on the CPU differ in the last bits (cuBLAS sums the
+    # 4 x 4 products in another order), so the CPU sweep takes the card's
+    # FK arrays: the same inputs for the rest of the path.
+    card_geo = sweep_mod.edge_link_geometry(qf, qt, R_ccd,
+                                            base_pos=csc.robot_base,
+                                            device=cuda)
+    fk_geo = sweep_mod.edge_link_geometry
+
+    def rounds_of(eng):
+        """Record every engine call of a sweep: (plan, counters)."""
+        calls = []
+
+        def rec(plan, *a, **k):
+            v, c = type(eng).execute(eng, plan, *a, **k)
+            calls.append((plan, c))
+            return v, c
+        eng.execute = rec
+        return calls
+
+    ccd_ref = None
+    ccd_persist = {}
+    for mode in ("wavefront_persistent", "wavefront", "wavefront_fused"):
+        cfg = EngineConfig(mode=mode)
+        eng = CollisionEngine(ctree, cfg, device="cuda")
+        calls = rounds_of(eng)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        add_check_launches()
+        res = check_edges(eng, qf, qt, **ccd_kw)
+        counts = _build.launch_counts()
+        _build.reset_launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        del eng.execute
+        for name, k in counts.items():
+            main_launches[name] += k
+        want_kernels = {"wavefront_persistent": ("persist",),
+                        "wavefront": ("compact",),
+                        "wavefront_fused": ("traverse", "compact")}[mode]
+        for name, k in counts.items():
+            if (k > 0) != (name in want_kernels):
+                raise SystemExit(f"FAIL: CCD {mode}: {name} launched {k} "
+                                 f"times on the main path")
+        n_calls = len(calls)
+        n_esc = sum(c.escalations for _, c in calls)
+        if mode == "wavefront_persistent" and \
+                counts["persist"] != n_calls + n_esc:
+            raise SystemExit(f"FAIL: CCD: {counts['persist']} persist "
+                             f"launches for {n_calls} engine calls and "
+                             f"{n_esc} escalations")
+        c = res.counters
+        if c.ref_arm_fallbacks != 0 or c.frontier_overflow != 0:
+            raise SystemExit(f"FAIL: CCD {mode}: ref_arm_fallbacks "
+                             f"{c.ref_arm_fallbacks}, overflow "
+                             f"{c.frontier_overflow}")
+        if not (res.first_hit.shape == (E_ccd,) and res.collide.any()
+                and np.isfinite(res.first_hit[res.collide]).all()
+                and np.isinf(res.first_hit[~res.collide]).all()):
+            raise SystemExit(f"FAIL: CCD {mode}: implausible verdicts")
+        # the same engine on the CPU, on the card's FK arrays
+        sweep_mod.edge_link_geometry = lambda *a, **k: card_geo
+        try:
+            t0 = time.perf_counter()
+            cres = check_edges(CollisionEngine(ctree, cfg, device="cpu"),
+                               qf, qt, **ccd_kw)
+            t_cpu = time.perf_counter() - t0
+        finally:
+            sweep_mod.edge_link_geometry = fk_geo
+        if not (np.array_equal(res.first_hit, cres.first_hit)
+                and np.array_equal(res.collide, cres.collide)):
+            raise SystemExit(f"FAIL: CCD {mode}: card verdicts differ from "
+                             f"the CPU engine's")
+        a, b = c.as_dict(), cres.counters.as_dict()
+        for k in a:
+            if k != "wall_time_s" and a[k] != b[k]:
+                raise SystemExit(f"FAIL: CCD {mode}: counter {k} differs: "
+                                 f"cuda {a[k]} vs cpu {b[k]}")
+        if ccd_ref is None:
+            ccd_ref = res
+        elif not (np.array_equal(res.first_hit, ccd_ref.first_hit)
+                  and np.array_equal(res.collide, ccd_ref.collide)):
+            raise SystemExit(f"FAIL: CCD {mode}: verdicts differ from "
+                             f"wavefront_persistent")
+        # dense sampling at the same resolution, and the no-exit arm
+        flags, cd = check_trajectories(eng, wps, base_pos=csc.robot_base)
+        dense = np.asarray(flags).any(axis=1)
+        if not (~dense | res.collide).all():
+            raise SystemExit(f"FAIL: CCD {mode}: a densely sampled "
+                             f"collision is missing from the swept verdicts")
+        add_check_launches()
+        rne = check_edges(eng, qf, qt, in_traversal_exit=False, **ccd_kw)
+        if not (np.array_equal(rne.first_hit, res.first_hit)
+                and np.array_equal(rne.collide, res.collide)
+                and rne.counters.nodes_traversed >= c.nodes_traversed):
+            raise SystemExit(f"FAIL: CCD {mode}: in_traversal_exit=False "
+                             f"changed the verdicts or visited fewer nodes")
+        walls, dwalls = [], []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            check_edges(eng, qf, qt, **ccd_kw)
+            walls.append(time.perf_counter() - t0)
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            check_trajectories(eng, wps, base_pos=csc.robot_base)
+            dwalls.append(time.perf_counter() - t0)
+        note = ""
+        if mode == "wavefront_persistent":
+            # every persist call of a warm sweep, against its plain version
+            with Recorder({"persist": (persist_ops, "persist_tiles")}) as rec:
+                check_edges(eng, qf, qt, **ccd_kw)
+            p_calls = rec.calls["persist"]
+            err = 0
+            for fn, ca, ck in p_calls:
+                got = fn(*ca, **ck)
+                want = persist_tiles_ref(*ca, **ck)
+                err = max([err] + [int((x.to(torch.int64) - y.to(torch.int64))
+                                       .abs().max()) for x, y in
+                                   zip(got[:4], want[:4])])
+            if err:
+                raise SystemExit(f"FAIL: CCD: persist differs from plain on "
+                                 f"a sweep's pool (max abs err {err})")
+            p_ms = [cuda_time_ms(lambda: fn(*ca, **ck), 20)
+                    for fn, ca, ck in p_calls]
+            ccd_persist = dict(calls=p_calls, ms=p_ms)
+            note = (f" | {len(p_calls)} persist calls a sweep == plain, "
+                    f"{sum(p_ms):.4f} ms of calls a sweep (each "
+                    f"{min(p_ms):.4f}-{max(p_ms):.4f} ms, back to back)")
+        # where a warm sweep's host time goes, then the card's busy share
+        # in a traced one (after every call above is timed)
+        spent = dict(fk=0.0, fit=0.0, engine=0.0)
+
+        def timed(key, fn):
+            def run(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    spent[key] += time.perf_counter() - t0
+            return run
+        fit = sweep_mod.swept_obbs
+        sweep_mod.edge_link_geometry = timed("fk", fk_geo)
+        sweep_mod.swept_obbs = timed("fit", fit)
+        eng.execute = timed("engine", eng.execute)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wres = check_edges(eng, qf, qt, **ccd_kw)
+            t_warm = time.perf_counter() - t0
+        finally:
+            sweep_mod.edge_link_geometry = fk_geo
+            sweep_mod.swept_obbs = fit
+            del eng.execute
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            check_edges(eng, qf, qt, **ccd_kw)
+            torch.cuda.synchronize()
+            t_traced = time.perf_counter() - t0
+        on_card = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        d_traced = sum(device_us(e) for e in on_card) / 1e6
+        note += (f" | a warm sweep {1e3 * t_warm:.3f} ms: FK "
+                 f"{1e3 * spent['fk']:.3f}, swept fits "
+                 f"{1e3 * spent['fit']:.3f}, engine calls "
+                 f"{1e3 * spent['engine']:.3f} ({wres.counters.escalations} "
+                 f"escalations), the rest "
+                 f"{1e3 * (t_warm - sum(spent.values())):.3f} | traced: "
+                 f"wall {1e3 * t_traced:.3f} ms, device time "
+                 f"{1e3 * d_traced:.3f} ms (busy "
+                 f"{100 * d_traced / t_traced:.1f} %), "
+                 f"{sum(e.count for e in on_card)} kernels and copies")
+        shapes = []
+        for plan, cc in calls:
+            tiles = ""
+            if mode == "wavefront_persistent" and \
+                    plan.owner_of_query is not None:
+                tm = persist_ops.build_tile_map(
+                    plan.num_queries, persist_ops.DEFAULT_BQ,
+                    plan.owner_of_query.numpy())
+                tiles = f"/{tm.num_tiles}x{tm.bq}"
+            shapes.append(f"{plan.num_queries}{tiles}"
+                          + ("p" if plan.payload is not None else ""))
+        log("21 ccd", f"{mode}: {E_ccd} edges at R={R_ccd}, "
+            f"{int(res.collide.sum())} collide (dense: {int(dense.sum())}), "
+            f"{n_calls} engine calls (slots[/tiles x bq], p = payload round: "
+            f"{' '.join(shapes)}), escalations {n_esc} | main-path launches "
+            f"{counts} | cuda == cpu first hits, verdicts, counters (cpu "
+            f"engine {t_cpu:.1f} s) | nodes {c.nodes_traversed} (no exit "
+            f"{rne.counters.nodes_traversed}, "
+            f"{rne.counters.nodes_traversed / max(c.nodes_traversed, 1):.2f}"
+            f"x), dense nodes {cd.nodes_traversed} | warm wall median "
+            f"{1e3 * statistics.median(walls):.3f} ms, dense check of "
+            f"{E_ccd * (R_ccd + 1)} waypoints "
+            f"{1e3 * statistics.median(dwalls):.3f} ms{note} | peak mem "
+            f"{peak / 2**20:.1f} MiB | {card}")
+    add_check_launches()
+    p_calls, p_ms = ccd_persist["calls"], ccd_persist["ms"]
+    big = max(range(len(p_calls)),
+              key=lambda i: p_calls[i][2]["obb"].shape[0])
+    fn, ca, ck = p_calls[big]
+    big_ms = kernel_device_ms(lambda: fn(*ca, **ck), "persist_kernel", 20,
+                              "persist")
+    add_check_launches()
+    persist_line["ccd_ms"] = sum(p_ms)
+    persist_line["ccd_kernel_ms"] = big_ms
+    log("21 ccd", f"persist alone (torch.profiler) on the sweep's widest "
+        f"pool: {big_ms:.5f} ms, its call {p_ms[big]:.4f} ms | phase "
+        f"{time.perf_counter() - t_ccd:.1f} s | {card}")
+
+    # ---- 22. result -------------------------------------------------------
+    # launches on every main path (phases 8, 13, 17, 20 and 21) and in the
+    # checks
+    log("22 result", f"whole script {time.perf_counter() - t_start:.1f} s")
     for line in lines:
         line["launches"] = main_launches[line["name"]]
         line["check_launches"] = check_launches[line["name"]]

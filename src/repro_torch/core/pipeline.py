@@ -9,8 +9,8 @@ are honest: each stage ends in ``torch.cuda.synchronize()`` on the card
 (the reference's ``block_until_ready``), so no stage's queued launches
 are charged to the next.
 
-Swept-edge validation (``check_edges``) needs the engine's owner and
-payload lanes and is not ported yet (ROADMAP A.5.3).
+``check_edges`` is the swept-edge (CCD) workload: batched first-hit
+validation of planning-graph edges (:mod:`repro_torch.core.sweep`).
 """
 from __future__ import annotations
 
@@ -21,7 +21,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.engine.executor import CollisionEngine, _unported
+from repro_torch.core.sweep import sweep_edges
+from repro_torch.engine.executor import CollisionEngine
 from repro_torch.engine.plan import plan_trajectory
 from repro_torch.models.planner import Planner
 
@@ -32,6 +33,16 @@ class PipelineResult:
     collision_free: bool
     colliding_waypoints: np.ndarray  # (T+1,) bool
     timings: Dict[str, float]
+    counters: Optional[object] = None
+
+
+@dataclasses.dataclass
+class EdgeCheckResult:
+    """Batched swept-edge validation verdicts (``check_edges``)."""
+
+    first_hit: np.ndarray   # (E,) float32 t0 of the first colliding
+    #                         sub-interval (inf = edge collision-free)
+    collide: np.ndarray     # (E,) bool
     counters: Optional[object] = None
 
 
@@ -53,9 +64,24 @@ def check_trajectories(engine: CollisionEngine, waypoints, base_pos=None):
 
 
 def check_edges(engine: CollisionEngine, q_from, q_to, resolution: int = 16,
-                base_pos=None, in_traversal_exit: bool = True):
-    """Swept-edge (CCD) validation of planning-graph edges."""
-    raise _unported("swept-edge validation (check_edges)", "A.5.3")
+                base_pos=None,
+                in_traversal_exit: bool = True) -> EdgeCheckResult:
+    """Swept-edge (CCD) validation of E planning-graph edges.
+
+    Each edge ``q_from[e] -> q_to[e]`` ((E, 7) joint configurations,
+    linear interpolation) is enclosed in conservative swept OBBs and
+    bisected only where the swept volume hits occupied leaves; the finest
+    rounds' payload lane returns each edge's first colliding sub-interval
+    with in-traversal early exit.  ``first_hit[e]`` is that
+    sub-interval's t0 (``inf`` for a collision-free edge), an upper-bound
+    verdict over dense waypoint sampling at the same ``resolution``, which
+    must be a power of two.
+    """
+    first_hit, collide, counters = sweep_edges(
+        engine, q_from, q_to, resolution=resolution, base_pos=base_pos,
+        in_traversal_exit=in_traversal_exit)
+    return EdgeCheckResult(first_hit=first_hit, collide=collide,
+                           counters=counters)
 
 
 def plan_with_collision_gate(planner: Planner, engine: CollisionEngine,

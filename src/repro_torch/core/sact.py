@@ -173,11 +173,37 @@ def sact(obb_center, obb_half, obb_rot, aabb_center, aabb_half,
 
 def payload_min_update(best, owner_lane, payload_lane, hit):
     """Fold a frontier's terminal hits into the per-group ``best`` lane
-    with a scatter-min; non-hit lanes contribute the sentinel (a no-op)."""
+    with a scatter-min (``include_self``: a cell keeps its value where no
+    lane beats it); non-hit lanes contribute the sentinel, a no-op.  The
+    payload generalisation of the boolean ``amax`` fold."""
     vals = torch.where(hit, payload_lane.to(torch.int32),
                        torch.full_like(payload_lane, PAYLOAD_INF,
                                        dtype=torch.int32))
-    return best.scatter_reduce(0, owner_lane.to(torch.int64), vals, "amin")
+    return best.scatter_reduce(0, owner_lane.to(torch.int64), vals, "amin",
+                               include_self=True)
+
+
+def fold_verdicts(verdict, q64, term_hit, owner=None, payload=None):
+    """Fold one frontier level's terminal hits into the verdicts; returns
+    ``(verdict, undecided)``, ``undecided`` the lanes that may still
+    expand.  The per-level arms' shared step.
+
+    Boolean plans (no lanes): ``verdict`` is (M,) int32, 1 once a query
+    hit, updated in place; a lane is undecided while its query is 0.
+    With ``owner`` / ``payload`` lanes ((M,) int32; a missing owner lane
+    is the identity, a missing payload lane zeros): each lane's payload is
+    min-folded into its owner's ``best`` cell, and a lane is undecided
+    while its payload can still beat that cell.  ``q64`` is the lanes'
+    int64 query ids.
+    """
+    if owner is None and payload is None:
+        verdict.scatter_reduce_(0, q64, term_hit.to(verdict.dtype), "amax")
+        return verdict, verdict[q64] == 0
+    pay = (torch.zeros(q64.shape, dtype=torch.int32, device=q64.device)
+           if payload is None else payload[q64])
+    own = q64 if owner is None else owner[q64].to(torch.int64)
+    verdict = payload_min_update(verdict, own, pay, term_hit)
+    return verdict, pay < verdict[own]
 
 
 def mask_frontier_result(res: SactResult, valid) -> SactResult:

@@ -10,12 +10,12 @@ from repro_torch.engine.executor import (CSR_MODES, DEPTH_CAP_MODES,
                                          frontier_capacity_bound)
 from repro_torch.engine.plan import (PAYLOAD_INF, PlanValidationError,
                                      QueryPlan, WORKLOADS, plan_batch,
-                                     plan_queries, plan_trajectory,
-                                     validate_plan)
+                                     plan_edges, plan_queries,
+                                     plan_trajectory, validate_plan)
 
 __all__ = [
     "CSR_MODES", "CollisionEngine", "DEPTH_CAP_MODES", "DEVICE_MODES",
     "EngineConfig", "MODES", "PAYLOAD_INF", "PlanValidationError",
     "QueryPlan", "WORKLOADS", "frontier_capacity_bound", "plan_batch",
-    "plan_queries", "plan_trajectory", "validate_plan",
+    "plan_edges", "plan_queries", "plan_trajectory", "validate_plan",
 ]

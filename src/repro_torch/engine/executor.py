@@ -26,8 +26,13 @@ value: ``_escalate``'s overflow check and the counters' readout.
 
 The engine runs on the card (``device="cuda"``, the default) or, when the
 caller asks, on the CPU through the kernels' plain PyTorch versions; the
-two give identical verdicts and counters.  Without a CUDA device a CUDA
-engine raises; it never drops to the CPU by itself.  Modes, options and
+two give identical verdicts and counters.  Plans with owner and payload
+lanes (swept-edge CCD, :func:`repro_torch.engine.plan.plan_edges`) run in
+all three modes: the persistent mode on an owner-group tiled pool
+(:func:`repro_torch.kernels.persist.ops.tile_pool`), the per-level modes
+with the payload fold of :func:`repro_torch.core.sact.fold_verdicts`
+between levels.  Without a CUDA device a CUDA engine raises; it never
+drops to the CPU by itself.  Modes, options and
 plan shapes this slice has not ported raise ``NotImplementedError`` naming
 the ROADMAP item that adds them.
 """
@@ -54,13 +59,13 @@ from repro_torch.core.geometry import OBBs
 from repro_torch.core.octree import (MAX_DEPTH, DeviceOctree, Octree,
                                      device_octree, node_centers_from_codes)
 from repro_torch.core.quantize import META_FORMATS
-from repro_torch.core.sact import NUM_AXES
+from repro_torch.core.sact import NUM_AXES, PAYLOAD_INF
 from repro_torch.engine.plan import QueryPlan, plan_batch, plan_queries
 from repro_torch.kernels.compact.ops import compact_pairs
 from repro_torch.kernels.persist.ops import (H100_L2_BYTES,
                                              choose_meta_layout,
                                              require_ported_layout,
-                                             traverse_whole)
+                                             tile_pool, traverse_whole)
 from repro_torch.kernels.sact.ops import pack_obbs
 from repro_torch.kernels.traverse.ops import traverse_step
 
@@ -192,10 +197,17 @@ def _empty_stats(device) -> dict:
     return stats
 
 
-def _verdict_init(num_queries: int, device) -> torch.Tensor:
-    """Boolean verdicts, one per query, as int32 for ``scatter_reduce_``
-    (owner/payload verdict groups land with ROADMAP A.5.3)."""
-    return torch.zeros(num_queries, dtype=torch.int32, device=device)
+def _verdict_init(num_queries: int, grouped: bool, device) -> torch.Tensor:
+    """Boolean verdicts (one per query, as int32 for ``scatter_reduce_``)
+    or, for a grouped plan, int32 ``best`` cells at ``PAYLOAD_INF``.
+
+    Grouped verdicts get one cell per query slot whatever the plan's group
+    count (owner ids are compact, ``G <= Q``; the executor keeps the first
+    G cells after the call), as in the reference."""
+    if not grouped:
+        return torch.zeros(num_queries, dtype=torch.int32, device=device)
+    return torch.full((num_queries,), PAYLOAD_INF, dtype=torch.int32,
+                      device=device)
 
 
 def _count_level(st: dict, level: int, valid, is_term, res, n_new,
@@ -227,9 +239,12 @@ def _seed(num_queries: int, capacity: int, device):
 
 
 def _traverse(obb_c, obb_h, obb_r, dev: DeviceOctree, capacity: int,
-              use_spheres: bool, max_depth: Optional[int] = None):
+              use_spheres: bool, max_depth: Optional[int] = None,
+              owner=None, payload=None):
     """Multi-level wavefront traversal (``mode="wavefront"``) for one query
-    set against one scene; returns ``(verdict (M,) bool, stats)``.
+    set against one scene; returns ``(verdict, stats)``: (M,) bool, or
+    with ``owner`` / ``payload`` lanes (M,) int32 ``best`` cells (those
+    past the plan's group count unused).
 
     The frontier carries (query, Morton code) pairs.  Per level: the
     staged SACT of :func:`repro_torch.core.sact.sact_frontier`, the
@@ -244,7 +259,8 @@ def _traverse(obb_c, obb_h, obb_r, dev: DeviceOctree, capacity: int,
     n_max = dev.codes.shape[-1]
     lane = torch.arange(capacity, device=device)
     eight = torch.arange(8, dtype=torch.int64, device=device)
-    verdict = _verdict_init(M, device)
+    grouped = owner is not None or payload is not None
+    verdict = _verdict_init(M, grouped, device)
     st = _empty_stats(device)
     n_live, q_idx, codes = _seed(M, capacity, device)
     for level in range(depth + 1):
@@ -263,9 +279,8 @@ def _traverse(obb_c, obb_h, obb_r, dev: DeviceOctree, capacity: int,
             pos = torch.searchsorted(dev.codes_unsigned[level], codes_u)
             is_term = dev.full[level][pos.clamp(0, n_max - 1)]
         overlap = res.collide & valid
-        verdict.scatter_reduce_(0, q64, (overlap & is_term).to(torch.int32),
-                                "amax")
-        undecided = verdict[q64] == 0
+        verdict, undecided = sact_mod.fold_verdicts(
+            verdict, q64, overlap & is_term, owner, payload)
 
         # Expansion: the 8 candidate child codes, probed on the next level.
         child_codes_l = dev.codes_unsigned[min(level + 1, depth)]
@@ -280,15 +295,17 @@ def _traverse(obb_c, obb_h, obb_r, dev: DeviceOctree, capacity: int,
         n_live, q_idx, codes = compact_pairs(
             child_mask, q_idx.repeat_interleave(8), cand.to(torch.int32),
             capacity)
-    return verdict != 0, st
+    return (verdict if grouped else verdict != 0), st
 
 
 def _traverse_fused(obb: torch.Tensor, dev: DeviceOctree, capacity: int,
-                    use_spheres: bool, max_depth: Optional[int] = None):
+                    use_spheres: bool, max_depth: Optional[int] = None,
+                    owner=None, payload=None):
     """Fused multi-level wavefront traversal (``mode="wavefront_fused"``):
     the frontier carries (query, CSR node index) pairs and each level is
     one :func:`repro_torch.kernels.traverse.ops.traverse_step`.  ``obb``
-    is the packed (M, 15) table.  Returns ``(verdict (M,) bool, stats)``.
+    is the packed (M, 15) table.  Returns ``(verdict, stats)`` as
+    :func:`_traverse` does.
 
     ``max_depth`` stops the walk at that level.  The step treats only true
     leaves and full subtrees as terminal, so the cap level's other hits
@@ -300,13 +317,16 @@ def _traverse_fused(obb: torch.Tensor, dev: DeviceOctree, capacity: int,
     M = obb.shape[0]
     depth = dev.depth if max_depth is None else min(dev.depth, max_depth)
     capped = depth < dev.depth
-    verdict = _verdict_init(M, device)
+    grouped = owner is not None or payload is not None
+    assert not (capped and grouped), \
+        "depth-capped traversal serves boolean plans only"
+    verdict = _verdict_init(M, grouped, device)
     st = _empty_stats(device)
     n_live, q_idx, node_idx = _seed(M, capacity, device)
     for level in range(depth + 1):
         n_next, q_next, idx_next, verdict, info = traverse_step(
             obb, dev, level, n_live, q_idx, node_idx, verdict,
-            use_spheres=use_spheres)
+            use_spheres=use_spheres, owner=owner, payload=payload)
         res, valid, is_term = info["res"], info["valid"], info["is_term"]
         if capped and level == depth:
             cap_hit = res.collide & valid & ~is_term
@@ -315,7 +335,7 @@ def _traverse_fused(obb: torch.Tensor, dev: DeviceOctree, capacity: int,
         _count_level(st, level, valid, is_term, res, info["n_new"],
                      capacity)
         n_live, q_idx, node_idx = n_next, q_next, idx_next
-    return verdict != 0, st
+    return (verdict if grouped else verdict != 0), st
 
 
 def _stats_to_counters(st, mode: str, replays: int = 0,
@@ -481,8 +501,6 @@ class CollisionEngine:
                     "run at full depth")
             if max_depth < 1:
                 raise ValueError(f"max_depth must be >= 1, got {max_depth}")
-        if plan.grouped:
-            raise _unported("owner/payload plans", "A.5.3")
         value, counters = self._exec_device(plan, max_depth)
         counters.wall_time_s = time.perf_counter() - t0
         counters.num_queries = plan.num_queries
@@ -499,27 +517,48 @@ class CollisionEngine:
         obb_c, obb_h, obb_r = (
             torch.as_tensor(x, dtype=torch.float32).to(self.device)
             for x in (plan.obb_c, plan.obb_h, plan.obb_r))
+        owner, payload = (
+            None if x is None else
+            torch.as_tensor(x, dtype=torch.int32).to(self.device)
+            for x in (plan.owner_of_query, plan.payload))
         memo_key = ("single", Q, plan.grouped, max_depth, self._scene_sig)
 
-        if cfg.mode == "wavefront_persistent":
+        if cfg.mode == "wavefront_persistent" and owner is not None:
+            # Owner groups cross query tiles: pack them into an
+            # owner-group tiled pool once, before the escalation ladder.
+            tiled = tile_pool(obb_c, obb_h, obb_r, plan.owner_of_query,
+                              payload)
+
+            def run(cap):
+                return traverse_whole(dev=dev, capacity=cap,
+                                      use_spheres=cfg.use_spheres,
+                                      streamed=False, **tiled)
+        elif cfg.mode == "wavefront_persistent":
             def run(cap):
                 return traverse_whole(obb_c, obb_h, obb_r, dev, cap,
                                       use_spheres=cfg.use_spheres,
-                                      streamed=False)
+                                      payload=payload, streamed=False)
         elif cfg.mode == "wavefront_fused":
             obb = pack_obbs(obb_c, obb_h, obb_r)
 
             def run(cap):
                 return _traverse_fused(obb, dev, cap, cfg.use_spheres,
-                                       max_depth)
+                                       max_depth, owner, payload)
         else:
             def run(cap):
                 return _traverse(obb_c, obb_h, obb_r, dev, cap,
-                                 cfg.use_spheres, max_depth)
+                                 cfg.use_spheres, max_depth, owner, payload)
 
         verdict, st, cap, replays = _escalate(
             run, Q, self._capacity(Q), cfg, start=self._cap_memo.get(memo_key))
         self._cap_memo[memo_key] = cap
         self.last_capacity = cap
-        counters = _stats_to_counters(st, cfg.mode, replays, meta_format=fmt)
-        return verdict.cpu().numpy(), counters
+        lanes = (plan.owner_of_query is not None) + (plan.payload is not None)
+        counters = _stats_to_counters(st, cfg.mode, replays,
+                                      extra_lanes=lanes, meta_format=fmt)
+        verdict = verdict.cpu().numpy()
+        if plan.grouped:
+            # Grouped verdicts are computed in a Q-sized buffer (owner ids
+            # are compact); only the first G cells are meaningful.
+            verdict = verdict[:plan.groups]
+        return verdict, counters

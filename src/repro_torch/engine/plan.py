@@ -3,10 +3,11 @@
 Counterpart of ``repro.engine.plan``.  A :class:`QueryPlan` is a flat OBB
 pool ``(Q, 3)/(Q, 3)/(Q, 3, 3)`` of tensors, optional scene / owner /
 payload lanes, and an un-flattening recipe that maps the flat verdicts back
-to the front end's shape.  This slice lowers single query sets
-(:func:`plan_queries`), (B, M) batches (:func:`plan_batch`) and joint-space
-trajectories (:func:`plan_trajectory`); the other front ends land with
-ROADMAP A.4 and A.7.
+to the front end's shape.  This package lowers single query sets
+(:func:`plan_queries`), (B, M) batches (:func:`plan_batch`), joint-space
+trajectories (:func:`plan_trajectory`) and swept-edge pools with owner and
+payload lanes (:func:`plan_edges`); multi-scene batches (``plan_scenes``)
+land with ROADMAP A.5.6.
 """
 from __future__ import annotations
 
@@ -171,5 +172,36 @@ def plan_trajectory(waypoints, base_pos=None) -> QueryPlan:
                      reduce_last=True)
 
 
+def plan_edges(obbs: OBBs, owner, num_groups: int,
+               payload=None) -> QueryPlan:
+    """Swept-edge pool: flat swept OBBs with owner (+ optional payload)
+    lanes.
+
+    ``owner`` groups the slots that decide together (a segment's links, or
+    every surviving segment of one edge); ``payload`` carries each slot's
+    sub-interval rank for first-hit queries.  Owner ids must be compact --
+    every value in ``[0, num_groups)`` with ``num_groups <= len(owner)`` --
+    so the executor can keep grouped verdicts in a pool-sized buffer.
+    The lanes become int32 tensors where the caller's arrays are (host
+    numpy -> CPU).  Built by :func:`repro_torch.core.sweep.sweep_edges`.
+    """
+    assert obbs.center.ndim == 2, "plan_edges wants a flat pool"
+    own_np = _np(owner)
+    if num_groups > obbs.n or (own_np.size and (
+            int(own_np.min()) < 0 or int(own_np.max()) >= num_groups)):
+        # Non-compact ids would scatter hits into the sliced-off tail of
+        # the executor's Q-sized verdict buffer: a silently lost verdict.
+        raise ValueError(
+            f"owner ids must be compact in [0, {num_groups}) with "
+            f"num_groups <= {obbs.n} query slots")
+    own = torch.as_tensor(owner, dtype=torch.int32)
+    pay = None if payload is None else torch.as_tensor(payload,
+                                                       dtype=torch.int32)
+    return QueryPlan(kind="edges", obb_c=obbs.center, obb_h=obbs.half,
+                     obb_r=obbs.rot, out_shape=(num_groups,),
+                     owner_of_query=own, num_groups=num_groups, payload=pay)
+
+
 __all__ = ["PAYLOAD_INF", "PlanValidationError", "QueryPlan", "WORKLOADS",
-           "plan_batch", "plan_queries", "plan_trajectory", "validate_plan"]
+           "plan_batch", "plan_edges", "plan_queries", "plan_trajectory",
+           "validate_plan"]

@@ -15,16 +15,22 @@ the widest level part way through its children.  :func:`grazing_pool`
 walks OBBs that graze cells of one level
 (:func:`repro_torch.kernels.traverse.cases.grazing_frontier`), so the
 kernel's SACT decides pairs within a rounding of their planes there.
+:func:`sweep_round_plans` records the plans of a real swept-edge sweep
+and :func:`tiled_pool` packs one of them as the engine does
+(:func:`repro_torch.kernels.persist.ops.build_tile_map`): whole owner
+groups a tile, pads at each tile's tail, real payloads.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.geometry import rotation_from_euler
 from repro_torch.core.octree import DeviceOctree
+from repro_torch.kernels.persist.ops import (DEFAULT_BQ, pack_kernel_inputs,
+                                             tile_pool)
 from repro_torch.kernels.persist.ref import persist_tiles_ref
 from repro_torch.kernels.sact.ops import pack_obbs
 from repro_torch.kernels.traverse.cases import grazing_frontier
@@ -126,3 +132,40 @@ def _pack(dev: DeviceOctree, obb: torch.Tensor, owner: np.ndarray,
                 obb=obb.to(d).contiguous(), meta=dev.node_meta,
                 payload=torch.from_numpy(payload).to(d),
                 owner=torch.from_numpy(owner).to(d))
+
+
+def sweep_round_plans(engine, q_from, q_to, resolution: int,
+                      base_pos=None) -> List:
+    """Run ``check_edges`` on ``engine`` and return every plan its rounds
+    executed, in order (the coarse rounds' owner plans and the width-1
+    rounds' owner + payload plans)."""
+    from repro_torch.core.pipeline import check_edges
+    plans = []
+    execute = engine.execute
+
+    def record(plan, *a, **k):
+        plans.append(plan)
+        return execute(plan, *a, **k)
+    engine.execute = record
+    try:
+        check_edges(engine, q_from, q_to, resolution=resolution,
+                    base_pos=base_pos)
+    finally:
+        del engine.execute
+    return plans
+
+
+def tiled_pool(dev: DeviceOctree, plan, bq: int = DEFAULT_BQ
+               ) -> Tuple[Dict[str, torch.Tensor], int]:
+    """Inputs of :func:`repro_torch.kernels.persist.ops.persist_tiles` for
+    a plan with an owner lane, packed as the engine packs them
+    (:func:`repro_torch.kernels.persist.ops.tile_pool`).  Returns
+    ``(inputs, bq)`` with the tile map's ``bq``."""
+    d = dev.device
+    t = tile_pool(plan.obb_c.to(d), plan.obb_h.to(d), plan.obb_r.to(d),
+                  plan.owner_of_query, plan.payload, bq)
+    ins = pack_kernel_inputs(t["obb_c"], t["obb_h"], t["obb_r"], dev,
+                             t["bq"], payload=t["payload"],
+                             owner_local=t["tiles"].owner_local,
+                             scene_of_tile=t["tiles"].scene_of_tile)
+    return ins, t["bq"]

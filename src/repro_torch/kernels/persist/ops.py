@@ -10,10 +10,20 @@ in shared memory) on CUDA tensors and runs the plain PyTorch version
 Both follow the same per-tile contract, so verdicts and every counter are
 the same on either device.
 
-This slice serves single-scene identity pools with resident fp32 rows.
-Owner and payload lanes, the streamed layout, compressed rows and ragged
-multi-scene batches raise ``NotImplementedError`` naming the ROADMAP item
-that adds them.
+Every single-scene plan shape runs on the kernel.  A plan with an owner
+lane (swept-edge CCD) is lowered to a **tiled pool** first
+(:func:`build_tile_map`, the reference's host numpy): pool slots are
+permuted so that every verdict group lands whole in one ``bq``-slot tile,
+pads sit at each tile's tail, and each slot names its group by the
+group's first tile-local slot (``owner_local``); the kernel's per-slot
+``best`` words are mapped back to group space by ``group_slot``.  A plan
+with a payload lane and no owner lane stays on the identity route with
+its payloads.  An owner group too large for the largest tile
+(:data:`MAX_TILE_BQ`, :func:`persist_kernel_unsupported`) raises
+``NotImplementedError`` (ROADMAP B.2.5): the reference serves it on its
+plain arm, and this port falls back to no plain version on the card.  The
+streamed layout, compressed rows and ragged multi-scene batches raise
+naming the ROADMAP item that adds them.
 
 **Residency.**  The chooser keeps the reference's rules (fp32 while the
 resident table fits, compressed rows only to buy residency, narrowest
@@ -28,6 +38,7 @@ import ctypes
 import math
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.counters import (BYTES_META_STREAM,
@@ -58,6 +69,10 @@ H100_L2_BYTES = 50 * 1000 * 1000
 DEFAULT_BQ = 128
 #: Spill-ring pairs per tile, as in the reference's default.
 DEFAULT_RING_CAP = 256
+
+#: Largest owner-group tile (the reference's): a verdict group must fit in
+#: one tile, whose fold cell is tile-local.
+MAX_TILE_BQ = 1024
 
 
 def meta_table_bytes(depth: int, n_max: int, fmt: str = "fp32") -> int:
@@ -110,6 +125,114 @@ def choose_meta_layout(depth: int, n_max: int,
         if meta_table_bytes(depth, n_max, f) <= budget:
             return MetaChoice("resident", f)
     return MetaChoice("streamed", narrowest[0])
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+class Tiling(NamedTuple):
+    """A tiled pool's lanes (numpy in a :class:`TileMap`, tensors on the
+    engine's device in a call).  The pool has ``num_tiles * bq`` slots."""
+    owner_local: object    # (Q',) slot's verdict group as the group's
+    #                        first tile-local slot; -1 = pad slot
+    scene_of_tile: object  # (T,) scene id per tile (0: one scene)
+    group_slot: object     # (Q,) global group id -> the group's fold
+    #                        slot; -1 past the group count
+
+
+class TileMap(NamedTuple):
+    """Host-side owner-group tiling of a plan's pair pool.
+
+    ``perm[slot]`` is the original query index occupying the slot (-1 =
+    pad); callers permute their per-query arrays with ``np.maximum(perm,
+    0)`` (pad slots carry garbage rows, masked by ``owner_local < 0``).
+    """
+    tiles: Tiling             # numpy-backed Tiling arrays
+    perm: np.ndarray          # (Q',) int64
+    bq: int
+    num_tiles: int
+
+
+def build_tile_map(num_queries: int, bq: int,
+                   owner_of_query: Optional[np.ndarray] = None) -> TileMap:
+    """Pack a one-scene plan's pairs into owner-group-exclusive tiles
+    (host numpy, the reference's steps in its order).
+
+    Pairs are ordered by owner (stable), and each owner's run is placed
+    whole into the current tile if it has room, else into a new one.
+    ``bq`` grows to the next power of two that fits the largest group
+    (capped at :data:`MAX_TILE_BQ`: a larger group raises; screen with
+    :func:`persist_kernel_unsupported` first).  Pads sit at each tile's
+    tail, so live slots form every tile's prefix.
+    """
+    Q = int(num_queries)
+    own = (np.arange(Q, dtype=np.int64) if owner_of_query is None
+           else np.asarray(owner_of_query, np.int64))
+    assert own.shape == (Q,)
+    order = np.argsort(own, kind="stable")
+    oo = own[order]
+    new_run = np.ones(Q, bool)
+    if Q > 1:
+        new_run[1:] = oo[1:] != oo[:-1]
+    run_id = np.cumsum(new_run) - 1
+    run_starts = np.flatnonzero(new_run)
+    run_sizes = np.diff(np.append(run_starts, Q))
+    run_owner = oo[run_starts]
+    max_run = int(run_sizes.max()) if Q else 1
+    bq_eff = max(int(bq), _next_pow2(max_run))
+    if bq_eff > MAX_TILE_BQ:
+        raise ValueError(
+            f"owner group of {max_run} pairs needs a {bq_eff}-slot tile "
+            f"(cap {MAX_TILE_BQ}); screen with persist_kernel_unsupported")
+
+    nrun = len(run_starts)
+    tile_of_run = np.zeros(nrun, np.int64)
+    first_slot_of_run = np.zeros(nrun, np.int64)
+    tile, used = -1, bq_eff
+    for r in range(nrun):
+        n = int(run_sizes[r])
+        if used + n > bq_eff:
+            tile += 1
+            used = 0
+        tile_of_run[r] = tile
+        first_slot_of_run[r] = used
+        used += n
+    num_tiles = max(tile + 1, 1)
+
+    rank_in_run = np.arange(Q) - run_starts[run_id] if Q else np.zeros(0)
+    slot_sorted = (tile_of_run[run_id] * bq_eff + first_slot_of_run[run_id]
+                   + rank_in_run).astype(np.int64)
+    Qs = num_tiles * bq_eff
+    perm = np.full(Qs, -1, np.int64)
+    perm[slot_sorted] = order
+    owner_local = np.full(Qs, -1, np.int32)
+    owner_local[slot_sorted] = first_slot_of_run[run_id].astype(np.int32)
+    group_slot = np.full(Q, -1, np.int32)
+    if nrun:
+        group_slot[run_owner] = (tile_of_run * bq_eff
+                                 + first_slot_of_run).astype(np.int32)
+    tiles = Tiling(owner_local=owner_local,
+                   scene_of_tile=np.zeros(num_tiles, np.int32),
+                   group_slot=group_slot)
+    return TileMap(tiles=tiles, perm=perm, bq=bq_eff, num_tiles=num_tiles)
+
+
+def persist_kernel_unsupported(owner_of_query=None) -> Optional[str]:
+    """Name the reason a one-scene persistent-mode plan cannot run on the
+    kernel, or ``None`` if it can: an owner group too large for the
+    largest tile (no front end emits one)."""
+    if owner_of_query is None:
+        return None
+    own = np.asarray(owner_of_query)
+    if own.size == 0:
+        return None
+    sizes = np.bincount(own.astype(np.int64))
+    mx = int(sizes.max())
+    if _next_pow2(mx) > MAX_TILE_BQ:
+        return (f"owner group of {mx} pairs needs a {_next_pow2(mx)}-slot "
+                f"tile (cap {MAX_TILE_BQ})")
+    return None
 
 
 def require_ported_layout(choice: MetaChoice) -> None:
@@ -201,37 +324,58 @@ def kernel_shape(bq: int = DEFAULT_BQ) -> dict:
 
 
 def pack_kernel_inputs(obb_c, obb_h, obb_r, dev: DeviceOctree, bq: int,
-                       num_valid=None):
-    """The megakernel's inputs for an identity boolean pool, packed as the
-    reference's ``_kernel_whole`` packs them: ``scal`` = [scene_lo,
-    cell sizes], the OBB table zero-padded to whole tiles, a zero payload
-    lane, identity owners (every slot its own group), scene 0 for every
-    tile and the live-prefix count.  The per-scene level extents (``off`` /
+                       num_valid=None, payload=None, owner_local=None,
+                       scene_of_tile=None):
+    """The megakernel's inputs, packed as the reference's ``_kernel_whole``
+    packs them: ``scal`` = [scene_lo, cell sizes], the OBB table, the
+    payload lane (zeros when ``payload`` is None), the owner lane, the
+    scene of each tile and the live-prefix count.
+
+    An identity pool (``owner_local`` None) is cut into ``ceil(M / bq)``
+    tiles, zero-padded at the end, every slot its own verdict group.  A
+    tiled pool (:func:`build_tile_map`, already permuted into slot space)
+    passes ``owner_local`` and ``scene_of_tile``; its ``bq`` is the pool's
+    width over its tile count.  The per-scene level extents (``off`` /
     ``cnt``) are left out: only the streamed layout (ROADMAP A.5.4) reads
     them."""
     device = dev.device
     M = obb_c.shape[0]
-    num_tiles = max(math.ceil(M / bq), 1)
-    pad = num_tiles * bq - M
-    obb = torch.nn.functional.pad(pack_obbs(obb_c, obb_h, obb_r),
-                                  (0, 0, 0, pad))
-    pay = torch.zeros(num_tiles * bq, dtype=torch.int32, device=device)
-    own = torch.arange(bq, dtype=torch.int32, device=device).repeat(num_tiles)
-    sot = torch.zeros(num_tiles, dtype=torch.int32, device=device)
+    obb = pack_obbs(obb_c, obb_h, obb_r)
+    pay = (torch.zeros(M, dtype=torch.int32, device=device)
+           if payload is None else payload.to(torch.int32))
+    if owner_local is not None:
+        num_tiles = scene_of_tile.shape[0]
+        bq = M // num_tiles
+        assert num_tiles * bq == M, "tiled pools are exact tile multiples"
+        own = owner_local.to(torch.int32)
+        sot = scene_of_tile.to(torch.int32)
+    else:
+        num_tiles = max(math.ceil(M / bq), 1)
+        pad = num_tiles * bq - M
+        obb = torch.nn.functional.pad(obb, (0, 0, 0, pad))
+        pay = torch.nn.functional.pad(pay, (0, pad))
+        own = torch.arange(bq, dtype=torch.int32,
+                           device=device).repeat(num_tiles)
+        sot = torch.zeros(num_tiles, dtype=torch.int32, device=device)
     scal = torch.cat([dev.scene_lo.to(torch.float32),
                       dev.cell_sizes.to(torch.float32)])
     nvalid = torch.tensor([M if num_valid is None else int(num_valid)],
                           dtype=torch.int32, device=device)
     return dict(scal=scal, sot=sot, nvalid=nvalid, obb=obb.contiguous(),
-                meta=dev.node_meta, payload=pay, owner=own)
+                meta=dev.node_meta, payload=pay.contiguous(),
+                owner=own.contiguous())
 
 
 def _kernel_whole(obb_c, obb_h, obb_r, dev: DeviceOctree, capacity: int,
-                  use_spheres: bool, bq: int, ring_cap: int
+                  use_spheres: bool, bq: int, ring_cap: int, payload=None,
+                  owner_local=None, scene_of_tile=None
                   ) -> Tuple[torch.Tensor, dict]:
     """Run the megakernel; returns the raw (num_tiles * bq,) per-slot
     ``best`` words (PAYLOAD_INF = that slot never hit) + the stats dict."""
-    ins = pack_kernel_inputs(obb_c, obb_h, obb_r, dev, bq)
+    ins = pack_kernel_inputs(obb_c, obb_h, obb_r, dev, bq, payload=payload,
+                             owner_local=owner_local,
+                             scene_of_tile=scene_of_tile)
+    bq = ins["obb"].shape[0] // ins["sot"].shape[0]
     best, per_level, hist, scalars, _ring = persist_tiles(
         **ins, bq=bq, fcap=capacity, depth=dev.depth, ring_cap=ring_cap,
         use_spheres=use_spheres, meta_format=dev.meta_format)
@@ -245,24 +389,56 @@ def _kernel_whole(obb_c, obb_h, obb_r, dev: DeviceOctree, capacity: int,
     return best.reshape(-1), st
 
 
+def tile_pool(obb_c, obb_h, obb_r, owner_of_query, payload=None,
+              bq: int = DEFAULT_BQ) -> dict:
+    """Lower a pool with an owner lane to its owner-group tiled pool, on
+    the device of ``obb_c``: the tile map is built on the host from the
+    owner ids (raising ``NotImplementedError`` for a group the kernel
+    cannot tile, :func:`persist_kernel_unsupported`), the rows and
+    payloads are permuted into slot space (pad slots repeat slot 0's
+    query).  Returns the keyword arguments of :func:`traverse_whole` for
+    that pool (``obb_c``, ``obb_h``, ``obb_r``, ``payload``, ``tiles``,
+    ``bq``)."""
+    own_np = owner_of_query.cpu().numpy() \
+        if isinstance(owner_of_query, torch.Tensor) \
+        else np.asarray(owner_of_query)
+    reason = persist_kernel_unsupported(own_np)
+    if reason is not None:
+        # The reference serves such a plan on its plain arm; the port
+        # falls back to no plain version on the card.
+        raise NotImplementedError(
+            f"{reason}: owner groups past MAX_TILE_BQ = {MAX_TILE_BQ} "
+            "slots are not ported yet (ROADMAP B.2.5)")
+    tm = build_tile_map(own_np.size, bq, own_np)
+    d = obb_c.device
+    perm = torch.from_numpy(np.maximum(tm.perm, 0)).to(d)
+    return dict(obb_c=obb_c[perm], obb_h=obb_h[perm], obb_r=obb_r[perm],
+                payload=None if payload is None else payload.to(d)[perm],
+                tiles=Tiling(*(torch.from_numpy(x).to(d) for x in tm.tiles)),
+                bq=tm.bq)
+
+
 def traverse_whole(obb_c, obb_h, obb_r, dev: DeviceOctree, capacity: int, *,
-                   use_spheres: bool, scene_of_query=None,
-                   owner_of_query=None, payload=None,
+                   use_spheres: bool, scene_of_query=None, payload=None,
                    streamed: Optional[bool] = None, bq: int = DEFAULT_BQ,
                    ring_cap: int = DEFAULT_RING_CAP,
-                   tiles=None) -> Tuple[torch.Tensor, dict]:
+                   tiles: Optional[Tiling] = None
+                   ) -> Tuple[torch.Tensor, dict]:
     """Whole multi-level traversal for one flat query set against one
-    scene; returns ``(collide (Q,) bool, stats dict)``.
+    scene; returns ``(verdict, stats dict)``.
 
-    Runs on the device of ``dev`` (the OBB tensors are moved there).
+    Without ``tiles`` every query is its own verdict group: the verdict is
+    the (Q,) bool collide flags, or with a payload lane the (Q,) int32
+    least payload that hit.  A pool with an owner lane comes tiled by
+    :func:`tile_pool` (rows and payloads in slot space, ``tiles`` and its
+    ``bq``); the verdict is then the (Q,) int32 ``best`` payload per
+    verdict group (compact owner ids; cells past the group count are
+    ``PAYLOAD_INF``).  Runs on the device of ``dev`` (the OBB tensors are
+    moved there).
     """
     if scene_of_query is not None:
         raise NotImplementedError(
             "ragged multi-scene pools land with ROADMAP A.5.6")
-    if owner_of_query is not None or payload is not None or tiles is not None:
-        raise NotImplementedError(
-            "owner and payload lanes (owner-group tiling) land with "
-            "ROADMAP A.5.3")
     if streamed is None:
         streamed = choose_meta_layout(
             dev.depth, dev.node_meta.shape[-2],
@@ -272,7 +448,25 @@ def traverse_whole(obb_c, obb_h, obb_r, dev: DeviceOctree, capacity: int, *,
     d = dev.device
     obb_c, obb_h, obb_r = (torch.as_tensor(x, dtype=torch.float32).to(d)
                            for x in (obb_c, obb_h, obb_r))
+    if payload is not None:
+        payload = torch.as_tensor(payload, dtype=torch.int32).to(d)
+
+    if tiles is not None:
+        tiles = Tiling(*(torch.as_tensor(x).to(d) for x in tiles))
+        Qs = obb_c.shape[0]
+        best, st = _kernel_whole(obb_c, obb_h, obb_r, dev, capacity,
+                                 use_spheres, bq, ring_cap, payload=payload,
+                                 owner_local=tiles.owner_local,
+                                 scene_of_tile=tiles.scene_of_tile)
+        # Each group's best lies at its fold slot; cells past the group
+        # count are PAYLOAD_INF.
+        gs = tiles.group_slot.to(torch.int64)
+        return torch.where(gs >= 0, best[gs.clamp(0, Qs - 1)],
+                           PAYLOAD_INF), st
+
+    # ---- identity (per-query groups) pools ----------------------------
     M = obb_c.shape[0]
     best, st = _kernel_whole(obb_c, obb_h, obb_r, dev, capacity, use_spheres,
-                             bq, ring_cap)
-    return best[:M] != PAYLOAD_INF, st
+                             bq, ring_cap, payload=payload)
+    best = best[:M]
+    return (best if payload is not None else best != PAYLOAD_INF), st

@@ -26,7 +26,7 @@ import torch
 from repro_torch.core.octree import DeviceOctree
 from repro_torch.core.quantize import BF16_START_BITS, U8_START_BITS
 from repro_torch.core.sact import (SactResult, axis_tests_from_exit,
-                                   mask_frontier_result)
+                                   fold_verdicts, mask_frontier_result)
 from repro_torch.kernels import _build
 from repro_torch.kernels.compact.ops import compact_pairs
 from repro_torch.kernels.persist.ref import csr_child_slots
@@ -146,15 +146,16 @@ def traverse_step(obb: torch.Tensor, dev: DeviceOctree, level: int,
 
     ``obb`` is the packed (M, 15) OBB table
     (:func:`repro_torch.kernels.sact.ops.pack_obbs`), ``verdict`` the (M,)
-    int32 boolean verdicts, updated in place.  Returns ``(n_next, q_next,
+    int32 boolean verdicts, updated in place, or with ``owner`` /
+    ``payload`` lanes ((M,) int32 tensors) the int32 ``best`` cells of the
+    verdict groups: a terminal hit folds its payload into its owner's cell
+    (:func:`repro_torch.core.sact.fold_verdicts`, in this glue as in the
+    reference; the kernel is the same), and a lane expands only while its
+    payload can still beat that cell.  Returns ``(n_next, q_next,
     idx_next, verdict, info)``, ``info`` carrying the per-lane quantities
     the work model counts (``valid``, ``is_term``, ``res``, ``codes``,
     ``n_new``).  Lanes past ``n_next`` hold query 0 and node 0.
     """
-    if owner is not None or payload is not None:
-        raise NotImplementedError(
-            "owner and payload lanes in the per-level arms land with "
-            "ROADMAP A.5.3")
     capacity = q_idx.shape[0]
     valid = torch.arange(capacity, device=q_idx.device) < n_live
     is_leaf = level == dev.depth
@@ -174,10 +175,8 @@ def traverse_step(obb: torch.Tensor, dev: DeviceOctree, level: int,
         is_term = torch.ones_like(is_term)
 
     overlap = res.collide & valid
-    q64 = q_idx.to(torch.int64)
-    verdict.scatter_reduce_(0, q64, (overlap & is_term).to(verdict.dtype),
-                            "amax")
-    undecided = verdict[q64] == 0
+    verdict, undecided = fold_verdicts(verdict, q_idx.to(torch.int64),
+                                       overlap & is_term, owner, payload)
 
     # O(1) CSR expansion + stream compaction.
     occupied, offs = csr_child_slots(child_mask)                   # (cap, 8)

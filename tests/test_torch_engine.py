@@ -28,6 +28,7 @@ from repro_torch.core.geometry import OBBs
 from repro_torch.engine import plan as tplan
 from repro_torch.engine.executor import CollisionEngine, EngineConfig
 from repro_torch.kernels import _build
+from repro_torch.kernels.persist.ops import MAX_TILE_BQ
 
 # One intra-op thread: the suite runs several test processes at once.
 torch.set_num_threads(1)
@@ -183,10 +184,18 @@ def test_unported_modes_and_options_raise(scene):
         kind="edges", obb_c=plan.obb_c, obb_h=plan.obb_h, obb_r=plan.obb_r,
         out_shape=(plan.num_queries,),
         payload=torch.zeros(plan.num_queries, dtype=torch.int32))
-    for mode in (PERSIST,) + LEVEL_MODES:
+    # an owner group past the largest tile raises rather than falling back
+    # to a plain version; the per-level modes have no tiles and run it
+    n = MAX_TILE_BQ + 1
+    big = _torch_obbs([np.repeat(x[:1], n, 0) for x in arrays])
+    one_group = tplan.plan_edges(big, np.zeros(n, np.int32), 1)
+    with pytest.raises(NotImplementedError, match="B.2.5"):
+        CollisionEngine(ttree, EngineConfig(mode=PERSIST),
+                        device="cpu").execute(one_group)
+    for mode in LEVEL_MODES:
         eng = CollisionEngine(ttree, EngineConfig(mode=mode), device="cpu")
-        with pytest.raises(NotImplementedError, match="A.5.3"):
-            eng.execute(edges)
+        v, c = eng.execute(one_group)
+        assert v.shape == (1,) and c.ref_arm_fallbacks == 0
     with pytest.raises(ValueError, match="max_depth"):
         eng.execute(edges, max_depth=2)
     with pytest.raises(ValueError, match=">= 1"):
@@ -326,3 +335,97 @@ def test_core_wavefront_shim_reexports_engine(scene, mode):
     assert eng.device_tree.meta_format == eng.meta_format
     _assert_same(eng.query(_torch_obbs(arrays)),
                  _level_query(ttree, arrays, mode))
+
+
+def _grouped_lanes(Q, lanes, seed=6):
+    """Compact owner ids (groups of 1-14 slots, shuffled) and payloads in
+    [0, 8) for a pool of ``Q`` slots."""
+    rs = np.random.RandomState(seed)
+    sizes = []
+    while sum(sizes) < Q:
+        sizes.append(int(rs.randint(1, 15)))
+    sizes[-1] -= sum(sizes) - Q
+    own = np.repeat(np.arange(len(sizes)), sizes).astype(np.int32)
+    own = own[rs.permutation(Q)]
+    pay = rs.randint(0, 8, Q).astype(np.int32)
+    return ((own, len(sizes)) if "owner" in lanes else (None, Q),
+            pay if "payload" in lanes else None)
+
+
+def _grouped_plans(arrays, lanes):
+    (own, G), pay = _grouped_lanes(arrays[0].shape[0], lanes)
+    obbs = _torch_obbs(arrays)
+    jobbs = jgeo.OBBs(*map(jnp.asarray, arrays))
+    if own is not None:
+        return (tplan.plan_edges(obbs, own, G, payload=pay),
+                jplan.plan_edges(jobbs, own, G, payload=pay))
+    kw = dict(kind="edges", out_shape=(G,), payload=pay)
+    return (tplan.QueryPlan(obb_c=obbs.center, obb_h=obbs.half,
+                            obb_r=obbs.rot, **dict(
+                                kw, payload=torch.from_numpy(pay))),
+            jplan.QueryPlan(obb_c=jobbs.center, obb_h=jobbs.half,
+                            obb_r=jobbs.rot, **dict(
+                                kw, payload=jnp.asarray(pay))))
+
+
+def _jax_execute(tree, plan, mode, **cfg):
+    if mode == PERSIST:
+        cfg = dict(stream_meta=False, meta_format="fp32", **cfg)
+    else:
+        cfg = dict(PALLAS_ARMS[mode], **cfg)
+    with jax.disable_jit():
+        return jexe.CollisionEngine(
+            tree, jexe.EngineConfig(mode=mode, **cfg)).execute(plan)
+
+
+@pytest.mark.parametrize("lanes", ["owner", "owner+payload", "payload"])
+@pytest.mark.parametrize("mode", (PERSIST,) + LEVEL_MODES)
+def test_grouped_plans_match_reference(scene, mode, lanes):
+    """Owner and payload lanes in every device mode against the reference
+    engine (its tiled plain arm for the persistent mode, its Pallas arms
+    for the per-level ones): the per-group ``best`` words and every
+    counter; the persistent mode packs an owner-group tiled pool."""
+    tree, ttree, arrays = scene
+    plan, jplan_ = _grouped_plans(arrays, lanes)
+    got = CollisionEngine(ttree, EngineConfig(mode=mode),
+                          device="cpu").execute(plan)
+    want = _jax_execute(tree, jplan_, mode)
+    _assert_same(got, want)
+    v = got[0]
+    assert v.dtype == np.int32 and v.shape == (plan.groups,)
+    hit = v < tplan.PAYLOAD_INF
+    assert hit.any() and not hit.all()
+    assert got[1].ref_arm_fallbacks == 0
+
+
+def test_grouped_plan_matches_reference_kernel_arm(scene):
+    """The persistent mode's tiled pool against the reference's
+    interpreted megakernel on the same owner-group tiles."""
+    tree, ttree, arrays = scene
+    plan, jplan_ = _grouped_plans(arrays, "owner+payload")
+    got = CollisionEngine(ttree, EngineConfig(mode=PERSIST),
+                          device="cpu").execute(plan)
+    want = _jax_execute(tree, jplan_, PERSIST, use_pallas_traverse=True)
+    _assert_same(got, want)
+    assert want[1].ref_arm_fallbacks == 0
+
+
+def test_plan_edges_rejects_non_compact_owner_ids(scene):
+    _, _, arrays = scene
+    obbs = _torch_obbs(arrays)
+    jobbs = jgeo.OBBs(*map(jnp.asarray, arrays))
+    Q = obbs.n
+    for own, G in ((np.full(Q, 3, np.int32), 3), (np.full(Q, -1, np.int32), 2),
+                   (np.zeros(Q, np.int32), Q + 1)):
+        with pytest.raises(ValueError) as a:
+            tplan.plan_edges(obbs, own, G)
+        with pytest.raises(ValueError) as b:
+            jplan.plan_edges(jobbs, own, G)
+        assert str(a.value) == str(b.value)
+    plan = tplan.plan_edges(obbs, np.arange(Q, dtype=np.int32) // 7,
+                            -(-Q // 7))
+    assert plan.grouped and plan.owner_of_query.dtype == torch.int32
+    assert plan.shape_tag == (f"edges[Q={Q} S=1 G={-(-Q // 7)} "
+                              f"lanes=owner]")
+    from repro_torch import engine
+    assert engine.plan_edges is tplan.plan_edges

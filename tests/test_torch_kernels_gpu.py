@@ -24,8 +24,11 @@ import torch
 from repro_torch.configs.base import get_smoke_config
 from repro_torch.core.geometry import OBBs, rotation_from_euler
 from repro_torch.core.octree import build_octree, device_octree
-from repro_torch.core.pipeline import plan_with_collision_gate
+from repro_torch.core import sweep
+from repro_torch.core.pipeline import check_edges, plan_with_collision_gate
 from repro_torch.core.sact import PAYLOAD_INF
+from repro_torch.data.robotics import (PANDA_JOINT_HI, PANDA_JOINT_LO,
+                                       make_scene)
 from repro_torch.engine.executor import CollisionEngine, EngineConfig
 from repro_torch.kernels import _build
 from repro_torch.kernels.ballquery import ops as bq_ops
@@ -41,7 +44,8 @@ from repro_torch.kernels.fps.cases import tie_cloud
 from repro_torch.kernels.fps.ref import fps_ref
 from repro_torch.kernels.persist import ops as persist_ops
 from repro_torch.kernels.persist.cases import (grazing_pool, owner_group_pool,
-                                               skewed_pool)
+                                               skewed_pool, sweep_round_plans,
+                                               tiled_pool)
 from repro_torch.kernels.persist.ref import persist_tiles_ref
 from repro_torch.kernels.sact import ops as sact_ops
 from repro_torch.kernels.sact.cases import grazing_plane
@@ -186,6 +190,91 @@ def test_persist_kernel_shape_fits_the_card(cuda):
             torch.zeros(bq, dtype=torch.int32, device=cuda),
             torch.zeros(bq, dtype=torch.int32, device=cuda), bq=bq, fcap=8,
             depth=0, ring_cap=1, use_spheres=False)
+
+
+@pytest.mark.parametrize("bq", [256, 1024])
+@pytest.mark.parametrize("fcap", [48, 1 << 17])
+def test_persist_kernel_on_large_owner_tiles(cuda, bq, fcap):
+    """Owner-group tiles of 256 and 1024 slots (past 48 KB of shared
+    memory a CTA), groups of up to 64 slots whose lanes spread over the
+    cluster's ranks, with and without frontier overflow."""
+    tree, _ = _scene_and_queries(M=1)
+    dev = device_octree(tree, device=cuda)
+    ins = owner_group_pool(dev, bq, 3, seed=bq + fcap, max_group=64)
+    kw = dict(bq=bq, fcap=fcap, depth=tree.depth, ring_cap=1 << 16,
+              use_spheres=False)
+    got = persist_ops.persist_tiles(**ins, **kw)
+    want = persist_tiles_ref(**ins, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (int(got[3][:, 5].sum()) > 0) == (fcap == 48)
+    assert int((got[0] != PAYLOAD_INF).sum()) > 0
+
+
+def _ccd_scene():
+    sc = make_scene("cubby", num_points=3000)
+    return sc, build_octree(sc.points, depth=4)
+
+
+def _edge_batch(seed, E):
+    rs = np.random.RandomState(seed)
+    qf = rs.uniform(PANDA_JOINT_LO, PANDA_JOINT_HI, (E, 7)).astype(np.float32)
+    qt = np.clip(qf + rs.uniform(-0.35, 0.35, (E, 7)).astype(np.float32),
+                 PANDA_JOINT_LO, PANDA_JOINT_HI)
+    return qf, qt
+
+
+def test_persist_kernel_on_a_sweep_round_tile_map(cuda):
+    """Every tiled pool a real sweep sends the persistent engine (whole
+    owner groups a tile, pads at each tile's tail, real payloads), on the
+    kernel and on its plain version."""
+    sc, tree = _ccd_scene()
+    qf, qt = _edge_batch(2, 8)
+    eng = CollisionEngine(tree, EngineConfig(mode="wavefront_persistent"),
+                          device="cpu")
+    plans = sweep_round_plans(eng, qf, qt, 8, base_pos=sc.robot_base)
+    dev = device_octree(tree, device=cuda)
+    assert any(p.payload is not None for p in plans)
+    for plan in plans:
+        if plan.owner_of_query is None:
+            continue
+        ins, bq = tiled_pool(dev, plan)
+        kw = dict(bq=bq, fcap=1024, depth=tree.depth, ring_cap=256,
+                  use_spheres=False)
+        got = persist_ops.persist_tiles(**ins, **kw)
+        want = persist_tiles_ref(**ins, **kw)
+        for g, w in zip(got[:4], want[:4]):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("mode", ["wavefront_persistent", "wavefront",
+                                  "wavefront_fused"])
+def test_cuda_check_edges_matches_cpu(cuda, mode, monkeypatch):
+    """``check_edges`` on the card equals the same engine on the CPU: first
+    hits, verdicts and every counter.  FK runs on the card once; the CPU
+    sweep takes the card's FK arrays (cuBLAS and the CPU sum the 4 x 4
+    products differently in the last bits)."""
+    sc, tree = _ccd_scene()
+    qf, qt = _edge_batch(1, 8)
+    kw = dict(resolution=8, base_pos=sc.robot_base)
+    want_kernel = {"wavefront_persistent": "persist", "wavefront": "compact",
+                   "wavefront_fused": "traverse"}[mode]
+    before = _build.launch_counts()[want_kernel]
+    got = check_edges(CollisionEngine(tree, EngineConfig(mode=mode),
+                                      device=cuda), qf, qt, **kw)
+    assert _build.launch_counts()[want_kernel] > before
+    geo = sweep.edge_link_geometry(qf, qt, 8, base_pos=sc.robot_base,
+                                   device=cuda)
+    monkeypatch.setattr(sweep, "edge_link_geometry", lambda *a, **k: geo)
+    want = check_edges(CollisionEngine(tree, EngineConfig(mode=mode),
+                                       device="cpu"), qf, qt, **kw)
+    assert np.array_equal(got.first_hit, want.first_hit)
+    assert np.array_equal(got.collide, want.collide)
+    a, b = got.counters.as_dict(), want.counters.as_dict()
+    for k in a:
+        if k != "wall_time_s":
+            assert a[k] == b[k], k
+    assert got.counters.ref_arm_fallbacks == 0
 
 
 def test_cuda_engine_matches_cpu_engine(cuda):

@@ -189,9 +189,15 @@ def test_traverse_whole_unported_options_raise():
     dev = device_octree(tree, device="cpu")
     x = torch.zeros(4, 3)
     r = torch.eye(3).expand(4, 3, 3)
-    with pytest.raises(NotImplementedError, match="A.5.3"):
-        ops.traverse_whole(x, x + 1, r, dev, 64, use_spheres=False,
-                           payload=torch.zeros(4, dtype=torch.int32))
+    # an owner group past the largest tile: the reference's plain arm,
+    # which the port does not fall back to
+    n = ops.MAX_TILE_BQ + 1
+    xn = torch.zeros(n, 3)
+    with pytest.raises(NotImplementedError, match="B.2.5") as err:
+        ops.tile_pool(xn, xn + 1, torch.eye(3).expand(n, 3, 3),
+                      torch.zeros(n, dtype=torch.int32))
+    assert jops.persist_kernel_unsupported(np.zeros(n, np.int32)) \
+        in str(err.value)
     with pytest.raises(NotImplementedError, match="A.5.6"):
         ops.traverse_whole(x, x + 1, r, dev, 64, use_spheres=False,
                            scene_of_query=torch.zeros(4, dtype=torch.int32))
@@ -202,3 +208,102 @@ def test_traverse_whole_unported_options_raise():
     with pytest.raises(NotImplementedError, match="A.5.5"):
         ops.traverse_whole(x, x + 1, r, bf16, 64, use_spheres=False,
                            streamed=False)
+
+
+def _owner_lanes(seed, sizes):
+    """Compact owner ids of groups of the given sizes, in a shuffled slot
+    order (the front ends emit sorted pools; the map must not rely on
+    it)."""
+    rs = np.random.RandomState(seed)
+    own = np.repeat(np.arange(len(sizes)), sizes).astype(np.int32)
+    return own[rs.permutation(own.size)]
+
+
+@pytest.mark.parametrize("case", ["sweep", "past128", "past512", "empty",
+                                  "identity", "bq16"])
+def test_build_tile_map_matches_reference(case):
+    """Every field of the tile map equals the reference's: groups of 1-14
+    slots (a sweep round's), one past 128 and one past 512 slots (bq
+    grows to the next power of two), an empty pool, the identity owner
+    lane, and a small starting bq."""
+    rs = np.random.RandomState(7)
+    bq = 16 if case == "bq16" else 128
+    if case == "empty":
+        own = np.zeros(0, np.int32)
+    elif case == "identity":
+        own = None
+    else:
+        sizes = list(rs.randint(1, 15, 60))
+        if case == "past128":
+            sizes[17] = 130
+        elif case == "past512":
+            sizes[3] = 600
+        own = _owner_lanes(5, sizes)
+    Q = 300 if own is None else own.size
+    got = ops.build_tile_map(Q, bq, own)
+    want = jops.build_tile_map(Q, bq, None, own)
+    assert got.bq == want.bq and got.num_tiles == want.num_tiles
+    assert np.array_equal(got.perm, want.perm)
+    # each query sits at the reference's slot
+    slot = np.asarray(want.tiles.slot_of_query)
+    assert np.array_equal(got.perm[slot], np.arange(Q))
+    for name in ops.Tiling._fields:
+        g, w = getattr(got.tiles, name), np.asarray(getattr(want.tiles, name))
+        assert g.dtype == w.dtype and np.array_equal(g, w), name
+    assert ops.persist_kernel_unsupported(own) \
+        == jops.persist_kernel_unsupported(own) is None
+    if case == "past512":
+        assert got.bq == 1024
+    if own is not None and own.size:
+        # pads at each tile's tail, every group whole in one tile
+        ol = got.tiles.owner_local.reshape(got.num_tiles, got.bq)
+        live = ol >= 0
+        assert (live[:, :-1] | ~live[:, 1:]).all()
+        assert (slot // got.bq == got.tiles.group_slot[own] // got.bq).all()
+
+
+def test_tile_map_past_the_largest_tile_raises_like_reference():
+    own = _owner_lanes(3, [4, 1025, 9])
+    reason = ops.persist_kernel_unsupported(own)
+    assert reason == jops.persist_kernel_unsupported(own) is not None
+    with pytest.raises(ValueError) as a:
+        ops.build_tile_map(own.size, 128, own)
+    with pytest.raises(ValueError) as b:
+        jops.build_tile_map(own.size, 128, None, own)
+    assert str(a.value) == str(b.value)
+
+
+def test_tiled_pool_of_a_sweep_round_matches_the_engine():
+    """``cases.tiled_pool`` packs a recorded sweep round as the engine
+    does: the plain version's per-slot words, read at each group's fold
+    slot, are the engine's verdicts for that round, and pads lie at each
+    tile's tail."""
+    from repro_torch.core.pipeline import check_edges
+    from repro_torch.data.robotics import (PANDA_JOINT_HI, PANDA_JOINT_LO,
+                                           make_scene)
+    from repro_torch.engine.executor import CollisionEngine, EngineConfig
+    sc = make_scene("cubby", num_points=3000)
+    tree = build_octree(sc.points, depth=DEPTH)
+    dev = device_octree(tree, device="cpu")
+    rs = np.random.RandomState(2)
+    qf = rs.uniform(PANDA_JOINT_LO, PANDA_JOINT_HI, (8, 7)).astype(np.float32)
+    qt = np.clip(qf + rs.uniform(-0.35, 0.35, (8, 7)).astype(np.float32),
+                 PANDA_JOINT_LO, PANDA_JOINT_HI)
+    eng = CollisionEngine(tree, EngineConfig(mode="wavefront_persistent"),
+                          device="cpu")
+    plans = cases.sweep_round_plans(eng, qf, qt, 8, base_pos=sc.robot_base)
+    assert "execute" not in vars(eng)
+    want = check_edges(eng, qf, qt, 8, base_pos=sc.robot_base)
+    assert plans[0].shape_tag == "edges[Q=56 S=1 G=8 lanes=owner]"
+    assert any(p.payload is not None for p in plans) == want.collide.any()
+    for plan in plans:
+        ins, bq = cases.tiled_pool(dev, plan)
+        own = ins["owner"].reshape(-1, bq)
+        assert bool(((own[:, 1:] < 0) | (own[:, :-1] >= 0)).all())
+        best = persist_tiles_ref(**ins, bq=bq, fcap=4096, depth=DEPTH,
+                                 ring_cap=64, use_spheres=False)[0]
+        tm = ops.build_tile_map(plan.num_queries, ops.DEFAULT_BQ,
+                                plan.owner_of_query.numpy())
+        gs = torch.from_numpy(tm.tiles.group_slot[:plan.groups]).long()
+        v, _ = eng.execute(plan)
+        assert np.array_equal(best.reshape(-1)[gs].numpy(), v)

@@ -271,14 +271,6 @@ def test_plan_with_collision_gate_end_to_end(planners, scene):
     assert np.array_equal(runs[0].trajectory, runs[1].trajectory)
 
 
-def test_check_edges_is_not_ported(scene):
-    _, _, ttree = scene
-    engine = CollisionEngine(ttree, EngineConfig(mode=PERSIST), device="cpu")
-    q = np.zeros((2, 7), np.float32)
-    with pytest.raises(NotImplementedError, match="A.5.3"):
-        tpipe.check_edges(engine, q, q)
-
-
 def test_unknown_sampling_raises(planners, clouds):
     _, port = planners
     with pytest.raises(ValueError, match="sampling"):

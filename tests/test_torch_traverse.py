@@ -31,6 +31,7 @@ from repro.kernels.traverse import ref as jref
 from repro_torch.convert import octree_from_reference
 from repro_torch.core import octree as toct
 from repro_torch.core.geometry import rotation_from_euler
+from repro_torch.core import sact as ops_sact
 from repro_torch.core.sact import SactResult
 from repro_torch.kernels import _build
 from repro_torch.kernels.sact.ops import pack_obbs
@@ -359,11 +360,15 @@ def test_traverse_cpu_launches_no_kernel_and_validates(scene):
     with pytest.raises(ValueError, match="shapes"):
         ops.traverse_test(f["obb"], f["q_idx"], f["codes"][:-1], f["full"],
                           torch.tensor(10), **kw)
-    with pytest.raises(NotImplementedError, match="A.5.3"):
-        ops.traverse_step(f["obb"], dev, 0, torch.tensor(1),
-                          f["q_idx"], f["q_idx"], torch.zeros(16),
-                          use_spheres=False,
-                          payload=torch.zeros(16, dtype=torch.int32))
+    # a grouped step (payload lane) on CPU tensors launches nothing either
+    m = f["obb"].shape[0]
+    best = torch.full((m,), ops_sact.PAYLOAD_INF, dtype=torch.int32)
+    cap = f["q_idx"].shape[0]
+    ops.traverse_step(f["obb"], dev, 0, torch.tensor(1, dtype=torch.int32),
+                      f["q_idx"], torch.zeros(cap, dtype=torch.int32), best,
+                      use_spheres=False,
+                      payload=torch.zeros(m, dtype=torch.int32))
+    assert _build.launch_counts() == before
 
 
 @pytest.mark.parametrize("n_live", [0, 1, 13, 64])
@@ -385,3 +390,53 @@ def test_traverse_cpu_takes_strided_lanes_and_any_live_prefix(scene, n_live):
     got = ops.traverse_test(f["obb"], *strided, n, **kw)
     assert torch.equal(got, want)
     assert not got[n_live:].any()
+
+
+@pytest.mark.parametrize("level", [2, 4])
+@pytest.mark.parametrize("lanes", ["owner", "owner+payload", "payload"])
+def test_traverse_step_grouped_matches_reference(scene, lanes, level):
+    """One fused level with owner and payload lanes against the reference
+    step (its Pallas test and compaction): the gate ``payload <
+    best[owner]`` that retires the lanes of decided groups (mid-tree) and
+    the payload fold into the groups' ``best`` cells (the leaf level)."""
+    tree, ttree = scene
+    capacity, n_live, M = 256, 200, 48
+    boxes, q, idx, _ = _frontier(tree, level, capacity, n_live, M, seed=9)
+    rs = np.random.RandomState(4)
+    G = 12
+    owner = (rs.randint(0, G, M).astype(np.int32)
+             if "owner" in lanes else None)
+    payload = (rs.randint(0, 5, M).astype(np.int32)
+               if "payload" in lanes else None)
+    best = np.full(M, ops_sact.PAYLOAD_INF, np.int32)
+    if level < ttree.depth:   # some groups decided: the gate retires lanes
+        best[rs.rand(M) < 0.2] = 2
+    dev = toct.device_octree(ttree, device="cpu")
+    jdev = joct.device_octree(tree)
+
+    def t(x):
+        return None if x is None else torch.from_numpy(x)
+
+    cnt, q_next, idx_next, tv, info = ops.traverse_step(
+        pack_obbs(*map(torch.from_numpy, boxes)), dev, level,
+        torch.tensor(n_live, dtype=torch.int32), torch.from_numpy(q),
+        torch.from_numpy(idx), torch.from_numpy(best.copy()),
+        use_spheres=False, owner=t(owner), payload=t(payload))
+    with jax.disable_jit():
+        jcnt, jq, jidx, jv, jinfo = jops.traverse_step(
+            *map(jnp.asarray, boxes), jdev, level, jnp.int32(n_live),
+            jnp.asarray(q), jnp.asarray(idx), jnp.asarray(best),
+            use_spheres=False, use_pallas=True, use_pallas_compact=True,
+            interpret=True,
+            owner=None if owner is None else jnp.asarray(owner),
+            payload=None if payload is None else jnp.asarray(payload))
+    k = int(jcnt)
+    assert int(cnt) == k and int(info["n_new"]) == int(jinfo["n_new"])
+    assert np.array_equal(q_next.numpy()[:k], np.asarray(jq)[:k])
+    assert np.array_equal(idx_next.numpy()[:k], np.asarray(jidx)[:k])
+    assert np.array_equal(tv.numpy(), np.asarray(jv))
+    assert tv.dtype == torch.int32
+    if level == ttree.depth:
+        assert (tv.numpy() != best).any()
+    else:
+        assert k > 0
