@@ -152,17 +152,41 @@ non-zero and prints no result):
    beside the dense check's, a warm sweep's host time split into FK,
    swept fits and engine calls, a traced sweep's busy share, the
    ``persist`` calls timed and the largest alone by ``torch.profiler``,
-   peak memory;
-22. one JSON line listing every kernel with its launches on the main paths
-   (``launches``, phases 8, 13, 17, 20 and 21) and elsewhere
+   peak memory; then ``fig_edges``' no-exit baseline, ``check_edges`` on a
+   ``staged_noexit`` engine (boolean rounds reduced on the host, only
+   ``compact`` launched), held against the CPU sweep on the card's FK
+   arrays and against the exit arm's first hits, with ``fig_edges``' node
+   ratio, no exit over exit;
+22. the Fig. 11 ablation arms at paper scale (``benchmarks/run.py::
+   fig11``): ``naive``, ``rta_like``, ``staged_noexit``, ``predicated`` and
+   ``wavefront_host`` on the card for each phase-5 scene, launch counts
+   set to 0 just before each query and read just after (``naive``: one
+   ``sact_dense`` a block of ``query_block`` OBBs; the host arms: one
+   ``compact`` a level after the first; nothing else); every arm's
+   verdicts equal to phase 8's card ``wavefront``, ``wavefront_host`` and
+   ``predicated`` equal to it on every work counter, ``rta_like`` equal to
+   ``staged_noexit`` but for its shader calls and their bytes,
+   ``staged_noexit`` visiting at least ``wavefront``'s nodes, ``naive``'s
+   counters in their closed form (its exit histogram sums to queries x
+   leaves); on cubby the card against the CPU engine, every counter, for
+   each host arm on the whole query and for ``naive`` on its first and
+   last 128 OBBs; per arm the fields Fig. 11's cycle model reads, warm
+   walls (median of 5) beside phase 8's, peak memory, and any frontier
+   overflow; one traced warm ``wavefront_host`` and ``naive`` query each,
+   the busy share and the largest device items; and
+   ``sact_dense`` at ``naive``'s block shape (128 OBBs x the leaves), the
+   call and the kernel alone, against its bound and plain version;
+23. one JSON line listing every kernel with its launches on the main paths
+   (``launches``, phases 8, 13, 17, 20, 21 and 22) and elsewhere
    (``check_launches``), error, times (for ``persist``, ``sact_dense``,
    ``fps`` and ``ballquery`` also ``kernel_ms``, the kernel alone by
-   ``torch.profiler``; for ``ballquery`` also ``single_plan``, the single
-   plan's three layers) and bound; the
+   ``torch.profiler``; ``sact_dense``'s at ``naive``'s block shape, with
+   phase 10's plane as ``plane_*``; for ``ballquery`` also
+   ``single_plan``, the single plan's three layers) and bound; the
    last line is
    ``{"ok": true, "device": {...}}``.
 
-Each phase from 15 on prints its seconds.
+Each phase prints its seconds.
 
 It imports nothing of the JAX package.
 """
@@ -382,6 +406,9 @@ def main() -> int:
         raise SystemExit(f"FAIL: no repro_torch package under {src}")
     sys.path.insert(0, str(src))
     import numpy as np
+    from repro_torch.core.counters import (BYTES_SHADER_HANDOFF,
+                                           BYTES_UNFUSED_TEST)
+    from repro_torch.core.geometry import OBBs
     from repro_torch.core.octree import build_octree, device_octree
     from repro_torch.core import sweep as sweep_mod
     from repro_torch.core.pipeline import (check_edges, check_trajectories,
@@ -429,6 +456,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cuda = torch.device("cuda", 0)
+    clock = [t_start]
+
+    def lap() -> float:
+        """Seconds since the last lap: each phase's own."""
+        now = time.perf_counter()
+        secs, clock[0] = now - clock[0], now
+        return secs
 
     # ---- 1. the card ----------------------------------------------------
     smi = subprocess.run(
@@ -443,6 +477,8 @@ def main() -> int:
     print(card, flush=True)
     log("1 card", f"{card} | torch: {kind} x{n_dev} | torch "
         f"{torch.__version__} cuda {torch.version.cuda}")
+
+    log("1 card", f"phase {lap():.1f} s")
 
     # ---- 2. build ---------------------------------------------------------
     secs = _build.build_all(verbose=True)
@@ -482,6 +518,8 @@ def main() -> int:
             f"clusters at once")
     log("2 build", f"spill stores over every kernel: {spills} bytes")
 
+    log("2 build", f"phase {lap():.1f} s")
+
     # ---- 3. sact_dense vs plain on grazing planes -----------------------
     # Launches made to compare a kernel with its plain version are counted
     # apart from the main path's.
@@ -514,6 +552,8 @@ def main() -> int:
     log("3 sact_dense", f"kernel == plain on 2 x 2048x2048 grazing planes "
         f"(all 18 exit codes, both sphere settings) in every stage mode "
         f"{sorted(sact_ops.STAGE_MODES)} (shipped: {sact_ops.STAGE_MODE})")
+
+    log("3 sact_dense", f"phase {lap():.1f} s")
 
     # ---- 4. persist vs persist_tiles_ref ----------------------------------
     small = make_scene("cubby", num_points=16384)
@@ -604,6 +644,8 @@ def main() -> int:
         raise SystemExit("FAIL: no spilled ring was compared")
     add_check_launches()
 
+    log("4 persist", f"phase {lap():.1f} s")
+
     # ---- 5. paper-scale scenes --------------------------------------------
     scenes, scene_objs = {}, {}
     for env in args.envs.split(","):
@@ -618,6 +660,8 @@ def main() -> int:
     tree0, obbs0, _ = scenes[env0]
     dev0 = device_octree(tree0, device=cuda)
     obb0 = sact_ops.pack_obbs(obbs0.center, obbs0.half, obbs0.rot).to(cuda)
+
+    log("5 scenes", f"phase {lap():.1f} s")
 
     # ---- 6. traverse vs traverse_test_ref ----------------------------------
     errs = {"traverse": 0, "compact": 0}
@@ -671,6 +715,8 @@ def main() -> int:
     if seen != set(range(18)):
         raise SystemExit(f"FAIL: traverse checks saw exit codes {sorted(seen)}")
 
+    log("6 traverse", f"phase {lap():.1f} s")
+
     # ---- 7. compact vs compact_ref -----------------------------------------
     n = 8 * 65536 + 77
     for density, n_out in ((0.0, n), (1e-3, n), (0.5, n), (1.0, n),
@@ -693,10 +739,15 @@ def main() -> int:
             f"on every row")
     add_check_launches()
 
+    log("7 compact", f"phase {lap():.1f} s")
+
     # ---- 8. main paths at paper scale --------------------------------------
     main_launches = {name: 0 for name in _build.SOURCES}
     persist_line = timing_inputs = None
     persist_runs = []   # each environment's inputs, timed alone in phase 9
+    # per environment and mode: the card's verdicts, counters and warm
+    # wall, which phase 22 holds the ablation arms against
+    p8 = {env: {} for env in scenes}
     paths = [("wavefront_persistent", None), ("wavefront", None),
              ("wavefront_fused", None), ("wavefront_fused", "u8")]
     for env, (tree, obbs, _) in scenes.items():
@@ -758,6 +809,7 @@ def main() -> int:
             for _ in range(10):
                 _, cw = eng.query(obbs)
                 walls.append(cw.wall_time_s)
+            p8[env][tag] = (v1, a, statistics.median(walls))
             kernel_note = ""
             if mode != "wavefront_persistent":
                 with Recorder({"traverse": (traverse_ops, "traverse_test"),
@@ -834,6 +886,8 @@ def main() -> int:
                 f"median {1e3 * statistics.median(walls):.3f} ms"
                 f"{kernel_note} | peak mem {peak / 2**20:.1f} MiB | cpu "
                 f"engine {t_cpu:.1f} s | {card}")
+
+    log("8 main", f"phase {lap():.1f} s")
 
     # ---- 9. traverse and compact at main-path shapes -----------------------
     lines = [persist_line]
@@ -923,6 +977,8 @@ def main() -> int:
         f"{card}")
     add_check_launches()
 
+    log("9 timing", f"phase {lap():.1f} s")
+
     # ---- 10. sact_dense timed at main-path widths -------------------------
     aabbs = tree0.node_aabbs(lvl)
     N = min(aabbs.n, 4096)
@@ -960,8 +1016,10 @@ def main() -> int:
         f"(torch.profiler, {s_device_ms / bms:.2f}x the bound), plain on "
         f"card {plain_ms:.3f} ms, bound {bms:.5f} ms ({by}); exit codes "
         f"{hist.tolist()}: {100 * slots[0]:.2f} % of warp slots run the "
-        f"OBB's faces, {100 * slots[1]:.2f} % the edges; not on the main "
-        f"paths | {card}")
+        f"OBB's faces, {100 * slots[1]:.2f} % the edges; the main path's "
+        f"shape (the naive arm's blocks): phase 22 | {card}")
+
+    log("10 sact_dense", f"phase {lap():.1f} s")
 
     # ---- 11. fps vs plain ---------------------------------------------------
     g = torch.Generator().manual_seed(41)
@@ -1014,6 +1072,8 @@ def main() -> int:
     errs["fps"] = 0
     add_check_launches()
 
+    log("11 fps", f"phase {lap():.1f} s")
+
     # ---- 12. ballquery vs plain ---------------------------------------------
     bq_cases = []
     for name, half in (("sa1 sparse", 0.5), ("sa1 saturated", 0.1)):
@@ -1050,6 +1110,8 @@ def main() -> int:
             f"full, mean count {float(cnt.float().mean()):.2f}")
     errs["ballquery"] = 0
     add_check_launches()
+
+    log("12 ballquery", f"phase {lap():.1f} s")
 
     # ---- 13. the neural-planner path (Fig. 18) ------------------------------
     if "tabletop" in scenes:
@@ -1260,6 +1322,8 @@ def main() -> int:
         f"{B * 21} waypoints collide; sampling and grouping indices "
         f"cuda==cpu | {card}")
 
+    log("13 planner", f"phase {lap():.1f} s")
+
     # ---- 14. fps and ballquery timed at the sa1 shapes ----------------------
     _, fa, fk = rec_b.calls["fps"][0]
     pts_b, m_b = fa[0], fa[1]
@@ -1357,15 +1421,9 @@ def main() -> int:
         f"card {plain_ms_fps:.3f} ms, bound {f_bms:.5f} ms ({f_by}) | {card}")
     add_check_launches()
 
+    log("14 timing", f"phase {lap():.1f} s")
+
     # ---- 15. wkv6 vs plain on the hard cases -------------------------------
-    clock = [time.perf_counter()]
-
-    def lap() -> float:
-        """Seconds since the last lap (phases 15-17 together, then each)."""
-        now = time.perf_counter()
-        secs, clock[0] = now - clock[0], now
-        return secs
-
     n_cases = 0
     for case in hard_cases() + edge_cases():
         for dtype in (torch.float32, torch.bfloat16):
@@ -1389,6 +1447,8 @@ def main() -> int:
         "(T 1/33/1024 at D 16/64; the chunk edges T 31/32/33/64/65 at D "
         "16/32/33/64/128; T 1/1024 at D 32/128; ordinary/strong/weak decay, "
         "per-row and shared u, fp32 and bf16)")
+
+    log("15 wkv6", f"phase {lap():.1f} s")
 
     # ---- 16. the RWKV-6 model, 2 layers at full width, fp32, card vs CPU --
     cfg_full = get_config("rwkv6_1_6b")
@@ -1435,6 +1495,8 @@ def main() -> int:
         f"teacher-forced steps: card == CPU within {LM_FP32_TOL}; max err "
         + ", ".join(f"{k} {v:.3g}" for k, v in lm_err.items())
         + f" | weights drawn on the CPU in {t_init:.1f} s | {card}")
+
+    log("16 rwkv6 fp32", f"phase {lap():.1f} s")
 
     # ---- 17. RWKV-6 1.6B serving at full width ----------------------------
     torch.cuda.synchronize()
@@ -1622,7 +1684,7 @@ def main() -> int:
         + "; ".join(f"{e.key[:48]} {device_us(e) / 1e3:.3f} ms x{e.count}"
                     for e in top) + f" | {card}")
     del lm, rec_w, calls
-    log("17 rwkv6 serve", f"phases 15-17 took {lap():.1f} s")
+    log("17 rwkv6 serve", f"phase {lap():.1f} s")
 
     # ---- 18. flash_attention vs plain on the hard cases --------------------
     n_cases = 0
@@ -1887,7 +1949,6 @@ def main() -> int:
     del glm, rec_f, calls, q, k, v, res
 
     # ---- 21. swept-edge CCD at fig_edges' full scale -------------------------
-    t_ccd = time.perf_counter()
     if "cubby" in scenes:
         ctree, csc = scenes["cubby"][0], scene_objs["cubby"]
     else:
@@ -2099,6 +2160,61 @@ def main() -> int:
             f"{1e3 * statistics.median(dwalls):.3f} ms{note} | peak mem "
             f"{peak / 2**20:.1f} MiB | {card}")
     add_check_launches()
+    # fig_edges' no-exit baseline: a staged_noexit engine, whose rounds take
+    # boolean plans and reduce on the host (no owner or payload lanes)
+    cfg = EngineConfig(mode="staged_noexit")
+    eng = CollisionEngine(ctree, cfg, device="cuda")
+    calls = rounds_of(eng)
+    torch.cuda.synchronize()
+    res_nx = check_edges(eng, qf, qt, **ccd_kw)
+    counts = _build.launch_counts()
+    _build.reset_launch_counts()
+    del eng.execute
+    for name, k in counts.items():
+        main_launches[name] += k
+        if (k > 0) != (name == "compact"):
+            raise SystemExit(f"FAIL: CCD staged_noexit: {name} launched {k} "
+                             f"times on the main path")
+    if any(plan.grouped for plan, _ in calls):
+        raise SystemExit("FAIL: CCD staged_noexit: a round took owner or "
+                         "payload lanes")
+    sweep_mod.edge_link_geometry = lambda *a, **k: card_geo
+    try:
+        t0 = time.perf_counter()
+        cres = check_edges(CollisionEngine(ctree, cfg, device="cpu"), qf, qt,
+                           **ccd_kw)
+        t_cpu = time.perf_counter() - t0
+    finally:
+        sweep_mod.edge_link_geometry = fk_geo
+    if not (np.array_equal(res_nx.first_hit, cres.first_hit)
+            and np.array_equal(res_nx.collide, cres.collide)):
+        raise SystemExit("FAIL: CCD staged_noexit: card verdicts differ from "
+                         "the CPU engine's")
+    a, b = res_nx.counters.as_dict(), cres.counters.as_dict()
+    for k in a:
+        if k != "wall_time_s" and a[k] != b[k]:
+            raise SystemExit(f"FAIL: CCD staged_noexit: counter {k} differs: "
+                             f"cuda {a[k]} vs cpu {b[k]}")
+    if not (np.array_equal(res_nx.first_hit, ccd_ref.first_hit)
+            and np.array_equal(res_nx.collide, ccd_ref.collide)):
+        raise SystemExit("FAIL: CCD staged_noexit: first hits differ from the "
+                         "exit arm's")
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        check_edges(eng, qf, qt, **ccd_kw)
+        walls.append(time.perf_counter() - t0)
+    add_check_launches()
+    cx, cs = res_nx.counters, ccd_ref.counters
+    log("21 ccd", f"staged_noexit (fig_edges' no-exit baseline): {len(calls)} "
+        f"engine calls, boolean plans | main-path launches {counts} | cuda == "
+        f"cpu first hits, verdicts, counters (cpu engine {t_cpu:.1f} s), first "
+        f"hits == the exit arm's | nodes {cx.nodes_traversed}, "
+        f"wavefront_persistent {cs.nodes_traversed}: no exit / exit "
+        f"{cx.nodes_traversed / max(cs.nodes_traversed, 1):.3f}x (fig_edges' "
+        f"exit_ratio), frontier_overflow {cx.frontier_overflow} | warm wall "
+        f"median of 3 {1e3 * statistics.median(walls):.3f} ms | {card}")
     p_calls, p_ms = ccd_persist["calls"], ccd_persist["ms"]
     big = max(range(len(p_calls)),
               key=lambda i: p_calls[i][2]["obb"].shape[0])
@@ -2110,12 +2226,194 @@ def main() -> int:
     persist_line["ccd_kernel_ms"] = big_ms
     log("21 ccd", f"persist alone (torch.profiler) on the sweep's widest "
         f"pool: {big_ms:.5f} ms, its call {p_ms[big]:.4f} ms | phase "
-        f"{time.perf_counter() - t_ccd:.1f} s | {card}")
+        f"{lap():.1f} s | {card}")
 
-    # ---- 22. result -------------------------------------------------------
-    # launches on every main path (phases 8, 13, 17, 20 and 21) and in the
-    # checks
-    log("22 result", f"whole script {time.perf_counter() - t_start:.1f} s")
+    # ---- 22. the Fig. 11 arms at paper scale ------------------------------
+    f11_modes = ("naive", "rta_like", "staged_noexit", "predicated",
+                 "wavefront_host")
+    f11_env = "cubby" if "cubby" in scenes else env0
+    block = EngineConfig().query_block
+    device_modes = ("wavefront_persistent", "wavefront", "wavefront_fused")
+    add_check_launches()
+    for env, (tree, obbs, _) in scenes.items():
+        v_wf, c_wf, _ = p8[env]["wavefront"]
+        Q, n_tests = obbs.n, obbs.n * tree.num_leaves
+        walls8 = ", ".join(f"{m} {1e3 * p8[env][m][2]:.3f}"
+                           for m in device_modes)
+        runs = {}
+        for mode in f11_modes:
+            cfg = EngineConfig(mode=mode)
+            eng = CollisionEngine(tree, cfg, device="cuda")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launch_counts()
+            v1, c1 = eng.query(obbs)
+            counts = _build.launch_counts()
+            _build.reset_launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            for name, k in counts.items():
+                main_launches[name] += k
+            # naive: one sact_dense a block of OBBs; the host arms: one
+            # compact a level after the first
+            want = ({"sact_dense": -(-Q // block)} if mode == "naive"
+                    else {"compact": len(c1.nodes_per_level) - 1})
+            for name, k in counts.items():
+                if k != want.get(name, 0):
+                    raise SystemExit(f"FAIL: {env} {mode}: {name} launched "
+                                     f"{k} times on the main path, want "
+                                     f"{want.get(name, 0)}")
+            if not np.array_equal(v1, v_wf):
+                raise SystemExit(f"FAIL: {env} {mode}: verdicts differ from "
+                                 f"the card's wavefront (phase 8)")
+            walls = [eng.query(obbs)[1].wall_time_s for _ in range(5)]
+            add_check_launches()
+            runs[mode] = (c1, statistics.median(walls), counts, peak)
+        c = {m: r[0] for m, r in runs.items()}
+        # the reference's identities between the modes
+        for mode in ("wavefront_host", "predicated"):
+            a = c[mode].as_dict()
+            for k in a:
+                if k not in ("wall_time_s", "escalations") \
+                        and a[k] != c_wf[k]:
+                    raise SystemExit(f"FAIL: {env} {mode}: counter {k} "
+                                     f"differs from the card's wavefront: "
+                                     f"{a[k]} vs {c_wf[k]}")
+        a, b = c["rta_like"].as_dict(), c["staged_noexit"].as_dict()
+        for k in a:
+            if k not in ("wall_time_s", "shader_invocations", "bytes_moved") \
+                    and a[k] != b[k]:
+                raise SystemExit(f"FAIL: {env}: rta_like counter {k} differs "
+                                 f"from staged_noexit: {a[k]} vs {b[k]}")
+        if a["bytes_moved"] != b["bytes_moved"] \
+                + BYTES_SHADER_HANDOFF * a["shader_invocations"] \
+                or a["shader_invocations"] <= 0:
+            raise SystemExit(f"FAIL: {env}: rta_like's shader calls and bytes")
+        if b["nodes_traversed"] < c_wf["nodes_traversed"]:
+            raise SystemExit(f"FAIL: {env}: staged_noexit visits fewer nodes "
+                             f"than wavefront")
+        cn = c["naive"]
+        closed = dict(nodes_traversed=n_tests, leaf_tests=n_tests,
+                      axis_tests_executed=15 * n_tests,
+                      axis_tests_decoded=15 * n_tests,
+                      bytes_moved=BYTES_UNFUSED_TEST * n_tests, sphere_tests=0,
+                      frontier_overflow=0, shader_invocations=0, escalations=0)
+        bad = {k: getattr(cn, k) for k, v in closed.items()
+               if getattr(cn, k) != v}
+        if bad or cn.nodes_per_level or int(cn.exit_histogram.sum()) != n_tests:
+            raise SystemExit(f"FAIL: {env} naive: counters {bad} or the exit "
+                             f"histogram ({int(cn.exit_histogram.sum())}) "
+                             f"break the closed form for {n_tests} pairs")
+        # the card against the CPU: each host arm, and naive on a block
+        cpu_note = {}
+        if env == f11_env:
+            for mode in f11_modes[1:]:
+                t0 = time.perf_counter()
+                vc, cc = CollisionEngine(tree, EngineConfig(mode=mode),
+                                         device="cpu").query(obbs)
+                t_cpu = time.perf_counter() - t0
+                a, b = c[mode].as_dict(), cc.as_dict()
+                diff = [k for k in a if k != "wall_time_s" and a[k] != b[k]]
+                if diff or not np.array_equal(vc, v_wf):
+                    raise SystemExit(f"FAIL: {env} {mode}: card differs from "
+                                     f"the CPU engine in {diff or 'verdicts'}")
+                cpu_note[mode] = f"cuda == cpu (cpu engine {t_cpu:.1f} s)"
+            notes = []
+            for lo in (0, Q - block):
+                sub = OBBs(obbs.center[lo:lo + block],
+                           obbs.half[lo:lo + block], obbs.rot[lo:lo + block])
+                cfg = EngineConfig(mode="naive")
+                vg, cg = CollisionEngine(tree, cfg, device="cuda").query(sub)
+                t0 = time.perf_counter()
+                vc, cc = CollisionEngine(tree, cfg, device="cpu").query(sub)
+                t_cpu = time.perf_counter() - t0
+                a, b = cg.as_dict(), cc.as_dict()
+                diff = [k for k in a if k != "wall_time_s" and a[k] != b[k]]
+                if diff or not np.array_equal(vg, vc) \
+                        or not np.array_equal(vg, v_wf[lo:lo + block]):
+                    raise SystemExit(f"FAIL: {env} naive on OBBs {lo}.."
+                                     f"{lo + block - 1}: card differs from "
+                                     f"the CPU engine in {diff or 'verdicts'}")
+                notes.append(f"{lo}..{lo + block - 1} ({t_cpu:.1f} s)")
+            add_check_launches()
+            cpu_note["naive"] = ("cuda == cpu on OBBs " + ", ".join(notes))
+        for mode in f11_modes:
+            cm, wall, counts, peak = runs[mode]
+            log("22 fig11", f"{env} {mode}: Q={Q} hits={int(v_wf.sum())} "
+                f"nodes={cm.nodes_traversed} per level {cm.nodes_per_level} "
+                f"frontier_overflow={cm.frontier_overflow} "
+                f"axis_tests_executed={cm.axis_tests_executed} "
+                f"axis_tests_decoded={cm.axis_tests_decoded} sphere_tests="
+                f"{cm.sphere_tests} bytes_moved={cm.bytes_moved} "
+                f"shader_invocations={cm.shader_invocations} | main-path "
+                f"launches {({k: v for k, v in counts.items() if v})} | "
+                f"verdicts == wavefront | {cpu_note.get(mode, '')} | warm "
+                f"wall median of 5 {1e3 * wall:.3f} ms (phase 8: {walls8} "
+                f"ms) | peak mem {peak / 2**20:.1f} MiB | {card}")
+            if cm.frontier_overflow:
+                log("22 fig11", f"{env} {mode}: the frontier passed "
+                    f"max_frontier ({EngineConfig().max_frontier} pairs): "
+                    f"{cm.frontier_overflow} pairs dropped, so this arm's "
+                    f"counters are clipped at this scale")
+    # the card's busy share in one traced warm query of wavefront_host and
+    # of naive, with the device's largest items
+    tree_f, obbs_f, _ = scenes[f11_env]
+    for mode in ("wavefront_host", "naive"):
+        eng = CollisionEngine(tree_f, EngineConfig(mode=mode), device="cuda")
+        eng.query(obbs_f)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.query(obbs_f)
+            torch.cuda.synchronize()
+            t_traced = time.perf_counter() - t0
+        on_card = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        d_traced = sum(device_us(e) for e in on_card) / 1e6
+        top = sorted(on_card, key=device_us, reverse=True)[:4]
+        add_check_launches()
+        log("22 fig11", f"{f11_env} {mode}, one traced warm query: wall "
+            f"{1e3 * t_traced:.3f} ms, device time {1e3 * d_traced:.3f} ms "
+            f"(busy {100 * d_traced / t_traced:.1f} %), "
+            f"{sum(e.count for e in on_card)} kernels and copies, largest: "
+            + "; ".join(f"{e.key[:48]} {device_us(e) / 1e3:.3f} ms x{e.count}"
+                        for e in top) + f" | {card}")
+    # sact_dense at the naive arm's block shape: one block of OBBs x leaves
+    leaves = tree_f.leaf_aabbs()
+    o = sact_ops.pack_obbs(obbs_f.center[:block], obbs_f.half[:block],
+                           obbs_f.rot[:block]).to(cuda)
+    a = sact_ops.pack_aabbs(leaves.center, leaves.half).to(cuda)
+    c_, e = sact_ops.sact_dense(o, a)
+    pc, pe = sact_ref(o, a, False)
+    err = max(int((c_ != pc).sum() > 0), int((e - pe).abs().max()))
+    if err:
+        raise SystemExit("FAIL: sact_dense differs from plain at the naive "
+                         "block shape")
+    ms = cuda_time_ms(lambda: sact_ops.sact_dense(o, a), 20)
+    plain_ms = cuda_time_ms(lambda: sact_ref(o, a, False), 3)
+    k_ms = kernel_device_ms(lambda: sact_ops.sact_dense(o, a),
+                            "sact_dense_kernel", 20, "sact_dense")
+    add_check_launches()
+    M, N = o.shape[0], a.shape[0]
+    hist = torch.bincount(e.reshape(-1), minlength=18).cpu().numpy()
+    ops = float(np.dot(hist, exit_code_ops(False)))
+    bms, by = bound_ms(M * 60 + N * 24 + M * N * 5, ops)
+    sd = next(line for line in lines if line["name"] == "sact_dense")
+    sd.update(plane_ms=sd["ms"], plane_kernel_ms=sd["kernel_ms"],
+              plane_plain_ms=sd["plain_ms"], plane_bound_ms=sd["bound_ms"],
+              max_abs_err=max(sd["max_abs_err"], err), ms=ms, kernel_ms=k_ms,
+              plain_ms=plain_ms, bound_ms=bms, bound_by=by, shape=[M, N])
+    log("22 fig11", f"sact_dense at the naive block shape ({M} x {N}, "
+        f"{f11_env}'s first OBBs x its leaves, {M * N * 5 / 1e6:.1f} MB of "
+        f"outputs): kernel == plain, call {ms:.4f} ms, kernel on the card "
+        f"{k_ms:.5f} ms (torch.profiler, {k_ms / bms:.2f}x the bound), plain "
+        f"on card {plain_ms:.3f} ms, bound {bms:.5f} ms ({by}) | phase "
+        f"{lap():.1f} s | {card}")
+
+    # ---- 23. result -------------------------------------------------------
+    # launches on every main path (phases 8, 13, 17, 20, 21 and 22) and in
+    # the checks
+    log("23 result", f"whole script {time.perf_counter() - t_start:.1f} s")
     for line in lines:
         line["launches"] = main_launches[line["name"]]
         line["check_launches"] = check_launches[line["name"]]

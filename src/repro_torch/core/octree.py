@@ -334,3 +334,28 @@ def build_octree(points: np.ndarray, depth: int = 6,
                   point_index=order.astype(np.int32),
                   leaf_point_start=leaf_start.astype(np.int32),
                   leaf_point_count=leaf_count.astype(np.int32))
+
+
+def lookup_children(level_codes: torch.Tensor, parent_codes: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Occupancy lookup for the 8 children of each parent code.
+
+    Args:
+      level_codes: (n_{l+1},) sorted occupied codes at the child level as
+        unsigned values in int64: a row of
+        :attr:`DeviceOctree.codes_unsigned`, whose pads sort last.
+      parent_codes: (K,) parent codes (level l), int64 values or int32 bit
+        patterns.
+    Returns:
+      (child_codes (K, 8) int64 in [0, 2**32), child_idx (K, 8) int32 with
+      -1 = empty).  The candidates wrap at 32 bits, as the reference's
+      uint32 shift does; positions are clamped into the row before the
+      gather (torch does not clamp an index).
+    """
+    parent = parent_codes.to(torch.int64) & 0xFFFFFFFF
+    eight = torch.arange(8, dtype=torch.int64, device=parent.device)
+    cand = ((parent[:, None] << 3) | eight[None, :]) & 0xFFFFFFFF
+    pos = torch.searchsorted(level_codes, cand.reshape(-1)).reshape(cand.shape)
+    pos_c = pos.clamp(0, level_codes.shape[0] - 1)
+    found = level_codes[pos_c] == cand
+    return cand, torch.where(found, pos_c, -1).to(torch.int32)

@@ -247,3 +247,32 @@ def sact_frontier_staged(obb_center, obb_half, obb_rot, aabb_center,
     res = _staged_result(bs, is_, torch.cat([m_box, m_edge], dim=-1),
                          use_spheres)
     return mask_frontier_result(res, valid)
+
+
+def sact_pairwise(obbs, aabbs, use_spheres: bool = False) -> SactResult:
+    """Dense all-pairs staged SACT: (M,) OBBs x (N,) AABBs -> (M, N)
+    results."""
+    return sact(obbs.center[:, None, :], obbs.half[:, None, :],
+                obbs.rot[:, None, :, :], aabbs.center[None, :, :],
+                aabbs.half[None, :, :], use_spheres=use_spheres)
+
+
+def sact_collide_only(obb_center, obb_half, obb_rot, aabb_center, aabb_half
+                      ) -> torch.Tensor:
+    """Cheapest full test: just the boolean, no work model."""
+    p = make_pair_terms(obb_center, obb_half, obb_rot, aabb_center, aabb_half)
+    return ~(all_axis_margins(p) > 0.0).any(dim=-1)
+
+
+def sact_pairwise_blocked(obbs, aabbs, block: int = 256,
+                          use_spheres: bool = False) -> SactResult:
+    """:func:`sact_pairwise` in OBB blocks of ``block`` rows, to bound
+    peak memory; (M, N) results.  The test is elementwise, so a block's
+    rows equal the whole plane's."""
+    parts = [sact(obbs.center[s:s + block, None, :],
+                  obbs.half[s:s + block, None, :],
+                  obbs.rot[s:s + block, None, :, :],
+                  aabbs.center[None, :, :], aabbs.half[None, :, :],
+                  use_spheres=use_spheres)
+             for s in range(0, max(obbs.n, 1), block)]
+    return SactResult(*(torch.cat(f, dim=0) for f in zip(*parts)))

@@ -28,7 +28,9 @@ first hit, not sample every waypoint.
 
 ``in_traversal_exit=False`` runs every round as a boolean plan and
 reduces the groups and minima on the host: the same verdicts, more nodes
-visited.  The enclosures reach the engine as tensors on its device.
+visited.  An engine in a mode that is not device-resident (the host
+arms, ``naive``) takes no owner or payload lanes, so its rounds take that
+path whatever ``in_traversal_exit`` says.  The enclosures reach the engine as tensors on its device.
 """
 from __future__ import annotations
 
@@ -114,7 +116,7 @@ def _segment_hits(engine, obbs: OBBs, n_seg: int,
                   in_traversal_exit: bool = True
                   ) -> Tuple[np.ndarray, Counters]:
     """One coarse refinement round: per-segment any-link hit flags."""
-    if in_traversal_exit:
+    if engine.cfg.device_resident and in_traversal_exit:
         owner = np.repeat(np.arange(n_seg, dtype=np.int32), NUM_LINKS)
         best, c = engine.execute(plan_edges(obbs, owner, n_seg))
         return best < PAYLOAD_INF, c
@@ -132,7 +134,7 @@ def _first_hits(engine, obbs: OBBs, edge: np.ndarray, lo: np.ndarray,
     ``np.unique(edge)`` order, ``PAYLOAD_INF`` where nothing hit.
     """
     uniq, local = np.unique(edge, return_inverse=True)
-    if in_traversal_exit:
+    if engine.cfg.device_resident and in_traversal_exit:
         owner = np.repeat(local.astype(np.int32), NUM_LINKS)
         payload = np.repeat(lo.astype(np.int32), NUM_LINKS)
         got, c = engine.execute(

@@ -1,7 +1,8 @@
 """Collision engine: query-plan lowering + mode-dispatching executor.
 
 ``plan`` lowers the front-end batch shapes to one canonical flat pool;
-``executor`` owns mode dispatch, capacity escalation and counter assembly.
+``executor`` owns mode dispatch (the eight modes of Fig. 11), capacity
+escalation and counter assembly.
 ``repro_torch.core.wavefront`` re-exports the executor's public names.
 """
 from repro_torch.engine.executor import (CSR_MODES, DEPTH_CAP_MODES,

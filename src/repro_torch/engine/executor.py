@@ -1,9 +1,10 @@
 """Plan executor: one engine consuming :class:`repro_torch.engine.plan.QueryPlan`.
 
-Counterpart of ``repro.engine.executor`` for the three device modes: mode
-checks, capacity escalation (the frontier runs in a fixed-capacity
-buffer; overflow is counted on the device and the query replays at 4x
-capacity until clean) and counter assembly, around
+Counterpart of ``repro.engine.executor``: mode dispatch, capacity
+escalation (the device modes' frontier runs in a fixed-capacity buffer;
+overflow is counted on the device and the query replays at 4x capacity
+until clean) and counter assembly for all eight modes of Fig. 11
+(:data:`MODES`).  The three device modes:
 
 * ``wavefront_persistent``: the persistent megakernel of
   :mod:`repro_torch.kernels.persist`, the whole walk in one launch;
@@ -16,25 +17,40 @@ capacity until clean) and counter assembly, around
   :func:`repro_torch.kernels.traverse.ops.traverse_step` (the traversal
   step kernel, then the compaction kernel).
 
-The level loops never wait for the device: they run every level up to
-the tree's (or the cap's) depth with the live count kept on the device.
-A level after the frontier empties has no live lane, so it adds 0 to
-every counter and leaves its ``per_level`` slot at 0 -- the same result,
-bit for bit, as the reference's ``lax.while_loop`` stopping at
-``n_live == 0``.  A run waits for the device only where the host needs a
-value: ``_escalate``'s overflow check and the counters' readout.
+The ablation arms:
+
+* ``naive`` (the CUDA baseline): every OBB against every leaf, all 15
+  axes, in blocks of ``query_block`` OBBs, each block one launch of the
+  dense SACT kernel (:func:`repro_torch.kernels.sact.ops.sact_dense`)
+  reduced on the device;
+* ``wavefront_host``, ``predicated``, ``staged_noexit`` and ``rta_like``
+  (the host-in-the-loop arms): the level loop of ``wavefront`` with the
+  frontier re-bucketed by the host between levels, its live count read
+  back each level to size the next bucket.  ``staged_noexit`` and
+  ``rta_like`` (an RT-accelerator model: a shader call per overlapping
+  pair) retire no decided query; ``predicated`` and ``wavefront_host``
+  do.
+
+The device modes' level loops never wait for the device: they run every
+level up to the tree's (or the cap's) depth with the live count kept on
+the device.  A level after the frontier empties has no live lane, so it
+adds 0 to every counter and leaves its ``per_level`` slot at 0 -- the
+same result, bit for bit, as the reference's ``lax.while_loop`` stopping
+at ``n_live == 0``.  A run waits for the device only where the host needs
+a value: ``_escalate``'s overflow check, the host arms' live count, and
+the counters' readout.
 
 The engine runs on the card (``device="cuda"``, the default) or, when the
 caller asks, on the CPU through the kernels' plain PyTorch versions; the
 two give identical verdicts and counters.  Plans with owner and payload
 lanes (swept-edge CCD, :func:`repro_torch.engine.plan.plan_edges`) run in
-all three modes: the persistent mode on an owner-group tiled pool
+the three device modes: the persistent mode on an owner-group tiled pool
 (:func:`repro_torch.kernels.persist.ops.tile_pool`), the per-level modes
 with the payload fold of :func:`repro_torch.core.sact.fold_verdicts`
 between levels.  Without a CUDA device a CUDA engine raises; it never
-drops to the CPU by itself.  Modes, options and
-plan shapes this slice has not ported raise ``NotImplementedError`` naming
-the ROADMAP item that adds them.
+drops to the CPU by itself.  Options and plan shapes this port has not
+ported raise ``NotImplementedError`` naming the ROADMAP item that adds
+them.
 """
 from __future__ import annotations
 
@@ -52,12 +68,14 @@ from repro_torch.core.counters import (BYTES_FUSED_STEP, BYTES_META_STREAM,
                                        BYTES_PAYLOAD_LANE,
                                        BYTES_PERSIST_QUERY,
                                        BYTES_PERSIST_SPILL,
+                                       BYTES_SHADER_HANDOFF,
                                        BYTES_UNFUSED_TEST, NUM_EXIT_CODES,
                                        Counters)
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.core.geometry import OBBs
 from repro_torch.core.octree import (MAX_DEPTH, DeviceOctree, Octree,
-                                     device_octree, node_centers_from_codes)
+                                     device_octree, lookup_children,
+                                     node_centers_from_codes)
 from repro_torch.core.quantize import META_FORMATS
 from repro_torch.core.sact import NUM_AXES, PAYLOAD_INF
 from repro_torch.engine.plan import QueryPlan, plan_batch, plan_queries
@@ -66,7 +84,7 @@ from repro_torch.kernels.persist.ops import (H100_L2_BYTES,
                                              choose_meta_layout,
                                              require_ported_layout,
                                              tile_pool, traverse_whole)
-from repro_torch.kernels.sact.ops import pack_obbs
+from repro_torch.kernels.sact.ops import pack_aabbs, pack_obbs, sact_dense
 from repro_torch.kernels.traverse.ops import traverse_step
 
 MODES = ("naive", "rta_like", "staged_noexit", "predicated", "wavefront_host",
@@ -80,8 +98,6 @@ CSR_MODES = ("wavefront_fused", "wavefront_persistent")
 #: verdicts are a conservative superset of full-depth ones.  The
 #: persistent megakernel has no cap.
 DEPTH_CAP_MODES = ("wavefront_host", "wavefront", "wavefront_fused")
-#: Modes this port runs so far.
-PORTED_MODES = ("wavefront", "wavefront_fused", "wavefront_persistent")
 
 
 def _unported(what: str, item: str):
@@ -130,6 +146,26 @@ class EngineConfig:
                     f"meta_format={self.meta_format!r} needs a CSR mode "
                     f"({', '.join(CSR_MODES)}), not {self.mode!r}: only the "
                     "CSR frontiers decode packed metadata rows")
+
+    @property
+    def early_exit(self) -> bool:
+        return self.mode in ("predicated", "wavefront_host") + DEVICE_MODES
+
+    @property
+    def stage_split(self) -> bool:
+        return self.mode in ("wavefront_host",) + DEVICE_MODES
+
+    @property
+    def fused(self) -> bool:
+        return self.mode == "wavefront_fused"
+
+    @property
+    def persistent(self) -> bool:
+        return self.mode == "wavefront_persistent"
+
+    @property
+    def device_resident(self) -> bool:
+        return self.mode in DEVICE_MODES
 
 
 def _bucket(n: int, cfg: EngineConfig) -> int:
@@ -238,6 +274,29 @@ def _seed(num_queries: int, capacity: int, device):
                                    device=device)
 
 
+def _test_level(obb_c, obb_h, obb_r, dev: DeviceOctree, level: int,
+                depth: int, q_idx, codes, valid, use_spheres: bool):
+    """One level of a (query, Morton code) frontier: the staged SACT of
+    :func:`repro_torch.core.sact.sact_frontier` on every lane and the
+    terminal flag (leaves, or the cap level ``depth``, or full subtrees,
+    probed by ``searchsorted`` on :attr:`DeviceOctree.codes_unsigned`).
+    Returns ``(q64, codes_u, res, is_term)``: the lanes' int64 query ids
+    and unsigned codes, the SACT result and the terminal flags."""
+    q64 = q_idx.to(torch.int64)
+    node_c, node_h = node_centers_from_codes(codes, dev.scene_lo,
+                                             dev.cell_sizes[level])
+    res = sact_mod.sact_frontier(obb_c[q64], obb_h[q64], obb_r[q64],
+                                 node_c, node_h, valid,
+                                 use_spheres=use_spheres)
+    codes_u = codes.to(torch.int64) & 0xFFFFFFFF
+    if level == depth:
+        is_term = torch.ones_like(valid)
+    else:
+        pos = torch.searchsorted(dev.codes_unsigned[level], codes_u)
+        is_term = dev.full[level][pos.clamp(0, dev.codes.shape[-1] - 1)]
+    return q64, codes_u, res, is_term
+
+
 def _traverse(obb_c, obb_h, obb_r, dev: DeviceOctree, capacity: int,
               use_spheres: bool, max_depth: Optional[int] = None,
               owner=None, payload=None):
@@ -246,54 +305,37 @@ def _traverse(obb_c, obb_h, obb_r, dev: DeviceOctree, capacity: int,
     with ``owner`` / ``payload`` lanes (M,) int32 ``best`` cells (those
     past the plan's group count unused).
 
-    The frontier carries (query, Morton code) pairs.  Per level: the
-    staged SACT of :func:`repro_torch.core.sact.sact_frontier`, the
-    terminal probe and the 8-child occupancy probe by ``searchsorted`` on
-    the level's sorted codes (:attr:`DeviceOctree.codes_unsigned`), and
+    The frontier carries (query, Morton code) pairs.  Per level:
+    :func:`_test_level`, the 8-child occupancy probe of
+    :func:`repro_torch.core.octree.lookup_children` on the next level, and
     the compaction kernel.  ``max_depth`` caps the walk at that level,
     where every node counts as terminal.
     """
     device = dev.device
     M = obb_c.shape[0]
     depth = dev.depth if max_depth is None else min(dev.depth, max_depth)
-    n_max = dev.codes.shape[-1]
     lane = torch.arange(capacity, device=device)
-    eight = torch.arange(8, dtype=torch.int64, device=device)
     grouped = owner is not None or payload is not None
     verdict = _verdict_init(M, grouped, device)
     st = _empty_stats(device)
     n_live, q_idx, codes = _seed(M, capacity, device)
     for level in range(depth + 1):
         valid = lane < n_live
-        q64 = q_idx.to(torch.int64)
-        node_c, node_h = node_centers_from_codes(codes, dev.scene_lo,
-                                                 dev.cell_sizes[level])
-        res = sact_mod.sact_frontier(obb_c[q64], obb_h[q64], obb_r[q64],
-                                     node_c, node_h, valid,
-                                     use_spheres=use_spheres)
-        # Terminal nodes: leaves (or the cap level), or full subtrees.
-        codes_u = codes.to(torch.int64) & 0xFFFFFFFF
-        if level == depth:
-            is_term = torch.ones_like(valid)
-        else:
-            pos = torch.searchsorted(dev.codes_unsigned[level], codes_u)
-            is_term = dev.full[level][pos.clamp(0, n_max - 1)]
+        q64, codes_u, res, is_term = _test_level(
+            obb_c, obb_h, obb_r, dev, level, depth, q_idx, codes, valid,
+            use_spheres)
         overlap = res.collide & valid
         verdict, undecided = sact_mod.fold_verdicts(
             verdict, q64, overlap & is_term, owner, payload)
-
-        # Expansion: the 8 candidate child codes, probed on the next level.
-        child_codes_l = dev.codes_unsigned[min(level + 1, depth)]
-        cand = ((codes_u[:, None] << 3) | eight).reshape(-1)     # (cap*8,)
-        cpos = torch.searchsorted(child_codes_l, cand).clamp(0, n_max - 1)
-        found = (child_codes_l[cpos] == cand).reshape(capacity, 8)
+        cand, child_idx = lookup_children(
+            dev.codes_unsigned[min(level + 1, depth)], codes_u)
         # Early exit: decided queries retire their whole wavefront share.
         expand = overlap & ~is_term & undecided
-        child_mask = (expand[:, None] & found).reshape(-1)
+        child_mask = (expand[:, None] & (child_idx >= 0)).reshape(-1)
         n_new = child_mask.sum()
         _count_level(st, level, valid, is_term, res, n_new, capacity)
         n_live, q_idx, codes = compact_pairs(
-            child_mask, q_idx.repeat_interleave(8), cand.to(torch.int32),
+            child_mask, q_idx.repeat_interleave(8), cand.reshape(-1),
             capacity)
     return (verdict if grouped else verdict != 0), st
 
@@ -336,6 +378,98 @@ def _traverse_fused(obb: torch.Tensor, dev: DeviceOctree, capacity: int,
                      capacity)
         n_live, q_idx, node_idx = n_next, q_next, idx_next
     return (verdict if grouped else verdict != 0), st
+
+
+def _traverse_host(obb_c, obb_h, obb_r, dev: DeviceOctree, cfg: EngineConfig,
+                   max_depth: Optional[int] = None):
+    """Host-in-the-loop traversal of a boolean query set (``wavefront_host``
+    and the ``predicated``, ``staged_noexit`` and ``rta_like`` arms);
+    returns ``(verdict (M,) bool numpy, stats)``, the stats read back.
+
+    :func:`_traverse`'s level loop, with the frontier re-bucketed by
+    the host: each level reads back one number, the count of child pairs,
+    which sizes the next level's bucket (:func:`_bucket`; a count past
+    ``cfg.max_frontier`` is cut to it and the surplus counted as
+    ``frontier_overflow``), and the compaction kernel packs the pairs into
+    it.  That round trip is what these arms ablate.  Every other counter
+    adds up on the device and is read once, at the end, with the verdicts.
+    Decided queries retire only under ``cfg.early_exit``; ``rta_like``
+    also counts a shader call per overlapping pair (``"shader"``).
+    ``max_depth`` caps the walk at that level, where every node counts as
+    terminal.
+    """
+    device = dev.device
+    M = obb_c.shape[0]
+    depth = dev.depth if max_depth is None else min(dev.depth, max_depth)
+    bucket = _bucket(M, cfg)
+    if bucket < M:
+        raise ValueError(
+            f"{M} queries do not fit max_frontier={cfg.max_frontier}: the "
+            "level-0 frontier holds one pair per query")
+    z = dict(dtype=torch.int64, device=device)
+    leaf, axis_exec, sphere, shader = (torch.zeros((), **z) for _ in range(4))
+    hist = torch.zeros(NUM_EXIT_CODES, **z)
+    per_level = np.zeros(MAX_DEPTH + 1, np.int64)
+    overflow = 0
+    verdict = _verdict_init(M, False, device)
+    _, q_idx, codes = _seed(M, bucket, device)
+    n_live = M
+    for level in range(depth + 1):
+        if n_live == 0:
+            break
+        per_level[level] = n_live
+        valid = torch.arange(bucket, device=device) < n_live
+        q64, codes_u, res, is_term = _test_level(
+            obb_c, obb_h, obb_r, dev, level, depth, q_idx, codes, valid,
+            cfg.use_spheres)
+        overlap = res.collide & valid
+        term_valid = valid & is_term
+        verdict, undecided = sact_mod.fold_verdicts(verdict, q64,
+                                                    overlap & is_term)
+        leaf += term_valid.sum()
+        axis_exec += res.axis_tests.sum()
+        sphere += res.sphere_tests.sum()
+        if cfg.mode == "rta_like":
+            shader += overlap.sum()
+        hist.index_add_(0, res.exit_code.to(torch.int64),
+                        term_valid.to(torch.int64))
+        if level == depth:
+            break
+        expand = overlap & ~is_term
+        if cfg.early_exit:
+            expand = expand & undecided
+        cand, child_idx = lookup_children(dev.codes_unsigned[level + 1],
+                                          codes_u)
+        child_mask = (expand[:, None] & (child_idx >= 0)).reshape(-1)
+        n_live = int(child_mask.sum())      # the level's one read back
+        if n_live == 0:
+            break
+        if n_live > cfg.max_frontier:
+            overflow += n_live - cfg.max_frontier
+            n_live = cfg.max_frontier
+        bucket = _bucket(n_live, cfg)
+        _, q_idx, codes = compact_pairs(child_mask, q_idx.repeat_interleave(8),
+                                        cand.reshape(-1), bucket)
+    out = torch.cat([torch.stack([leaf, axis_exec, sphere, shader]), hist,
+                     verdict.to(torch.int64)]).cpu().numpy()
+    nodes = int(per_level.sum())
+    stats = dict(nodes=nodes, leaf=out[0], axis_exec=out[1],
+                 axis_dec=nodes * NUM_AXES, sphere=out[2], shader=out[3],
+                 overflow=overflow, per_level=per_level,
+                 exit_hist=out[4:4 + NUM_EXIT_CODES])
+    return out[4 + NUM_EXIT_CODES:] != 0, stats
+
+
+def _exit_counts(codes: torch.Tensor) -> torch.Tensor:
+    """Histogram of int32 exit codes (any shape) as a (NUM_EXIT_CODES,)
+    int64 tensor on their device.  On the card ``histc`` with its range
+    given reads nothing back (``bincount`` reads the codes' range back);
+    on the CPU, where ``histc`` takes no integers, ``bincount``."""
+    flat = codes.reshape(-1)
+    if flat.device.type == "cuda":
+        return torch.histc(flat, bins=NUM_EXIT_CODES, min=0,
+                           max=NUM_EXIT_CODES).to(torch.int64)
+    return torch.bincount(flat, minlength=NUM_EXIT_CODES)
 
 
 def _stats_to_counters(st, mode: str, replays: int = 0,
@@ -392,8 +526,6 @@ class CollisionEngine:
                  config: EngineConfig = EngineConfig(),
                  device=DEFAULT_DEVICE):
         self.device = resolve_device(device)
-        if config.mode not in PORTED_MODES:
-            raise _unported(f"mode {config.mode!r}", "A.6")
         if config.shards is not None:
             raise _unported("sharded execution (EngineConfig.shards)", "A.8")
         self.cfg = config
@@ -413,6 +545,7 @@ class CollisionEngine:
         self.octrees = octrees
         self.octree = octrees[0]
         self._dev: dict = {}
+        self._leaves: Optional[torch.Tensor] = None
         self._meta_choice = None
         self._scene_sig = tuple(
             sum(len(lv.codes) for lv in t.levels) for t in self.octrees)
@@ -488,6 +621,10 @@ class CollisionEngine:
             raise ValueError(
                 f"plan carries {plan.num_scenes} scene(s) but the engine "
                 f"holds {len(self.octrees)}")
+        if plan.grouped and not self.cfg.device_resident:
+            raise ValueError(
+                "owner/payload plans need a device-resident mode; lower to "
+                "a boolean plan and reduce on the host instead")
         if max_depth is not None:
             if not self.supports_depth_cap:
                 raise ValueError(
@@ -501,10 +638,70 @@ class CollisionEngine:
                     "run at full depth")
             if max_depth < 1:
                 raise ValueError(f"max_depth must be >= 1, got {max_depth}")
-        value, counters = self._exec_device(plan, max_depth)
+        if self.cfg.mode == "naive":
+            value, counters = self._exec_naive(plan)
+        elif self.cfg.device_resident:
+            value, counters = self._exec_device(plan, max_depth)
+        else:
+            value, counters = self._exec_host(plan, max_depth)
         counters.wall_time_s = time.perf_counter() - t0
         counters.num_queries = plan.num_queries
         return plan.unflatten(value), counters
+
+    def _plan_obbs(self, plan: QueryPlan):
+        """The plan's OBB fields as float32 tensors on this engine's
+        device."""
+        return tuple(torch.as_tensor(x, dtype=torch.float32).to(self.device)
+                     for x in (plan.obb_c, plan.obb_h, plan.obb_r))
+
+    def _exec_naive(self, plan: QueryPlan):
+        """CUDA-baseline arm: every OBB against every leaf AABB, all 15
+        axes, no sphere stages.  Each block of ``cfg.query_block`` OBBs is
+        one :func:`repro_torch.kernels.sact.ops.sact_dense` launch over
+        all leaves, reduced on the device into the verdicts and the
+        exit-code histogram; the (block, leaves) plane never leaves the
+        device, and both reductions are read back once, at the end.  The
+        work counters are closed-form."""
+        if self._leaves is None:
+            leaves = self.octree.leaf_aabbs()
+            self._leaves = pack_aabbs(leaves.center,
+                                      leaves.half).to(self.device)
+        aabb = self._leaves
+        obb = pack_obbs(*self._plan_obbs(plan))
+        M, N = obb.shape[0], aabb.shape[0]
+        z = dict(dtype=torch.int64, device=self.device)
+        hist = torch.zeros(NUM_EXIT_CODES, **z)
+        hit = torch.zeros(M, **z)
+        block = self.cfg.query_block
+        for s in range(0, M, block):
+            collide, code = sact_dense(obb[s:s + block], aabb,
+                                       use_spheres=False)
+            hit[s:s + block] = collide.any(dim=1)
+            hist += _exit_counts(code)
+        out = torch.cat([hist, hit]).cpu().numpy()
+        c = Counters()
+        n_tests = M * N
+        c.nodes_traversed = n_tests
+        c.leaf_tests = n_tests
+        c.axis_tests_executed = n_tests * NUM_AXES
+        c.axis_tests_decoded = n_tests * NUM_AXES
+        c.bytes_moved = n_tests * BYTES_UNFUSED_TEST
+        c.exit_histogram += out[:NUM_EXIT_CODES]
+        return out[NUM_EXIT_CODES:] != 0, c
+
+    def _exec_host(self, plan: QueryPlan, max_depth: Optional[int] = None):
+        """Host-in-the-loop arms (``wavefront_host``, ``predicated``,
+        ``staged_noexit``, ``rta_like``): :func:`_traverse_host`, no
+        capacity ladder (``escalations`` stays 0)."""
+        M = plan.num_queries
+        if len(self.octree.levels[0].codes) == 0:
+            return np.zeros(M, bool), Counters()
+        verdict, st = _traverse_host(*self._plan_obbs(plan), self.device_tree,
+                                     self.cfg, max_depth)
+        c = _stats_to_counters(st, self.cfg.mode)
+        c.shader_invocations = int(st["shader"])
+        c.bytes_moved += c.shader_invocations * BYTES_SHADER_HANDOFF
+        return verdict, c
 
     def _exec_device(self, plan: QueryPlan,
                      max_depth: Optional[int] = None):
@@ -514,9 +711,7 @@ class CollisionEngine:
             require_ported_layout(self._choose_meta())
         fmt = self.meta_format
         dev = self.device_tree
-        obb_c, obb_h, obb_r = (
-            torch.as_tensor(x, dtype=torch.float32).to(self.device)
-            for x in (plan.obb_c, plan.obb_h, plan.obb_r))
+        obb_c, obb_h, obb_r = self._plan_obbs(plan)
         owner, payload = (
             None if x is None else
             torch.as_tensor(x, dtype=torch.int32).to(self.device)

@@ -165,10 +165,6 @@ def test_engine_cuda_raises_without_cuda(scene):
 
 def test_unported_modes_and_options_raise(scene):
     _, ttree, arrays = scene
-    for mode in ("naive", "wavefront_host", "rta_like", "staged_noexit",
-                 "predicated"):
-        with pytest.raises(NotImplementedError, match="A.6"):
-            CollisionEngine(ttree, EngineConfig(mode=mode), device="cpu")
     with pytest.raises(NotImplementedError, match="A.8"):
         CollisionEngine(ttree, EngineConfig(mode=PERSIST, shards=2),
                         device="cpu")

@@ -506,6 +506,54 @@ def test_cuda_level_modes_match_cpu_engine(cuda, mode):
             assert a[k] == b[k], k
 
 
+@pytest.mark.parametrize("mode", ["rta_like", "staged_noexit", "predicated",
+                                  "wavefront_host"])
+def test_cuda_host_modes_match_cpu_engine(cuda, mode):
+    """The host-in-the-loop arms on the card: the compaction kernel once a
+    level after the first, no other kernel; verdicts and every counter
+    equal the CPU engine's, also under a pinned ``max_frontier`` that the
+    frontier overflows."""
+    tree, obbs = _scene_and_queries(M=300, seed=5, depth=5)
+    for cfg in (EngineConfig(mode=mode, min_bucket=64),
+                EngineConfig(mode=mode, use_spheres=True, max_frontier=512)):
+        before = _build.launch_counts()
+        v, c = CollisionEngine(tree, cfg, device=cuda).query(obbs)
+        after = _build.launch_counts()
+        launched = {k: after[k] - before[k] for k in after}
+        assert launched.pop("compact") == len(c.nodes_per_level) - 1
+        assert not any(launched.values()), launched
+        vc, cc = CollisionEngine(tree, cfg, device="cpu").query(obbs)
+        assert np.array_equal(v, vc)
+        a, b = c.as_dict(), cc.as_dict()
+        for k in a:
+            if k != "wall_time_s":
+                assert a[k] == b[k], k
+        assert c.escalations == 0 and v.any()
+        assert (c.frontier_overflow > 0) == cfg.use_spheres
+
+
+@pytest.mark.parametrize("block", [128, 37])
+def test_cuda_naive_matches_cpu_engine(cuda, block):
+    """``naive`` on the card: one ``sact_dense`` launch a block of OBBs
+    (37 does not divide 300), nothing else; verdicts, the exit histogram
+    and every counter equal the CPU engine's."""
+    tree, obbs = _scene_and_queries(M=300, seed=5, depth=5)
+    cfg = EngineConfig(mode="naive", query_block=block)
+    before = _build.launch_counts()
+    v, c = CollisionEngine(tree, cfg, device=cuda).query(obbs)
+    after = _build.launch_counts()
+    launched = {k: after[k] - before[k] for k in after}
+    assert launched.pop("sact_dense") == -(-obbs.n // block)
+    assert not any(launched.values()), launched
+    vc, cc = CollisionEngine(tree, cfg, device="cpu").query(obbs)
+    assert np.array_equal(v, vc)
+    a, b = c.as_dict(), cc.as_dict()
+    for k in a:
+        if k != "wall_time_s":
+            assert a[k] == b[k], k
+    assert int(c.exit_histogram.sum()) == obbs.n * tree.num_leaves
+
+
 @pytest.mark.parametrize("B,N,m,first", [
     (1, 2048, 256, 0), (4, 2047, 256, 3), (3, 5000, 128, 4999),
     (2, 100, 130, 0), (3, 1000, 256, 7), (2, 33, 33, 32), (3, 20, 20, 5),

@@ -139,6 +139,31 @@ def test_check_edges_matches_reference_exactly(scene, reference_geometry,
     assert got.collide.any() and got.counters.ref_arm_fallbacks == 0
 
 
+def test_check_edges_on_a_host_mode_engine_matches_reference(
+        scene, reference_geometry, monkeypatch):
+    """``fig_edges``' no-exit baseline: ``check_edges`` on a
+    ``staged_noexit`` engine, whose rounds take the boolean plans and
+    reduce on the host whatever ``in_traversal_exit`` says.  On the
+    reference's FK arrays its first hits, verdicts and every counter equal
+    the reference's; its first hits and verdicts equal the exit arm's."""
+    sc, tree, ttree = scene
+    qf, qt, geo = reference_geometry
+    monkeypatch.setattr(tsweep, "edge_link_geometry", lambda *a, **k: geo)
+    kw = dict(resolution=R, base_pos=sc.robot_base)
+    got = tpipe.check_edges(_engine(ttree, "staged_noexit"), qf, qt, **kw)
+    with jax.disable_jit():
+        want = jpipe.check_edges(JEngine(tree, JConfig(mode="staged_noexit")),
+                                 qf, qt, **kw)
+    assert np.array_equal(got.first_hit, want.first_hit)
+    assert np.array_equal(got.collide, want.collide)
+    _same_counters(got.counters, want.counters)
+    exit_arm = tpipe.check_edges(_engine(ttree, "wavefront"), qf, qt, **kw)
+    assert np.array_equal(got.first_hit, exit_arm.first_hit)
+    assert np.array_equal(got.collide, exit_arm.collide)
+    assert got.collide.any()
+    assert got.counters.nodes_traversed >= exit_arm.counters.nodes_traversed
+
+
 @pytest.fixture(scope="module")
 def port_runs(scene):
     """The port on its own FK: every mode and both exit arms, one batch."""
