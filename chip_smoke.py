@@ -13,7 +13,9 @@ non-zero and prints no result):
    (registers a thread per role after ``setmaxnreg``, dynamic shared
    memory, rows, keys and ring stages), and ``persist``'s cluster shape
    with ``cudaOccupancyMaxActiveClusters`` at tiles of 128, 256, 512 and
-   1024 slots (the owner-group tiles of swept-edge CCD grow to 1024);
+   1024 slots (the owner-group tiles of swept-edge CCD grow to 1024), and
+   at 128 and 1024 slots on bf16 and u8 rows, resident and with 2,802
+   windows a level (phase 23's big scene);
 3. ``sact_dense`` kernel vs its plain version on grazing planes (every exit
    code, both sphere settings), exactly equal, in every stage mode of
    ``sact_tile.cuh`` that a kernel ships (``sact_ops.STAGE_MODES``);
@@ -25,7 +27,10 @@ non-zero and prints no result):
    pools (OBBs against level-4 cells, both sphere settings) and the
    owner-group tiled pool that ``build_tile_map`` packs from a real sweep
    round (owners and payloads of the widest width-1 round of 32 edges at
-   R = 16 on the small scene; pads at each tile's tail);
+   R = 16 on the small scene; pads at each tile's tail); every pool on
+   fp32, bf16 and u8 rows, resident and streamed (the default window and
+   windows of 64 rows), every output but ``meta_rows`` also equal to fp32
+   resident rows', ``meta_rows`` equal across formats;
 5. the paper-scale scenes: ``make_scene(env, 524288)``,
    ``build_octree(depth=7)``, ``scene_trajectories(25, 60)`` (10,500 link
    OBBs) for each environment;
@@ -40,7 +45,8 @@ non-zero and prints no result):
    ``n_out`` below the total; count and every output row equal;
 8. the main paths at paper scale, per environment, in each of the modes
    ``wavefront_persistent``, ``wavefront`` and ``wavefront_fused`` (and
-   ``wavefront_fused`` on u8 rows in the first environment): two CUDA
+   ``wavefront_fused`` and ``wavefront_persistent`` on u8 rows in the
+   first environment, the latter resident and streamed): two CUDA
    queries through ``CollisionEngine(...).query``, held against the same
    engine on the CPU (verdicts and every counter), the per-level modes
    also against the persistent one (all but ``bytes_moved`` and
@@ -176,8 +182,23 @@ non-zero and prints no result):
    the busy share and the largest device items; and
    ``sact_dense`` at ``naive``'s block shape (128 OBBs x the leaves), the
    call and the kernel alone, against its bound and plain version;
-23. one JSON line listing every kernel with its launches on the main paths
-   (``launches``, phases 8, 13, 17, 20, 21 and 22) and elsewhere
+23. ``benchmarks/run.py::fig_bigscene``'s two scenes at full scale (depth
+   8; 524,288 and 3,145,728 points uniform in [-1, 1]^3 from
+   ``RandomState(5)``; 1,500 OBBs from ``random_obbs`` on a seeded
+   generator; ``max_frontier`` raised so that no engine clamps): per scene
+   the default ``wavefront_persistent`` engine (resident bf16 on the small
+   scene, streamed bf16 on the big one), ``fig_bigscene``'s fp32 pins and
+   ``fig_compress``'s streamed engines (fp32 and bf16 on the big scene, u8
+   on the small one; u8 pinned on the big one raises ``ValueError``);
+   each engine's launches (one ``persist`` a query plus its escalations),
+   verdicts equal to the card's ``wavefront_fused``, every counter equal
+   to the CPU engine's on the first 128 OBBs, ``meta_bytes_streamed`` =
+   rows x the row's bytes; warm walls (median of 5) beside
+   ``wavefront_fused``'s, ``persist``'s call and the kernel alone against
+   the plain version and the bound (the rows and pairs it reads), the
+   busy share of a traced warm query;
+24. one JSON line listing every kernel with its launches on the main paths
+   (``launches``, phases 8, 13, 17, 20, 21, 22 and 23) and elsewhere
    (``check_launches``), error, times (for ``persist``, ``sact_dense``,
    ``fps`` and ``ballquery`` also ``kernel_ms``, the kernel alone by
    ``torch.profiler``; ``sact_dense``'s at ``naive``'s block shape, with
@@ -294,7 +315,7 @@ def device_us(event) -> float:
 
 
 def kernel_device_ms(fn, key: str, reps: int, name: str,
-                     tries: int = 3) -> float:
+                     tries: int = 3, required: bool = True):
     """The mean device time of a kernel whose name holds ``key``, over a
     window of ``reps`` calls of ``fn`` (``torch.profiler``), which must
     launch kernel ``name`` once a call (the wrappers' counters) and leave
@@ -305,7 +326,8 @@ def kernel_device_ms(fn, key: str, reps: int, name: str,
     either side of the calls.  A window that still lost a record is
     reported and taken again, up to ``tries`` windows; none is averaged.
     A call timed back to back with CUDA events is paced by the host where
-    the kernel is short: this is the kernel alone."""
+    the kernel is short: this is the kernel alone.  With ``required``
+    False, a kernel whose records every window lost gives None."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     from repro_torch.kernels import _build
@@ -342,6 +364,10 @@ def kernel_device_ms(fn, key: str, reps: int, name: str,
         seen.append(n)
         if n > reps:
             break
+    if not required and max(seen) < reps:
+        log("profiler", f"{key}: the profiler kept {seen} of {reps} records "
+            f"in {len(seen)} windows: not measured")
+        return None
     raise SystemExit(f"FAIL: {reps} calls launched {reps} {name} kernels; "
                      f"the profiler saw {seen} {key} kernels in "
                      f"{len(seen)} windows")
@@ -408,7 +434,7 @@ def main() -> int:
     import numpy as np
     from repro_torch.core.counters import (BYTES_SHADER_HANDOFF,
                                            BYTES_UNFUSED_TEST)
-    from repro_torch.core.geometry import OBBs
+    from repro_torch.core.geometry import OBBs, random_obbs
     from repro_torch.core.octree import build_octree, device_octree
     from repro_torch.core import sweep as sweep_mod
     from repro_torch.core.pipeline import (check_edges, check_trajectories,
@@ -516,6 +542,20 @@ def main() -> int:
         log("2 build", f"persist at bq {bq}: {sh['smem_bytes']} B dynamic "
             f"shared memory a CTA; the card holds {sh['max_clusters']} such "
             f"clusters at once")
+    # u8 rows add a code to every staged pair; the streamed instances (2,802
+    # windows a level on fig_bigscene's big scene, their bitmaps in the
+    # workspace) add none
+    for bq in (128, 1024):
+        for fmt, nwin in (("bf16", 2802), ("u8", 0), ("u8", 2802)):
+            sh = persist_ops.kernel_shape(bq, fmt, nwin)
+            if sh["max_clusters"] < 1:
+                raise SystemExit(f"FAIL: persist does not fit the card at "
+                                 f"bq {bq}, {fmt} rows, {nwin} windows: "
+                                 f"{sh}")
+            log("2 build", f"persist at bq {bq}, {fmt} rows, "
+                f"{nwin or 'resident: no'} windows: {sh['smem_bytes']} B "
+                f"dynamic shared memory a CTA; the card holds "
+                f"{sh['max_clusters']} such clusters at once")
     log("2 build", f"spill stores over every kernel: {spills} bytes")
 
     log("2 build", f"phase {lap():.1f} s")
@@ -611,23 +651,57 @@ def main() -> int:
         round_tags[id(round_ins)] = (f"; {own_t.shape[0]} tiles of the "
                                      f"round {round_plan.shape_tag}")
         pools.append(("sweep round", round_bq, 8192, 256, False, round_ins))
+    # every pool also on bf16 and u8 rows, and streamed at the default
+    # window and at windows of 64 rows (the small scene's widest level is
+    # 5,160 rows: the default crosses windows there, 64 at every level
+    # past the third)
+    sdevs = {fmt: device_octree(stree, meta_format=fmt, device=cuda)
+             for fmt in ("bf16", "u8")}
+    sdevs["fp32"] = sdev
+    row_runs = [(fmt, streamed, wsub) for fmt in ("fp32", "bf16", "u8")
+                for streamed, wsub in ((False, None), (True, None),
+                                       (True, 64))]
+    meta_rows_seen = {}
     for pool, bq, fcap, ring_cap, sph, ins in pools:
-        kw = dict(bq=bq, fcap=fcap, depth=stree.depth, ring_cap=ring_cap,
-                  use_spheres=sph)
-        got = persist_ops.persist_tiles(**ins, **kw)
-        want = persist_tiles_ref(**ins, **kw)
-        torch.cuda.synchronize()
-        for name, g, w in zip(("best", "per_level", "hist", "scalars"),
-                              got, want):
-            if not torch.equal(g, w):
-                raise SystemExit(f"FAIL: persist {name} differs on the "
-                                 f"{pool} pool at bq={bq} fcap={fcap} "
-                                 f"spheres={sph}")
-        spill = got[3][:, 6]
-        fits = spill <= ring_cap
-        if not torch.equal(got[4][fits], want[4][fits]):
-            raise SystemExit(f"FAIL: persist ring differs on the {pool} "
-                             f"pool at bq={bq} fcap={fcap}")
+        for fmt, streamed, wsub in row_runs:
+            kw = dict(bq=bq, fcap=fcap, depth=stree.depth, ring_cap=ring_cap,
+                      use_spheres=sph, meta_format=fmt, streamed=streamed,
+                      wsub=wsub)
+            ins_f = dict(ins, meta=sdevs[fmt].node_meta)
+            got = persist_ops.persist_tiles(**ins_f, **kw)
+            want = persist_tiles_ref(**ins_f, **kw)
+            torch.cuda.synchronize()
+            rows = f"{fmt} rows, " + (f"streamed (wsub {wsub or 'default'})"
+                                      if streamed else "resident")
+            for name, g, w in zip(("best", "per_level", "hist", "scalars"),
+                                  got, want):
+                if not torch.equal(g, w):
+                    raise SystemExit(f"FAIL: persist {name} differs on the "
+                                     f"{pool} pool at bq={bq} fcap={fcap} "
+                                     f"spheres={sph}, {rows}")
+            spill = got[3][:, 6]
+            fits = spill <= ring_cap
+            if not torch.equal(got[4][fits], want[4][fits]):
+                raise SystemExit(f"FAIL: persist ring differs on the {pool} "
+                                 f"pool at bq={bq} fcap={fcap}, {rows}")
+            m_rows = int(got[3][:, 7].sum())
+            if (m_rows > 0) != streamed:
+                raise SystemExit(f"FAIL: persist counted {m_rows} streamed "
+                                 f"rows on the {pool} pool, {rows}")
+            if fmt == "fp32":
+                meta_rows_seen.setdefault((streamed, wsub), []).append(m_rows)
+            elif m_rows != meta_rows_seen[(streamed, wsub)][-1]:
+                raise SystemExit(f"FAIL: persist on the {pool} pool counted "
+                                 f"{m_rows} streamed rows on {rows}, fp32 "
+                                 f"{meta_rows_seen[(streamed, wsub)][-1]}")
+            if fmt == "fp32" and not streamed:
+                fp32_out = got
+            elif any(not torch.equal(g, w) for g, w in
+                     zip(got[:3] + (got[3][:, :7],),
+                         fp32_out[:3] + (fp32_out[3][:, :7],))):
+                raise SystemExit(f"FAIL: persist on the {pool} pool, {rows},"
+                                 f" differs from fp32 resident rows")
+        got = fp32_out
         spilled_compared += int(((spill > 0) & fits).sum())
         nodes = got[3][:, 0]
         codes = (got[2].sum(0) > 0).nonzero().flatten().tolist()
@@ -642,6 +716,11 @@ def main() -> int:
             f"{codes}" + round_tags.get(id(ins), ""))
     if spilled_compared == 0:
         raise SystemExit("FAIL: no spilled ring was compared")
+    log("4 persist", f"every pool above also on bf16 and u8 rows and "
+        f"streamed, {len(row_runs)} runs a pool: kernel == plain, every "
+        f"output equal to fp32 resident rows' but meta_rows; streamed rows "
+        f"a pool at the default window {meta_rows_seen[(True, None)]}, at "
+        f"64 rows {meta_rows_seen[(True, 64)]} (the same in every format)")
     add_check_launches()
 
     log("4 persist", f"phase {lap():.1f} s")
@@ -748,15 +827,21 @@ def main() -> int:
     # per environment and mode: the card's verdicts, counters and warm
     # wall, which phase 22 holds the ablation arms against
     p8 = {env: {} for env in scenes}
-    paths = [("wavefront_persistent", None), ("wavefront", None),
-             ("wavefront_fused", None), ("wavefront_fused", "u8")]
+    # (mode, rows, layout): u8 rows in both layouts beside the fused u8 run
+    paths = [("wavefront_persistent", None, None), ("wavefront", None, None),
+             ("wavefront_fused", None, None), ("wavefront_fused", "u8", None),
+             ("wavefront_persistent", "u8", False),
+             ("wavefront_persistent", "u8", True)]
     for env, (tree, obbs, _) in scenes.items():
         ref_run = None
-        for mode, fmt in paths:
+        for mode, fmt, stream_meta in paths:
             if fmt is not None and env != env0:
                 continue
-            cfg = EngineConfig(mode=mode, meta_format=fmt)
-            tag = mode + (f"[{fmt}]" if fmt else "")
+            cfg = EngineConfig(mode=mode, meta_format=fmt,
+                               stream_meta=stream_meta)
+            tag = mode + (f"[{fmt}]" if fmt else "") + (
+                "" if stream_meta is None else
+                "[streamed]" if stream_meta else "[resident]")
             eng = CollisionEngine(tree, cfg, device="cuda")
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -799,12 +884,19 @@ def main() -> int:
                     raise SystemExit(f"FAIL: {env} {tag}: verdicts differ "
                                      f"from wavefront_persistent")
                 for k in a:
-                    if k not in ("wall_time_s", "bytes_moved",
-                                 "escalations") and a[k] != ref_run[1][k]:
+                    if k not in ("wall_time_s", "bytes_moved", "escalations",
+                                 "meta_rows_streamed", "meta_bytes_streamed"
+                                 ) and a[k] != ref_run[1][k]:
                         raise SystemExit(
                             f"FAIL: {env} {tag}: counter {k} differs from "
                             f"wavefront_persistent: {a[k]} vs "
                             f"{ref_run[1][k]}")
+            if (c1.meta_rows_streamed > 0) != bool(stream_meta) \
+                    or c1.meta_bytes_streamed != c1.meta_rows_streamed * \
+                    persist_ops.META_FORMAT_BYTES[eng.meta_format]:
+                raise SystemExit(f"FAIL: {env} {tag}: {c1.meta_rows_streamed}"
+                                 f" streamed rows, {c1.meta_bytes_streamed} "
+                                 f"bytes")
             walls = []
             for _ in range(10):
                 _, cw = eng.query(obbs)
@@ -839,9 +931,13 @@ def main() -> int:
                 kw = dict(bq=persist_ops.DEFAULT_BQ, fcap=cap,
                           depth=tree.depth,
                           ring_cap=persist_ops.DEFAULT_RING_CAP,
-                          use_spheres=cfg.use_spheres)
+                          use_spheres=cfg.use_spheres,
+                          meta_format=dev.meta_format,
+                          streamed=eng.meta_layout == "streamed")
                 got = persist_ops.persist_tiles(**ins, **kw)
-                want = persist_tiles_ref(**ins, **kw)
+                seen = torch.zeros(dev.node_meta.shape[:2], dtype=torch.bool,
+                                   device=cuda)
+                want = persist_tiles_ref(**ins, **kw, seen=seen)
                 err = max(int((x.to(torch.int64) - y.to(torch.int64))
                               .abs().max()) for x, y in zip(got, want))
                 if err:
@@ -854,11 +950,14 @@ def main() -> int:
                                         3)
                 T = ins["sot"].shape[0]
                 L = tree.depth + 1
-                n_max = dev.node_meta.shape[1]
                 nodes = c1.nodes_traversed
+                row_bytes = persist_ops.META_FORMAT_BYTES[dev.meta_format]
+                # the distinct rows that the walk tests, each read once
+                # (the frontier's pairs are the kernel's own, not inputs)
                 in_bytes = (4 * (3 + L) + 4 * T + 4 + T * 128 * (60 + 4 + 4)
-                            + min(L * n_max * 16, nodes * 16))
-                out_bytes = 4 * T * (128 + L + 18 + 8) + 8 * T * kw["ring_cap"]
+                            + int(seen.sum()) * row_bytes)
+                out_bytes = (4 * T * (128 + L + 18 + 8) + 8 * int(
+                    got[3][:, 6].clamp(max=kw["ring_cap"]).sum()))
                 ops = (nodes * (OPS_SETUP + OPS_NODE_BOX)
                        + 7 * c1.axis_tests_executed)
                 bms, by = bound_ms(in_bytes + out_bytes, ops)
@@ -871,7 +970,7 @@ def main() -> int:
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=bms, bound_by=by, library_ms=None)
                 tile_nodes = got[3][:, 0].to(torch.float64)
-                persist_runs.append((env, ins, kw, ms, bms, tile_nodes))
+                persist_runs.append((env, tag, ins, kw, ms, bms, tile_nodes))
                 kernel_note = (f" | persist call {ms:.4f} ms (the kernel "
                                f"alone: phase 9), plain on card "
                                f"{plain_ms:.3f} ms, bound {bms:.5f} ms ({by}); "
@@ -924,13 +1023,13 @@ def main() -> int:
         lambda: compact_ops.compact_columns(*ca, **ck), "compact_kernel", 50,
         "compact")
     # persist on phase 8's inputs: the kernel alone, after every call above
-    for env, ins, kw, p_ms, p_bms, tile_nodes in persist_runs:
+    for env, tag, ins, kw, p_ms, p_bms, tile_nodes in persist_runs:
         p_device_ms = kernel_device_ms(
             lambda: persist_ops.persist_tiles(**ins, **kw), "persist_kernel",
             20, "persist")
-        if env == env0:
+        if env == env0 and tag == "wavefront_persistent":
             persist_line["kernel_ms"] = p_device_ms
-        log("9 persist", f"{env} wavefront_persistent query (phase 8, "
+        log("9 persist", f"{env} {tag} query (phase 8, "
             f"fcap {kw['fcap']}): kernel on the card {p_device_ms:.5f} ms "
             f"(torch.profiler, {p_device_ms / p_bms:.1f}x the bound "
             f"{p_bms:.5f} ms), call {p_ms:.4f} ms; {tile_nodes.numel()} "
@@ -2410,10 +2509,245 @@ def main() -> int:
         f"on card {plain_ms:.3f} ms, bound {bms:.5f} ms ({by}) | phase "
         f"{lap():.1f} s | {card}")
 
-    # ---- 23. result -------------------------------------------------------
-    # launches on every main path (phases 8, 13, 17, 20, 21 and 22) and in
-    # the checks
-    log("23 result", f"whole script {time.perf_counter() - t_start:.1f} s")
+    # ---- 23. fig_bigscene's scenes at full scale ---------------------------
+    # benchmarks/run.py::fig_bigscene at FULL_SCALE: depth 8, two uniform
+    # clouds in [-1, 1]^3 from RandomState(5), drawn in its order; 1,500
+    # OBBs (trajs x wps).  max_frontier is raised so that no engine clamps
+    # (the fused arm's pool holds 2-10 M pairs a level, past the default
+    # 2**20): every verdict is then exact and comparable.
+    big_cap = 1 << 24
+    rs = np.random.RandomState(5)
+    big_trees = {}
+    for tag, n_pts in (("small", 524288), ("big", 6 * 524288)):
+        pts = rs.uniform(-1, 1, (n_pts, 3)).astype(np.float32)
+        big_trees[tag] = build_octree(pts, depth=8,
+                                      scene_lo=np.full(3, -1.0, np.float32),
+                                      scene_size=2.0)
+    n_max_of = {tag: max(len(lv.codes) for lv in t.levels)
+                for tag, t in big_trees.items()}
+    budget = persist_ops.meta_table_bytes(8, n_max_of["small"])
+    obbs_b = random_obbs(torch.Generator().manual_seed(11), 1500)
+    # the OBBs held card against CPU: all on the small scene (~1 s a
+    # hundred on the CPU), one whole tile on the big one (~3 s a tile)
+    n_sub_of = {"small": obbs_b.n, "big": 128}
+    log("23 bigscene", f"scenes: small levels "
+        f"{[len(lv.codes) for lv in big_trees['small'].levels]}, big levels "
+        f"{[len(lv.codes) for lv in big_trees['big'].levels]}; "
+        f"{obbs_b.n} OBBs (random_obbs, seed 11); budget of the pins "
+        f"{budget} B (the small scene's fp32 table); max_frontier "
+        f"{big_cap} | {card}")
+    P = "wavefront_persistent"
+    big_err = 0
+    for tag, tree in big_trees.items():
+        n_max = n_max_of[tag]
+        n_sub = n_sub_of[tag]
+        sub_b = OBBs(obbs_b.center[:n_sub], obbs_b.half[:n_sub],
+                     obbs_b.rot[:n_sub])
+        fused = CollisionEngine(tree, EngineConfig(
+            mode="wavefront_fused", max_frontier=big_cap), device="cuda")
+        v_f, c_f = fused.query(obbs_b)
+        f_walls = [fused.query(obbs_b)[1].wall_time_s for _ in range(5)]
+        add_check_launches()
+        if c_f.frontier_overflow:
+            raise SystemExit(f"FAIL: {tag} scene: wavefront_fused clamped "
+                             f"{c_f.frontier_overflow} pairs")
+        engines = [("default", dict())]
+        engines.append(("fig_bigscene fp32 pin",
+                        dict(vmem_budget=budget, meta_format="fp32")))
+        for fmt in (("fp32", "bf16") if tag == "big" else ("u8",)):
+            engines.append((f"fig_compress {fmt}",
+                            dict(vmem_budget=budget, stream_meta=True,
+                                 meta_format=fmt)))
+        if tag == "big":   # the default's rows, resident: the window count's
+            engines.append(("bf16 resident pin",     # cost, timed in turns
+                            dict(stream_meta=False, meta_format="bf16")))
+        turns = {}
+        if tag == "big":
+            try:
+                CollisionEngine(tree, EngineConfig(
+                    mode=P, vmem_budget=budget, stream_meta=True,
+                    meta_format="u8"), device="cuda").meta_layout
+            except ValueError as e:
+                log("23 bigscene", f"big scene, fig_compress u8: ValueError "
+                    f"as in the reference ({e})")
+            else:
+                raise SystemExit("FAIL: u8 rows pinned on the big scene "
+                                 "did not raise")
+        cpu_done = {}
+        for name, kw in engines:
+            cfg = EngineConfig(mode=P, max_frontier=big_cap, **kw)
+            eng = CollisionEngine(tree, cfg, device="cuda")
+            choice = (eng.meta_layout, eng.meta_format)
+            want_choice = {
+                ("small", "default"): ("resident", "bf16"),
+                ("big", "default"): ("streamed", "bf16"),
+                ("small", "fig_bigscene fp32 pin"): ("resident", "fp32"),
+                ("big", "fig_bigscene fp32 pin"): ("streamed", "fp32"),
+                ("big", "bf16 resident pin"): ("resident", "bf16"),
+            }.get((tag, name), ("streamed", kw.get("meta_format")))
+            if choice != want_choice:
+                raise SystemExit(f"FAIL: {tag} scene, {name}: the chooser "
+                                 f"picked {choice}, want {want_choice}")
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            v1, c1 = eng.query(obbs_b)
+            counts = _build.launch_counts()
+            _build.reset_launch_counts()
+            for k, n in counts.items():
+                main_launches[k] += n
+            want = {"persist": 1 + c1.escalations}
+            if any(n != want.get(k, 0) for k, n in counts.items()):
+                raise SystemExit(f"FAIL: {tag} scene, {name}: launches "
+                                 f"{counts}, want {want}")
+            if not np.array_equal(v1, v_f):
+                raise SystemExit(f"FAIL: {tag} scene, {name}: verdicts "
+                                 f"differ from wavefront_fused")
+            streamed = choice[0] == "streamed"
+            row_bytes = persist_ops.META_FORMAT_BYTES[choice[1]]
+            if (c1.meta_rows_streamed > 0) != streamed \
+                    or c1.meta_bytes_streamed != c1.meta_rows_streamed \
+                    * row_bytes or c1.frontier_overflow:
+                raise SystemExit(f"FAIL: {tag} scene, {name}: "
+                                 f"{c1.meta_rows_streamed} streamed rows, "
+                                 f"{c1.meta_bytes_streamed} bytes, "
+                                 f"{c1.frontier_overflow} pairs clamped")
+            # the card against the CPU on the subset, once a choice: each
+            # engine's first query of that size (escalations included)
+            vs, cs = (v1, c1) if n_sub == obbs_b.n else eng.query(sub_b)
+            if choice not in cpu_done:
+                t0 = time.perf_counter()
+                cpu_done[choice] = CollisionEngine(tree, cfg,
+                                                   device="cpu").query(sub_b)
+                cpu_s = time.perf_counter() - t0
+                cpu_note = f"cpu engine {cpu_s:.1f} s"
+            else:
+                cpu_note = "cpu engine of the same choice above"
+            vc, cc = cpu_done[choice]
+            a, b = cs.as_dict(), cc.as_dict()
+            diff = [k for k in a if k != "wall_time_s" and a[k] != b[k]]
+            if diff or not np.array_equal(vs, vc):
+                raise SystemExit(f"FAIL: {tag} scene, {name}: card differs "
+                                 f"from the CPU engine on the first {n_sub} "
+                                 f"OBBs in {diff or 'verdicts'}")
+            walls = [eng.query(obbs_b)[1].wall_time_s for _ in range(5)]
+            # persist alone at the clean capacity: the call, the kernel,
+            # the plain version on the card, the bound
+            dev = eng.device_tree
+            ins = persist_ops.pack_kernel_inputs(
+                obbs_b.center.to(cuda), obbs_b.half.to(cuda),
+                obbs_b.rot.to(cuda), dev, persist_ops.DEFAULT_BQ)
+            pkw = dict(bq=persist_ops.DEFAULT_BQ, fcap=eng.last_capacity,
+                       depth=tree.depth, ring_cap=persist_ops.DEFAULT_RING_CAP,
+                       use_spheres=False, meta_format=choice[1],
+                       streamed=streamed)
+            if name in ("default", "bf16 resident pin"):
+                turns[name] = (eng, ins, pkw)
+            got = persist_ops.persist_tiles(**ins, **pkw)
+            seen = torch.zeros(dev.node_meta.shape[:2], dtype=torch.bool,
+                               device=cuda)
+            want_p = persist_tiles_ref(**ins, **pkw, seen=seen)
+            err = max(int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
+                      for x, y in zip(got, want_p))
+            big_err = max(big_err, err)
+            if err:
+                raise SystemExit(f"FAIL: {tag} scene, {name}: persist "
+                                 f"differs from plain (max abs err {err})")
+            call_ms = cuda_time_ms(
+                lambda: persist_ops.persist_tiles(**ins, **pkw), 5)
+            plain_ms = cuda_time_ms(lambda: persist_tiles_ref(**ins, **pkw),
+                                    1, warmup=0)
+            # one launch between two events, five times: a kernel of
+            # milliseconds, which the host does not pace
+            ev_ms = statistics.median(cuda_time_ms(
+                lambda: persist_ops.persist_tiles(**ins, **pkw), 1, warmup=0)
+                for _ in range(5))
+            k_ms = kernel_device_ms(
+                lambda: persist_ops.persist_tiles(**ins, **pkw),
+                "persist_kernel", 5, "persist", required=False)
+            add_check_launches()
+            T = ins["sot"].shape[0]
+            L = tree.depth + 1
+            nodes = c1.nodes_traversed
+            # the distinct rows that the walk tests, each read once; the
+            # frontier's pairs are the kernel's own, not inputs or outputs
+            rows_read = int(seen.sum())
+            in_bytes = (4 * (3 + 3 * L) + 4 * T + 4 + T * 128 * (60 + 8)
+                        + rows_read * row_bytes)
+            out_bytes = 4 * T * (128 + L + 18 + 8) + 8 * int(
+                got[3][:, 6].clamp(max=pkw["ring_cap"]).sum())
+            ops = (nodes * (OPS_SETUP + OPS_NODE_BOX)
+                   + 7 * c1.axis_tests_executed)
+            bms, by = bound_ms(in_bytes + out_bytes, ops)
+            # the card's busy share in one traced warm query
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.query(obbs_b)
+                torch.cuda.synchronize()
+                t_traced = time.perf_counter() - t0
+            on_card = [e for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA]
+            d_traced = sum(device_us(e) for e in on_card) / 1e6
+            kept = sum(e.count for e in on_card if "persist_kernel" in e.key)
+            busy = (f"busy {100 * d_traced / t_traced:.1f} %" if kept == 1
+                    else f"the trace kept {kept} of 1 persist record: busy "
+                    f"by events (the kernel alone over the wall) "
+                    f"{100 * ev_ms / (1e3 * t_traced):.1f} %")
+            add_check_launches()
+            log("23 bigscene", f"{tag} scene, {name}: {choice[0]} "
+                f"{choice[1]} rows | hits {int(v1.sum())} of {obbs_b.n}, "
+                f"verdicts == wavefront_fused | nodes {c1.nodes_traversed} "
+                f"per level {c1.nodes_per_level} | escalations "
+                f"{c1.escalations}, cap {eng.last_capacity} | main-path "
+                f"launches {({k: v for k, v in counts.items() if v})} | "
+                f"meta_rows_streamed {c1.meta_rows_streamed}, "
+                f"meta_bytes_streamed {c1.meta_bytes_streamed} | cuda == cpu "
+                f"on the first {n_sub} OBBs, every counter ({cpu_note}) | "
+                f"warm wall median of 5 {1e3 * statistics.median(walls):.3f} "
+                f"ms, wavefront_fused {1e3 * statistics.median(f_walls):.3f} "
+                f"ms | persist call {call_ms:.4f} ms, the kernel alone "
+                f"{ev_ms:.4f} ms (CUDA events around one launch, median of "
+                f"5) and " + ("not measured" if k_ms is None else
+                              f"{k_ms:.4f} ms") + " (torch.profiler), plain "
+                f"on card {plain_ms:.1f} ms; distinct rows tested "
+                f"{rows_read} ({rows_read * row_bytes} B) of "
+                f"{int(dev.counts.sum())} occupied, {nodes} pairs; bound "
+                f"{bms:.5f} ms ({by}), {ev_ms / bms:.0f}x | traced warm "
+                f"query: wall {1e3 * t_traced:.3f} ms, {busy} | {card}")
+        if tag == "big":
+            # the streamed layout's cost on the card, where both layouts
+            # read the rows through L2: the same bf16 rows resident and
+            # streamed, in turns (r, s, s, r) x 5, the kernel by events
+            # around one launch and the warm query's wall
+            ev_t = {n: [] for n in turns}
+            wall_t = {n: [] for n in turns}
+            for _ in range(5):
+                for n in ("bf16 resident pin", "default", "default",
+                          "bf16 resident pin"):
+                    eng_t, ins_t, pkw_t = turns[n]
+                    ev_t[n].append(cuda_time_ms(
+                        lambda: persist_ops.persist_tiles(**ins_t, **pkw_t),
+                        1, warmup=0))
+                    wall_t[n].append(eng_t.query(obbs_b)[1].wall_time_s)
+            add_check_launches()
+            r_ev, s_ev = (statistics.median(ev_t[n])
+                          for n in ("bf16 resident pin", "default"))
+            r_w, s_w = (1e3 * statistics.median(wall_t[n])
+                        for n in ("bf16 resident pin", "default"))
+            log("23 bigscene", f"big scene, bf16 rows resident vs streamed "
+                f"(the default), in turns x 5: persist kernel (CUDA events, "
+                f"median of 10) {r_ev:.4f} vs {s_ev:.4f} ms "
+                f"({100 * (s_ev / r_ev - 1):+.1f} %), warm query wall "
+                f"{r_w:.3f} vs {s_w:.3f} ms ({100 * (s_w / r_w - 1):+.1f} %) "
+                f"| {card}")
+    persist_line["max_abs_err"] = max(persist_line["max_abs_err"], big_err)
+    log("23 bigscene", f"phase {lap():.1f} s")
+
+    # ---- 24. result -------------------------------------------------------
+    # launches on every main path (phases 8, 13, 17, 20, 21, 22 and 23) and
+    # in the checks
+    log("24 result", f"whole script {time.perf_counter() - t_start:.1f} s")
     for line in lines:
         line["launches"] = main_launches[line["name"]]
         line["check_launches"] = check_launches[line["name"]]

@@ -81,9 +81,8 @@ from repro_torch.core.sact import NUM_AXES, PAYLOAD_INF
 from repro_torch.engine.plan import QueryPlan, plan_batch, plan_queries
 from repro_torch.kernels.compact.ops import compact_pairs
 from repro_torch.kernels.persist.ops import (H100_L2_BYTES,
-                                             choose_meta_layout,
-                                             require_ported_layout,
-                                             tile_pool, traverse_whole)
+                                             choose_meta_layout, tile_pool,
+                                             traverse_whole)
 from repro_torch.kernels.sact.ops import pack_aabbs, pack_obbs, sact_dense
 from repro_torch.kernels.traverse.ops import traverse_step
 
@@ -707,9 +706,10 @@ class CollisionEngine:
                      max_depth: Optional[int] = None):
         cfg = self.cfg
         Q = plan.num_queries
-        if cfg.mode == "wavefront_persistent":
-            require_ported_layout(self._choose_meta())
         fmt = self.meta_format
+        # The persistent megakernel's layout: the chooser's pick against
+        # cfg.vmem_budget unless cfg.stream_meta pins it.
+        streamed = cfg.persistent and self.meta_layout == "streamed"
         dev = self.device_tree
         obb_c, obb_h, obb_r = self._plan_obbs(plan)
         owner, payload = (
@@ -727,12 +727,12 @@ class CollisionEngine:
             def run(cap):
                 return traverse_whole(dev=dev, capacity=cap,
                                       use_spheres=cfg.use_spheres,
-                                      streamed=False, **tiled)
+                                      streamed=streamed, **tiled)
         elif cfg.mode == "wavefront_persistent":
             def run(cap):
                 return traverse_whole(obb_c, obb_h, obb_r, dev, cap,
                                       use_spheres=cfg.use_spheres,
-                                      payload=payload, streamed=False)
+                                      payload=payload, streamed=streamed)
         elif cfg.mode == "wavefront_fused":
             obb = pack_obbs(obb_c, obb_h, obb_r)
 

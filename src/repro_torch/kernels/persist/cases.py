@@ -94,7 +94,8 @@ def skewed_pool(dev: DeviceOctree, bq: int, num_tiles: int, seed: int,
     live = ins["owner"][heavy] >= 0
     big = _obbs(rs, dev, bq, (0.15, 0.3)).to(dev.device)
     ins["obb"][heavy] = torch.where(live[:, None], big, 0.0)
-    kw = dict(bq=bq, depth=dev.depth, ring_cap=1, use_spheres=False)
+    kw = dict(bq=bq, depth=dev.depth, ring_cap=1, use_spheres=False,
+              meta_format=dev.meta_format)
     cpu = {k: v.cpu() for k, v in ins.items()}
     _, per_level, _, scalars, _ = persist_tiles_ref(**cpu, fcap=1 << 16,
                                                     **kw)
@@ -126,12 +127,14 @@ def _pack(dev: DeviceOctree, obb: torch.Tensor, owner: np.ndarray,
     d = dev.device
     scal = torch.cat([dev.scene_lo.to(torch.float32),
                       dev.cell_sizes.to(torch.float32)])
+    cnt = dev.counts.to(torch.int32)
     return dict(scal=scal, sot=torch.zeros(T, dtype=torch.int32, device=d),
                 nvalid=torch.tensor([obb.shape[0]], dtype=torch.int32,
                                     device=d),
                 obb=obb.to(d).contiguous(), meta=dev.node_meta,
                 payload=torch.from_numpy(payload).to(d),
-                owner=torch.from_numpy(owner).to(d))
+                owner=torch.from_numpy(owner).to(d),
+                off=torch.zeros_like(cnt), cnt=cnt)
 
 
 def sweep_round_plans(engine, q_from, q_to, resolution: int,

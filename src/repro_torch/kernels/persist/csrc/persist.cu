@@ -2,11 +2,30 @@
 // level for every query tile.
 //
 // Replaces repro/kernels/persist/kernel.py::persist_kernel (built by
-// make_persist_call) for the resident layout with fp32 rows, with the same
-// per-tile contract as the TPU kernel -- each tile of `bq` pool slots has
-// its own `fcap`-lane frontier, spill ring and outputs -- so verdicts,
-// every counter and the overflow that drives escalation come out
-// identical (persist_tiles_ref is the plain version).
+// make_persist_call), with the same per-tile contract as the TPU kernel --
+// each tile of `bq` pool slots has its own `fcap`-lane frontier, spill
+// ring and outputs -- so verdicts, every counter and the overflow that
+// drives escalation come out identical (persist_tiles_ref is the plain
+// version), for rows in each of the three formats and in both layouts.
+//
+// Rows (template FMT): fp32 (int4), bf16 (int2) or u8 (int) a node,
+// decoded in registers (node_box.cuh::decode_row) into the same integer
+// cell coordinates, so every format gives the same centres, verdicts and
+// counters.  A u8 row holds only the node's octant: each lane carries its
+// parent's Morton code beside its (query, node) pair, in the workspace,
+// the stage and the stash (not in the spill ring, whose pairs are only
+// (query, node), as in the TPU kernel).
+//
+// Layouts (template STREAM): the rows are read from device memory through
+// L2 in both.  Under the streamed layout the TPU kernel fetches each level in
+// windows of `wsub` rows over the tile's scene extent (off, cnt), only
+// the windows some lane of the tile points into, each rounded out to
+// whole 8-row chunks, and counts the rows into `meta_rows`; this kernel
+// computes that count.  Every rank marks the windows its lanes touch in
+// one bitmap of the tile's workspace slice, by level parity; after the
+// barrier that ends the level's phase A (the fold barrier, or the final
+// one after the leaf level) rank 0 adds each set window's span once and
+// clears its words.
 //
 // A tile runs on a thread-block cluster of kCluster CTAs of kThreads
 // threads (one cluster per tile), so a heavy tile is not left to one SM
@@ -17,9 +36,10 @@
 //
 // Per level each rank takes a contiguous share of the level's lanes, and
 // each thread a contiguous run of its rank's share:
-//   phase A  each lane loads its (query, node) pair, then the node's fp32
-//            row (software-pipelined two lanes ahead), builds the node box
-//            from the Morton code and runs the SACT straight through
+//   phase A  each lane loads its (query, node) pair, then the node's row
+//            (software-pipelined two lanes ahead; u8 also the parent code),
+//            marks the row's window (streamed layout), builds the node box
+//            from the decoded cell coordinates and runs the SACT straight through
 //            (sact_tile.cuh); a terminal hit folds its payload into this
 //            rank's best[owner], a candidate adds its child count to this
 //            rank's per-slot count (both in shared memory, by level
@@ -52,15 +72,17 @@
 // gate); the spill cursor and overflow are the same in every rank.
 //
 // The frontier lives in a device-memory workspace of T x 6 x fcap int32
-// ((query, node) pairs double-buffered, plus the stash): a tile's level
+// ((query, node) pairs double-buffered, plus the stash; u8 adds 3 x fcap
+// for the code lanes, and the streamed layout the window bitmaps past
+// shared memory: persist_work_words): a tile's level
 // can hold more lanes than a block's 227 KB of shared memory (the starting
 // bucket of paper-scale queries is 16,384 lanes, and escalation grows it).
 // Frontier loads bypass L1 (ld.global.cg): another SM of the cluster
 // wrote them.
 //
-// Bound on the H100: per tested node one 8 B pair and one 16 B row (both
-// L2-resident: the fp32 table is at most ~14 MiB at paper scale) and ~100
-// fp32 operations, so the bound is far below a microsecond.  What sets
+// Bound on the H100: per tested node one 8 B pair and one 4-16 B row (the
+// paper-scale tables fit L2; fig_bigscene's do not) and ~100 fp32
+// operations: below a microsecond at paper scale.  What sets
 // the time is the heaviest tile's chain of levels: ~3 us a level of
 // cross-SM latency (the fold barrier, the remote reads of the gate, the
 // level's last barrier) and local barriers and scans, whatever its width,
@@ -103,6 +125,17 @@ static_assert(kThreads % 32 == 0 && kThreads >= 64 && kThreads <= 1024,
               "kThreads: a multiple of 32 in [64, 1024]");
 static_assert(kCluster >= 1 && kCluster <= 8, "kCluster: 1 to 8 CTAs");
 
+// Row formats, in the order of repro_torch.core.quantize.META_FORMATS.
+constexpr int kFp32 = 0, kBf16 = 1, kU8 = 2;
+template <int FMT> struct MetaRow { using T = int4; };
+template <> struct MetaRow<kBf16> { using T = int2; };
+template <> struct MetaRow<kU8> { using T = int; };
+
+// Words of the streamed layout's window bitmap: a bit a window of a level.
+__host__ __device__ constexpr int win_words(int nwin) {
+  return (nwin + 31) / 32;
+}
+
 // Pairs a CTA stages in shared memory: its children of one level, stored
 // coalesced from there (and kept there for the next level while every
 // rank's share is at most a lane a thread).
@@ -116,11 +149,61 @@ __host__ __device__ constexpr int slot_words(int bq) {
   return (bq * (15 + 8) + 1) & ~1;
 }
 
-// Dynamic shared memory of one CTA for `bq` slots: the slot words, then
-// the stage.  A tile past a block's 227 KB is refused at launch.
-size_t smem_bytes(int bq) {
-  return (size_t)slot_words(bq) * sizeof(int) + kStage * sizeof(int2);
+// Dynamic shared memory of one CTA for `bq` slots: the slot words, the
+// stage and u8's codes of the staged pairs.  A tile past a block's 227 KB
+// is refused at launch.
+size_t smem_bytes(int bq, int fmt) {
+  size_t b = (size_t)slot_words(bq) * sizeof(int) + kStage * sizeof(int2);
+  if (fmt == kU8) b += kStage * sizeof(int);
+  return b;
 }
+
+// int32 words of one tile's workspace slice: the (query, node) pairs of
+// both frontier slots and the stash; u8's code lanes of both slots and the
+// stash; the streamed layout's window bitmaps (by level parity).  A
+// multiple of 4 words, so that every slice is 16-byte aligned.
+long long work_words(int fcap, int fmt, int nwin) {
+  long long w = 6LL * fcap;
+  if (fmt == kU8) w += 3LL * fcap;
+  if (nwin > 0) w += 2LL * win_words(nwin);
+  return (w + 3) & ~3LL;
+}
+
+// Rows the TPU kernel fetches for window w of a level whose scene extent
+// is [off, off + cnt): the window's occupied rows rounded out to whole
+// 8-row chunks; 0 for an empty window.
+__device__ __forceinline__ int window_span(int w, int wsub, int off,
+                                           int cnt) {
+  const long long lo = (long long)w * wsub;
+  const long long occ = min(max((long long)cnt - lo, 0LL), (long long)wsub);
+  if (occ <= 0) return 0;
+  const long long g_lo = off + lo, g_hi = g_lo + occ;
+  return (int)(((g_hi + 7) & ~7LL) - (g_lo & ~7LL));
+}
+
+
+// The kernel's arguments; `meta` holds rows of the instance's format.
+struct PersistArgs {
+  const float* scal;
+  const int* off;      // (S * L,) each scene's first row of each level
+  const int* cnt;      // (S * L,) and its rows
+  const int* sot;
+  const int* nvalid;
+  const float* obb;
+  const void* meta;
+  const int* payload;
+  const int* owner;
+  int* best_out;
+  int* per_level_out;
+  int* hist_out;
+  int* scalars_out;
+  int* ring_out;
+  int* work;
+  long long tile_words;
+  int bq, fcap, depth, n_max, ring_cap;
+  int streamed, wsub, nwin;
+  int wshift;   // log2(wsub) when wsub is a power of two, else -1
+};
 
 // Exclusive scan of one int per thread over the block (one barrier);
 // *total gets the block's sum.
@@ -147,16 +230,21 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* warp_sums,
   return before + x - v;
 }
 
-template <bool USE_SPHERES>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) persist_kernel(
-    const float* __restrict__ scal, const int* __restrict__ sot,
-    const int* __restrict__ nvalid, const float* __restrict__ obb,
-    const int4* __restrict__ meta, const int* __restrict__ payload,
-    const int* __restrict__ owner, int* __restrict__ best_out,
-    int* __restrict__ per_level_out, int* __restrict__ hist_out,
-    int* __restrict__ scalars_out, int* __restrict__ ring_out,
-    int* __restrict__ work, int bq, int fcap, int depth, int n_max,
-    int ring_cap) {
+template <bool USE_SPHERES, int FMT, bool STREAM>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    persist_kernel(const PersistArgs args) {
+  using Row = typename MetaRow<FMT>::T;
+  constexpr bool kCode = FMT == kU8;
+  // a template flag: the resident instances carry no window code
+  constexpr bool streamed = STREAM;
+  const float* __restrict__ scal = args.scal;
+  const int* __restrict__ owner = args.owner;
+  const int* __restrict__ payload = args.payload;
+  const Row* __restrict__ meta = static_cast<const Row*>(args.meta);
+  const int bq = args.bq, fcap = args.fcap, depth = args.depth;
+  const int n_max = args.n_max, ring_cap = args.ring_cap;
+  const int wsub = args.wsub, nwin = args.nwin, wshift = args.wshift;
+  const int W = win_words(nwin);
   extern __shared__ float4 smem4[];
   float* obb_s = reinterpret_cast<float*>(smem4);  // bq x 15
   int* own_s = reinterpret_cast<int*>(obb_s + bq * 15);
@@ -166,26 +254,52 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) persist_kernel(
   int* gate = cand + 2 * bq;   // payload < best[owner], per slot
   int* fin = gate + bq;        // rank 0's: every rank's final best words
   int2* stage = reinterpret_cast<int2*>(smem4) + slot_words(bq) / 2;
+  int* stage_code = reinterpret_cast<int*>(stage + kStage);   // u8
   __shared__ int hist[kExitCodes];
   __shared__ int warp_sums[kWarps];
   __shared__ int rank_tot[kCluster];
-  __shared__ int s_leaf, s_axis;
+  __shared__ int s_leaf, s_axis, s_meta;
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int t = blockIdx.x / kCluster, tid = threadIdx.x;
   const int L = depth + 1;
   const int q_base = t * bq;
-  const int scene = sot[t];
+  const int scene = args.sot[t];
   const int sb = scene * (3 + L);
-  int2* ws = reinterpret_cast<int2*>(work + (int64_t)t * 6 * fcap);
+  int* wt = args.work + (int64_t)t * args.tile_words;
+  int2* ws = reinterpret_cast<int2*>(wt);
   int2* front[2] = {ws, ws + fcap};   // (query, node) pairs
   int2* stash = ws + 2 * (int64_t)fcap;
-  int2* ring = reinterpret_cast<int2*>(ring_out) + (int64_t)t * ring_cap;
+  // u8: the parent code of each pair of both slots, and of each stash entry
+  int* codes = wt + 6 * (int64_t)fcap;
+  int* stash_code = codes + 2 * (int64_t)fcap;
+  // the window bitmaps that every rank marks, by level parity: [2][W]
+  int* win = codes + (kCode ? 3 * (int64_t)fcap : 0);
+  int2* ring = reinterpret_cast<int2*>(args.ring_out) + (int64_t)t * ring_cap;
+  // After the barrier that ends a level's phase A (parity p), on rank 0:
+  // each window set at the level (off, cnt) adds its span once; the words
+  // are cleared for the level after next, which no rank marks before the
+  // next level's fold barrier.
+  int meta_rows = 0;   // rank 0's threads' share
+  auto win_sum = [&](int p, int off_l, int cnt_l) {
+    if (!streamed || rank != 0) return;
+    int* words = win + p * W;
+    for (int i = tid; i < W; i += kThreads) {
+      int v = __ldcg(words + i);
+      if (v == 0) continue;
+      __stcg(words + i, 0);
+      for (; v; v &= v - 1)
+        meta_rows += window_span(i * 32 + __ffs(v) - 1, wsub, off_l, cnt_l);
+    }
+  };
 
-  if (tid == 0) { s_leaf = 0; s_axis = 0; }
+  if (tid == 0) { s_leaf = 0; s_axis = 0; s_meta = 0; }
   if (tid < kExitCodes) hist[tid] = 0;
-  const float* obb_t = obb + (int64_t)q_base * 15;
+  if (streamed && rank == 0) {   // both parities start empty
+    for (int i = tid; i < 2 * W; i += kThreads) win[i] = 0;
+  }
+  const float* obb_t = args.obb + (int64_t)q_base * 15;
   for (int i = tid; i < bq * 15; i += kThreads) obb_s[i] = obb_t[i];
   for (int i = tid; i < 4 * bq; i += kThreads)
     best[i] = i < 2 * bq ? kPayloadInf : 0;   // and cand
@@ -209,7 +323,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) persist_kernel(
   PERSIST_MARK(0, 0);
 
   // Live prefix: slots with an owner, and before the pool's valid count.
-  const int n_q = min(owned, min(max(nvalid[0] - q_base, 0), bq));
+  const int n_q = min(owned, min(max(args.nvalid[0] - q_base, 0), bq));
   int n_live = min(n_q, fcap);
   const float lo0 = scal[sb], lo1 = scal[sb + 1], lo2 = scal[sb + 2];
   int leaf = 0, axis = 0;                    // this thread's share
@@ -218,20 +332,29 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) persist_kernel(
   // split rank-major (in the device workspace), or the children this rank
   // wrote at the level before ([own_lo, own_hi), kept in `stage`).
   bool own_level = false;
-  int own_lo = 0, own_hi = 0, fold_p = 0;
+  int own_lo = 0, own_hi = 0, fold_p = 0, fold_level = 0;
   for (int level = 0; level < L; ++level) {
     const int p = level & 1;
-    if (rank == 0 && tid == 0) per_level_out[t * L + level] = n_live;
+    if (rank == 0 && tid == 0) args.per_level_out[t * L + level] = n_live;
     if (n_live == 0) continue;
     fold_p = p;
+    fold_level = level;
     int* best_p = best + p * bq;
     int* cand_p = cand + p * bq;
     const int2* cur = front[p];
     int2* nxt = front[1 - p];
+    const int* cur_code = codes + p * (int64_t)fcap;
+    int* nxt_code = codes + (1 - p) * (int64_t)fcap;
     const float cell = scal[sb + 3 + level];
     const float node_h = cell * 0.5f;
-    const int4* meta_l = meta + (int64_t)level * n_max;
+    const Row* meta_l = meta + (int64_t)level * n_max;
     const bool leaf_level = level == depth;
+    int off_l = 0, cnt_l = 0, last_w = -1;
+    int* win_p = win + p * W;   // the level's window bitmap
+    if (streamed) {
+      off_l = args.off[scene * L + level];
+      cnt_l = args.cnt[scene * L + level];
+    }
     int r_lo, r_n;
     if (own_level) {
       r_lo = own_lo;
@@ -251,28 +374,48 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) persist_kernel(
       if (level == 0) return make_int2(q_base + lane, scene);
       return own_level ? stage[lane - r_lo] : __ldcg(cur + lane);
     };
-    auto row_of = [&](int idx) -> int4 {
+    auto code_at = [&](int lane) -> int {
+      if (level == 0) return 0;   // every root's parent code
+      return own_level ? stage_code[lane - r_lo] : __ldcg(cur_code + lane);
+    };
+    auto row_of = [&](int idx) -> Row {
       return __ldg(meta_l + min(max(idx, 0), n_max - 1));
     };
     int2 f_next = make_int2(0, 0), f_after = make_int2(0, 0);
-    int4 r_next = make_int4(0, 0, 0, 0);
+    Row r_next = {};
+    int c_next = 0;
     if (a < b) {
       f_next = pair_at(a);
       r_next = row_of(f_next.y);
+      if (kCode) c_next = code_at(a);
     }
     if (a + 1 < b) f_after = pair_at(a + 1);
     int2 first = make_int2(0, 0);   // the run's first stash, in registers
+    int first_code = 0;
     for (int lane = a; lane < b; ++lane) {
-      const int q = f_next.x;
-      const int4 row = r_next;
+      const int q = f_next.x, node = f_next.y;
+      const Row row = r_next;
+      const int pcode = c_next;
       if (lane + 1 < b) {
         f_next = f_after;
         r_next = row_of(f_next.y);
+        if (kCode) c_next = code_at(lane + 1);
       }
       if (lane + 2 < b) f_after = pair_at(lane + 2);
+      if (streamed) {   // mark the lane's window (runs share windows)
+        const int x = max(node - off_l, 0);
+        const int w = min(wshift >= 0 ? x >> wshift : x / wsub, nwin - 1);
+        if (w != last_w) {
+          last_w = w;
+          int* word = win_p + (w >> 5);
+          const int bit = 1 << (w & 31);
+          if (!(*(volatile int*)word & bit)) atomicOr(word, bit);
+        }
+      }
       const int ql = q - q_base;
+      const NodeRow nr = decode_row(row, level, pcode);
       float node_c[3];
-      node_centre((uint32_t)row.x, lo0, lo1, lo2, cell, node_c);
+      node_centre_xyz(nr.xyz, lo0, lo1, lo2, cell, node_c);
       SactObb ob;
       sact_obb(obb_s + ql * 15, &ob);
       const float tv[3] = {ob.c[0] - node_c[0], ob.c[1] - node_c[1],
@@ -281,8 +424,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) persist_kernel(
       bool hit;
       const int exit_code =
           sact_tile<USE_SPHERES, SactMode::kStraight>(ob, tv, ah, &hit);
-      const bool is_term = row.y != 0 || leaf_level;
-      const int mask = (hit && !is_term) ? (row.w & 0xff) : 0;
+      const bool is_term = nr.full || leaf_level;
+      const int mask = (hit && !is_term) ? (nr.child_mask & 0xff) : 0;
       if (hit && is_term) {   // fold the payload into the owner's best
         const int own = own_s[ql];
         if (own >= 0 && own < bq) atomicMin(best_p + own, pay_s[ql]);
@@ -298,20 +441,27 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) persist_kernel(
           // the children's rows, for the next level: into this SM's L1,
           // where the rank keeps its own children (and, the positions
           // being rank-major, often also where the level is split afresh)
-          const int4* rows = meta_l + n_max + row.z;
+          const Row* rows = meta_l + n_max + nr.child_start;
           asm volatile("prefetch.global.L1 [%0];" :: "l"(rows));
           asm volatile("prefetch.global.L1 [%0];"
                        :: "l"(rows + __popc(mask) - 1));
         }
-        const int2 st = make_int2(mask | (ql << 8), row.z);
-        if (lane == a) first = st; else stash[lane] = st;
+        const int2 st = make_int2(mask | (ql << 8), nr.child_start);
+        if (lane == a) {
+          first = st;
+          first_code = nr.code;
+        } else {
+          stash[lane] = st;
+          if (kCode) stash_code[lane] = nr.code;
+        }
       }
     }
     PERSIST_MARK(level, 1);
     nodes += n_live;
     if (leaf_level) break;   // no children: the level ends with phase A
-    cluster.sync();          // every rank's folds and counts of the level
+    cluster.sync();          // every rank's folds, counts and windows
     PERSIST_MARK(level, 2);
+    win_sum(p, off_l, cnt_l);
 
     // ---- gate and the ranks' totals -----------------------------------------
     // gate: payload < the least best of the owner over the ranks; each
@@ -377,8 +527,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) persist_kernel(
         if (m == 0 || !gate[s.x >> 8]) continue;
         const int c = __popc(m);
         const int q = q_base + (s.x >> 8);
-        for (int k = max(w - off, 0); k < c && off + k < w_end; ++k)
+        const int code = kCode ? (lane == a ? first_code : stash_code[lane])
+                               : 0;
+        for (int k = max(w - off, 0); k < c && off + k < w_end; ++k) {
           stage[off + k - w] = make_int2(q, s.y + k);
+          if (kCode) stage_code[off + k - w] = code;
+        }
         off += c;
       }
       __syncthreads();
@@ -388,11 +542,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) persist_kernel(
                           ? 0 : min(kStage, block_total - w);
       for (int k = tid; k < n_w; k += kThreads) {
         const int pos = base + w + k;
-        if (pos >= fcap)
+        if (pos >= fcap) {
           ring[((unsigned)cursor + (unsigned)(pos - fcap)) % (unsigned)ring_cap]
               = stage[k];
-        else if (!own_next)
+        } else if (!own_next) {
           nxt[pos] = stage[k];
+          if (kCode) nxt_code[pos] = stage_code[k];
+        }
       }
       if (w_end < block_total) __syncthreads();   // the stage is reused
     }
@@ -436,11 +592,18 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) persist_kernel(
   cluster.sync();   // every rank's folds and counts are in rank 0
   PERSIST_MARK(15, 7);
   if (rank != 0) return;
+  if (streamed) {   // the leaf level's windows
+    win_sum(fold_p, args.off[scene * L + fold_level],
+            args.cnt[scene * L + fold_level]);
+    meta_rows = __reduce_add_sync(kFull, meta_rows);
+    if ((tid & 31) == 0) atomicAdd(&s_meta, meta_rows);
+    __syncthreads();
+  }
   for (int i = tid; i < bq; i += kThreads)
-    best_out[(int64_t)t * bq + i] = fin[i];
-  if (tid < kExitCodes) hist_out[t * kExitCodes + tid] = hist[tid];
+    args.best_out[(int64_t)t * bq + i] = fin[i];
+  if (tid < kExitCodes) args.hist_out[t * kExitCodes + tid] = hist[tid];
   if (tid == 0) {
-    int* sc = scalars_out + t * 8;
+    int* sc = args.scalars_out + t * 8;
     sc[0] = nodes;
     sc[1] = s_leaf;
     sc[2] = s_axis;
@@ -448,16 +611,16 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) persist_kernel(
     sc[4] = USE_SPHERES ? 2 * nodes : 0;
     sc[5] = overflow;
     sc[6] = overflow;  // spilled pairs
-    sc[7] = 0;         // meta rows streamed: 0 in the resident layout
+    sc[7] = s_meta;    // meta rows streamed: 0 in the resident layout
   }
 }
 
-cudaLaunchConfig_t launch_config(int num_tiles, int bq, cudaStream_t s,
+cudaLaunchConfig_t launch_config(int num_tiles, size_t smem, cudaStream_t s,
                                  cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(num_tiles * kCluster);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem_bytes(bq);
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = kCluster;
@@ -468,66 +631,97 @@ cudaLaunchConfig_t launch_config(int num_tiles, int bq, cudaStream_t s,
   return cfg;
 }
 
-template <bool USE_SPHERES>
-int launch(const float* scal, const int* sot, const int* nvalid,
-           const float* obb, const int4* meta, const int* payload,
-           const int* owner, int* best, int* per_level, int* hist,
-           int* scalars, int* ring, int* work, int num_tiles, int bq,
-           int fcap, int depth, int n_max, int ring_cap, cudaStream_t s) {
-  // A failed call's error is also the runtime's last error, which
-  // cudaGetLastError returns and clears, so that no later launch reports it.
-  const size_t smem = smem_bytes(bq);
+// Launch (num_tiles > 0), or with occupancy != nullptr report how many
+// clusters of this shape the card holds at once.  A failed call's error is
+// also the runtime's last error, which cudaGetLastError returns and
+// clears, so that no later launch reports it.
+template <bool USE_SPHERES, int FMT, bool STREAM>
+int run(const PersistArgs& a, int num_tiles, cudaStream_t s, int* occupancy) {
+  auto* kernel = persist_kernel<USE_SPHERES, FMT, STREAM>;
+  const size_t smem = smem_bytes(a.bq, FMT);
   if (smem <= 48 * 1024 ||
-      cudaFuncSetAttribute(persist_kernel<USE_SPHERES>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem) == cudaSuccess) {
     cudaLaunchAttribute attr[1];
-    const cudaLaunchConfig_t cfg = launch_config(num_tiles, bq, s, attr);
-    cudaLaunchKernelEx(&cfg, persist_kernel<USE_SPHERES>, scal, sot, nvalid,
-                       obb, meta, payload, owner, best, per_level, hist,
-                       scalars, ring, work, bq, fcap, depth, n_max, ring_cap);
+    const cudaLaunchConfig_t cfg =
+        launch_config(max(num_tiles, 1), smem, s, attr);
+    if (occupancy != nullptr)
+      cudaOccupancyMaxActiveClusters(occupancy, kernel, &cfg);
+    else
+      cudaLaunchKernelEx(&cfg, kernel, a);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int FMT>
+int run_format(const PersistArgs& a, int num_tiles, cudaStream_t s,
+               int use_spheres, int* occupancy) {
+  if (a.streamed)
+    return use_spheres ? run<true, FMT, true>(a, num_tiles, s, occupancy)
+                       : run<false, FMT, true>(a, num_tiles, s, occupancy);
+  return use_spheres ? run<true, FMT, false>(a, num_tiles, s, occupancy)
+                     : run<false, FMT, false>(a, num_tiles, s, occupancy);
+}
+
+int dispatch(const PersistArgs& a, int num_tiles, cudaStream_t s,
+             int use_spheres, int fmt, int* occupancy) {
+  switch (fmt) {
+    case kFp32: return run_format<kFp32>(a, num_tiles, s, use_spheres,
+                                         occupancy);
+    case kBf16: return run_format<kBf16>(a, num_tiles, s, use_spheres,
+                                         occupancy);
+    case kU8: return run_format<kU8>(a, num_tiles, s, use_spheres, occupancy);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
+
+// int32 words of one tile's workspace slice (the caller allocates
+// num_tiles of them): `fmt` indexes META_FORMATS, `nwin` is the windows of
+// a level under the streamed layout (0: resident).
+extern "C" long long persist_work_words(int fcap, int fmt, int nwin) {
+  return work_words(fcap, fmt, nwin);
+}
 
 extern "C" int persist_launch(const float* scal, const int* sot,
                               const int* nvalid, const float* obb,
                               const int* meta, const int* payload,
-                              const int* owner, int* best, int* per_level,
+                              const int* owner, const int* off,
+                              const int* cnt, int* best, int* per_level,
                               int* hist, int* scalars, int* ring, int* work,
                               int num_tiles, int bq, int fcap, int depth,
                               int n_max, int ring_cap, int use_spheres,
-                              void* stream) {
+                              int fmt, int streamed, int wsub, void* stream) {
   if (num_tiles <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int4* meta4 = reinterpret_cast<const int4*>(meta);
-  return use_spheres
-             ? launch<true>(scal, sot, nvalid, obb, meta4, payload, owner,
-                            best, per_level, hist, scalars, ring, work,
-                            num_tiles, bq, fcap, depth, n_max, ring_cap, s)
-             : launch<false>(scal, sot, nvalid, obb, meta4, payload, owner,
-                             best, per_level, hist, scalars, ring, work,
-                             num_tiles, bq, fcap, depth, n_max, ring_cap, s);
+  if (streamed && wsub < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int nwin = streamed ? (n_max + wsub - 1) / wsub : 0;
+  int wshift = -1;
+  if (streamed && (wsub & (wsub - 1)) == 0)
+    for (wshift = 0; (1 << wshift) < wsub; ++wshift) {}
+  const PersistArgs a = {scal, off, cnt, sot, nvalid, obb, meta, payload,
+                         owner, best, per_level, hist, scalars, ring, work,
+                         work_words(fcap, fmt, nwin), bq, fcap, depth, n_max,
+                         ring_cap, streamed, streamed ? wsub : 0, nwin,
+                         wshift};
+  return dispatch(a, num_tiles, static_cast<cudaStream_t>(stream),
+                  use_spheres, fmt, nullptr);
 }
 
 // The launch shape, for reports: out[0..3] = CTAs a cluster, threads a CTA,
-// dynamic shared memory a CTA for `bq` slots, and how many such clusters
-// the card holds at once (cudaOccupancyMaxActiveClusters).
-extern "C" int persist_shape(int bq, int* out) {
-  cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg = launch_config(1, bq, nullptr, attr);
-  const size_t smem = smem_bytes(bq);
+// dynamic shared memory a CTA for `bq` slots of rows in format `fmt` with
+// `nwin` windows a level (0: resident), and how many such clusters the
+// card holds at once (cudaOccupancyMaxActiveClusters).
+extern "C" int persist_shape(int bq, int fmt, int nwin, int* out) {
+  PersistArgs a = {};
+  a.bq = bq;
+  a.streamed = nwin > 0;
+  a.nwin = nwin;
   int clusters = 0;
-  if (smem <= 48 * 1024 ||
-      cudaFuncSetAttribute(persist_kernel<false>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem) == cudaSuccess)
-    cudaOccupancyMaxActiveClusters(&clusters, persist_kernel<false>, &cfg);
+  const int err = dispatch(a, 1, nullptr, 0, fmt, &clusters);
   out[0] = kCluster;
   out[1] = kThreads;
-  out[2] = (int)smem;
+  out[2] = (int)smem_bytes(bq, fmt);
   out[3] = clusters;
-  return static_cast<int>(cudaGetLastError());
+  return err;
 }

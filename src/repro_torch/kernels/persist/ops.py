@@ -21,16 +21,24 @@ with a payload lane and no owner lane stays on the identity route with
 its payloads.  An owner group too large for the largest tile
 (:data:`MAX_TILE_BQ`, :func:`persist_kernel_unsupported`) raises
 ``NotImplementedError`` (ROADMAP B.2.5): the reference serves it on its
-plain arm, and this port falls back to no plain version on the card.  The
-streamed layout, compressed rows and ragged multi-scene batches raise
-naming the ROADMAP item that adds them.
+plain arm, and this port falls back to no plain version on the card.
+Ragged multi-scene batches raise naming ROADMAP A.5.6.
 
-**Residency.**  The chooser keeps the reference's rules (fp32 while the
-resident table fits, compressed rows only to buy residency, narrowest
-eligible rows when streaming) with the budget as a parameter.  On the
-H100 "resident" means the whole table in device memory read through L2,
-so the default budget is the card's 50 MB L2 (NVIDIA H100 data sheet),
-not the 8 MiB TPU VMEM figure of the reference.
+**Layouts x row formats.**  Rows come in the three formats of
+:mod:`repro_torch.core.quantize` (fp32 16 B, bf16 8 B, u8 4 B; the
+kernel decodes them in registers), in one of two layouts
+(:data:`META_LAYOUTS`): ``resident``, or ``streamed``, where each tile
+reads a level through fixed windows of :func:`sub_window_rows` rows over
+its scene's sub-extent and counts the rows of every window it touches
+into ``meta_rows`` (``Counters.meta_rows_streamed``), as the reference's
+TPU kernel fetches them.  On the H100 both layouts read the rows from
+device memory through L2; the layout changes ``meta_rows`` and nothing
+else.  The chooser keeps the reference's rules (fp32 while the resident
+table fits, compressed rows only to buy residency, narrowest eligible
+rows when streaming) with the budget as a parameter.  On the H100
+"resident" means the whole table read through L2, so the default budget
+is the card's 50 MB L2 (NVIDIA H100 data sheet), not the 8 MiB TPU VMEM
+figure of the reference.
 """
 from __future__ import annotations
 
@@ -44,11 +52,14 @@ import torch
 from repro_torch.core.counters import (BYTES_META_STREAM,
                                        BYTES_META_STREAM_BF16,
                                        BYTES_META_STREAM_U8, NUM_EXIT_CODES)
-from repro_torch.core.octree import MAX_DEPTH, DeviceOctree, align_rows
-from repro_torch.core.quantize import META_FORMATS, format_eligible
+from repro_torch.core.octree import (MAX_DEPTH, META_ROW_ALIGN, DeviceOctree,
+                                     align_rows)
+from repro_torch.core.quantize import (META_FORMAT_WORDS, META_FORMATS,
+                                       format_eligible)
 from repro_torch.core.sact import PAYLOAD_INF
 from repro_torch.kernels import _build
-from repro_torch.kernels.persist.ref import persist_tiles_ref
+from repro_torch.kernels.persist.ref import (persist_tiles_ref,
+                                             sub_window_rows)
 from repro_torch.kernels.sact.ops import pack_obbs
 
 #: Node-metadata layouts of the persistent megakernel.
@@ -78,6 +89,14 @@ MAX_TILE_BQ = 1024
 def meta_table_bytes(depth: int, n_max: int, fmt: str = "fp32") -> int:
     """Bytes of the RESIDENT node-metadata table (aligned rows)."""
     return (depth + 1) * align_rows(n_max) * META_FORMAT_BYTES[fmt]
+
+
+def meta_stream_bytes(n_max: int, fmt: str = "fp32") -> int:
+    """Bytes of the reference TPU kernel's window pair under the streamed
+    layout (two windows, each with one 8-row chunk of slack), constant in
+    ``n_max`` past the window size.  The CUDA kernel stages no
+    window: it reads the rows through L2 in both layouts."""
+    return 2 * (sub_window_rows(n_max) + 8) * META_FORMAT_BYTES[fmt]
 
 
 class MetaChoice(NamedTuple):
@@ -235,31 +254,32 @@ def persist_kernel_unsupported(owner_of_query=None) -> Optional[str]:
     return None
 
 
-def require_ported_layout(choice: MetaChoice) -> None:
-    """Raise unless ``choice`` is what this slice's kernel runs."""
-    if choice.layout != "resident":
-        raise NotImplementedError(
-            "the streamed metadata layout lands with ROADMAP A.5.4")
-    if choice.fmt != "fp32":
-        raise NotImplementedError(
-            f"meta_format {choice.fmt!r}: bf16 and u8 rows land with "
-            "ROADMAP A.5.5")
-
-
-_PERSIST_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
+_PERSIST_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 10
                      + [ctypes.c_void_p])
 
 
-def persist_tiles(scal, sot, nvalid, obb, meta, payload, owner, *, bq: int,
-                  fcap: int, depth: int, ring_cap: int, use_spheres: bool,
-                  meta_format: str = "fp32"):
+def _lib_fn(name: str, argtypes, restype=ctypes.c_int):
+    """The built library's C function ``name``, its types declared."""
+    fn = getattr(_build.load("persist"), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return fn
+
+
+def persist_tiles(scal, sot, nvalid, obb, meta, payload, owner, off=None,
+                  cnt=None, *, bq: int, fcap: int, depth: int, ring_cap: int,
+                  use_spheres: bool, meta_format: str = "fp32",
+                  streamed: bool = False, wsub: Optional[int] = None):
     """One megakernel launch over ``T = len(sot)`` tiles (the inputs and
-    outputs of :func:`persist_tiles_ref`).  CPU tensors run the plain
+    outputs of :func:`persist_tiles_ref`).  ``meta`` holds rows in
+    ``meta_format``; ``streamed`` counts the windows of ``wsub`` rows
+    (default :func:`sub_window_rows`) over each scene's level extents
+    ``off`` / ``cnt`` into ``meta_rows``.  CPU tensors run the plain
     version; CUDA tensors launch ``csrc/persist.cu``."""
-    if meta_format != "fp32":
-        raise NotImplementedError(
-            f"meta_format {meta_format!r}: bf16 and u8 rows land with "
-            "ROADMAP A.5.5")
+    if meta_format not in META_FORMATS:
+        raise ValueError(f"unknown meta_format {meta_format!r}; "
+                         f"allowed: {META_FORMATS}")
     dev = obb.device
     T, L = sot.shape[0], depth + 1
     n_max = meta.shape[1]
@@ -267,60 +287,87 @@ def persist_tiles(scal, sot, nvalid, obb, meta, payload, owner, *, bq: int,
             "nvalid": (nvalid, torch.int32), "obb": (obb, torch.float32),
             "meta": (meta, torch.int32), "payload": (payload, torch.int32),
             "owner": (owner, torch.int32)}
+    if streamed:
+        if off is None or cnt is None:
+            raise ValueError("persist_tiles: the streamed layout reads the "
+                             "scenes' level extents (off, cnt)")
+        wsub = sub_window_rows(n_max) if wsub is None else int(wsub)
+        if wsub < 1:
+            raise ValueError(f"persist_tiles: need wsub >= 1, got {wsub}")
+        want.update(off=(off, torch.int32), cnt=(cnt, torch.int32))
+    else:
+        wsub = 0
     for name, (x, dtype) in want.items():
         if x.device != dev or x.dtype != dtype:
             raise ValueError(f"{name}: want {dtype} on {dev}, got "
                              f"{x.dtype} on {x.device}")
+    words = META_FORMAT_WORDS[meta_format]
     if obb.shape != (T * bq, 15) or payload.shape != (T * bq,) \
-            or owner.shape != (T * bq,) or meta.shape != (L, n_max, 4):
+            or owner.shape != (T * bq,) or meta.shape != (L, n_max, words):
         raise ValueError("persist_tiles: inconsistent input shapes")
     if not (bq >= 1 and 1 <= fcap < 2**28 and ring_cap >= 1):
         raise ValueError(f"persist_tiles: need bq >= 1, 1 <= fcap < 2**28 "
                          f"and ring_cap >= 1, got {bq}, {fcap}, {ring_cap}")
     if dev.type == "cpu":
         return persist_tiles_ref(scal, sot, nvalid, obb, meta, payload,
-                                 owner, bq=bq, fcap=fcap, depth=depth,
-                                 ring_cap=ring_cap, use_spheres=use_spheres)
+                                 owner, off, cnt, bq=bq, fcap=fcap,
+                                 depth=depth, ring_cap=ring_cap,
+                                 use_spheres=use_spheres,
+                                 meta_format=meta_format, streamed=streamed,
+                                 wsub=wsub or None)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    fmt = META_FORMATS.index(meta_format)
+    nwin = -(-n_max // wsub) if streamed else 0
     ins = [x.contiguous() for x in (scal, sot, nvalid, obb, meta, payload,
                                     owner)]
+    # the extents, which only the streamed instances read
+    ext = [x.contiguous() for x in (off, cnt)] if streamed else []
     i32 = dict(dtype=torch.int32, device=dev)
     best = torch.empty((T, bq), **i32)
     per_level = torch.empty((T, L), **i32)
     hist = torch.empty((T, NUM_EXIT_CODES), **i32)
     scalars = torch.empty((T, 8), **i32)
     ring = torch.empty((T, ring_cap, 2), **i32)
-    work = torch.empty((T, 6, fcap), **i32)   # frontier slots + stash
-    fn = _build.load("persist").persist_launch
-    if fn.argtypes is None:
-        fn.argtypes = _PERSIST_ARGTYPES
-        fn.restype = ctypes.c_int
+    # frontier slots and stash (and u8's code lanes, and the streamed
+    # layout's window bitmaps), one slice a tile
+    tile_words = _lib_fn("persist_work_words", [ctypes.c_int] * 3,
+                         ctypes.c_longlong)(fcap, fmt, nwin)
+    work = torch.empty((T, tile_words), **i32)
+    fn = _lib_fn("persist_launch", _PERSIST_ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(*(x.data_ptr() for x in ins),
+                    *((x.data_ptr() for x in ext) if ext else (None, None)),
                     *(x.data_ptr() for x in (best, per_level, hist, scalars,
                                              ring, work)),
                     T, bq, fcap, depth, n_max, ring_cap, int(use_spheres),
-                    stream)
+                    fmt, int(streamed), wsub, stream)
     _build.check(status, "persist")
     _build.count_launch("persist")
     return best, per_level, hist, scalars, ring
 
 
-def kernel_shape(bq: int = DEFAULT_BQ) -> dict:
+def kernel_shape(bq: int = DEFAULT_BQ, meta_format: str = "fp32",
+                 nwin: int = 0) -> dict:
     """The CUDA kernel's launch shape (needs the card): CTAs a cluster,
-    threads a CTA, dynamic shared memory a CTA for ``bq`` slots, and how
-    many such clusters the card holds at once
+    threads a CTA, dynamic shared memory a CTA for ``bq`` slots with rows
+    in ``meta_format``, and how many such clusters of the instance for
+    ``nwin`` windows a level (0: resident) the card holds at once
     (``cudaOccupancyMaxActiveClusters``)."""
-    fn = _build.load("persist").persist_shape
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    fn = _lib_fn("persist_shape", [ctypes.c_int] * 3 + [ctypes.c_void_p])
     out = (ctypes.c_int * 4)()
-    _build.check(fn(bq, ctypes.addressof(out)), "persist")
+    _build.check(fn(bq, META_FORMATS.index(meta_format), nwin,
+                    ctypes.addressof(out)), "persist")
     return dict(zip(("cluster", "threads", "smem_bytes", "max_clusters"),
                     out))
+
+
+def _scene_extents(dev: DeviceOctree) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(S * L,) int32 per-scene flat level sub-extents (offset, count): one
+    scene, offsets 0 and its level counts."""
+    cnt = dev.counts.to(torch.int32)
+    return torch.zeros_like(cnt), cnt
 
 
 def pack_kernel_inputs(obb_c, obb_h, obb_r, dev: DeviceOctree, bq: int,
@@ -335,9 +382,8 @@ def pack_kernel_inputs(obb_c, obb_h, obb_r, dev: DeviceOctree, bq: int,
     tiles, zero-padded at the end, every slot its own verdict group.  A
     tiled pool (:func:`build_tile_map`, already permuted into slot space)
     passes ``owner_local`` and ``scene_of_tile``; its ``bq`` is the pool's
-    width over its tile count.  The per-scene level extents (``off`` /
-    ``cnt``) are left out: only the streamed layout (ROADMAP A.5.4) reads
-    them."""
+    width over its tile count.  ``off`` / ``cnt`` are the scene's level
+    extents, which the streamed layout reads."""
     device = dev.device
     M = obb_c.shape[0]
     obb = pack_obbs(obb_c, obb_h, obb_r)
@@ -361,14 +407,15 @@ def pack_kernel_inputs(obb_c, obb_h, obb_r, dev: DeviceOctree, bq: int,
                       dev.cell_sizes.to(torch.float32)])
     nvalid = torch.tensor([M if num_valid is None else int(num_valid)],
                           dtype=torch.int32, device=device)
+    off, cnt = _scene_extents(dev)
     return dict(scal=scal, sot=sot, nvalid=nvalid, obb=obb.contiguous(),
                 meta=dev.node_meta, payload=pay.contiguous(),
-                owner=own.contiguous())
+                owner=own.contiguous(), off=off, cnt=cnt)
 
 
 def _kernel_whole(obb_c, obb_h, obb_r, dev: DeviceOctree, capacity: int,
-                  use_spheres: bool, bq: int, ring_cap: int, payload=None,
-                  owner_local=None, scene_of_tile=None
+                  use_spheres: bool, bq: int, ring_cap: int, streamed: bool,
+                  payload=None, owner_local=None, scene_of_tile=None
                   ) -> Tuple[torch.Tensor, dict]:
     """Run the megakernel; returns the raw (num_tiles * bq,) per-slot
     ``best`` words (PAYLOAD_INF = that slot never hit) + the stats dict."""
@@ -376,9 +423,14 @@ def _kernel_whole(obb_c, obb_h, obb_r, dev: DeviceOctree, capacity: int,
                              owner_local=owner_local,
                              scene_of_tile=scene_of_tile)
     bq = ins["obb"].shape[0] // ins["sot"].shape[0]
+    n_max = ins["meta"].shape[1]
+    if streamed and n_max % META_ROW_ALIGN:   # hand-built unaligned tables
+        ins["meta"] = torch.nn.functional.pad(
+            ins["meta"], (0, 0, 0, align_rows(n_max) - n_max))
     best, per_level, hist, scalars, _ring = persist_tiles(
         **ins, bq=bq, fcap=capacity, depth=dev.depth, ring_cap=ring_cap,
-        use_spheres=use_spheres, meta_format=dev.meta_format)
+        use_spheres=use_spheres, meta_format=dev.meta_format,
+        streamed=streamed)
     L = dev.depth + 1
     tot = scalars.to(torch.int64).sum(0)
     per = torch.zeros(MAX_DEPTH + 1, dtype=torch.int64, device=best.device)
@@ -434,7 +486,9 @@ def traverse_whole(obb_c, obb_h, obb_r, dev: DeviceOctree, capacity: int, *,
     ``bq``); the verdict is then the (Q,) int32 ``best`` payload per
     verdict group (compact owner ids; cells past the group count are
     ``PAYLOAD_INF``).  Runs on the device of ``dev`` (the OBB tensors are
-    moved there).
+    moved there).  ``streamed`` picks the layout (``None``: the chooser's
+    pick for the tree's own format); it changes ``meta_rows`` and nothing
+    else.
     """
     if scene_of_query is not None:
         raise NotImplementedError(
@@ -443,8 +497,6 @@ def traverse_whole(obb_c, obb_h, obb_r, dev: DeviceOctree, capacity: int, *,
         streamed = choose_meta_layout(
             dev.depth, dev.node_meta.shape[-2],
             fmt=dev.meta_format).layout == "streamed"
-    require_ported_layout(MetaChoice("streamed" if streamed else "resident",
-                                     dev.meta_format))
     d = dev.device
     obb_c, obb_h, obb_r = (torch.as_tensor(x, dtype=torch.float32).to(d)
                            for x in (obb_c, obb_h, obb_r))
@@ -455,7 +507,8 @@ def traverse_whole(obb_c, obb_h, obb_r, dev: DeviceOctree, capacity: int, *,
         tiles = Tiling(*(torch.as_tensor(x).to(d) for x in tiles))
         Qs = obb_c.shape[0]
         best, st = _kernel_whole(obb_c, obb_h, obb_r, dev, capacity,
-                                 use_spheres, bq, ring_cap, payload=payload,
+                                 use_spheres, bq, ring_cap, streamed,
+                                 payload=payload,
                                  owner_local=tiles.owner_local,
                                  scene_of_tile=tiles.scene_of_tile)
         # Each group's best lies at its fold slot; cells past the group
@@ -467,6 +520,6 @@ def traverse_whole(obb_c, obb_h, obb_r, dev: DeviceOctree, capacity: int, *,
     # ---- identity (per-query groups) pools ----------------------------
     M = obb_c.shape[0]
     best, st = _kernel_whole(obb_c, obb_h, obb_r, dev, capacity, use_spheres,
-                             bq, ring_cap, payload=payload)
+                             bq, ring_cap, streamed, payload=payload)
     best = best[:M]
     return (best if payload is not None else best != PAYLOAD_INF), st

@@ -10,19 +10,34 @@ tile, which is what makes its counters, and so the engine's escalation,
 agree with the kernel's on every run, not only on overflow-free ones (the
 reference's global-pool ``traverse_whole_ref`` counts one shared pool).
 
+Rows come in the three formats of :mod:`repro_torch.core.quantize` (fp32,
+bf16, u8), decoded by :func:`decode_meta_rows` as the kernel decodes them;
+u8 rows store only the node's octant, so each lane carries its own Morton
+code (the parent-code lane, seeded 0 at the root).  Under the streamed
+layout each tile reads a level through fixed windows of ``wsub`` rows over
+its scene's sub-extent (``off`` / ``cnt``), and ``meta_rows`` counts the
+rows of every window that some valid lane of the tile points into, each
+window's occupied span rounded out to whole 8-row chunks: the reference's
+schedule (``repro.kernels.persist.ref.traverse_whole_ref``, per tile).
+
 It is the CPU arm of ``mode="wavefront_persistent"`` and the oracle the
 CUDA kernel is held against on the card.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.core.counters import NUM_EXIT_CODES
-from repro_torch.core.octree import morton_decode
+from repro_torch.core.octree import align_rows, morton_decode
+from repro_torch.core.quantize import (BF16_START_BITS, GRID_BITS,
+                                       META_FORMATS, U8_START_BITS)
 from repro_torch.core.sact import PAYLOAD_INF, axis_tests_from_exit
 from repro_torch.kernels.sact.ref import _EPS, sact_tile
+
+#: Rows of one window of the streamed layout (the reference's).
+SUB_WINDOW_ROWS = 1024
 
 _POP8 = torch.tensor([bin(i).count("1") for i in range(256)],
                      dtype=torch.int32)
@@ -48,28 +63,88 @@ def csr_child_slots(child_mask: torch.Tensor
     return occupied, offs
 
 
-def decode_meta_rows(meta: torch.Tensor, meta_format: str):
-    """Gathered packed rows (..., words) -> (xyz (..., 3) int32, full bool,
-    child_start int32, child_mask int32).  fp32 rows only."""
-    if meta_format != "fp32":
-        raise NotImplementedError(
-            f"meta_format {meta_format!r}: bf16 and u8 rows land with "
-            "ROADMAP A.5.5")
-    return (morton_decode(meta[..., 0]), meta[..., 1] != 0, meta[..., 2],
-            meta[..., 3])
+def decode_meta_rows(meta: torch.Tensor, meta_format: str, level: int,
+                     pcode: Optional[torch.Tensor] = None):
+    """Gathered packed rows (..., words) of ``level`` -> (xyz (..., 3)
+    int32 cell coordinates, full bool, child_start int32, child_mask
+    int32, code_own int32), as the reference decodes them.
+
+    fp32 rows are ``[code, full, child_start, child_mask]``.  The packed
+    formats keep topology in word 0, ``full << 31 | [octant << 28 |]
+    child_start << 8 | mask``, whose right shifts sign-extend when
+    ``full`` is set, so every field is masked.  bf16 takes the cell
+    coordinates from word 1 (three 10-bit leaf-grid fields, each shifted
+    down to ``level``); u8 rebuilds the lane's own code from its parent's,
+    ``pcode`` (``code_own = pcode << 3 | octant``), and decodes it.
+    ``code_own`` is 0 but under u8, where the children inherit it.
+    """
+    if meta_format == "fp32":
+        return (morton_decode(meta[..., 0]), meta[..., 1] != 0, meta[..., 2],
+                meta[..., 3], torch.zeros_like(meta[..., 0]))
+    w0 = meta[..., 0]
+    full = w0 < 0
+    child_mask = w0 & 0xFF
+    if meta_format == "bf16":
+        child_start = (w0 >> 8) & ((1 << BF16_START_BITS) - 1)
+        w1 = meta[..., 1]
+        shift = GRID_BITS - level
+        xyz = torch.stack([((w1 >> 20) & 0x3FF) >> shift,
+                           ((w1 >> 10) & 0x3FF) >> shift,
+                           (w1 & 0x3FF) >> shift], dim=-1)
+        return xyz, full, child_start, child_mask, torch.zeros_like(w0)
+    if meta_format != "u8" or pcode is None:
+        raise ValueError(f"meta_format {meta_format!r} (allowed: "
+                         f"{META_FORMATS}; u8 needs the parent-code lane)")
+    child_start = (w0 >> 8) & ((1 << U8_START_BITS) - 1)
+    code_own = (pcode.to(torch.int32) << 3) | ((w0 >> 28) & 7)
+    return morton_decode(code_own), full, child_start, child_mask, code_own
 
 
-def persist_tiles_ref(scal, sot, nvalid, obb, meta, payload, owner, *,
-                      bq: int, fcap: int, depth: int, ring_cap: int,
-                      use_spheres: bool, meta_format: str = "fp32"):
-    """Per-tile whole traversal, resident rows.
+def sub_window_rows(n_max: int) -> int:
+    """Window size of the streamed layout for an ``n_max``-wide table: the
+    fixed :data:`SUB_WINDOW_ROWS`, or the aligned table width when that is
+    narrower."""
+    return min(SUB_WINDOW_ROWS, align_rows(n_max))
+
+
+def window_spans(off_l: torch.Tensor, cnt_l: torch.Tensor, wsub: int,
+                 nwin: int) -> torch.Tensor:
+    """Rows fetched for each window of a level under the streamed layout:
+    (..., nwin) int64 from the (...,) level offsets and counts.  Window
+    ``w`` covers rows ``[off + w * wsub, off + w * wsub + occ)`` with
+    ``occ = clip(cnt - w * wsub, 0, wsub)``, fetched rounded out to whole
+    8-row chunks (``floor8(lo) .. ceil8(hi)``); an empty window fetches
+    nothing."""
+    wlo = torch.arange(nwin, device=off_l.device, dtype=torch.int64) * wsub
+    off_l, cnt_l = off_l.to(torch.int64)[..., None], \
+        cnt_l.to(torch.int64)[..., None]
+    occ = (cnt_l - wlo).clamp(0, wsub)
+    g_lo = off_l + wlo
+    g_hi = g_lo + occ
+    floor8 = torch.div(g_lo, 8, rounding_mode="floor") * 8
+    ceil8 = -torch.div(-g_hi, 8, rounding_mode="floor") * 8
+    return torch.where(occ > 0, ceil8 - floor8, 0)
+
+
+def persist_tiles_ref(scal, sot, nvalid, obb, meta, payload, owner, off=None,
+                      cnt=None, *, bq: int, fcap: int, depth: int,
+                      ring_cap: int, use_spheres: bool,
+                      meta_format: str = "fp32", streamed: bool = False,
+                      wsub: Optional[int] = None,
+                      seen: Optional[torch.Tensor] = None):
+    """Per-tile whole traversal.
 
     Args (the kernel's inputs): ``scal`` f32 (S * (3 + L),) per scene
     [scene_lo xyz, cell size per level]; ``sot`` i32 (T,) scene of each
     tile; ``nvalid`` i32 (1,) live prefix of the pool; ``obb`` f32
-    (T * bq, 15); ``meta`` i32 (L, n_max, 4) fp32 rows; ``payload`` and
-    ``owner`` i32 (T * bq,) (owner = the slot's verdict group as a
-    tile-local slot, -1 = pad).
+    (T * bq, 15); ``meta`` i32 (L, n_max, words) rows in ``meta_format``;
+    ``payload`` and ``owner`` i32 (T * bq,) (owner = the slot's verdict
+    group as a tile-local slot, -1 = pad); ``off`` / ``cnt`` i32 (S * L,)
+    each scene's sub-extent of the level rows (read only when
+    ``streamed``).  ``streamed`` counts the windows of ``wsub`` rows
+    (default :func:`sub_window_rows`) into ``meta_rows``.  ``seen``, a
+    bool (L, n_max) tensor when given, gets every row that a valid lane
+    tests set: the distinct rows that the walk must read.
 
     Returns ``(best (T, bq), per_level (T, L), hist (T, 18), scalars
     (T, 8), ring (T, ring_cap, 2))``, all int32; scalars are [nodes, leaf,
@@ -98,6 +173,15 @@ def persist_tiles_ref(scal, sot, nvalid, obb, meta, payload, owner, *,
     seeded = lane[None, :] < n_q[:, None]
     fq = torch.where(seeded, q_base[:, None] + lane[None, :], 0)
     fn = torch.where(seeded, scene[:, None], 0)
+    # u8: each lane's parent code (its own code's bits above the octant);
+    # every root's is 0
+    fc = torch.zeros((T, fcap), dtype=torch.int32, device=dev)
+    if streamed:
+        wsub = sub_window_rows(n_max) if wsub is None else wsub
+        nwin = -(-n_max // wsub)
+        off_t = off.to(i64)[scene[:, None] * L + torch.arange(L, device=dev)]
+        cnt_t = cnt.to(i64)[scene[:, None] * L + torch.arange(L, device=dev)]
+    meta_rows = torch.zeros(T, dtype=i64, device=dev)
     n_live = torch.minimum(n_q, torch.tensor(fcap, device=dev))
     best = torch.full((T, bq), inf, dtype=i64, device=dev)
     per_level = torch.zeros((T, L), dtype=i64, device=dev)
@@ -120,8 +204,19 @@ def persist_tiles_ref(scal, sot, nvalid, obb, meta, payload, owner, *,
         oc = [rows[..., i] for i in range(3)]
         oh = [rows[..., 3 + i] for i in range(3)]
         R = [[rows[..., 6 + 3 * i + k] for k in range(3)] for i in range(3)]
-        xyz, full_l, child_start, child_mask = decode_meta_rows(
-            meta[level][idx.clamp(0, n_max - 1)], meta_format)
+        if seen is not None:
+            seen[level, idx[valid]] = True
+        xyz, full_l, child_start, child_mask, code_own = decode_meta_rows(
+            meta[level][idx.clamp(0, n_max - 1)], meta_format, level,
+            fc[:, :w])
+        if streamed:
+            # the windows that some valid lane of the tile points into
+            win = torch.div(idx - off_t[:, level, None], wsub,
+                            rounding_mode="floor").clamp(0, nwin - 1)
+            touched = torch.zeros((T, nwin), dtype=i64, device=dev)
+            touched.scatter_reduce_(1, win, valid.to(i64), "amax")
+            meta_rows += (touched * window_spans(
+                off_t[:, level], cnt_t[:, level], wsub, nwin)).sum(1)
         cell = cells[:, level, None]                               # (T, 1)
         node_h = cell * 0.5
         node_c = [lo[:, i, None] + (xyz[..., i].to(torch.float32) + 0.5) * cell
@@ -164,9 +259,13 @@ def persist_tiles_ref(scal, sot, nvalid, obb, meta, payload, owner, *,
 
         fq_next = torch.zeros((T, fcap), dtype=i64, device=dev)
         fn_next = torch.zeros((T, fcap), dtype=i64, device=dev)
+        fc_next = torch.zeros((T, fcap), dtype=torch.int32, device=dev)
         keep = live & (pos < fcap)
         fq_next[t_rep[keep], pos[keep]] = q_rep[keep]
         fn_next[t_rep[keep], pos[keep]] = cand[keep]
+        # children inherit their parent's own code as their parent code
+        fc_next[t_rep[keep], pos[keep]] = \
+            code_own[..., None].expand(-1, -1, 8)[keep]
         spill = live & (pos >= fcap)
         slot = (cursor[:, None, None] + pos - fcap) % ring_cap
         ring[t_rep[spill], slot[spill], 0] = q_rep[spill].to(i32)
@@ -176,11 +275,11 @@ def persist_tiles_ref(scal, sot, nvalid, obb, meta, payload, owner, *,
         overflow += spill_now
         cursor = (cursor + spill_now) % ring_cap
         n_live = n_new.clamp(max=fcap)
-        fq, fn = fq_next, fn_next
+        fq, fn, fc = fq_next, fn_next, fc_next
 
     nodes = per_level.sum(1)
     sphere = 2 * nodes if use_spheres else torch.zeros_like(nodes)
     scalars = torch.stack([nodes, leaf, axis, nodes * 15, sphere, overflow,
-                           overflow, torch.zeros_like(nodes)], dim=1)
+                           overflow, meta_rows], dim=1)
     return (best.to(i32), per_level.to(i32), hist.to(i32), scalars.to(i32),
             ring)

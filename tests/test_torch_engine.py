@@ -164,7 +164,7 @@ def test_engine_cuda_raises_without_cuda(scene):
 
 
 def test_unported_modes_and_options_raise(scene):
-    _, ttree, arrays = scene
+    tree, ttree, arrays = scene
     with pytest.raises(NotImplementedError, match="A.8"):
         CollisionEngine(ttree, EngineConfig(mode=PERSIST, shards=2),
                         device="cpu")
@@ -198,13 +198,82 @@ def test_unported_modes_and_options_raise(scene):
         eng.execute(plan, max_depth=0)
     with pytest.raises(NotImplementedError, match="A.5.6"):
         CollisionEngine([ttree, ttree], EngineConfig(), device="cpu")
+    # the streamed layout runs and matches the reference
     eng = CollisionEngine(ttree, EngineConfig(mode=PERSIST, stream_meta=True),
                           device="cpu")
     assert eng.meta_layout == "streamed"
-    with pytest.raises(NotImplementedError, match="A.5.4"):
-        eng.query(_torch_obbs(arrays))
+    v, c = eng.query(_torch_obbs(arrays))
+    with jax.disable_jit():
+        want = jexe.CollisionEngine(tree, jexe.EngineConfig(
+            mode=PERSIST, stream_meta=True)).query(
+                jgeo.OBBs(*map(jnp.asarray, arrays)))
+    _assert_same((v, c), want, skip=("escalations",))
+    assert c.meta_rows_streamed > 0
     with pytest.raises(ValueError, match="unknown engine mode"):
         EngineConfig(mode="bogus")
+
+
+@pytest.mark.parametrize("stream_meta", [False, True])
+@pytest.mark.parametrize("fmt", ["fp32", "bf16", "u8"])
+def test_engine_rows_and_layouts_match_reference(scene, fmt, stream_meta):
+    """Each row format in each layout, against the reference engine's
+    plain arm with the same pins: verdicts and every counter,
+    ``meta_rows_streamed`` and ``meta_bytes_streamed`` included (the
+    streamed rows are the same in every format, their bytes the format's
+    row width)."""
+    tree, ttree, arrays = scene
+    cfg = dict(mode=PERSIST, meta_format=fmt, stream_meta=stream_meta)
+    eng = CollisionEngine(ttree, EngineConfig(**cfg), device="cpu")
+    assert eng.device_tree.meta_format == fmt
+    got = eng.query(_torch_obbs(arrays))
+    with jax.disable_jit():
+        want = jexe.CollisionEngine(tree, jexe.EngineConfig(**cfg)).query(
+            jgeo.OBBs(*map(jnp.asarray, arrays)))
+    _assert_same(got, want)
+    c = got[1]
+    assert (c.meta_rows_streamed > 0) == stream_meta
+    assert c.meta_bytes_streamed == c.meta_rows_streamed * {
+        "fp32": 16, "bf16": 8, "u8": 4}[fmt]
+    fp32 = _level_query(ttree, arrays, PERSIST)
+    _assert_same(got, fp32, skip=("meta_rows_streamed", "meta_bytes_streamed",
+                                  "bytes_moved"))
+
+
+@pytest.mark.parametrize("fmt,lanes", [("u8", "owner+payload"),
+                                       ("bf16", "payload")])
+def test_grouped_plans_on_streamed_rows_match_reference(scene, fmt, lanes):
+    """Owner-group tiles and payload lanes on streamed compressed rows:
+    the per-group ``best`` words and every counter against the reference
+    engine's plain arm, whose window model keys on the same tiles."""
+    tree, ttree, arrays = scene
+    plan, jplan_ = _grouped_plans(arrays, lanes)
+    cfg = dict(meta_format=fmt, stream_meta=True)
+    got = CollisionEngine(ttree, EngineConfig(mode=PERSIST, **cfg),
+                          device="cpu").execute(plan)
+    with jax.disable_jit():
+        want = jexe.CollisionEngine(tree, jexe.EngineConfig(
+            mode=PERSIST, **cfg)).execute(jplan_)
+    _assert_same(got, want)
+    assert got[1].meta_rows_streamed > 0
+
+
+def test_streamed_overflow_replays_like_reference_kernel_arm(scene):
+    """A tiny first bucket overflows per tile on streamed u8 rows and
+    climbs the replay ladder as the reference's interpreted kernel does;
+    the clean run's windows are the ones counted."""
+    tree, ttree, _ = scene
+    arrays = _big_obbs()
+    cfg = dict(min_bucket=64)
+    got = CollisionEngine(ttree, EngineConfig(
+        mode=PERSIST, meta_format="u8", stream_meta=True, **cfg),
+        device="cpu").query(_torch_obbs(arrays))
+    with jax.disable_jit():
+        want = jexe.CollisionEngine(tree, jexe.EngineConfig(
+            mode=PERSIST, meta_format="u8", stream_meta=True,
+            use_pallas_traverse=True, **cfg)).query(
+                jgeo.OBBs(*map(jnp.asarray, arrays)))
+    _assert_same(got, want)
+    assert got[1].escalations >= 1 and got[1].meta_rows_streamed > 0
 
 
 def _jax_level_query(tree, arrays, mode, max_depth=None, **cfg):

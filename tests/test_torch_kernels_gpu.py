@@ -170,7 +170,7 @@ def test_persist_kernel_with_a_rank_held_back(cuda):
                         "--reps", "5"], capture_output=True, text=True,
                        timeout=900, cwd=root)
     assert p.returncode == 0, p.stdout + p.stderr
-    assert p.stdout.count("0 of 5 launches differ") == 12, p.stdout
+    assert p.stdout.count("0 of 5 launches differ") == 24, p.stdout
 
 
 def test_persist_kernel_shape_fits_the_card(cuda):
@@ -209,6 +209,102 @@ def test_persist_kernel_on_large_owner_tiles(cuda, bq, fcap):
         assert torch.equal(g, w)
     assert (int(got[3][:, 5].sum()) > 0) == (fcap == 48)
     assert int((got[0] != PAYLOAD_INF).sum()) > 0
+
+
+def _format_pool(cuda, fmt, pool):
+    """A pool of ``pool``'s kind on a device tree with ``fmt`` rows, and
+    its (bq, fcap, ring_cap): identity pools overflow their tiles, the
+    skewed pool spills its heavy tile's widest level."""
+    if pool == "skewed":
+        tree = build_octree(np.random.RandomState(3).uniform(
+            -1, 1, (20000, 3)).astype(np.float32), depth=5)
+        dev = device_octree(tree, meta_format=fmt, device=cuda)
+        ins, fcap, ring_cap = skewed_pool(dev, 128, 6, seed=5)
+        return tree, dev, ins, 128, fcap, ring_cap
+    tree, obbs = _scene_and_queries(M=300)
+    dev = device_octree(tree, meta_format=fmt, device=cuda)
+    if pool == "identity":
+        ins = persist_ops.pack_kernel_inputs(obbs.center.to(cuda),
+                                             obbs.half.to(cuda),
+                                             obbs.rot.to(cuda), dev, 16)
+        return tree, dev, ins, 16, 32, 4096
+    if pool == "owner groups":
+        return tree, dev, owner_group_pool(dev, 128, 5, seed=128), 128, \
+            4096, 256
+    return tree, dev, grazing_pool(dev, 3, 256, seed=7, use_spheres=True), \
+        128, 16384, 256
+
+
+@pytest.mark.parametrize("pool", ["identity", "owner groups", "skewed",
+                                  "grazing"])
+@pytest.mark.parametrize("layout", ["resident", "streamed", "wsub 64",
+                                    "one window"])
+@pytest.mark.parametrize("fmt", ["fp32", "bf16", "u8"])
+def test_persist_kernel_rows_and_windows_match_plain(cuda, fmt, layout,
+                                                     pool):
+    """Rows in each format, resident and streamed (the default window,
+    windows of 64 rows, one window as wide as the table), on identity
+    pools that overflow, owner groups, the skewed pool that spills and
+    grazing pools (both routes to the node centre must give the same
+    bits): every output equal to the plain version's, ``meta_rows``
+    included."""
+    tree, dev, ins, bq, fcap, ring_cap = _format_pool(cuda, fmt, pool)
+    kw = dict(bq=bq, fcap=fcap, depth=tree.depth, ring_cap=ring_cap,
+              use_spheres=pool == "grazing", meta_format=fmt,
+              streamed=layout != "resident",
+              wsub={"wsub 64": 64, "one window": dev.node_meta.shape[1]}
+              .get(layout))
+    got = persist_ops.persist_tiles(**ins, **kw)
+    want = persist_tiles_ref(**ins, **kw)
+    for g, w in zip(got[:4], want[:4]):
+        assert torch.equal(g, w)
+    fits = got[3][:, 6] <= ring_cap
+    assert torch.equal(got[4][fits], want[4][fits])
+    assert (int(got[3][:, 7].sum()) > 0) == (layout != "resident")
+    if pool in ("identity", "skewed"):
+        assert int(got[3][:, 5].sum()) > 0
+
+
+@pytest.mark.parametrize("wsub", [1, 2])
+@pytest.mark.parametrize("fmt", ["fp32", "u8"])
+def test_persist_window_bitmap_past_shared_memory(cuda, fmt, wsub):
+    """Windows of 1 and 2 rows on a 15,104-row table: over 4,096 windows a
+    level, a bitmap of over 128 words a parity in the workspace; the
+    skewed pool's heavy tile spills."""
+    tree, dev, ins, bq, fcap, ring_cap = _format_pool(cuda, fmt, "skewed")
+    assert -(-dev.node_meta.shape[1] // wsub) > 4096
+    kw = dict(bq=bq, fcap=fcap, depth=tree.depth, ring_cap=ring_cap,
+              use_spheres=False, meta_format=fmt, streamed=True, wsub=wsub)
+    got = persist_ops.persist_tiles(**ins, **kw)
+    want = persist_tiles_ref(**ins, **kw)
+    for g, w in zip(got[:4], want[:4]):
+        assert torch.equal(g, w)
+    assert int(got[3][:, 7].sum()) > 0 and int(got[3][:, 5].sum()) > 0
+
+
+@pytest.mark.parametrize("bq", [256, 1024])
+@pytest.mark.parametrize("fmt", ["bf16", "u8"])
+def test_persist_kernel_compressed_rows_on_large_owner_tiles(cuda, fmt, bq):
+    """Owner-group tiles of 256 and 1,024 slots on compressed rows under
+    the streamed layout (u8 adds its code stage to every CTA's shared
+    memory), with overflow; the launch shape reports the larger CTA."""
+    tree, _ = _scene_and_queries(M=1)
+    dev = device_octree(tree, meta_format=fmt, device=cuda)
+    ins = owner_group_pool(dev, bq, 3, seed=bq + 1, max_group=64)
+    kw = dict(bq=bq, fcap=48, depth=tree.depth, ring_cap=1 << 16,
+              use_spheres=False, meta_format=fmt, streamed=True, wsub=64)
+    got = persist_ops.persist_tiles(**ins, **kw)
+    want = persist_tiles_ref(**ins, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[3][:, 5].sum()) > 0
+    nwin = -(-dev.node_meta.shape[1] // 64)
+    shape = persist_ops.kernel_shape(bq, fmt, nwin)
+    base = persist_ops.kernel_shape(bq)
+    # u8's codes of the staged pairs; the window bitmaps are in the workspace
+    extra = 4096 * 4 if fmt == "u8" else 0
+    assert shape["smem_bytes"] == base["smem_bytes"] + extra <= 232448
+    assert shape["max_clusters"] >= 1
 
 
 def _ccd_scene():

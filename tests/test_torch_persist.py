@@ -9,6 +9,11 @@ than ``ring_cap`` pairs, several pairs share a ring slot and neither
 side defines which one stays).  Identity pools and the owner-group pools
 of ``kernels/persist/cases.py`` (tile-local verdict groups, random
 payloads: the ``best`` fold and the expand gate at work).
+
+Rows in all three formats and the streamed layout's window count
+(``meta_rows``) are held against the reference's global-pool plain arm
+(``traverse_whole_ref`` with the same window model) on clean runs, and
+against its interpreted kernel on one small overflowing case (C.10).
 """
 import jax
 import jax.numpy as jnp
@@ -20,11 +25,14 @@ from repro.core import octree as joct
 from repro.kernels.persist import ops as jops
 from repro.kernels.persist.kernel import make_persist_call
 from repro.kernels.persist.ref import csr_child_slots as j_csr_child_slots
+from repro.kernels.persist.ref import decode_meta_rows as j_decode_meta_rows
+from repro.kernels.persist.ref import traverse_whole_ref
 from repro_torch.convert import octree_from_reference
 from repro_torch.core.geometry import rotation_from_euler
 from repro_torch.core.octree import build_octree, device_octree
 from repro_torch.kernels.persist import cases, ops
-from repro_torch.kernels.persist.ref import (csr_child_slots, popcount8,
+from repro_torch.kernels.persist.ref import (csr_child_slots,
+                                             decode_meta_rows, popcount8,
                                              persist_tiles_ref)
 
 # One intra-op thread: the suite runs several test processes at once.
@@ -44,12 +52,14 @@ def _scene_and_queries(M=40, seed=3):
     return tree, c, h, r
 
 
-def _reference_outputs(ins, tree, T, bq, fcap, ring_cap, use_spheres):
+def _reference_outputs(ins, tree, T, bq, fcap, ring_cap, use_spheres,
+                       stream=False, meta_fmt="fp32", wsub=1024):
     L = DEPTH + 1
     off = np.zeros(L, np.int32)
     cnt = np.asarray([len(lv.codes) for lv in tree.levels], np.int32)
     call = make_persist_call(T, bq, fcap, DEPTH, ins["meta"].shape[1],
-                             ring_cap, use_spheres, True, False)
+                             ring_cap, use_spheres, True, stream,
+                             meta_fmt=meta_fmt, wsub=wsub)
     a = {k: jnp.asarray(v.numpy()) for k, v in ins.items()}
     with jax.disable_jit():
         out = call(a["scal"], jnp.asarray(off), jnp.asarray(cnt), a["sot"],
@@ -143,6 +153,155 @@ def test_persist_tiles_ref_live_prefix_and_pad_tiles():
     assert torch.equal(a[0].reshape(-1)[:30], b[0].reshape(-1)[:30])
 
 
+def test_decode_meta_rows_matches_reference_on_every_format():
+    """Every level's rows of a depth-5 scene, in each format: the same
+    cell coordinates, flags, pointers, masks and u8 codes as the
+    reference's decode, and the same coordinates as the fp32 codes."""
+    tree = joct.build_octree(np.random.RandomState(1).uniform(
+        -1, 1, (3000, 3)).astype(np.float32), depth=5)
+    fp32 = device_octree(octree_from_reference(tree), device="cpu")
+    for fmt in ("fp32", "bf16", "u8"):
+        jdev = joct.device_octree(tree, meta_format=fmt)
+        dev = device_octree(octree_from_reference(tree), meta_format=fmt,
+                            device="cpu")
+        for level in range(6):
+            n = int(dev.counts[level])
+            pcode = (dev.codes[level, :n] >> 3) if fmt == "u8" else None
+            got = decode_meta_rows(dev.node_meta[level, :n], fmt, level,
+                                   pcode)
+            with jax.disable_jit():
+                want = j_decode_meta_rows(
+                    jnp.asarray(dev.node_meta[level, :n].numpy()), fmt,
+                    jnp.int32(level), None if pcode is None
+                    else jnp.asarray(pcode.numpy()))
+            for name, g, w in zip(("xyz", "full", "start", "mask", "code"),
+                                  got, want):
+                assert np.array_equal(g.numpy(), np.asarray(w)), \
+                    (fmt, level, name)
+            ref = decode_meta_rows(fp32.node_meta[level, :n], "fp32", level)
+            for g, w in zip(got[:4], ref[:4]):
+                assert torch.equal(g, w), (fmt, level)
+            if fmt == "u8":
+                assert torch.equal(got[4], dev.codes[level, :n])
+
+
+def _jax_stream_ref(tree, fmt, c, h, r, valid, owner, payload, bq, wsub,
+                    use_spheres):
+    """The reference's global-pool plain arm with the streamed window
+    model, on a pool of ``len(c)`` slots cut into tiles of ``bq``."""
+    jdev = joct.device_octree(tree, meta_format=fmt)
+    L = DEPTH + 1
+    Q = c.shape[0]
+    cnt = jnp.asarray([len(lv.codes) for lv in tree.levels],
+                      jnp.int32).reshape(1, L)
+    with jax.disable_jit():
+        return traverse_whole_ref(
+            *map(jnp.asarray, (c, h, r)), jdev.node_meta, jdev.cell_sizes,
+            jdev.scene_lo, DEPTH, 1 << 14, use_spheres,
+            owner_of_query=jnp.asarray(owner),
+            payload=jnp.asarray(payload), stream_bq=bq, stream_wsub=wsub,
+            scene_off=jnp.zeros((1, L), jnp.int32), scene_counts=cnt,
+            scene_of_tile=jnp.zeros(Q // bq, jnp.int32),
+            valid_of_query=jnp.asarray(valid), meta_format=fmt,
+            codes=jdev.codes)
+
+
+@pytest.mark.parametrize("fmt,wsub,use_spheres", [
+    ("fp32", 8, False), ("fp32", 64, True), ("bf16", 8, True),
+    ("bf16", 64, False), ("u8", 8, False), ("u8", 64, True)])
+@pytest.mark.parametrize("pool", ["identity", "owner groups"])
+def test_formats_and_windows_match_reference_plain_arm(fmt, wsub,
+                                                       use_spheres, pool):
+    """Rows in ``fmt``, resident and streamed at windows of ``wsub``
+    rows (both cross windows at every level past the first few), against
+    the reference's global-pool plain arm on the same slots: per-slot
+    ``best``, every summed counter, ``meta_rows`` with the same window
+    model; the resident layout counts no row and changes nothing else."""
+    tree, c, h, r = _scene_and_queries()
+    dev = device_octree(octree_from_reference(tree), meta_format=fmt,
+                        device="cpu")
+    bq = 16
+    if pool == "identity":
+        ins = ops.pack_kernel_inputs(*map(torch.from_numpy, (c, h, r)), dev,
+                                     bq)
+    else:
+        ins = cases.owner_group_pool(dev, bq, num_tiles=3, seed=11)
+    T = ins["sot"].shape[0]
+    kw = dict(bq=bq, fcap=4096, depth=DEPTH, ring_cap=64,
+              use_spheres=use_spheres, meta_format=fmt)
+    streamed = ops.persist_tiles(**ins, **kw, streamed=True, wsub=wsub)
+    resident = ops.persist_tiles(**ins, **kw)
+    # the reference's slots: owner ids global, pads masked
+    own = ins["owner"].numpy()
+    valid = own >= 0
+    tile = np.arange(T * bq) // bq
+    owner = np.where(valid, tile * bq + own, 0).astype(np.int32)
+    obb = ins["obb"].numpy()
+    rot = obb[:, 6:].reshape(-1, 3, 3)
+    if pool == "identity":
+        valid = np.arange(T * bq) < c.shape[0]
+    verdict, st = _jax_stream_ref(tree, fmt, obb[:, :3], obb[:, 3:6], rot,
+                                  valid, owner, ins["payload"].numpy(), bq,
+                                  wsub, use_spheres)
+    best, per_level, hist, scalars, _ = streamed
+    assert int(scalars[:, 5].sum()) == 0
+    assert np.array_equal(best.reshape(-1).numpy(), np.asarray(verdict))
+    tot = scalars.sum(0).tolist()
+    names = ("nodes", "leaf", "axis_exec", "axis_dec", "sphere", "overflow")
+    assert tot[:6] == [int(st[k]) for k in names]
+    assert tot[7] == int(st["meta_rows"]) > 0
+    assert per_level.sum(0).tolist() == np.asarray(
+        st["per_level"])[:DEPTH + 1].tolist()
+    assert np.array_equal(hist.sum(0).numpy(), np.asarray(st["exit_hist"]))
+    for g, w in zip(resident[:3], streamed[:3]):
+        assert torch.equal(g, w)
+    assert torch.equal(resident[3][:, :7], streamed[3][:, :7])
+    assert int(resident[3][:, 7].sum()) == 0
+
+
+@pytest.mark.parametrize("fmt,wsub", [("u8", 128), ("bf16", 256)])
+def test_streamed_rows_match_pallas_kernel(fmt, wsub):
+    """The reference's interpreted kernel on the streamed layout with
+    compressed rows, random (not grazing) OBBs, spilling tiles: every
+    output of every tile, ``meta_rows`` included.  (Its window scratch
+    must hold one 128-row DMA chunk, so windows are at least 128 rows.)"""
+    tree, c, h, r = _scene_and_queries()
+    dev = device_octree(octree_from_reference(tree), meta_format=fmt,
+                        device="cpu")
+    bq, fcap, ring_cap = 16, 32, 1024
+    ins = ops.pack_kernel_inputs(*map(torch.from_numpy, (c, h, r)), dev, bq)
+    T = ins["sot"].shape[0]
+    got = [x.numpy() for x in ops.persist_tiles(
+        **ins, bq=bq, fcap=fcap, depth=DEPTH, ring_cap=ring_cap,
+        use_spheres=False, meta_format=fmt, streamed=True, wsub=wsub)]
+    ref = _reference_outputs(ins, tree, T, bq, fcap, ring_cap, False,
+                             stream=True, meta_fmt=fmt, wsub=wsub)
+    for name, g, w in zip(("best", "per_level", "hist", "scalars"), got, ref):
+        assert g.shape == w.shape and np.array_equal(g, w), name
+    assert got[3][:, 6].sum() > 0 and got[3][:, 7].sum() > 0
+    fits = got[3][:, 6] <= ring_cap
+    assert np.array_equal(got[4][fits], ref[4][fits])
+
+
+def test_window_count_of_a_single_window_and_of_pads():
+    """A window as wide as the table counts each level's occupied rows
+    rounded up to 8, once a tile that has a valid lane there; a tile of
+    pads counts nothing."""
+    tree, c, h, r = _scene_and_queries(M=20)
+    dev = device_octree(octree_from_reference(tree), meta_format="bf16",
+                        device="cpu")
+    args = list(map(torch.from_numpy, (c, h, r)))
+    ins = ops.pack_kernel_inputs(*args, dev, 16, num_valid=12)
+    n_max = dev.node_meta.shape[1]
+    per_level, scalars = ops.persist_tiles(
+        **ins, bq=16, fcap=4096, depth=DEPTH, ring_cap=8, use_spheres=False,
+        meta_format="bf16", streamed=True, wsub=n_max)[1:4:2]
+    assert int(scalars[1, 7]) == 0 and int(per_level[1].sum()) == 0
+    rows = [-(-int(n) // 8) * 8 for n, live in zip(dev.counts, per_level[0])
+            if int(live) > 0]
+    assert int(scalars[0, 7]) == sum(rows)
+
+
 def test_csr_child_slots_and_popcount_match_reference():
     masks = np.arange(256, dtype=np.int32)
     occ, offs = csr_child_slots(torch.from_numpy(masks))
@@ -183,9 +342,37 @@ def test_l2_budget_keeps_paper_scale_scenes_resident_fp32():
     assert jops.choose_meta_layout(7, 114047).fmt == "bf16"
 
 
+def test_chooser_at_fig_bigscene_widths():
+    """``fig_bigscene``'s full-scale scenes (depth 8; widest levels
+    516,192 and 2,869,085 rows): under the H100's L2 budget the small one
+    is resident bf16 and the big one streamed bf16; u8 pinned on the big
+    one is ineligible (past its 2**20 pointer) in both packages."""
+    small, big = 516192, 2869085
+    assert ops.choose_meta_layout(8, small) == ("resident", "bf16")
+    assert ops.choose_meta_layout(8, big) == ("streamed", "bf16")
+    fp32 = ops.meta_table_bytes(8, small)
+    assert ops.choose_meta_layout(8, small, fp32, fmt="fp32") \
+        == ("resident", "fp32")
+    assert ops.choose_meta_layout(8, big, fp32, fmt="fp32") \
+        == ("streamed", "fp32")
+    for budget in (ops.H100_L2_BYTES, fp32):
+        for layout in (None, "streamed"):
+            for mod in (ops, jops):
+                with pytest.raises(ValueError, match="u8"):
+                    mod.choose_meta_layout(8, big, budget, fmt="u8",
+                                           layout=layout)
+    assert ops.choose_meta_layout(8, small, fp32, fmt="u8",
+                                  layout="streamed") == ("streamed", "u8")
+    assert ops.sub_window_rows(big) == jops.sub_window_rows(big) == 1024
+    for n in (100, 1000, big):
+        for fmt in ("fp32", "bf16", "u8"):
+            assert ops.meta_stream_bytes(n, fmt) \
+                == jops.meta_stream_bytes(n, fmt)
+
+
 def test_traverse_whole_unported_options_raise():
-    tree = build_octree(np.random.RandomState(0).uniform(
-        -1, 1, (500, 3)).astype(np.float32), depth=3)
+    pts = np.random.RandomState(0).uniform(-1, 1, (500, 3)).astype(np.float32)
+    tree = build_octree(pts, depth=3)
     dev = device_octree(tree, device="cpu")
     x = torch.zeros(4, 3)
     r = torch.eye(3).expand(4, 3, 3)
@@ -201,13 +388,27 @@ def test_traverse_whole_unported_options_raise():
     with pytest.raises(NotImplementedError, match="A.5.6"):
         ops.traverse_whole(x, x + 1, r, dev, 64, use_spheres=False,
                            scene_of_query=torch.zeros(4, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="A.5.4"):
-        ops.traverse_whole(x, x + 1, r, dev, 64, use_spheres=False,
-                           streamed=True)
-    bf16 = device_octree(tree, meta_format="bf16", device="cpu")
-    with pytest.raises(NotImplementedError, match="A.5.5"):
-        ops.traverse_whole(x, x + 1, r, bf16, 64, use_spheres=False,
-                           streamed=False)
+    # the streamed layout and bf16 rows run, and agree
+    # with the reference's plain arm on the same scene
+    rs = np.random.RandomState(4)
+    xs = torch.from_numpy(rs.uniform(-1, 1, (4, 3)).astype(np.float32))
+    hs = torch.from_numpy(rs.uniform(0.05, 0.2, (4, 3)).astype(np.float32))
+    jtree = joct.build_octree(pts, depth=3)
+    for fmt, streamed in (("fp32", True), ("bf16", False), ("bf16", True)):
+        tdev = device_octree(octree_from_reference(jtree), meta_format=fmt,
+                             device="cpu")
+        v, st = ops.traverse_whole(xs, hs, r, tdev, 64, use_spheres=False,
+                                   streamed=streamed)
+        with jax.disable_jit():
+            wv, wst = jops.traverse_whole(
+                jnp.asarray(xs.numpy()), jnp.asarray(hs.numpy()),
+                jnp.asarray(r.numpy()),
+                joct.device_octree(jtree, meta_format=fmt), 64,
+                use_spheres=False, use_pallas=False, streamed=streamed)
+        assert np.array_equal(v.numpy(), np.asarray(wv))
+        for k in ("nodes", "leaf", "axis_exec", "overflow", "meta_rows"):
+            assert int(st[k]) == int(wst[k]), (fmt, streamed, k)
+        assert (int(st["meta_rows"]) > 0) == streamed
 
 
 def _owner_lanes(seed, sizes):

@@ -233,6 +233,41 @@ def test_gate_on_reference_obbs_matches_reference(scene, batched):
     assert flags.any() and not flags.all()
 
 
+def test_gate_on_streamed_bf16_rows_matches_reference(planners, scene):
+    """The gate on a persistent engine with streamed bf16 rows: on the
+    reference's OBBs its flags and every counter equal the reference's;
+    ``plan_with_collision_gate`` on that engine gates its own trajectory
+    as ``check_trajectory`` does."""
+    sc, tree, ttree = scene
+    wp = _trajectories(sc)[0]
+    cfg = dict(mode=PERSIST, stream_meta=True, meta_format="bf16")
+    with jax.disable_jit():
+        jp = jplan.plan_trajectory(jnp.asarray(wp))
+        want_flags, want_c = jpipe.check_trajectory(
+            jexe.CollisionEngine(tree, jexe.EngineConfig(**cfg)),
+            jnp.asarray(wp))
+    plan = tplan.QueryPlan(
+        kind="trajectory", out_shape=tuple(jp.out_shape), reduce_last=True,
+        **{f: torch.from_numpy(np.asarray(getattr(jp, f)).copy())
+           for f in ("obb_c", "obb_h", "obb_r")})
+    engine = CollisionEngine(ttree, EngineConfig(**cfg), device="cpu")
+    flags, c = engine.execute(plan)
+    assert np.array_equal(flags, np.asarray(want_flags))
+    _same_counters(c, want_c)
+    assert flags.any() and c.meta_rows_streamed > 0
+    _, port = planners
+    rs = np.random.RandomState(2)
+    cloud = sc.points[rs.choice(len(sc.points), 256, replace=False)]
+    q0, goal = rs.uniform(-1, 1, (2, 7)).astype(np.float32)
+    res = tpipe.plan_with_collision_gate(port, engine, cloud, q0, goal,
+                                         num_steps=6, sampling="fps")
+    fresh = CollisionEngine(ttree, EngineConfig(**cfg), device="cpu")
+    flags, counters = tpipe.check_trajectory(fresh, res.trajectory)
+    assert np.array_equal(res.colliding_waypoints, flags)
+    _same_counters(res.counters, counters)
+    assert counters.meta_rows_streamed > 0
+
+
 def test_plan_with_collision_gate_end_to_end(planners, scene):
     _, port = planners
     sc, tree, ttree = scene

@@ -139,6 +139,28 @@ def test_check_edges_matches_reference_exactly(scene, reference_geometry,
     assert got.collide.any() and got.counters.ref_arm_fallbacks == 0
 
 
+def test_check_edges_on_streamed_bf16_rows_matches_reference(
+        scene, reference_geometry, monkeypatch):
+    """A persistent engine on streamed bf16 rows: every round's owner-group
+    tiles read compressed rows and count their windows; on the reference's
+    FK arrays the sweep's first hits, verdicts and every counter
+    (``meta_rows_streamed`` included) equal the reference's."""
+    sc, tree, ttree = scene
+    qf, qt, geo = reference_geometry
+    monkeypatch.setattr(tsweep, "edge_link_geometry", lambda *a, **k: geo)
+    cfg = dict(mode="wavefront_persistent", stream_meta=True,
+               meta_format="bf16")
+    kw = dict(resolution=R, base_pos=sc.robot_base)
+    got = tpipe.check_edges(CollisionEngine(ttree, EngineConfig(**cfg),
+                                            device="cpu"), qf, qt, **kw)
+    with jax.disable_jit():
+        want = jpipe.check_edges(JEngine(tree, JConfig(**cfg)), qf, qt, **kw)
+    assert np.array_equal(got.first_hit, want.first_hit)
+    assert np.array_equal(got.collide, want.collide)
+    _same_counters(got.counters, want.counters)
+    assert got.collide.any() and got.counters.meta_rows_streamed > 0
+
+
 def test_check_edges_on_a_host_mode_engine_matches_reference(
         scene, reference_geometry, monkeypatch):
     """``fig_edges``' no-exit baseline: ``check_edges`` on a

@@ -7,13 +7,17 @@ Timing alone rarely opens the windows between them, so this script builds
 copies of ``persist.cu`` whose phase marks (``PERSIST_MARK``) make every
 thread of one rank spin for ``--cycles`` SM cycles at one mark of every
 level, and holds each copy's outputs to ``persist_tiles_ref``'s over
-``--reps`` launches on two pools of ``kernels/persist/cases.py``:
+``--reps`` launches on four pools of ``kernels/persist/cases.py``:
 
 - ``light``: the owner-group tiles of
   ``tests/test_torch_kernels_gpu.py::test_persist_kernel_light_last_level_back_to_back``,
   whose last expanding level ends with no cluster barrier;
 - ``owner groups``: five tiles of 128 slots, whose wide levels go through
-  the workspace.
+  the workspace;
+- both again on u8 rows under the streamed layout at windows of 64 rows,
+  whose window bitmap (one a tile, in its workspace slice) every rank
+  marks, and rank 0 sums and clears after each fold barrier and after
+  the final one.
 
 Marks (see ``persist.cu``): 1 phase A done, 2 past the fold barrier (the
 gate next), 4 the block scan done, 5 the children written, 6 past the
@@ -97,12 +101,17 @@ def main() -> int:
     cuda = torch.device("cuda", 0)
     tree = build_octree(np.random.RandomState(3).uniform(
         -1, 1, (4000, 3)).astype(np.float32), depth=4)
-    dev = device_octree(tree, device=cuda)
-    pools = [
-        ("light", owner_group_pool(dev, 16, 64, seed=21, half=(0.003, 0.01)),
-         dict(bq=16, fcap=4096, ring_cap=256)),
-        ("owner groups", owner_group_pool(dev, 128, 5, seed=128),
-         dict(bq=128, fcap=4096, ring_cap=256))]
+    pools = []
+    for fmt, streamed in (("fp32", False), ("u8", True)):
+        dev = device_octree(tree, meta_format=fmt, device=cuda)
+        kw = dict(meta_format=fmt, streamed=streamed, wsub=64)
+        tag = " (u8, streamed)" if streamed else ""
+        pools += [
+            ("light" + tag, owner_group_pool(dev, 16, 64, seed=21,
+                                             half=(0.003, 0.01)),
+             dict(bq=16, fcap=4096, ring_cap=256, **kw)),
+            ("owner groups" + tag, owner_group_pool(dev, 128, 5, seed=128),
+             dict(bq=128, fcap=4096, ring_cap=256, **kw))]
     libs = build(src, args.cycles)
     bad = 0
     for (rank, mark), lib in libs.items():
