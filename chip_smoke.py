@@ -30,7 +30,10 @@ non-zero and prints no result):
    R = 16 on the small scene; pads at each tile's tail); every pool on
    fp32, bf16 and u8 rows, resident and streamed (the default window and
    windows of 64 rows), every output but ``meta_rows`` also equal to fp32
-   resident rows', ``meta_rows`` equal across formats;
+   resident rows', ``meta_rows`` equal across formats; and ragged pools
+   (``cases.ragged_pool``: three scenes of mixed sizes, each in a box of
+   its own, over their flat table in scene-exclusive tiles; identity and
+   owner groups, clean and spilling) in every format and layout;
 5. the paper-scale scenes: ``make_scene(env, 524288)``,
    ``build_octree(depth=7)``, ``scene_trajectories(25, 60)`` (10,500 link
    OBBs) for each environment;
@@ -197,8 +200,27 @@ non-zero and prints no result):
    ``wavefront_fused``'s, ``persist``'s call and the kernel alone against
    the plain version and the bound (the rows and pairs it reads), the
    busy share of a traced warm query;
-24. one JSON line listing every kernel with its launches on the main paths
-   (``launches``, phases 8, 13, 17, 20, 21, 22 and 23) and elsewhere
+24. ragged multi-scene batches through ``query_batched_scenes`` and
+   ``CollisionEngine(trees).execute(plan_scenes(obbs))``: (a)
+   ``benchmarks/run.py::ragged_scenes`` at ``FULL_SCALE`` (depth 5; three
+   scenes of 32,768 and one of 524,288 uniform points in [-1, 1]^3 from
+   ``RandomState(0)`` in its order; 100 ``random_obbs`` a scene from
+   seeded generators): padded ``wavefront``, ragged persistent (default
+   and streamed) and ragged fused on the small-only and the mixed batch,
+   verdicts equal across arms, card == CPU engine on every counter,
+   warm walls (median of 10) and ``big_scene_cost``; (b) the four Table
+   III scenes of phase 5 with phase 8's 10,500 OBBs each as one ragged
+   batch (332 scene-exclusive tiles): persistent (the default choice and
+   pinned streamed), fused and padded ``wavefront``, each scene's
+   verdicts equal to phase 8's, the work counters equal to the sum of
+   phase 8's four runs, the default persistent arm equal to the CPU
+   engine on the first 1,500 OBBs of each scene; warm walls beside the
+   sum of phase 8's four persistent walls, the ``persist`` launch of a
+   warm query replayed against its plain version, timed (the call, the
+   kernel alone) against its bound, its launch shape, and the busy share
+   of a traced warm query;
+25. one JSON line listing every kernel with its launches on the main paths
+   (``launches``, phases 8, 13, 17, 20, 21, 22, 23 and 24) and elsewhere
    (``check_launches``), error, times (for ``persist``, ``sact_dense``,
    ``fps`` and ``ballquery`` also ``kernel_ms``, the kernel alone by
    ``torch.profiler``; ``sact_dense``'s at ``naive``'s block shape, with
@@ -216,6 +238,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -420,6 +443,12 @@ def main() -> int:
                     help="comma-separated environments for phases 5-8 "
                          "(the first one also serves phases 6, 9 and 10)")
     args = ap.parse_args()
+    if os.environ.get("PYTHONHASHSEED") != "0":
+        # make_scene seeds each environment from hash(name), which Python
+        # salts per process: with the hash seed fixed every run builds the
+        # same scenes
+        os.execve(sys.executable, [sys.executable] + sys.argv,
+                  dict(os.environ, PYTHONHASHSEED="0"))
     t_start = time.perf_counter()
 
     import torch
@@ -435,14 +464,17 @@ def main() -> int:
     from repro_torch.core.counters import (BYTES_SHADER_HANDOFF,
                                            BYTES_UNFUSED_TEST)
     from repro_torch.core.geometry import OBBs, random_obbs
-    from repro_torch.core.octree import build_octree, device_octree
+    from repro_torch.core.octree import (build_octree,
+                                         concat_device_octrees,
+                                         device_octree)
     from repro_torch.core import sweep as sweep_mod
     from repro_torch.core.pipeline import (check_edges, check_trajectories,
                                            plan_with_collision_gate)
     from repro_torch.data.robotics import (PANDA_JOINT_HI, PANDA_JOINT_LO,
                                            make_scene, scene_trajectories)
-    from repro_torch.engine.executor import CollisionEngine, EngineConfig
-    from repro_torch.engine.plan import plan_trajectory
+    from repro_torch.engine.executor import (CollisionEngine, EngineConfig,
+                                             query_batched_scenes)
+    from repro_torch.engine.plan import plan_scenes, plan_trajectory
     from repro_torch.kernels import _build
     from repro_torch.kernels.ballquery import ops as bq_ops
     from repro_torch.kernels.ballquery.cases import cloud_cases, radius_shell
@@ -458,6 +490,7 @@ def main() -> int:
     from repro_torch.kernels.persist import ops as persist_ops
     from repro_torch.kernels.persist.cases import (grazing_pool,
                                                    owner_group_pool,
+                                                   ragged_pool, ragged_trees,
                                                    skewed_pool,
                                                    sweep_round_plans,
                                                    tiled_pool)
@@ -658,6 +691,24 @@ def main() -> int:
     sdevs = {fmt: device_octree(stree, meta_format=fmt, device=cuda)
              for fmt in ("bf16", "u8")}
     sdevs["fp32"] = sdev
+    # ragged pools: three scenes of mixed sizes, each in a box of its own,
+    # over their flat table (each format's) in scene-exclusive tiles,
+    # identity and owner groups, clean and spilling
+    rtabs = {fmt: concat_device_octrees(ragged_trees(depth=stree.depth),
+                                        meta_format=fmt, device=cuda)
+             for fmt in ("fp32", "bf16", "u8")}
+    tables_of = {}
+    for k, (owners, sph, fcap, ring_cap) in enumerate((
+            (False, False, 4096, 256), (True, True, 4096, 256),
+            (False, True, 48, 4096), (True, False, 48, 4096))):
+        r_ins, r_bq = ragged_pool(rtabs["fp32"], (300, 40, 150), seed=40 + k,
+                                  owner_groups=owners, half=(0.01, 0.05))
+        tables_of[id(r_ins)] = rtabs
+        round_tags[id(r_ins)] = (f"; {r_ins['sot'].shape[0]} scene-exclusive"
+                                 f" tiles, scenes "
+                                 f"{r_ins['sot'].tolist()}")
+        pools.append(("ragged" + (" owner groups" if owners else ""), r_bq,
+                      fcap, ring_cap, sph, r_ins))
     row_runs = [(fmt, streamed, wsub) for fmt in ("fp32", "bf16", "u8")
                 for streamed, wsub in ((False, None), (True, None),
                                        (True, 64))]
@@ -667,7 +718,8 @@ def main() -> int:
             kw = dict(bq=bq, fcap=fcap, depth=stree.depth, ring_cap=ring_cap,
                       use_spheres=sph, meta_format=fmt, streamed=streamed,
                       wsub=wsub)
-            ins_f = dict(ins, meta=sdevs[fmt].node_meta)
+            ins_f = dict(ins, meta=tables_of.get(id(ins), sdevs)[fmt]
+                         .node_meta)
             got = persist_ops.persist_tiles(**ins_f, **kw)
             want = persist_tiles_ref(**ins_f, **kw)
             torch.cuda.synchronize()
@@ -2240,7 +2292,7 @@ def main() -> int:
             if mode == "wavefront_persistent" and \
                     plan.owner_of_query is not None:
                 tm = persist_ops.build_tile_map(
-                    plan.num_queries, persist_ops.DEFAULT_BQ,
+                    plan.num_queries, persist_ops.DEFAULT_BQ, None,
                     plan.owner_of_query.numpy())
                 tiles = f"/{tm.num_tiles}x{tm.bq}"
             shapes.append(f"{plan.num_queries}{tiles}"
@@ -2744,10 +2796,290 @@ def main() -> int:
     persist_line["max_abs_err"] = max(persist_line["max_abs_err"], big_err)
     log("23 bigscene", f"phase {lap():.1f} s")
 
-    # ---- 24. result -------------------------------------------------------
-    # launches on every main path (phases 8, 13, 17, 20, 21, 22 and 23) and
-    # in the checks
-    log("24 result", f"whole script {time.perf_counter() - t_start:.1f} s")
+    # ---- 24. ragged multi-scene batches ----------------------------------
+    # (a) benchmarks/run.py::ragged_scenes at FULL_SCALE: depth 5; three
+    # scenes of 32,768 and one of 524,288 uniform points in [-1, 1]^3 from
+    # RandomState(0), drawn in its order (the small-only batch, then the
+    # mixed one); 100 random_obbs a scene from generators seeded 0..S-1.
+    # Each call builds its engine, as the benchmark row's does: its walls
+    # include the escalation ladder.
+    rs = np.random.RandomState(0)
+    M_rag = 100
+
+    def scene_set(sizes):
+        trees, sets = [], []
+        for i, n_pts in enumerate(sizes):
+            pts = rs.uniform(-1, 1, (n_pts, 3)).astype(np.float32)
+            trees.append(build_octree(pts, depth=5))
+            sets.append(random_obbs(torch.Generator().manual_seed(i), M_rag))
+        return trees, OBBs(*(torch.stack([getattr(o, f) for o in sets])
+                             for f in ("center", "half", "rot")))
+
+    rag_sets = {"small": scene_set([32768] * 3),
+                "mixed": scene_set([32768] * 3 + [524288])}
+    rag_arms = {"padded wavefront": EngineConfig(mode="wavefront"),
+                "ragged persistent": EngineConfig(mode=P),
+                "ragged streamed": EngineConfig(mode=P, stream_meta=True),
+                "ragged fused": EngineConfig(mode="wavefront_fused")}
+    # the fused mode's ragged walk is the reference's tensor code
+    rag_kernels = {"padded wavefront": {"compact"},
+                   "ragged persistent": {"persist"},
+                   "ragged streamed": {"persist"}, "ragged fused": set()}
+    add_check_launches()
+    rag_v, rag_walls = {}, {}
+    for name, cfg in rag_arms.items():
+        for tag, (trees, rob) in rag_sets.items():
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            v1, c1 = query_batched_scenes(trees, rob, cfg, device="cuda")
+            counts = _build.launch_counts()
+            _build.reset_launch_counts()
+            for k, n in counts.items():
+                main_launches[k] += n
+            if {k for k, n in counts.items() if n} != rag_kernels[name]:
+                raise SystemExit(f"FAIL: ragged {name} ({tag}): launches "
+                                 f"{counts}")
+            t0 = time.perf_counter()
+            vc, cc = query_batched_scenes(trees, rob, cfg, device="cpu")
+            t_cpu = time.perf_counter() - t0
+            a, b = c1.as_dict(), cc.as_dict()
+            diff = [k for k in a if k != "wall_time_s" and a[k] != b[k]]
+            if diff or not np.array_equal(v1, vc):
+                raise SystemExit(f"FAIL: ragged {name} ({tag}): card differs "
+                                 f"from the CPU engine in "
+                                 f"{diff or 'verdicts'}")
+            S_r = len(trees)
+            if v1.shape != (S_r, M_rag) or v1.dtype != bool:
+                raise SystemExit(f"FAIL: ragged {name} ({tag}): verdicts "
+                                 f"{v1.shape} {v1.dtype}")
+            first = rag_v.setdefault(tag, v1)
+            if not np.array_equal(v1, first):
+                raise SystemExit(f"FAIL: ragged {name} ({tag}): verdicts "
+                                 f"differ from padded wavefront's")
+            if (c1.meta_rows_streamed > 0) != (name == "ragged streamed"):
+                raise SystemExit(f"FAIL: ragged {name} ({tag}): "
+                                 f"{c1.meta_rows_streamed} streamed rows")
+            walls = [query_batched_scenes(trees, rob, cfg,
+                                          device="cuda")[1].wall_time_s
+                     for _ in range(10)]
+            add_check_launches()
+            rag_walls[(name, tag)] = statistics.median(walls)
+            eng_r = CollisionEngine(trees, cfg, device="cuda")
+            log("24 ragged", f"(a) {name}, {tag} batch ({S_r} scenes of "
+                f"{M_rag} OBBs; rows {eng_r.meta_layout} "
+                f"{eng_r.meta_format}): hits {int(v1.sum())}, nodes "
+                f"{c1.nodes_traversed} per level {c1.nodes_per_level}, "
+                f"escalations {c1.escalations}, meta_rows_streamed "
+                f"{c1.meta_rows_streamed} | main-path launches "
+                f"{({k: n for k, n in counts.items() if n})} | cuda == cpu "
+                f"verdicts + counters (cpu {t_cpu:.1f} s) | warm wall "
+                f"median of 10 {1e3 * rag_walls[(name, tag)]:.3f} ms | "
+                f"{card}")
+    for name in rag_arms:
+        t_s, t_m = rag_walls[(name, "small")], rag_walls[(name, "mixed")]
+        log("24 ragged", f"(a) ragged/{name}: mixed {1e3 * t_m:.3f} ms, "
+            f"small_batch {1e3 * t_s:.3f} ms, big_scene_cost "
+            f"{t_m / t_s:.2f}x | {card}")
+
+    # (b) the Table III scenes of phase 5, each with phase 8's OBBs, as one
+    # ragged batch
+    envs = list(scenes)
+    ragged_err = 0
+    if len(envs) < 2:
+        log("24 ragged", "(b) needs two or more --envs: skipped")
+    else:
+        trees_b = [scenes[e][0] for e in envs]
+        obbs_b4 = OBBs(*(torch.stack([getattr(scenes[e][1], f)
+                                      for e in envs])
+                         for f in ("center", "half", "rot")))
+        M_b = obbs_b4.center.shape[1]
+        plan_b = plan_scenes(obbs_b4)
+        n_cpu = min(1500, M_b)
+        plan_sub = plan_scenes(OBBs(obbs_b4.center[:, :n_cpu],
+                                    obbs_b4.half[:, :n_cpu],
+                                    obbs_b4.rot[:, :n_cpu]))
+        single = [p8[e]["wavefront_persistent"] for e in envs]
+        want_work = {k: sum(s[1][k] for s in single) for k in (
+            "nodes_traversed", "leaf_tests", "axis_tests_executed",
+            "axis_tests_decoded", "sphere_tests")}
+        n_lv = max(len(s[1]["nodes_per_level"]) for s in single)
+        want_work["nodes_per_level"] = [
+            sum(s[1]["nodes_per_level"][i] for s in single
+                if i < len(s[1]["nodes_per_level"])) for i in range(n_lv)]
+        want_work["exit_histogram"] = [
+            sum(col) for col in zip(*(s[1]["exit_histogram"]
+                                      for s in single))]
+        sum_walls = sum(s[2] for s in single)
+        arms_b = [("persistent", EngineConfig(mode=P)),
+                  ("persistent streamed", EngineConfig(mode=P,
+                                                       stream_meta=True)),
+                  ("fused", EngineConfig(mode="wavefront_fused")),
+                  ("padded wavefront", EngineConfig(mode="wavefront"))]
+        for name, cfg in arms_b:
+            eng = CollisionEngine(trees_b, cfg, device="cuda")
+            choice = (eng.meta_layout, eng.meta_format)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launch_counts()
+            v1, c1 = eng.execute(plan_b)
+            counts = _build.launch_counts()
+            _build.reset_launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            for k, n in counts.items():
+                main_launches[k] += n
+            kern = {"persistent": {"persist"},
+                    "persistent streamed": {"persist"}, "fused": set(),
+                    "padded wavefront": {"compact"}}[name]
+            if {k for k, n in counts.items() if n} != kern:
+                raise SystemExit(f"FAIL: (b) {name}: launches {counts}")
+            for i, e in enumerate(envs):
+                if not np.array_equal(v1[i], p8[e]["wavefront_persistent"][0]):
+                    raise SystemExit(f"FAIL: (b) {name}: {e}'s verdicts "
+                                     f"differ from phase 8's persistent")
+            a = c1.as_dict()
+            diff = {k: (a[k], w) for k, w in want_work.items() if a[k] != w}
+            if diff or c1.frontier_overflow:
+                raise SystemExit(f"FAIL: (b) {name}: work counters differ "
+                                 f"from the sum of phase 8's runs: {diff}, "
+                                 f"overflow {c1.frontier_overflow}")
+            if (c1.meta_rows_streamed > 0) != (choice[0] == "streamed"):
+                raise SystemExit(f"FAIL: (b) {name}: "
+                                 f"{c1.meta_rows_streamed} streamed rows")
+            cpu_note = ""
+            if name == "persistent":
+                vs, cs = CollisionEngine(trees_b, cfg,
+                                         device="cuda").execute(plan_sub)
+                t0 = time.perf_counter()
+                vc, cc = CollisionEngine(trees_b, cfg,
+                                         device="cpu").execute(plan_sub)
+                t_cpu = time.perf_counter() - t0
+                a_s, b_s = cs.as_dict(), cc.as_dict()
+                diff = [k for k in a_s
+                        if k != "wall_time_s" and a_s[k] != b_s[k]]
+                if diff or not np.array_equal(vs, vc):
+                    raise SystemExit(f"FAIL: (b) persistent: card differs "
+                                     f"from the CPU engine on the first "
+                                     f"{n_cpu} OBBs a scene in "
+                                     f"{diff or 'verdicts'}")
+                cpu_note = (f" | cuda == cpu on the first {n_cpu} OBBs of "
+                            f"each scene, verdicts and every counter (cpu "
+                            f"engine {t_cpu:.1f} s)")
+            walls = [eng.execute(plan_b)[1].wall_time_s for _ in range(10)]
+            add_check_launches()
+            kernel_note = ""
+            if name in ("persistent", "persistent streamed"):
+                # the persist launch of a warm query, replayed
+                with Recorder({"persist": (persist_ops,
+                                           "persist_tiles")}) as rec:
+                    eng.execute(plan_b)
+                (fn, ca, ck), = rec.calls["persist"]
+                sot = ck["sot"]
+                T, bq_b = sot.shape[0], ck["bq"]
+                if int((sot != 0).sum()) == 0 or len(sot.unique()) != \
+                        len(envs):
+                    raise SystemExit(f"FAIL: (b) {name}: tiles' scenes "
+                                     f"{sot.unique().tolist()}")
+                got = fn(*ca, **ck)
+                seen = torch.zeros(ck["meta"].shape[:2], dtype=torch.bool,
+                                   device=cuda)
+                want_p = persist_tiles_ref(*ca, **ck, seen=seen)
+                err = max(int((x.to(torch.int64) - y.to(torch.int64))
+                              .abs().max()) for x, y in zip(got, want_p))
+                ragged_err = max(ragged_err, err)
+                if err:
+                    raise SystemExit(f"FAIL: (b) {name}: persist differs "
+                                     f"from plain (max abs err {err})")
+                call_ms = cuda_time_ms(lambda: fn(*ca, **ck), 20)
+                ev_ms = statistics.median(cuda_time_ms(
+                    lambda: fn(*ca, **ck), 1, warmup=0) for _ in range(5))
+                k_ms = kernel_device_ms(lambda: fn(*ca, **ck),
+                                        "persist_kernel", 10, "persist",
+                                        required=False)
+                plain_ms = cuda_time_ms(lambda: persist_tiles_ref(*ca, **ck),
+                                        1, warmup=0)
+                nwin = (-(-ck["meta"].shape[1] // persist_ops.sub_window_rows(
+                    ck["meta"].shape[1])) if ck["streamed"] else 0)
+                shape = persist_ops.kernel_shape(bq_b, ck["meta_format"],
+                                                 nwin)
+                # the host's share of a warm query: the tile map and the
+                # rows permuted into slot space, once a query
+                pob = [x.to(cuda) for x in (plan_b.obb_c, plan_b.obb_h,
+                                            plan_b.obb_r)]
+                tp_s = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    persist_ops.tile_pool(*pob, scene_of_query=(
+                        plan_b.scene_of_query))
+                    torch.cuda.synchronize()
+                    tp_s.append(time.perf_counter() - t0)
+                add_check_launches()
+                L = trees_b[0].depth + 1
+                row_bytes = persist_ops.META_FORMAT_BYTES[ck["meta_format"]]
+                # the distinct rows that the walk tests, each read once;
+                # the frontier's pairs are the kernel's own
+                rows_read = int(seen.sum())
+                in_bytes = (4 * len(envs) * (3 + 3 * L) + 4 * T + 4
+                            + T * bq_b * (60 + 4 + 4) + rows_read * row_bytes)
+                out_bytes = 4 * T * (bq_b + L + 18 + 8) + 8 * int(
+                    got[3][:, 6].clamp(max=ck["ring_cap"]).sum())
+                ops = (c1.nodes_traversed * (OPS_SETUP + OPS_NODE_BOX)
+                       + 7 * c1.axis_tests_executed)
+                bms, by = bound_ms(in_bytes + out_bytes, ops)
+                # the card's busy share in one traced warm query
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    eng.execute(plan_b)
+                    torch.cuda.synchronize()
+                    t_traced = time.perf_counter() - t0
+                on_card = [e for e in prof.key_averages()
+                           if e.device_type == DeviceType.CUDA]
+                d_traced = sum(device_us(e) for e in on_card) / 1e6
+                kept = sum(e.count for e in on_card
+                           if "persist_kernel" in e.key)
+                busy = (f"busy {100 * d_traced / t_traced:.1f} %"
+                        if kept == 1 else
+                        f"the trace kept {kept} of 1 persist record: busy "
+                        f"by events (the kernel alone over the wall) "
+                        f"{100 * ev_ms / (1e3 * t_traced):.1f} %")
+                add_check_launches()
+                kernel_note = (
+                    f" | persist: {T} scene-exclusive tiles of {bq_b} slots "
+                    f"(tiles a scene {torch.bincount(sot).tolist()}), fcap "
+                    f"{ck['fcap']}, kernel == plain; call {call_ms:.4f} ms, "
+                    f"the kernel alone {ev_ms:.4f} ms (CUDA events around "
+                    f"one launch, median of 5) and "
+                    + ("not measured" if k_ms is None else f"{k_ms:.4f} ms")
+                    + f" (torch.profiler), plain on card {plain_ms:.1f} ms; "
+                    f"distinct rows tested {rows_read} "
+                    f"({rows_read * row_bytes} B); bound {bms:.5f} ms "
+                    f"({by}), {ev_ms / bms:.0f}x; shape {shape} | "
+                    f"tile_pool (host) {1e3 * statistics.median(tp_s):.3f} "
+                    f"ms a query, median of 5 | traced "
+                    f"warm query: wall {1e3 * t_traced:.3f} ms, {busy}")
+            log("24 ragged", f"(b) {len(envs)} Table III scenes "
+                f"({', '.join(envs)}) x {M_b} OBBs, {name}: rows "
+                f"{choice[0]} {choice[1]} | hits {int(v1.sum())}, verdicts "
+                f"== phase 8's per scene | nodes {c1.nodes_traversed} per "
+                f"level {c1.nodes_per_level} == the sum of phase 8's runs, "
+                f"as every work counter | escalations {c1.escalations}, cap "
+                f"{eng.last_capacity}, meta_rows_streamed "
+                f"{c1.meta_rows_streamed} | main-path launches "
+                f"{({k: n for k, n in counts.items() if n})}{cpu_note} | "
+                f"warm wall median of 10 "
+                f"{1e3 * statistics.median(walls):.3f} ms, the {len(envs)} "
+                f"single-scene persistent walls of phase 8 sum to "
+                f"{1e3 * sum_walls:.3f} ms{kernel_note} | peak mem "
+                f"{peak / 2**20:.1f} MiB | {card}")
+    persist_line["max_abs_err"] = max(persist_line["max_abs_err"],
+                                      ragged_err)
+    log("24 ragged", f"phase {lap():.1f} s")
+
+    # ---- 25. result -------------------------------------------------------
+    # launches on every main path (phases 8, 13, 17, 20, 21, 22, 23 and 24)
+    # and in the checks
+    log("25 result", f"whole script {time.perf_counter() - t_start:.1f} s")
     for line in lines:
         line["launches"] = main_launches[line["name"]]
         line["check_launches"] = check_launches[line["name"]]

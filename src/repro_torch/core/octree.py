@@ -10,7 +10,12 @@ levels from identical points.
 
 :func:`device_octree` pads the ragged levels into rectangular tensors on a
 device and packs the gather-optimized ``node_meta`` row table the
-persistent megakernel reads.  Torch's ``uint32`` supports few ops, so the
+persistent megakernel reads.  A batch of scenes becomes either one table
+with a leading scene axis padded to the widest scene
+(:func:`stack_device_octrees`, for ``mode="wavefront"``) or one flat
+table of all scenes' nodes back to back (:func:`concat_device_octrees`,
+a :class:`MultiSceneOctree`, for the CSR modes).  Torch's ``uint32``
+supports few ops, so the
 device code planes keep the codes as their int32 bit pattern (``PAD_CODE``
 becomes -1) and decode them through int64.
 """
@@ -209,14 +214,23 @@ class DeviceOctree:
         """
         return self.codes.to(torch.int64) & 0xFFFFFFFF
 
+    def scene(self, s: int) -> "DeviceOctree":
+        """Scene ``s`` of a table with a leading scene axis
+        (:func:`stack_device_octrees`), as a one-scene table: its rows
+        keep the stack's padded width."""
+        return DeviceOctree(
+            codes=self.codes[s], full=self.full[s], counts=self.counts[s],
+            cell_sizes=self.cell_sizes[s], scene_lo=self.scene_lo[s],
+            child_start=self.child_start[s], child_mask=self.child_mask[s],
+            node_meta=self.node_meta[s], depth=self.depth,
+            meta_format=self.meta_format, host_cells=self.host_cells[s],
+            host_lo=self.host_lo[s])
 
-def device_octree(tree: Octree, meta_format: str = "fp32",
-                  device=DEFAULT_DEVICE) -> DeviceOctree:
-    """Pad the ragged level lists of ``tree`` into rectangular tensors on
-    ``device`` (CUDA unless the caller asks for the CPU) and pack the
-    ``node_meta`` rows in ``meta_format``."""
-    dev = resolve_device(device)
-    n_max = align_rows(max(len(lv.codes) for lv in tree.levels))
+
+def _level_columns(tree: Octree, n_max: int):
+    """The (L, n_max) code, full, child-start and child-mask columns of
+    ``tree``, tail-padded (codes with ``PAD_CODE``, the rest with 0), and
+    its (L,) level counts."""
     L = tree.depth + 1
     codes = np.full((L, n_max), PAD_CODE, np.uint32)
     full = np.zeros((L, n_max), bool)
@@ -230,20 +244,154 @@ def device_octree(tree: Octree, meta_format: str = "fp32",
         counts[lv_i] = n
         child_start[lv_i, :n] = lvl.child_start
         child_mask[lv_i, :n] = lvl.child_mask
-    cells = np.asarray([tree.cell_size(lv) for lv in range(L)], np.float32)
-    meta = _pack_node_meta(codes, full, child_start, child_mask, meta_format)
+    return codes, full, child_start, child_mask, counts
 
+
+def _cells(tree: Octree) -> np.ndarray:
+    return np.asarray([tree.cell_size(lv) for lv in range(tree.depth + 1)],
+                      np.float32)
+
+
+def _to(dev: torch.device):
     def t(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    return t
+
+
+def device_octree(tree: Octree, meta_format: str = "fp32",
+                  device=DEFAULT_DEVICE) -> DeviceOctree:
+    """Pad the ragged level lists of ``tree`` into rectangular tensors on
+    ``device`` (CUDA unless the caller asks for the CPU) and pack the
+    ``node_meta`` rows in ``meta_format``."""
+    t = _to(resolve_device(device))
+    n_max = align_rows(max(len(lv.codes) for lv in tree.levels))
+    codes, full, child_start, child_mask, counts = _level_columns(tree,
+                                                                  n_max)
+    cells = _cells(tree)
+    meta = _pack_node_meta(codes, full, child_start, child_mask, meta_format)
+    lo = np.asarray(tree.scene_lo, np.float32)
     return DeviceOctree(codes=t(codes.view(np.int32)), full=t(full),
                         counts=t(counts), cell_sizes=t(cells),
-                        scene_lo=t(np.asarray(tree.scene_lo, np.float32)),
-                        child_start=t(child_start), child_mask=t(child_mask),
-                        node_meta=t(meta), depth=tree.depth,
-                        meta_format=meta_format,
+                        scene_lo=t(lo), child_start=t(child_start),
+                        child_mask=t(child_mask), node_meta=t(meta),
+                        depth=tree.depth, meta_format=meta_format,
                         host_cells=tuple(float(c) for c in cells),
-                        host_lo=tuple(float(x) for x in
-                                      np.asarray(tree.scene_lo, np.float32)))
+                        host_lo=tuple(float(x) for x in lo))
+
+
+def _same_depth(trees: List[Octree]) -> int:
+    if not trees:
+        raise ValueError("need at least one octree")
+    depth = trees[0].depth
+    if any(t.depth != depth for t in trees):
+        raise ValueError(f"scene depths must match, got "
+                         f"{[t.depth for t in trees]}")
+    return depth
+
+
+def stack_device_octrees(trees: List[Octree],
+                         device=DEFAULT_DEVICE) -> DeviceOctree:
+    """Stack scenes into one :class:`DeviceOctree` with a leading scene
+    axis (``codes`` (S, depth+1, n_max), ``counts`` (S, depth+1), ...), as
+    the reference does: every scene's rows tail-padded to the widest level
+    of the widest scene, codes with ``PAD_CODE`` (so every row of
+    :attr:`DeviceOctree.codes_unsigned` stays sorted), and fp32
+    ``node_meta`` packed from the padded columns.  All trees must share a
+    depth.  ``host_cells`` and ``host_lo`` hold one tuple a scene;
+    :meth:`DeviceOctree.scene` takes one scene out."""
+    depth = _same_depth(trees)
+    t = _to(resolve_device(device))
+    n_max = max(align_rows(max(len(lv.codes) for lv in tr.levels))
+                for tr in trees)
+    cols = [_level_columns(tr, n_max) for tr in trees]
+    codes, full, child_start, child_mask, counts = (
+        np.stack([c[i] for c in cols]) for i in range(5))
+    meta = np.stack([_pack_node_meta(*c[:4], "fp32") for c in cols])
+    cells = np.stack([_cells(tr) for tr in trees])
+    los = np.stack([np.asarray(tr.scene_lo, np.float32) for tr in trees])
+    return DeviceOctree(codes=t(codes.view(np.int32)), full=t(full),
+                        counts=t(counts), cell_sizes=t(cells),
+                        scene_lo=t(los), child_start=t(child_start),
+                        child_mask=t(child_mask), node_meta=t(meta),
+                        depth=depth, meta_format="fp32",
+                        host_cells=tuple(tuple(float(c) for c in row)
+                                         for row in cells),
+                        host_lo=tuple(tuple(float(x) for x in row)
+                                      for row in los))
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiSceneOctree:
+    """Flat multi-scene CSR table: one row a level, scenes concatenated.
+
+    The ragged alternative to :func:`stack_device_octrees`: level ``l``
+    holds the nodes of all scenes back to back (scene-major), so the pad a
+    row is shared by the batch and the work follows the sum of the scene
+    sizes, not S times the largest.  ``node_meta``'s child pointers are
+    rebased to flat next-level indices; codes stay scene-local (a node's
+    box comes from its code and its scene's ``scene_lo`` and cell size).
+    Scene ``s``'s root is flat node ``s`` of level 0, and its nodes at
+    level ``l`` are flat rows ``[scene_off[s, l], scene_off[s, l] +
+    scene_counts[s, l])``.
+    """
+
+    node_meta: torch.Tensor     # (depth+1, n_max, words) int32 packed rows
+    codes: torch.Tensor         # (depth+1, n_max) int32 bit patterns
+    counts: torch.Tensor        # (depth+1,) int32 nodes a level, all scenes
+    cell_sizes: torch.Tensor    # (S, depth+1) float32
+    scene_lo: torch.Tensor      # (S, 3) float32
+    scene_off: torch.Tensor     # (S, depth+1) int32 first flat row
+    scene_counts: torch.Tensor  # (S, depth+1) int32 nodes of the scene
+    depth: int
+    meta_format: str = "fp32"
+
+    @property
+    def num_scenes(self) -> int:
+        return self.cell_sizes.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.node_meta.device
+
+
+def concat_device_octrees(trees: List[Octree], meta_format: str = "fp32",
+                          device=DEFAULT_DEVICE) -> MultiSceneOctree:
+    """Concatenate scenes into one flat level table (see
+    :class:`MultiSceneOctree`) on ``device``, rows packed in
+    ``meta_format``.  All trees must share a depth; their sizes may
+    differ.  Child pointers are rebased to flat indices before packing,
+    so a compressed format's pointer field must hold the concatenated
+    level widths (packing raises otherwise)."""
+    depth = _same_depth(trees)
+    t = _to(resolve_device(device))
+    L = depth + 1
+    per_scene = np.asarray([[len(tr.levels[lv].codes) for lv in range(L)]
+                            for tr in trees], np.int32)          # (S, L)
+    totals = per_scene.sum(axis=0)
+    offs = (np.cumsum(per_scene, axis=0) - per_scene).astype(np.int32)
+    n_max = align_rows(int(totals.max()))
+    codes = np.full((L, n_max), PAD_CODE, np.uint32)
+    full = np.zeros((L, n_max), bool)
+    child_start = np.zeros((L, n_max), np.int32)
+    child_mask = np.zeros((L, n_max), np.int32)
+    for lv in range(L):
+        for s, tr in enumerate(trees):
+            lvl = tr.levels[lv]
+            a, n = offs[s, lv], per_scene[s, lv]
+            codes[lv, a:a + n] = lvl.codes
+            full[lv, a:a + n] = lvl.full
+            if lv < depth:   # rebase into the flat next level
+                child_start[lv, a:a + n] = lvl.child_start + offs[s, lv + 1]
+                child_mask[lv, a:a + n] = lvl.child_mask
+    meta = _pack_node_meta(codes, full, child_start, child_mask, meta_format)
+    return MultiSceneOctree(
+        node_meta=t(meta), codes=t(codes.view(np.int32)),
+        counts=t(totals.astype(np.int32)),
+        cell_sizes=t(np.stack([_cells(tr) for tr in trees])),
+        scene_lo=t(np.stack([np.asarray(tr.scene_lo, np.float32)
+                             for tr in trees])),
+        scene_off=t(offs), scene_counts=t(per_scene), depth=depth,
+        meta_format=meta_format)
 
 
 def node_centers_from_xyz(xyz: torch.Tensor, scene_lo: torch.Tensor,

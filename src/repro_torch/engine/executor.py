@@ -47,7 +47,14 @@ lanes (swept-edge CCD, :func:`repro_torch.engine.plan.plan_edges`) run in
 the three device modes: the persistent mode on an owner-group tiled pool
 (:func:`repro_torch.kernels.persist.ops.tile_pool`), the per-level modes
 with the payload fold of :func:`repro_torch.core.sact.fold_verdicts`
-between levels.  Without a CUDA device a CUDA engine raises; it never
+between levels.  Ragged multi-scene batches
+(:func:`repro_torch.engine.plan.plan_scenes`, :func:`query_batched_scenes`)
+run in the three device modes as the reference runs them: the persistent
+mode on the megakernel's scene-exclusive tiles over the scenes' flat
+table, ``wavefront_fused`` on the reference's global-pool walk over that
+table (:func:`repro_torch.kernels.persist.ref.traverse_whole_ref`), and
+``wavefront`` on the scenes padded to the widest one, one scene after
+another at one shared capacity; the host arms and ``naive`` refuse them.  Without a CUDA device a CUDA engine raises; it never
 drops to the CPU by itself.  Options and plan shapes this port has not
 ported raise ``NotImplementedError`` naming the ROADMAP item that adds
 them.
@@ -56,6 +63,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -74,15 +82,18 @@ from repro_torch.core.counters import (BYTES_FUSED_STEP, BYTES_META_STREAM,
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.core.geometry import OBBs
 from repro_torch.core.octree import (MAX_DEPTH, DeviceOctree, Octree,
-                                     device_octree, lookup_children,
-                                     node_centers_from_codes)
+                                     concat_device_octrees, device_octree,
+                                     lookup_children, node_centers_from_codes,
+                                     stack_device_octrees)
 from repro_torch.core.quantize import META_FORMATS
 from repro_torch.core.sact import NUM_AXES, PAYLOAD_INF
-from repro_torch.engine.plan import QueryPlan, plan_batch, plan_queries
+from repro_torch.engine.plan import (QueryPlan, plan_batch, plan_queries,
+                                     plan_scenes)
 from repro_torch.kernels.compact.ops import compact_pairs
 from repro_torch.kernels.persist.ops import (H100_L2_BYTES,
                                              choose_meta_layout, tile_pool,
                                              traverse_whole)
+from repro_torch.kernels.persist.ref import traverse_whole_ref
 from repro_torch.kernels.sact.ops import pack_aabbs, pack_obbs, sact_dense
 from repro_torch.kernels.traverse.ops import traverse_step
 
@@ -262,12 +273,14 @@ def _count_level(st: dict, level: int, valid, is_term, res, n_new,
                                term_valid.to(torch.int64))
 
 
-def _seed(num_queries: int, capacity: int, device):
+def _seed(num_queries: int, capacity: int, device, num_valid=None):
     """Level-0 frontier: query ``i`` on lane ``i`` against the root, the
-    lanes past the queries on query 0 (in range for every gather)."""
+    lanes past the queries on query 0 (in range for every gather); the
+    first ``num_valid`` lanes (default all queries) are live."""
     lane = torch.arange(capacity, dtype=torch.int32, device=device)
     q0 = torch.where(lane < num_queries, lane, 0)
-    n_live = torch.tensor(min(num_queries, capacity), dtype=torch.int32,
+    nv = num_queries if num_valid is None else int(num_valid)
+    n_live = torch.tensor(min(nv, capacity), dtype=torch.int32,
                           device=device)
     return n_live, q0, torch.zeros(capacity, dtype=torch.int32,
                                    device=device)
@@ -298,7 +311,7 @@ def _test_level(obb_c, obb_h, obb_r, dev: DeviceOctree, level: int,
 
 def _traverse(obb_c, obb_h, obb_r, dev: DeviceOctree, capacity: int,
               use_spheres: bool, max_depth: Optional[int] = None,
-              owner=None, payload=None):
+              owner=None, payload=None, num_valid=None):
     """Multi-level wavefront traversal (``mode="wavefront"``) for one query
     set against one scene; returns ``(verdict, stats)``: (M,) bool, or
     with ``owner`` / ``payload`` lanes (M,) int32 ``best`` cells (those
@@ -308,7 +321,9 @@ def _traverse(obb_c, obb_h, obb_r, dev: DeviceOctree, capacity: int,
     :func:`_test_level`, the 8-child occupancy probe of
     :func:`repro_torch.core.octree.lookup_children` on the next level, and
     the compaction kernel.  ``max_depth`` caps the walk at that level,
-    where every node counts as terminal.
+    where every node counts as terminal.  ``num_valid`` (default M) is the
+    pool's live prefix: slots past it seed nothing and add 0 to every
+    counter, so a padded pool walks as its unpadded prefix does.
     """
     device = dev.device
     M = obb_c.shape[0]
@@ -317,7 +332,7 @@ def _traverse(obb_c, obb_h, obb_r, dev: DeviceOctree, capacity: int,
     grouped = owner is not None or payload is not None
     verdict = _verdict_init(M, grouped, device)
     st = _empty_stats(device)
-    n_live, q_idx, codes = _seed(M, capacity, device)
+    n_live, q_idx, codes = _seed(M, capacity, device, num_valid)
     for level in range(depth + 1):
         valid = lane < n_live
         q64, codes_u, res, is_term = _test_level(
@@ -341,7 +356,7 @@ def _traverse(obb_c, obb_h, obb_r, dev: DeviceOctree, capacity: int,
 
 def _traverse_fused(obb: torch.Tensor, dev: DeviceOctree, capacity: int,
                     use_spheres: bool, max_depth: Optional[int] = None,
-                    owner=None, payload=None):
+                    owner=None, payload=None, num_valid=None):
     """Fused multi-level wavefront traversal (``mode="wavefront_fused"``):
     the frontier carries (query, CSR node index) pairs and each level is
     one :func:`repro_torch.kernels.traverse.ops.traverse_step`.  ``obb``
@@ -352,7 +367,8 @@ def _traverse_fused(obb: torch.Tensor, dev: DeviceOctree, capacity: int,
     leaves and full subtrees as terminal, so the cap level's other hits
     are folded into the verdicts here and do not count as leaf tests (the
     reference's accounting, which differs from :func:`_traverse`'s under a
-    cap in ``leaf_tests`` and the exit histogram).
+    cap in ``leaf_tests`` and the exit histogram).  ``num_valid`` is the
+    pool's live prefix, as in :func:`_traverse`.
     """
     device = dev.device
     M = obb.shape[0]
@@ -363,7 +379,7 @@ def _traverse_fused(obb: torch.Tensor, dev: DeviceOctree, capacity: int,
         "depth-capped traversal serves boolean plans only"
     verdict = _verdict_init(M, grouped, device)
     st = _empty_stats(device)
-    n_live, q_idx, node_idx = _seed(M, capacity, device)
+    n_live, q_idx, node_idx = _seed(M, capacity, device, num_valid)
     for level in range(depth + 1):
         n_next, q_next, idx_next, verdict, info = traverse_step(
             obb, dev, level, n_live, q_idx, node_idx, verdict,
@@ -512,13 +528,69 @@ def _stats_to_counters(st, mode: str, replays: int = 0,
     return c
 
 
+def _sum_stats(stats: List[dict]) -> dict:
+    """Field-wise sum of per-scene stats dicts."""
+    return {k: torch.stack([st[k] for st in stats]).sum(0) for k in stats[0]}
+
+
+#: Scene-table memo for repeat multi-scene batches: building the flat or
+#: stacked level tables is a host numpy pass over every level of every
+#: scene plus a copy to the device, far more than a warm walk costs.
+#: Keyed by the octree objects' identities (and the table's kind, row
+#: format and device); weak references guard against an id reused after
+#: a tree is freed.
+_TABLE_CACHE: dict = {}
+_TABLE_CACHE_MAX = 8
+_TABLE_STATS = {"hits": 0, "misses": 0}
+#: The first use of each (mode, batch kind, capacity, statics) key.
+_TRACE_COUNTS: dict = {}
+
+
+def _scene_tables(octrees: List[Octree], padded: bool, fmt: str = "fp32",
+                  device=DEFAULT_DEVICE):
+    """The stacked (``padded``) or flat table of ``octrees`` on
+    ``device``, memoized."""
+    device = resolve_device(device)
+    key = (padded, fmt, str(device), tuple(id(t) for t in octrees))
+    hit = _TABLE_CACHE.get(key)
+    if hit is not None:
+        refs, tables = hit
+        if all(r() is t for r, t in zip(refs, octrees)):
+            _TABLE_STATS["hits"] += 1
+            return tables
+    _TABLE_STATS["misses"] += 1
+    tables = (stack_device_octrees(octrees, device=device) if padded
+              else concat_device_octrees(octrees, meta_format=fmt,
+                                         device=device))
+    while len(_TABLE_CACHE) >= _TABLE_CACHE_MAX:
+        _TABLE_CACHE.pop(next(iter(_TABLE_CACHE)))
+    _TABLE_CACHE[key] = ([weakref.ref(t) for t in octrees], tables)
+    return tables
+
+
+def traversal_cache_info() -> dict:
+    """The reference's cache report, under its keys.  PyTorch compiles no
+    traversal, so here ``hits``, ``misses`` and ``entries`` count the
+    multi-scene table memo (:func:`_scene_tables`: tables served from it,
+    tables built, tables held), ``sharded_entries`` is 0 (sharded
+    execution is ROADMAP A.8), and ``traces`` maps each (mode, batch kind,
+    capacity, use_spheres, streamed, meta_format, max_depth) key that a
+    device-mode walk has run to 1, its first use, which is where the
+    reference traces."""
+    return dict(hits=_TABLE_STATS["hits"], misses=_TABLE_STATS["misses"],
+                entries=len(_TABLE_CACHE), sharded_entries=0,
+                traces=dict(_TRACE_COUNTS))
+
+
 class CollisionEngine:
-    """Octree collision queries for one fixed scene, on one device.
+    """Octree collision queries for fixed scene(s), on one device.
 
     ``device`` defaults to CUDA; pass ``device="cpu"`` to run the plain
     PyTorch versions of the kernels.  The engine is the executor of
     :class:`repro_torch.engine.plan.QueryPlan`; ``query`` and
-    ``query_batched`` build the obvious plan.
+    ``query_batched`` build the obvious plan.  Construct with one
+    :class:`Octree` for single-scene service or a list for multi-scene
+    plans (:func:`repro_torch.engine.plan.plan_scenes`).
     """
 
     def __init__(self, octree: Union[Octree, List[Octree]],
@@ -535,12 +607,13 @@ class CollisionEngine:
         self.rebind_octrees(octree)
 
     def rebind_octrees(self, octree: Union[Octree, List[Octree]]) -> None:
-        """(Re)bind the engine to a new scene, keeping config and caches;
-        the layout/format choice and device tables are rebuilt lazily."""
+        """(Re)bind the engine to new scene(s), keeping config and caches;
+        the layout/format choice and device tables are rebuilt lazily, and
+        the clean-capacity memo keeps only the new scenes' keys."""
         octrees = (list(octree) if isinstance(octree, (list, tuple))
                    else [octree])
-        if len(octrees) != 1:
-            raise _unported("multi-scene engines", "A.5.6")
+        if not octrees:
+            raise ValueError("need at least one octree")
         self.octrees = octrees
         self.octree = octrees[0]
         self._dev: dict = {}
@@ -570,8 +643,13 @@ class CollisionEngine:
         return self._device_tree(self.meta_format)
 
     def _choose_meta(self):
+        """The layout/format choice, memoized.  A multi-scene engine sizes
+        the flat table's per-level totals, the table its CSR modes read."""
         if self._meta_choice is None:
-            n_max = max(len(lv.codes) for lv in self.octree.levels)
+            n_levels = max(len(t.levels) for t in self.octrees)
+            n_max = max(sum(len(t.levels[lv].codes) for t in self.octrees
+                            if lv < len(t.levels))
+                        for lv in range(n_levels))
             layout = (None if self.cfg.stream_meta is None else
                       ("streamed" if self.cfg.stream_meta else "resident"))
             self._meta_choice = choose_meta_layout(
@@ -620,6 +698,8 @@ class CollisionEngine:
             raise ValueError(
                 f"plan carries {plan.num_scenes} scene(s) but the engine "
                 f"holds {len(self.octrees)}")
+        if plan.num_scenes > 1 and not self.cfg.device_resident:
+            raise ValueError("multi-scene batching needs a device mode")
         if plan.grouped and not self.cfg.device_resident:
             raise ValueError(
                 "owner/payload plans need a device-resident mode; lower to "
@@ -710,42 +790,98 @@ class CollisionEngine:
         # The persistent megakernel's layout: the chooser's pick against
         # cfg.vmem_budget unless cfg.stream_meta pins it.
         streamed = cfg.persistent and self.meta_layout == "streamed"
-        dev = self.device_tree
         obb_c, obb_h, obb_r = self._plan_obbs(plan)
-        owner, payload = (
+        owner, payload, soq = (
             None if x is None else
             torch.as_tensor(x, dtype=torch.int32).to(self.device)
-            for x in (plan.owner_of_query, plan.payload))
-        memo_key = ("single", Q, plan.grouped, max_depth, self._scene_sig)
+            for x in (plan.owner_of_query, plan.payload,
+                      plan.scene_of_query))
+        ragged = plan.num_scenes > 1
+        batch, n_escalate = "single", Q
+        if ragged and cfg.mode in CSR_MODES:
+            # one flat pool of (query, CSR node) pairs over the scenes'
+            # concatenated table
+            dev = _scene_tables(self.octrees, padded=False, fmt=fmt,
+                                device=self.device)
+            per_scene = Q // plan.num_scenes
+            worst = min(sum(frontier_capacity_bound(
+                [len(lv.codes) for lv in t.levels], per_scene, cfg)
+                for t in self.octrees), max(cfg.max_frontier, Q))
+            memo_key = ("csr_scenes", Q, plan.grouped, self._scene_sig)
+        elif ragged:
+            # mode="wavefront" (a Morton-code frontier): the scenes padded
+            # to the widest one, walked one after another at one capacity
+            if plan.grouped:
+                raise ValueError("owner/payload plans need a CSR mode for "
+                                 "multi-scene batches")
+            stacked = _scene_tables(self.octrees, padded=True,
+                                    device=self.device)
+            S, M = plan.out_shape
+            worst = max(frontier_capacity_bound(
+                [len(lv.codes) for lv in t.levels], M, cfg)
+                for t in self.octrees)
+            memo_key = ("pad_scenes", S, M, self._scene_sig)
+            batch, n_escalate = "scenes", M
+        else:
+            dev = self.device_tree
+            worst = self._capacity(Q)
+            memo_key = ("single", Q, plan.grouped, max_depth,
+                        self._scene_sig)
 
-        if cfg.mode == "wavefront_persistent" and owner is not None:
-            # Owner groups cross query tiles: pack them into an
-            # owner-group tiled pool once, before the escalation ladder.
+        if cfg.persistent and (ragged or owner is not None):
+            # Scenes and owner groups cross query tiles: pack them into a
+            # tiled pool once, before the escalation ladder (the tile map
+            # is host numpy, built from the plan's host lanes).
             tiled = tile_pool(obb_c, obb_h, obb_r, plan.owner_of_query,
-                              payload)
+                              payload, scene_of_query=(
+                                  plan.scene_of_query if ragged else None))
 
             def run(cap):
                 return traverse_whole(dev=dev, capacity=cap,
                                       use_spheres=cfg.use_spheres,
                                       streamed=streamed, **tiled)
-        elif cfg.mode == "wavefront_persistent":
+        elif cfg.persistent:
             def run(cap):
                 return traverse_whole(obb_c, obb_h, obb_r, dev, cap,
                                       use_spheres=cfg.use_spheres,
                                       payload=payload, streamed=streamed)
-        elif cfg.mode == "wavefront_fused":
+        elif ragged and cfg.fused:
+            # the reference serves the fused mode's ragged pool with its
+            # global-pool walk, not with the per-level step kernel
+            def run(cap):
+                return traverse_whole_ref(
+                    obb_c, obb_h, obb_r, dev.node_meta, dev.cell_sizes,
+                    dev.scene_lo, dev.depth, cap, cfg.use_spheres,
+                    scene_of_query=soq, owner_of_query=owner,
+                    payload=payload, meta_format=fmt, codes=dev.codes)
+        elif cfg.fused:
             obb = pack_obbs(obb_c, obb_h, obb_r)
 
             def run(cap):
                 return _traverse_fused(obb, dev, cap, cfg.use_spheres,
                                        max_depth, owner, payload)
+        elif ragged:
+            def run(cap):
+                outs = [_traverse(obb_c[s * M:(s + 1) * M],
+                                  obb_h[s * M:(s + 1) * M],
+                                  obb_r[s * M:(s + 1) * M],
+                                  stacked.scene(s), cap, cfg.use_spheres)
+                        for s in range(S)]
+                return (torch.cat([v for v, _ in outs]),
+                        _sum_stats([st for _, st in outs]))
         else:
             def run(cap):
                 return _traverse(obb_c, obb_h, obb_r, dev, cap,
                                  cfg.use_spheres, max_depth, owner, payload)
 
+        def traced(cap):
+            _TRACE_COUNTS.setdefault((cfg.mode, batch, cap, cfg.use_spheres,
+                                      streamed, fmt, max_depth), 1)
+            return run(cap)
+
         verdict, st, cap, replays = _escalate(
-            run, Q, self._capacity(Q), cfg, start=self._cap_memo.get(memo_key))
+            traced, n_escalate, worst, cfg,
+            start=self._cap_memo.get(memo_key))
         self._cap_memo[memo_key] = cap
         self.last_capacity = cap
         lanes = (plan.owner_of_query is not None) + (plan.payload is not None)
@@ -757,3 +893,32 @@ class CollisionEngine:
             # are compact); only the first G cells are meaningful.
             verdict = verdict[:plan.groups]
         return verdict, counters
+
+
+def query_batched_scenes(octrees: List[Octree], obbs: OBBs,
+                         config: EngineConfig = EngineConfig(),
+                         device=DEFAULT_DEVICE
+                         ) -> Tuple[np.ndarray, Counters]:
+    """S scenes, each with its own (M,) OBB set, in one traversal:
+    ``obbs`` fields carry a leading scene axis (center (S, M, 3)); the
+    trees share a depth and may differ in size.  Returns ((S, M) verdicts,
+    aggregate counters).
+
+    The CSR modes walk one flat pool over the scenes' concatenated table
+    (:func:`repro_torch.core.octree.concat_device_octrees`), with no work
+    for the largest scene's padding: ``wavefront_persistent`` on the
+    megakernel's scene-exclusive tiles, ``wavefront_fused`` on the
+    reference's global-pool walk
+    (:func:`repro_torch.kernels.persist.ref.traverse_whole_ref`).
+    ``mode="wavefront"`` walks the scenes padded to the widest one
+    (:func:`repro_torch.core.octree.stack_device_octrees`) at one shared
+    capacity.  The device tables are memoized module-wide, so repeat calls
+    on the same octree list skip the table build.
+    """
+    if not config.device_resident:
+        raise ValueError("multi-scene batching needs a device mode")
+    if obbs.center.ndim != 3 or obbs.center.shape[0] != len(octrees):
+        raise ValueError(f"want OBB fields of shape ({len(octrees)}, M, 3), "
+                         f"got {tuple(obbs.center.shape)}")
+    return CollisionEngine(list(octrees), config, device=device).execute(
+        plan_scenes(obbs))

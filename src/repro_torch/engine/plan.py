@@ -4,10 +4,10 @@ Counterpart of ``repro.engine.plan``.  A :class:`QueryPlan` is a flat OBB
 pool ``(Q, 3)/(Q, 3)/(Q, 3, 3)`` of tensors, optional scene / owner /
 payload lanes, and an un-flattening recipe that maps the flat verdicts back
 to the front end's shape.  This package lowers single query sets
-(:func:`plan_queries`), (B, M) batches (:func:`plan_batch`), joint-space
+(:func:`plan_queries`), (B, M) batches (:func:`plan_batch`), S scenes of
+M queries each with a scene lane (:func:`plan_scenes`), joint-space
 trajectories (:func:`plan_trajectory`) and swept-edge pools with owner and
-payload lanes (:func:`plan_edges`); multi-scene batches (``plan_scenes``)
-land with ROADMAP A.5.6.
+payload lanes (:func:`plan_edges`).
 """
 from __future__ import annotations
 
@@ -159,6 +159,21 @@ def plan_batch(obbs: OBBs) -> QueryPlan:
                      obb_r=obbs.rot.reshape(-1, 3, 3), out_shape=(B, M))
 
 
+def plan_scenes(obbs: OBBs) -> QueryPlan:
+    """S scenes x (M,) queries each: the flat pool of S * M slots, scene
+    ``s``'s queries at slots ``[s * M, (s + 1) * M)``, and the scene lane
+    ``scene_of_query = repeat(arange(S), M)`` (int32, on the OBBs'
+    device)."""
+    assert obbs.center.ndim == 3, "plan_scenes wants (S, M, 3) fields"
+    S, M = obbs.center.shape[:2]
+    soq = torch.arange(S, dtype=torch.int32,
+                       device=obbs.center.device).repeat_interleave(M)
+    return QueryPlan(kind="scenes", obb_c=obbs.center.reshape(-1, 3),
+                     obb_h=obbs.half.reshape(-1, 3),
+                     obb_r=obbs.rot.reshape(-1, 3, 3), out_shape=(S, M),
+                     num_scenes=S, scene_of_query=soq)
+
+
 def plan_trajectory(waypoints, base_pos=None) -> QueryPlan:
     """Joint-space waypoints (..., 7) -> link-OBB pool with an any-link
     reduction: forward kinematics (on the waypoints' device) emits
@@ -203,5 +218,5 @@ def plan_edges(obbs: OBBs, owner, num_groups: int,
 
 
 __all__ = ["PAYLOAD_INF", "PlanValidationError", "QueryPlan", "WORKLOADS",
-           "plan_batch", "plan_edges", "plan_queries", "plan_trajectory",
-           "validate_plan"]
+           "plan_batch", "plan_edges", "plan_queries", "plan_scenes",
+           "plan_trajectory", "validate_plan"]

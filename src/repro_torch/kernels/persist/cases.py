@@ -19,16 +19,22 @@ kernel's SACT decides pairs within a rounding of their planes there.
 and :func:`tiled_pool` packs one of them as the engine does
 (:func:`repro_torch.kernels.persist.ops.build_tile_map`): whole owner
 groups a tile, pads at each tile's tail, real payloads.
+:func:`ragged_trees` builds scenes of mixed sizes, each in a box of its
+own, and :func:`ragged_pool` packs a ragged batch over their flat table
+(:func:`repro_torch.core.octree.concat_device_octrees`) as the engine
+does: scene-exclusive tiles, each seeded at its scene's root, optionally
+with owner groups inside each scene.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.geometry import rotation_from_euler
-from repro_torch.core.octree import DeviceOctree
+from repro_torch.core.octree import (DeviceOctree, MultiSceneOctree, Octree,
+                                     build_octree)
 from repro_torch.kernels.persist.ops import (DEFAULT_BQ, pack_kernel_inputs,
                                              tile_pool)
 from repro_torch.kernels.persist.ref import persist_tiles_ref
@@ -168,6 +174,62 @@ def tiled_pool(dev: DeviceOctree, plan, bq: int = DEFAULT_BQ
     t = tile_pool(plan.obb_c.to(d), plan.obb_h.to(d), plan.obb_r.to(d),
                   plan.owner_of_query, plan.payload, bq)
     ins = pack_kernel_inputs(t["obb_c"], t["obb_h"], t["obb_r"], dev,
+                             t["bq"], payload=t["payload"],
+                             owner_local=t["tiles"].owner_local,
+                             scene_of_tile=t["tiles"].scene_of_tile)
+    return ins, t["bq"]
+
+
+def ragged_trees(sizes: Sequence[int] = (6000, 700, 2500), depth: int = 5,
+                 seed: int = 0) -> List[Octree]:
+    """Scenes of ``sizes`` uniform points each, at one depth, each in a box
+    of its own (scaled and shifted), so that every scene has its own
+    origin, cell sizes and level widths."""
+    rs = np.random.RandomState(seed)
+    trees = []
+    for i, n in enumerate(sizes):
+        shift = rs.uniform(-2.0, 2.0, 3)
+        pts = rs.uniform(-1.0, 1.0, (n, 3)) * (0.5 + i) + shift
+        trees.append(build_octree(pts.astype(np.float32), depth=depth))
+    return trees
+
+
+def ragged_pool(multi: MultiSceneOctree, per_scene: Sequence[int],
+                seed: int, owner_groups: bool = False,
+                half=(0.02, 0.12), bq: int = DEFAULT_BQ
+                ) -> Tuple[Dict[str, torch.Tensor], int]:
+    """Inputs of :func:`repro_torch.kernels.persist.ops.persist_tiles` on
+    ``multi.device`` for a ragged batch of ``per_scene[s]`` OBBs in scene
+    ``s`` (inside its box, half extents a fraction ``half`` of its side),
+    tiled as the engine tiles it (:func:`tile_pool`: scene-exclusive
+    tiles, pads at each tile's tail).  With ``owner_groups`` each scene's
+    queries fall into consecutive groups of 1 to 4 slots with payloads in
+    [0, 6); else every query is its own group.  Returns ``(inputs,
+    bq)``."""
+    rs = np.random.RandomState(seed)
+    lo = multi.scene_lo.cpu().numpy()
+    side = multi.cell_sizes[:, 0].cpu().numpy()
+    soq = np.repeat(np.arange(len(per_scene)), per_scene).astype(np.int32)
+    n = soq.size
+    c = lo[soq] + rs.uniform(0.0, 1.0, (n, 3)) * side[soq, None]
+    h = rs.uniform(*half, (n, 3)) * side[soq, None]
+    r = rotation_from_euler(torch.from_numpy(
+        rs.uniform(-3.0, 3.0, (n, 3)).astype(np.float32)))
+    owner = payload = None
+    if owner_groups:
+        owner = np.zeros(n, np.int32)
+        g = s = 0
+        for q in range(n):
+            if q == s or soq[q] != soq[q - 1]:
+                s = q + int(rs.randint(1, 5))
+                g += q > 0
+            owner[q] = g
+        payload = rs.randint(0, 6, n).astype(np.int32)
+    d = multi.device
+    t = tile_pool(torch.from_numpy(c.astype(np.float32)).to(d),
+                  torch.from_numpy(h.astype(np.float32)).to(d), r.to(d),
+                  owner, payload, bq, scene_of_query=soq)
+    ins = pack_kernel_inputs(t["obb_c"], t["obb_h"], t["obb_r"], multi,
                              t["bq"], payload=t["payload"],
                              owner_local=t["tiles"].owner_local,
                              scene_of_tile=t["tiles"].scene_of_tile)

@@ -10,19 +10,24 @@ in shared memory) on CUDA tensors and runs the plain PyTorch version
 Both follow the same per-tile contract, so verdicts and every counter are
 the same on either device.
 
-Every single-scene plan shape runs on the kernel.  A plan with an owner
-lane (swept-edge CCD) is lowered to a **tiled pool** first
-(:func:`build_tile_map`, the reference's host numpy): pool slots are
-permuted so that every verdict group lands whole in one ``bq``-slot tile,
+Every plan shape runs on the kernel.  A plan with an owner lane
+(swept-edge CCD) or a scene lane (a ragged multi-scene batch, over the
+flat table of :func:`repro_torch.core.octree.concat_device_octrees`) is
+lowered to a **tiled pool** first (:func:`build_tile_map`, the
+reference's host numpy): pool slots are permuted so that every tile holds
+one scene and every verdict group lands whole in one ``bq``-slot tile,
 pads sit at each tile's tail, and each slot names its group by the
-group's first tile-local slot (``owner_local``); the kernel's per-slot
-``best`` words are mapped back to group space by ``group_slot``.  A plan
-with a payload lane and no owner lane stays on the identity route with
-its payloads.  An owner group too large for the largest tile
-(:data:`MAX_TILE_BQ`, :func:`persist_kernel_unsupported`) raises
-``NotImplementedError`` (ROADMAP B.2.5): the reference serves it on its
-plain arm, and this port falls back to no plain version on the card.
-Ragged multi-scene batches raise naming ROADMAP A.5.6.
+group's first tile-local slot (``owner_local``).  The kernel reads each
+tile's scene (``scene_of_tile``): its origin and cell sizes, its level
+extents, and its root, flat node ``s`` of level 0.  The per-slot ``best``
+words are mapped back to query space by ``slot_of_query`` (boolean
+plans) or to group space by ``group_slot``.  A one-scene plan with a
+payload lane and no owner lane stays on the identity route with its
+payloads.  An owner group too large for the largest tile
+(:data:`MAX_TILE_BQ`) or in more than one scene
+(:func:`persist_kernel_unsupported`) raises ``NotImplementedError``
+(ROADMAP B.2.5): the reference serves it on its plain arm, and this port
+falls back to no plain version on the card.
 
 **Layouts x row formats.**  Rows come in the three formats of
 :mod:`repro_torch.core.quantize` (fp32 16 B, bf16 8 B, u8 4 B; the
@@ -52,8 +57,8 @@ import torch
 from repro_torch.core.counters import (BYTES_META_STREAM,
                                        BYTES_META_STREAM_BF16,
                                        BYTES_META_STREAM_U8, NUM_EXIT_CODES)
-from repro_torch.core.octree import (MAX_DEPTH, META_ROW_ALIGN, DeviceOctree,
-                                     align_rows)
+from repro_torch.core.octree import (MAX_DEPTH, META_ROW_ALIGN,
+                                     MultiSceneOctree, align_rows)
 from repro_torch.core.quantize import (META_FORMAT_WORDS, META_FORMATS,
                                        format_eligible)
 from repro_torch.core.sact import PAYLOAD_INF
@@ -156,6 +161,7 @@ class Tiling(NamedTuple):
     owner_local: object    # (Q',) slot's verdict group as the group's
     #                        first tile-local slot; -1 = pad slot
     scene_of_tile: object  # (T,) scene id per tile (0: one scene)
+    slot_of_query: object  # (Q,) original query -> pool slot
     group_slot: object     # (Q,) global group id -> the group's fold
     #                        slot; -1 past the group count
 
@@ -174,30 +180,40 @@ class TileMap(NamedTuple):
 
 
 def build_tile_map(num_queries: int, bq: int,
+                   scene_of_query: Optional[np.ndarray] = None,
                    owner_of_query: Optional[np.ndarray] = None) -> TileMap:
-    """Pack a one-scene plan's pairs into owner-group-exclusive tiles
-    (host numpy, the reference's steps in its order).
+    """Pack a plan's pairs into scene-exclusive, owner-group-exclusive
+    tiles (host numpy, the reference's steps in its order).
 
-    Pairs are ordered by owner (stable), and each owner's run is placed
-    whole into the current tile if it has room, else into a new one.
-    ``bq`` grows to the next power of two that fits the largest group
-    (capped at :data:`MAX_TILE_BQ`: a larger group raises; screen with
+    Pairs are ordered scene-major, owner-minor (stable, so pools the front
+    ends already sorted keep their order), and each (scene, owner) run is
+    placed whole into the current tile if it has room and holds the same
+    scene, else into a new one.  An owner group in more than one scene
+    raises ``ValueError`` (its fold cell could not be tile-local).  ``bq``
+    grows to the next power of two that fits the largest group (capped at
+    :data:`MAX_TILE_BQ`: a larger group raises; screen with
     :func:`persist_kernel_unsupported` first).  Pads sit at each tile's
     tail, so live slots form every tile's prefix.
     """
     Q = int(num_queries)
+    soq = (np.zeros(Q, np.int64) if scene_of_query is None
+           else np.asarray(scene_of_query, np.int64))
     own = (np.arange(Q, dtype=np.int64) if owner_of_query is None
            else np.asarray(owner_of_query, np.int64))
-    assert own.shape == (Q,)
-    order = np.argsort(own, kind="stable")
-    oo = own[order]
+    assert soq.shape == (Q,) and own.shape == (Q,)
+    order = np.lexsort((own, soq))
+    so, oo = soq[order], own[order]
     new_run = np.ones(Q, bool)
     if Q > 1:
-        new_run[1:] = oo[1:] != oo[:-1]
+        new_run[1:] = (so[1:] != so[:-1]) | (oo[1:] != oo[:-1])
     run_id = np.cumsum(new_run) - 1
     run_starts = np.flatnonzero(new_run)
     run_sizes = np.diff(np.append(run_starts, Q))
     run_owner = oo[run_starts]
+    if owner_of_query is not None and \
+            len(np.unique(run_owner)) != len(run_owner):
+        raise ValueError("an owner group spans multiple scenes; "
+                         "its fold cell cannot be tile-local")
     max_run = int(run_sizes.max()) if Q else 1
     bq_eff = max(int(bq), _next_pow2(max_run))
     if bq_eff > MAX_TILE_BQ:
@@ -206,22 +222,30 @@ def build_tile_map(num_queries: int, bq: int,
             f"(cap {MAX_TILE_BQ}); screen with persist_kernel_unsupported")
 
     nrun = len(run_starts)
-    tile_of_run = np.zeros(nrun, np.int64)
-    first_slot_of_run = np.zeros(nrun, np.int64)
-    tile, used = -1, bq_eff
-    for r in range(nrun):
-        n = int(run_sizes[r])
-        if used + n > bq_eff:
+    # the greedy placement, on Python ints: numpy scalars make this loop,
+    # one trip a run, several times slower
+    tiles_r, firsts_r, scene_of_tile = [], [], []
+    tile, used, cur_scene = -1, bq_eff, None
+    for n, s in zip(run_sizes.tolist(), so[run_starts].tolist()):
+        if s != cur_scene or used + n > bq_eff:
             tile += 1
             used = 0
-        tile_of_run[r] = tile
-        first_slot_of_run[r] = used
+            cur_scene = s
+            scene_of_tile.append(s)
+        tiles_r.append(tile)
+        firsts_r.append(used)
         used += n
+    tile_of_run = np.asarray(tiles_r, np.int64)
+    first_slot_of_run = np.asarray(firsts_r, np.int64)
     num_tiles = max(tile + 1, 1)
+    if not scene_of_tile:
+        scene_of_tile = [0]
 
     rank_in_run = np.arange(Q) - run_starts[run_id] if Q else np.zeros(0)
     slot_sorted = (tile_of_run[run_id] * bq_eff + first_slot_of_run[run_id]
                    + rank_in_run).astype(np.int64)
+    slot_of_query = np.zeros(Q, np.int64)
+    slot_of_query[order] = slot_sorted
     Qs = num_tiles * bq_eff
     perm = np.full(Qs, -1, np.int64)
     perm[slot_sorted] = order
@@ -232,15 +256,18 @@ def build_tile_map(num_queries: int, bq: int,
         group_slot[run_owner] = (tile_of_run * bq_eff
                                  + first_slot_of_run).astype(np.int32)
     tiles = Tiling(owner_local=owner_local,
-                   scene_of_tile=np.zeros(num_tiles, np.int32),
+                   scene_of_tile=np.asarray(scene_of_tile, np.int32),
+                   slot_of_query=slot_of_query.astype(np.int32),
                    group_slot=group_slot)
     return TileMap(tiles=tiles, perm=perm, bq=bq_eff, num_tiles=num_tiles)
 
 
-def persist_kernel_unsupported(owner_of_query=None) -> Optional[str]:
-    """Name the reason a one-scene persistent-mode plan cannot run on the
-    kernel, or ``None`` if it can: an owner group too large for the
-    largest tile (no front end emits one)."""
+def persist_kernel_unsupported(owner_of_query=None,
+                               scene_of_query=None) -> Optional[str]:
+    """Name the reason a persistent-mode plan cannot run on the kernel, or
+    ``None`` if it can (the reference's two reasons, in its order): an
+    owner group too large for the largest tile, or an owner group in more
+    than one scene.  No front end emits either."""
     if owner_of_query is None:
         return None
     own = np.asarray(owner_of_query)
@@ -251,6 +278,11 @@ def persist_kernel_unsupported(owner_of_query=None) -> Optional[str]:
     if _next_pow2(mx) > MAX_TILE_BQ:
         return (f"owner group of {mx} pairs needs a {_next_pow2(mx)}-slot "
                 f"tile (cap {MAX_TILE_BQ})")
+    if scene_of_query is not None:
+        soq = np.asarray(scene_of_query)
+        pairs = {(int(o), int(s)) for o, s in zip(own, soq)}
+        if len(pairs) != len(np.unique(own)):
+            return "an owner group spans multiple scenes"
     return None
 
 
@@ -363,27 +395,34 @@ def kernel_shape(bq: int = DEFAULT_BQ, meta_format: str = "fp32",
                     out))
 
 
-def _scene_extents(dev: DeviceOctree) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(S * L,) int32 per-scene flat level sub-extents (offset, count): one
-    scene, offsets 0 and its level counts."""
+def _scene_extents(dev) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(S * L,) int32 per-scene flat level sub-extents (offset, count): a
+    :class:`MultiSceneOctree`'s ``scene_off`` / ``scene_counts``, or for
+    one scene offsets 0 and its level counts."""
+    if isinstance(dev, MultiSceneOctree):
+        return (dev.scene_off.to(torch.int32).reshape(-1),
+                dev.scene_counts.to(torch.int32).reshape(-1))
     cnt = dev.counts.to(torch.int32)
     return torch.zeros_like(cnt), cnt
 
 
-def pack_kernel_inputs(obb_c, obb_h, obb_r, dev: DeviceOctree, bq: int,
-                       num_valid=None, payload=None, owner_local=None,
-                       scene_of_tile=None):
+def pack_kernel_inputs(obb_c, obb_h, obb_r, dev, bq: int, num_valid=None,
+                       payload=None, owner_local=None, scene_of_tile=None):
     """The megakernel's inputs, packed as the reference's ``_kernel_whole``
-    packs them: ``scal`` = [scene_lo, cell sizes], the OBB table, the
-    payload lane (zeros when ``payload`` is None), the owner lane, the
+    packs them: ``scal`` = [scene_lo, cell sizes] a scene, the OBB table,
+    the payload lane (zeros when ``payload`` is None), the owner lane, the
     scene of each tile and the live-prefix count.
 
-    An identity pool (``owner_local`` None) is cut into ``ceil(M / bq)``
-    tiles, zero-padded at the end, every slot its own verdict group.  A
-    tiled pool (:func:`build_tile_map`, already permuted into slot space)
-    passes ``owner_local`` and ``scene_of_tile``; its ``bq`` is the pool's
-    width over its tile count.  ``off`` / ``cnt`` are the scene's level
-    extents, which the streamed layout reads."""
+    ``dev`` is a :class:`DeviceOctree` (one scene) or a
+    :class:`MultiSceneOctree` (the flat table of a ragged batch, whose
+    pools come tiled).  An identity pool (``owner_local`` None) is cut
+    into ``ceil(M / bq)`` tiles, zero-padded at the end, every slot its
+    own verdict group, and ``num_valid`` (default M) is its live prefix:
+    slots past it seed nothing.  A tiled pool (:func:`build_tile_map`,
+    already permuted into slot space) passes ``owner_local`` and
+    ``scene_of_tile``; its ``bq`` is the pool's width over its tile
+    count.  ``off`` / ``cnt`` are the scenes' level extents, which the
+    streamed layout reads."""
     device = dev.device
     M = obb_c.shape[0]
     obb = pack_obbs(obb_c, obb_h, obb_r)
@@ -396,6 +435,9 @@ def pack_kernel_inputs(obb_c, obb_h, obb_r, dev: DeviceOctree, bq: int,
         own = owner_local.to(torch.int32)
         sot = scene_of_tile.to(torch.int32)
     else:
+        if isinstance(dev, MultiSceneOctree):
+            raise ValueError("a MultiSceneOctree takes a tiled pool "
+                             "(owner_local, scene_of_tile)")
         num_tiles = max(math.ceil(M / bq), 1)
         pad = num_tiles * bq - M
         obb = torch.nn.functional.pad(obb, (0, 0, 0, pad))
@@ -403,8 +445,12 @@ def pack_kernel_inputs(obb_c, obb_h, obb_r, dev: DeviceOctree, bq: int,
         own = torch.arange(bq, dtype=torch.int32,
                            device=device).repeat(num_tiles)
         sot = torch.zeros(num_tiles, dtype=torch.int32, device=device)
-    scal = torch.cat([dev.scene_lo.to(torch.float32),
-                      dev.cell_sizes.to(torch.float32)])
+    if isinstance(dev, MultiSceneOctree):
+        scal = torch.cat([dev.scene_lo, dev.cell_sizes],
+                         dim=1).to(torch.float32).reshape(-1)
+    else:
+        scal = torch.cat([dev.scene_lo.to(torch.float32),
+                          dev.cell_sizes.to(torch.float32)])
     nvalid = torch.tensor([M if num_valid is None else int(num_valid)],
                           dtype=torch.int32, device=device)
     off, cnt = _scene_extents(dev)
@@ -413,13 +459,14 @@ def pack_kernel_inputs(obb_c, obb_h, obb_r, dev: DeviceOctree, bq: int,
                 owner=own.contiguous(), off=off, cnt=cnt)
 
 
-def _kernel_whole(obb_c, obb_h, obb_r, dev: DeviceOctree, capacity: int,
+def _kernel_whole(obb_c, obb_h, obb_r, dev, capacity: int,
                   use_spheres: bool, bq: int, ring_cap: int, streamed: bool,
-                  payload=None, owner_local=None, scene_of_tile=None
-                  ) -> Tuple[torch.Tensor, dict]:
+                  payload=None, num_valid=None, owner_local=None,
+                  scene_of_tile=None) -> Tuple[torch.Tensor, dict]:
     """Run the megakernel; returns the raw (num_tiles * bq,) per-slot
     ``best`` words (PAYLOAD_INF = that slot never hit) + the stats dict."""
-    ins = pack_kernel_inputs(obb_c, obb_h, obb_r, dev, bq, payload=payload,
+    ins = pack_kernel_inputs(obb_c, obb_h, obb_r, dev, bq,
+                             num_valid=num_valid, payload=payload,
                              owner_local=owner_local,
                              scene_of_tile=scene_of_tile)
     bq = ins["obb"].shape[0] // ins["sot"].shape[0]
@@ -441,58 +488,83 @@ def _kernel_whole(obb_c, obb_h, obb_r, dev: DeviceOctree, capacity: int,
     return best.reshape(-1), st
 
 
-def tile_pool(obb_c, obb_h, obb_r, owner_of_query, payload=None,
-              bq: int = DEFAULT_BQ) -> dict:
-    """Lower a pool with an owner lane to its owner-group tiled pool, on
-    the device of ``obb_c``: the tile map is built on the host from the
-    owner ids (raising ``NotImplementedError`` for a group the kernel
-    cannot tile, :func:`persist_kernel_unsupported`), the rows and
-    payloads are permuted into slot space (pad slots repeat slot 0's
-    query).  Returns the keyword arguments of :func:`traverse_whole` for
-    that pool (``obb_c``, ``obb_h``, ``obb_r``, ``payload``, ``tiles``,
+def _host_ids(x) -> Optional[np.ndarray]:
+    if x is None:
+        return None
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def tile_pool(obb_c, obb_h, obb_r, owner_of_query=None, payload=None,
+              bq: int = DEFAULT_BQ, scene_of_query=None) -> dict:
+    """Lower a pool with an owner lane, a scene lane or both to its tiled
+    pool, on the device of ``obb_c``: the tile map is built on the host
+    from the ids (:func:`build_tile_map`; scene-exclusive tiles, whole
+    owner groups), the rows, owners and payloads are permuted into slot
+    space (pad slots repeat slot 0's query).  A plan the kernel cannot
+    tile (:func:`persist_kernel_unsupported`: an owner group past
+    :data:`MAX_TILE_BQ` slots, or in more than one scene) raises
+    ``NotImplementedError``: the reference serves it on its plain arm, and
+    the port falls back to no plain version.  Returns the keyword
+    arguments of :func:`traverse_whole` for that pool (``obb_c``,
+    ``obb_h``, ``obb_r``, ``owner_of_query``, ``payload``, ``tiles``,
     ``bq``)."""
-    own_np = owner_of_query.cpu().numpy() \
-        if isinstance(owner_of_query, torch.Tensor) \
-        else np.asarray(owner_of_query)
-    reason = persist_kernel_unsupported(own_np)
+    own_np, soq_np = _host_ids(owner_of_query), _host_ids(scene_of_query)
+    reason = persist_kernel_unsupported(own_np, soq_np)
     if reason is not None:
-        # The reference serves such a plan on its plain arm; the port
-        # falls back to no plain version on the card.
         raise NotImplementedError(
-            f"{reason}: owner groups past MAX_TILE_BQ = {MAX_TILE_BQ} "
-            "slots are not ported yet (ROADMAP B.2.5)")
-    tm = build_tile_map(own_np.size, bq, own_np)
+            f"{reason}: such owner groups are not ported yet (ROADMAP "
+            f"B.2.5; the kernel's fold cell is tile-local, and the "
+            f"largest tile holds MAX_TILE_BQ = {MAX_TILE_BQ} slots)")
+    tm = build_tile_map(obb_c.shape[0], bq, soq_np, own_np)
     d = obb_c.device
     perm = torch.from_numpy(np.maximum(tm.perm, 0)).to(d)
+
+    def permuted(x):
+        return None if x is None else torch.as_tensor(x).to(d)[perm]
     return dict(obb_c=obb_c[perm], obb_h=obb_h[perm], obb_r=obb_r[perm],
-                payload=None if payload is None else payload.to(d)[perm],
+                owner_of_query=permuted(owner_of_query),
+                payload=permuted(payload),
                 tiles=Tiling(*(torch.from_numpy(x).to(d) for x in tm.tiles)),
                 bq=tm.bq)
 
 
-def traverse_whole(obb_c, obb_h, obb_r, dev: DeviceOctree, capacity: int, *,
-                   use_spheres: bool, scene_of_query=None, payload=None,
+def traverse_whole(obb_c, obb_h, obb_r, dev, capacity: int, *,
+                   use_spheres: bool, scene_of_query=None,
+                   owner_of_query=None, payload=None,
                    streamed: Optional[bool] = None, bq: int = DEFAULT_BQ,
-                   ring_cap: int = DEFAULT_RING_CAP,
+                   ring_cap: int = DEFAULT_RING_CAP, num_valid=None,
                    tiles: Optional[Tiling] = None
                    ) -> Tuple[torch.Tensor, dict]:
-    """Whole multi-level traversal for one flat query set against one
-    scene; returns ``(verdict, stats dict)``.
+    """Whole multi-level traversal for one flat query set; returns
+    ``(verdict, stats dict)``.
 
-    Without ``tiles`` every query is its own verdict group: the verdict is
-    the (Q,) bool collide flags, or with a payload lane the (Q,) int32
-    least payload that hit.  A pool with an owner lane comes tiled by
-    :func:`tile_pool` (rows and payloads in slot space, ``tiles`` and its
-    ``bq``); the verdict is then the (Q,) int32 ``best`` payload per
-    verdict group (compact owner ids; cells past the group count are
-    ``PAYLOAD_INF``).  Runs on the device of ``dev`` (the OBB tensors are
-    moved there).  ``streamed`` picks the layout (``None``: the chooser's
-    pick for the tree's own format); it changes ``meta_rows`` and nothing
-    else.
+    ``dev`` is a one-scene :class:`DeviceOctree`, or the flat table of a
+    ragged batch, a :class:`MultiSceneOctree`, with ``scene_of_query``
+    (Q,) naming each query's scene.  A pool with a scene or owner lane
+    runs tiled (:func:`tile_pool`: scene-exclusive tiles, each seeded at
+    its scene's root, flat node ``s`` of level 0); the caller may pass it
+    tiled already (rows, owners and payloads in slot space, ``tiles`` and
+    its ``bq``), as the engine does before its escalation ladder.  The
+    verdict is the (Q,) bool collide flags, mapped back from the slots by
+    ``slot_of_query``, or with an owner or payload lane the (Q,) int32
+    ``best`` payload per verdict group (compact owner ids; cells past the
+    group count are ``PAYLOAD_INF``), read at each group's fold slot
+    (``group_slot``).  An identity pool (one scene, no owner lane) runs
+    untiled, every query its own verdict group, and ``num_valid`` (default
+    Q) is its live prefix: slots past it seed nothing and add 0 to every
+    counter.  Runs on the device of ``dev`` (the OBB tensors are moved
+    there).  ``streamed`` picks the layout (``None``: the chooser's pick
+    for the table's own format and width); it changes ``meta_rows`` and
+    nothing else.
     """
-    if scene_of_query is not None:
-        raise NotImplementedError(
-            "ragged multi-scene pools land with ROADMAP A.5.6")
+    ragged = isinstance(dev, MultiSceneOctree)
+    if scene_of_query is not None and not ragged:
+        raise ValueError("scene_of_query needs a MultiSceneOctree flat "
+                         "table (concat_device_octrees)")
+    tiled = tiles is not None or ragged or owner_of_query is not None
+    if num_valid is not None and tiled:
+        raise ValueError("num_valid marks the live prefix of an identity "
+                         "pool; a tiled pool marks its pads")
     if streamed is None:
         streamed = choose_meta_layout(
             dev.depth, dev.node_meta.shape[-2],
@@ -502,8 +574,20 @@ def traverse_whole(obb_c, obb_h, obb_r, dev: DeviceOctree, capacity: int, *,
                            for x in (obb_c, obb_h, obb_r))
     if payload is not None:
         payload = torch.as_tensor(payload, dtype=torch.int32).to(d)
+    grouped = owner_of_query is not None or payload is not None
 
-    if tiles is not None:
+    if tiled and tiles is None:
+        if ragged and scene_of_query is None:
+            raise ValueError("a MultiSceneOctree needs scene_of_query (Q,) "
+                             "or a tiled pool")
+        return traverse_whole(dev=dev, capacity=capacity,
+                              use_spheres=use_spheres, streamed=streamed,
+                              ring_cap=ring_cap,
+                              **tile_pool(obb_c, obb_h, obb_r,
+                                          owner_of_query, payload, bq,
+                                          scene_of_query))
+
+    if tiled:
         tiles = Tiling(*(torch.as_tensor(x).to(d) for x in tiles))
         Qs = obb_c.shape[0]
         best, st = _kernel_whole(obb_c, obb_h, obb_r, dev, capacity,
@@ -511,6 +595,9 @@ def traverse_whole(obb_c, obb_h, obb_r, dev: DeviceOctree, capacity: int, *,
                                  payload=payload,
                                  owner_local=tiles.owner_local,
                                  scene_of_tile=tiles.scene_of_tile)
+        if not grouped:
+            return (best != PAYLOAD_INF)[tiles.slot_of_query.to(
+                torch.int64)], st
         # Each group's best lies at its fold slot; cells past the group
         # count are PAYLOAD_INF.
         gs = tiles.group_slot.to(torch.int64)
@@ -520,6 +607,7 @@ def traverse_whole(obb_c, obb_h, obb_r, dev: DeviceOctree, capacity: int, *,
     # ---- identity (per-query groups) pools ----------------------------
     M = obb_c.shape[0]
     best, st = _kernel_whole(obb_c, obb_h, obb_r, dev, capacity, use_spheres,
-                             bq, ring_cap, streamed, payload=payload)
+                             bq, ring_cap, streamed, payload=payload,
+                             num_valid=num_valid)
     best = best[:M]
     return (best if payload is not None else best != PAYLOAD_INF), st

@@ -22,6 +22,12 @@ schedule (``repro.kernels.persist.ref.traverse_whole_ref``, per tile).
 
 It is the CPU arm of ``mode="wavefront_persistent"`` and the oracle the
 CUDA kernel is held against on the card.
+
+:func:`traverse_whole_ref` is the reference's global-pool walk
+(``repro.kernels.persist.ref.traverse_whole_ref``), ported for the one arm
+the reference serves with it: ``wavefront_fused`` on a ragged multi-scene
+batch, where it is tensor code that runs on the card.  It is not the
+persistent mode's plain version, and that mode never reaches it.
 """
 from __future__ import annotations
 
@@ -30,10 +36,13 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.counters import NUM_EXIT_CODES
-from repro_torch.core.octree import align_rows, morton_decode
+from repro_torch.core.octree import (MAX_DEPTH, align_rows, morton_decode,
+                                     node_centers_from_xyz)
 from repro_torch.core.quantize import (BF16_START_BITS, GRID_BITS,
                                        META_FORMATS, U8_START_BITS)
-from repro_torch.core.sact import PAYLOAD_INF, axis_tests_from_exit
+from repro_torch.core.sact import (NUM_AXES, PAYLOAD_INF,
+                                   axis_tests_from_exit, fold_verdicts,
+                                   sact_frontier_staged)
 from repro_torch.kernels.sact.ref import _EPS, sact_tile
 
 #: Rows of one window of the streamed layout (the reference's).
@@ -283,3 +292,118 @@ def persist_tiles_ref(scal, sot, nvalid, obb, meta, payload, owner, off=None,
                            overflow, meta_rows], dim=1)
     return (best.to(i32), per_level.to(i32), hist.to(i32), scalars.to(i32),
             ring)
+
+
+def frontier_widths(capacity: int, w_min: int = 128) -> Tuple[int, ...]:
+    """Power-of-two processing widths from ``w_min`` up to ``capacity``."""
+    widths = []
+    w = min(w_min, capacity)
+    while w < capacity:
+        widths.append(w)
+        w *= 2
+    widths.append(capacity)
+    return tuple(widths)
+
+
+def traverse_whole_ref(obb_c, obb_h, obb_r, node_meta, cell_sizes, scene_lo,
+                       depth: int, capacity: int, use_spheres: bool,
+                       scene_of_query=None, w_min: int = 128,
+                       owner_of_query=None, payload=None, num_valid=None,
+                       meta_format: str = "fp32", codes=None):
+    """The reference's whole walk over one global frontier pool of
+    ``capacity`` lanes; returns ``(verdict, stats)``, the contract of the
+    per-level fused arm: (Q,) bool collide flags, or with ``owner_of_query``
+    / ``payload`` lanes the (Q,) int32 ``best`` cells of the verdict groups.
+
+    The fused mode's arm for a ragged multi-scene batch, as in the
+    reference: ``node_meta`` is the flat :class:`MultiSceneOctree` table
+    and ``scene_of_query`` (Q,) names each query's scene, whose origin and
+    cell size each pair gathers (``scene_lo`` (S, 3), ``cell_sizes`` (S,
+    L)); scene ``s``'s root is flat node ``s`` of level 0.  Without
+    ``scene_of_query`` it walks one scene (``scene_lo`` (3,),
+    ``cell_sizes`` (L,)).  Rows are decoded in each of the three formats
+    (:func:`decode_meta_rows`); u8 rows take each lane's parent code from
+    the ``codes`` plane (int32 bit patterns), as the reference does.
+
+    Overflow is counted on the one global pool (children past
+    ``capacity`` are dropped, the highest positions first), not per tile:
+    that is why this is not the persistent mode's plain version
+    (:func:`persist_tiles_ref` is), and the persistent mode never reaches
+    it, on either device.  Each level runs at the least width of
+    :func:`frontier_widths` that holds its live lanes (one read of the live
+    count a level); the lanes past the live count are masked, so the width
+    changes no result.  ``num_valid`` (default Q) is the pool's live
+    prefix: slots past it seed nothing and add 0 to every counter.
+    """
+    device = obb_c.device
+    i64 = torch.int64
+    Q = obb_c.shape[0]
+    n_max = node_meta.shape[-2]
+    if meta_format == "u8" and codes is None:
+        raise ValueError("u8 rows need the codes plane to rebuild each "
+                         "lane's code")
+    ragged = scene_of_query is not None
+    grouped = owner_of_query is not None or payload is not None
+    widths = frontier_widths(capacity, w_min)
+    lane = torch.arange(capacity, device=device)
+    q_idx = torch.where(lane < Q, lane, 0)
+    # scene s's root is flat node s of the level-0 row
+    node_idx = (scene_of_query.to(i64)[q_idx] if ragged
+                else torch.zeros(capacity, dtype=i64, device=device))
+    n_live = min(Q if num_valid is None else int(num_valid), capacity)
+    verdict = (torch.full((Q,), PAYLOAD_INF, dtype=torch.int32,
+                          device=device) if grouped
+               else torch.zeros(Q, dtype=torch.int32, device=device))
+    st = {k: torch.zeros((), dtype=i64, device=device) for k in (
+        "nodes", "leaf", "axis_exec", "axis_dec", "sphere", "overflow")}
+    st["per_level"] = torch.zeros(MAX_DEPTH + 1, dtype=i64, device=device)
+    st["exit_hist"] = torch.zeros(NUM_EXIT_CODES, dtype=i64, device=device)
+    for level in range(depth + 1):
+        if n_live == 0:
+            break
+        w = next(x for x in widths if x >= n_live)
+        q, idx = q_idx[:w], node_idx[:w]
+        idx_c = idx.clamp(0, n_max - 1)
+        valid = torch.arange(w, device=device) < n_live
+        pcode = codes[level][idx_c] >> 3 if meta_format == "u8" else None
+        xyz, full_l, child_start, child_mask, _ = decode_meta_rows(
+            node_meta[level][idx_c], meta_format, level, pcode)
+        if ragged:
+            sid = scene_of_query.to(i64)[q]
+            cell, lo = cell_sizes[:, level][sid], scene_lo[sid]
+        else:
+            cell, lo = cell_sizes[level], scene_lo
+        node_c, node_h = node_centers_from_xyz(xyz, lo, cell)
+        res = sact_frontier_staged(obb_c[q], obb_h[q], obb_r[q], node_c,
+                                   node_h, valid, use_spheres=use_spheres)
+        is_term = full_l | (level == depth)
+        overlap = res.collide & valid
+        verdict, undecided = fold_verdicts(verdict, q, overlap & is_term,
+                                           owner_of_query, payload)
+        n_valid = valid.sum()
+        term_valid = valid & is_term
+        st["nodes"] += n_valid
+        st["leaf"] += term_valid.sum()
+        st["axis_exec"] += res.axis_tests.sum()
+        st["axis_dec"] += n_valid * NUM_AXES
+        st["sphere"] += res.sphere_tests.sum()
+        st["per_level"][level] = n_valid
+        st["exit_hist"].index_add_(0, res.exit_code.to(i64),
+                                   term_valid.to(i64))
+
+        # children in lane order (parent-major, octant-minor); those past
+        # the capacity drop
+        expand = overlap & ~is_term & undecided
+        occupied, offs = csr_child_slots(child_mask)
+        n_child = torch.where(expand, popcount8(child_mask), 0).to(i64)
+        base = torch.cumsum(n_child, 0) - n_child
+        n_new = int(n_child.sum())
+        pos = base[:, None] + offs
+        keep = expand[:, None] & occupied & (pos < capacity)
+        q_idx = torch.zeros(capacity, dtype=i64, device=device)
+        node_idx = torch.zeros(capacity, dtype=i64, device=device)
+        q_idx[pos[keep]] = q[:, None].expand(-1, 8)[keep]
+        node_idx[pos[keep]] = (child_start[:, None] + offs).to(i64)[keep]
+        st["overflow"] += max(n_new - capacity, 0)
+        n_live = min(n_new, capacity)
+    return (verdict if grouped else verdict != 0), st

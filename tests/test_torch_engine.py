@@ -168,11 +168,14 @@ def test_unported_modes_and_options_raise(scene):
     with pytest.raises(NotImplementedError, match="A.8"):
         CollisionEngine(ttree, EngineConfig(mode=PERSIST, shards=2),
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="A.5.6"):
-        CollisionEngine([ttree, ttree], EngineConfig(mode=PERSIST),
-                        device="cpu")
-    eng = CollisionEngine(ttree, EngineConfig(mode=PERSIST), device="cpu")
+    # a multi-scene engine (ROADMAP A.5.6, now ported) takes plans of its
+    # own scene count only
+    two = CollisionEngine([ttree, ttree], EngineConfig(mode=PERSIST),
+                          device="cpu")
     plan = tplan.plan_queries(_torch_obbs(arrays))
+    with pytest.raises(ValueError, match="engine holds 2"):
+        two.execute(plan)
+    eng = CollisionEngine(ttree, EngineConfig(mode=PERSIST), device="cpu")
     assert not eng.supports_depth_cap
     with pytest.raises(ValueError, match="depth-cappable"):
         eng.execute(plan, max_depth=2)
@@ -196,8 +199,16 @@ def test_unported_modes_and_options_raise(scene):
         eng.execute(edges, max_depth=2)
     with pytest.raises(ValueError, match=">= 1"):
         eng.execute(plan, max_depth=0)
-    with pytest.raises(NotImplementedError, match="A.5.6"):
-        CollisionEngine([ttree, ttree], EngineConfig(), device="cpu")
+    # the same scene twice: each half of the batch gets the one-scene
+    # verdicts, and twice its work
+    pair = [np.stack([x, x]) for x in arrays]
+    v2, c2 = CollisionEngine([ttree, ttree], EngineConfig(),
+                             device="cpu").execute(
+        tplan.plan_scenes(_torch_obbs(pair)))
+    v1, c1 = CollisionEngine(ttree, EngineConfig(), device="cpu").query(
+        _torch_obbs(arrays))
+    assert np.array_equal(v2, np.stack([v1, v1]))
+    assert c2.nodes_traversed == 2 * c1.nodes_traversed
     # the streamed layout runs and matches the reference
     eng = CollisionEngine(ttree, EngineConfig(mode=PERSIST, stream_meta=True),
                           device="cpu")

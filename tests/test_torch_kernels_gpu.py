@@ -23,13 +23,15 @@ import torch
 
 from repro_torch.configs.base import get_smoke_config
 from repro_torch.core.geometry import OBBs, rotation_from_euler
-from repro_torch.core.octree import build_octree, device_octree
+from repro_torch.core.octree import (build_octree, concat_device_octrees,
+                                     device_octree)
 from repro_torch.core import sweep
 from repro_torch.core.pipeline import check_edges, plan_with_collision_gate
 from repro_torch.core.sact import PAYLOAD_INF
 from repro_torch.data.robotics import (PANDA_JOINT_HI, PANDA_JOINT_LO,
                                        make_scene)
-from repro_torch.engine.executor import CollisionEngine, EngineConfig
+from repro_torch.engine.executor import (CollisionEngine, EngineConfig,
+                                         query_batched_scenes)
 from repro_torch.kernels import _build
 from repro_torch.kernels.ballquery import ops as bq_ops
 from repro_torch.kernels.ballquery.cases import cloud_cases, radius_shell
@@ -44,6 +46,7 @@ from repro_torch.kernels.fps.cases import tie_cloud
 from repro_torch.kernels.fps.ref import fps_ref
 from repro_torch.kernels.persist import ops as persist_ops
 from repro_torch.kernels.persist.cases import (grazing_pool, owner_group_pool,
+                                               ragged_pool, ragged_trees,
                                                skewed_pool, sweep_round_plans,
                                                tiled_pool)
 from repro_torch.kernels.persist.ref import persist_tiles_ref
@@ -263,6 +266,80 @@ def test_persist_kernel_rows_and_windows_match_plain(cuda, fmt, layout,
     assert (int(got[3][:, 7].sum()) > 0) == (layout != "resident")
     if pool in ("identity", "skewed"):
         assert int(got[3][:, 5].sum()) > 0
+
+
+@pytest.mark.parametrize("layout", ["resident", "streamed"])
+@pytest.mark.parametrize("fmt", ["fp32", "bf16", "u8"])
+def test_persist_kernel_on_ragged_pools_matches_plain(cuda, fmt, layout):
+    """Scene-exclusive tiles of three scenes of mixed sizes, each in a box
+    of its own (each tile's origin and cell sizes from its scene's row of
+    ``scal``, its root at flat node s, its windows over its scene's
+    extents), identity pools and owner groups, clean and spilling: every
+    output equal to the plain version's."""
+    trees = ragged_trees()
+    multi = concat_device_octrees(trees, meta_format=fmt, device=cuda)
+    for owners, sph in ((False, False), (True, True)):
+        ins, bq = ragged_pool(multi, (300, 40, 150), seed=7 + owners,
+                              owner_groups=owners, half=(0.01, 0.05))
+        assert ins["sot"].unique().tolist() == [0, 1, 2]
+        for fcap, ring_cap in ((4096, 256), (48, 4096)):
+            kw = dict(bq=bq, fcap=fcap, depth=multi.depth, ring_cap=ring_cap,
+                      use_spheres=sph, meta_format=fmt,
+                      streamed=layout == "streamed")
+            got = persist_ops.persist_tiles(**ins, **kw)
+            want = persist_tiles_ref(**ins, **kw)
+            for g, w in zip(got[:4], want[:4]):
+                assert torch.equal(g, w)
+            fits = got[3][:, 6] <= ring_cap
+            assert torch.equal(got[4][fits], want[4][fits])
+            assert (int(got[3][:, 7].sum()) > 0) == (layout == "streamed")
+            assert (int(got[3][:, 5].sum()) > 0) == (fcap == 48)
+
+
+def _ragged_batch(M=100, seed=11):
+    """Three scenes of mixed sizes and (3, M) OBBs, each set inside its
+    scene's box."""
+    trees = ragged_trees()
+    rs = np.random.RandomState(seed)
+    lo = np.stack([t.scene_lo for t in trees])
+    side = np.asarray([t.scene_size for t in trees], np.float32)
+    c = lo[:, None] + rs.uniform(0, 1, (3, M, 3)) * side[:, None, None]
+    h = rs.uniform(0.01, 0.06, (3, M, 3)) * side[:, None, None]
+    r = rotation_from_euler(torch.from_numpy(
+        rs.uniform(-3, 3, (3 * M, 3)).astype(np.float32))).reshape(3, M, 3, 3)
+    return trees, OBBs(torch.from_numpy(c.astype(np.float32)),
+                       torch.from_numpy(h.astype(np.float32)), r)
+
+
+@pytest.mark.parametrize("mode", ["wavefront_persistent", "wavefront",
+                                  "wavefront_fused"])
+def test_cuda_query_batched_scenes_matches_cpu(cuda, mode):
+    """A ragged batch on the card in each device mode (the persistent mode
+    also on streamed u8 rows) equals the CPU engine: verdicts and every
+    counter.  The persistent mode launches ``persist``, ``wavefront``
+    ``compact``; the fused mode's ragged walk is the reference's tensor
+    code and launches neither."""
+    trees, obbs = _ragged_batch()
+    cfgs = [EngineConfig(mode=mode, min_bucket=64)]
+    if mode == "wavefront_persistent":
+        cfgs.append(EngineConfig(mode=mode, min_bucket=64, stream_meta=True,
+                                 meta_format="u8"))
+    for cfg in cfgs:
+        before = _build.launch_counts()
+        v, c = query_batched_scenes(trees, obbs, cfg, device=cuda)
+        after = _build.launch_counts()
+        launched = {k for k in after if after[k] > before[k]}
+        assert launched == {"wavefront_persistent": {"persist"},
+                            "wavefront": {"compact"},
+                            "wavefront_fused": set()}[mode]
+        vc, cc = query_batched_scenes(trees, obbs, cfg, device="cpu")
+        assert v.shape == (3, 100) and np.array_equal(v, vc)
+        assert v.any() and not v.all()
+        a, b = c.as_dict(), cc.as_dict()
+        for k in a:
+            if k != "wall_time_s":
+                assert a[k] == b[k], k
+        assert (c.meta_rows_streamed > 0) == bool(cfg.stream_meta)
 
 
 @pytest.mark.parametrize("wsub", [1, 2])

@@ -385,7 +385,9 @@ def test_traverse_whole_unported_options_raise():
                       torch.zeros(n, dtype=torch.int32))
     assert jops.persist_kernel_unsupported(np.zeros(n, np.int32)) \
         in str(err.value)
-    with pytest.raises(NotImplementedError, match="A.5.6"):
+    # a scene lane needs the flat table of a ragged batch, as in the
+    # reference
+    with pytest.raises(ValueError, match="MultiSceneOctree"):
         ops.traverse_whole(x, x + 1, r, dev, 64, use_spheres=False,
                            scene_of_query=torch.zeros(4, dtype=torch.int32))
     # the streamed layout and bf16 rows run, and agree
@@ -441,7 +443,7 @@ def test_build_tile_map_matches_reference(case):
             sizes[3] = 600
         own = _owner_lanes(5, sizes)
     Q = 300 if own is None else own.size
-    got = ops.build_tile_map(Q, bq, own)
+    got = ops.build_tile_map(Q, bq, None, own)
     want = jops.build_tile_map(Q, bq, None, own)
     assert got.bq == want.bq and got.num_tiles == want.num_tiles
     assert np.array_equal(got.perm, want.perm)
@@ -468,7 +470,7 @@ def test_tile_map_past_the_largest_tile_raises_like_reference():
     reason = ops.persist_kernel_unsupported(own)
     assert reason == jops.persist_kernel_unsupported(own) is not None
     with pytest.raises(ValueError) as a:
-        ops.build_tile_map(own.size, 128, own)
+        ops.build_tile_map(own.size, 128, None, own)
     with pytest.raises(ValueError) as b:
         jops.build_tile_map(own.size, 128, None, own)
     assert str(a.value) == str(b.value)
@@ -503,7 +505,7 @@ def test_tiled_pool_of_a_sweep_round_matches_the_engine():
         assert bool(((own[:, 1:] < 0) | (own[:, :-1] >= 0)).all())
         best = persist_tiles_ref(**ins, bq=bq, fcap=4096, depth=DEPTH,
                                  ring_cap=64, use_spheres=False)[0]
-        tm = ops.build_tile_map(plan.num_queries, ops.DEFAULT_BQ,
+        tm = ops.build_tile_map(plan.num_queries, ops.DEFAULT_BQ, None,
                                 plan.owner_of_query.numpy())
         gs = torch.from_numpy(tm.tiles.group_slot[:plan.groups]).long()
         v, _ = eng.execute(plan)
