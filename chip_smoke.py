@@ -219,8 +219,39 @@ non-zero and prints no result):
    warm query replayed against its plain version, timed (the call, the
    kernel alone) against its bound, its launch shape, and the busy share
    of a traced warm query;
-25. one JSON line listing every kernel with its launches on the main paths
-   (``launches``, phases 8, 13, 17, 20, 21, 22, 23 and 24) and elsewhere
+25. the other workloads at their benchmark scale (``other_workloads``):
+   (a) the ``march`` kernel against ``march_ref``, bit for bit (pos, dist,
+   active, and both ray casts' ranges and cells with the plain march
+   swapped in), on Fig. 19's grid and a 70 x 130 grid without walls, on
+   Fig. 19's 4,608 scan rays, rays grazing cell corners and edges along
+   the axes and diagonals, and rays leaving the grid, at 1, 16 and every
+   step of a 6 m cast; (b) ``benchmarks/run.py::fig19_mcl``: the corridor
+   grid of 192 cells, 24 scan angles, true pose (5, 5, 0.4), 192
+   particles, 8 iterations, sigma 0.5, under the ``dense``, ``compacted``
+   and ``dynamic`` (threshold 60) policies, each iteration's engine,
+   cells per ray, ``time_s`` and launches, the mean ``time_s`` and the
+   mean pose error, one compacted ``mcl_update`` card against CPU (the
+   CPU on the card's directions; ranges and cells equal, weights within
+   rtol 1e-5, resampling indices equal away from the cumulative
+   weights), the dense and compacted casts against each other, and
+   ``march`` timed at the scan's shape (the call, the kernel alone)
+   against its plain version and bound; (c) the filter with its
+   collision gate (the grid's walls 0.8 m tall as points, depth 7,
+   ``wavefront_persistent``), every step's gate against the CPU engine
+   on the card's footprint OBBs; (d) ``table4_pray_psphere`` at
+   ``FULL_SCALE`` (cubby, 524,288 points, depth 7, 512 queries from
+   ``RandomState(0)``, r 0.05, k 32; P-Sphere with and without the early
+   exit, P-Ray on a depth-4 tree), counts equal to the ``ballquery``
+   kernel's brute force, card against CPU (``idx`` in order, counts,
+   every counter), nodes, the no-exit / exit node ratio, the 2**22 cut,
+   warm walls and peak memory; (e) ``fig17_radius_sweep`` (256 queries
+   from ``RandomState(1)``, r 0.05 to 0.4) the same way; (f)
+   ``fig14_mpaccel`` at ``FULL_SCALE`` (10 scenes of 65,536 points, depth
+   5, 700 OBBs each) in ``naive``, ``wavefront_fused`` and
+   ``wavefront_persistent``, each card against the CPU engine, verdicts
+   equal across modes, walls, nodes, leaf tests and launches;
+26. one JSON line listing every kernel with its launches on the main paths
+   (``launches``, phases 8, 13, 17, 20, 21, 22, 23, 24 and 25) and elsewhere
    (``check_launches``), error, times (for ``persist``, ``sact_dense``,
    ``fps`` and ``ballquery`` also ``kernel_ms``, the kernel alone by
    ``torch.profiler``; ``sact_dense``'s at ``naive``'s block shape, with
@@ -435,6 +466,501 @@ class Recorder:
         for name, (mod, attr) in self._mods.items():
             setattr(mod, attr, self._orig[name])
         return False
+
+
+#: Phase 25's workloads at their benchmark scale (``benchmarks/run.py``:
+#: ``fig19_mcl`` :383, ``table4_pray_psphere`` :267, ``fig17_radius_sweep``
+#: :305, ``fig14_mpaccel`` :208 at ``FULL_SCALE``).
+OTHER_WORKLOADS = dict(
+    grid=192, particles=192, angles=24, iters=8, pose=(5.0, 5.0, 0.4),
+    sigma=0.5, threshold=60.0, max_range=6.0, gate_depth=7,
+    points=524288, depth=7, t4_queries=512, t4_radius=0.05, k=32,
+    pray_depth=4, f17_queries=256, f17_radii=(0.05, 0.1, 0.2, 0.4),
+    scenarios=10, mpaccel_points=65536, mpaccel_depth=5, trajs=4, wps=25,
+    walls=5, march_reps=20)
+# Per live ray-step the march runs 12 fp32 operations (two products, four
+# sums and differences, two quotients, two floors, the range's sum and
+# compare); a ray's state is 21 B in (pos, dirv, dist, active) and 13 B
+# out.
+OPS_MARCH_STEP = 12
+BYTES_MARCH_RAY = 34
+
+
+def other_workloads(dev, card: str, main_launches: dict, add_check_launches,
+                    lap, sizes: dict = OTHER_WORKLOADS,
+                    check_kernels: bool = True) -> dict:
+    """Phase 25: the other workloads of the paper on the card (MCL with
+    its ray march and collision gate, the ball query as tree traversal,
+    the MPAccel scenes), each held against the CPU; returns the JSON
+    line of the ``march`` kernel.  ``sizes`` and ``check_kernels`` let a
+    rehearsal on the CPU run it at a cut size."""
+    import numpy as np
+    import torch
+    from repro_torch.core import ballquery as tbq
+    from repro_torch.core import mcl as tmcl
+    from repro_torch.core.geometry import OBBs
+    from repro_torch.core.octree import build_octree
+    from repro_torch.data.robotics import (make_mpaccel_scenario, make_scene,
+                                           scene_trajectories)
+    from repro_torch.engine.executor import CollisionEngine, EngineConfig
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ballquery import ops as bq_ops
+    from repro_torch.kernels.march import ops as march_ops
+    from repro_torch.kernels.march.cases import (FIG19_GRID_SEED,
+                                                 nonsquare_grid, ray_cases,
+                                                 wall_points)
+    from repro_torch.kernels.march.ref import march_ref
+    S = sizes
+    t_phase = time.perf_counter()
+    persistent = "wavefront_persistent"
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def on_main(fn, want=(), tag=""):
+        """Run ``fn`` as a main path: launch counts set to 0 just before,
+        read just after, added to ``main_launches``; every kernel of
+        ``want`` must have launched."""
+        add_check_launches()
+        out = fn()
+        sync()
+        counts = _build.launch_counts()
+        _build.reset_launch_counts()
+        for name, n in counts.items():
+            main_launches[name] += n
+        for name in want:
+            if check_kernels and counts[name] < 1:
+                raise SystemExit(f"FAIL: 25 {tag}: {name} launched no time "
+                                 f"on the main path ({counts})")
+        return out, {k: n for k, n in counts.items() if n}
+
+    def walls_of(fn):
+        walls = []
+        for _ in range(S["walls"]):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            walls.append(time.perf_counter() - t0)
+        return 1e3 * statistics.median(walls)
+
+    def peak_mib(fn):
+        if dev.type != "cuda":
+            fn()
+            return float("nan")
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        sync()
+        return torch.cuda.max_memory_allocated() / 2**20
+
+    def same_counters(a, b):
+        a, b = a.as_dict(), b.as_dict()
+        return [k for k in a if k != "wall_time_s" and a[k] != b[k]]
+
+    # (a) the march kernel against its plain version, bit for bit
+    R_MAX = S["max_range"]
+    grids = {"fig19": tmcl.make_corridor_world(FIG19_GRID_SEED,
+                                               size=S["grid"], device=dev),
+             "nonsquare": tmcl.OccupancyGrid(
+                 occ=torch.from_numpy(nonsquare_grid()).to(dev), cell=0.05)}
+    add_check_launches()
+    mism = compared = 0
+    march_err = 0.0
+    for gname, grid in grids.items():
+        steps = int(np.ceil(R_MAX / grid.cell)) + 1
+        for case, (org, ang) in ray_cases(grid.shape, grid.cell).items():
+            dirv = tmcl.ray_directions(torch.from_numpy(ang).to(dev))
+            for n in (1, 16, steps):
+                runs = []
+                for fn in (march_ops.march, march_ref):
+                    st = (torch.tensor(org, device=dev), dirv,
+                          torch.zeros(len(ang), device=dev),
+                          torch.ones(len(ang), dtype=torch.bool, device=dev))
+                    fn(grid.occ, grid.origin, grid.cell, *st, R_MAX, n)
+                    runs.append(st)
+                sync()
+                compared += 1
+                for got, want in zip(runs[0], runs[1]):
+                    if not torch.equal(got, want):
+                        mism += 1
+                        march_err = max(march_err, float(
+                            (got.double() - want.double()).abs().max()))
+        org, ang = ray_cases(grid.shape, grid.cell)["scan"]
+        for cast in (tmcl.ray_cast_dense, tmcl.ray_cast_compacted):
+            got = cast(grid, torch.from_numpy(org).to(dev),
+                       torch.from_numpy(ang).to(dev), R_MAX)
+            saved = tmcl.march
+            tmcl.march = march_ref
+            try:
+                want = cast(grid, torch.from_numpy(org).to(dev),
+                            torch.from_numpy(ang).to(dev), R_MAX)
+            finally:
+                tmcl.march = saved
+            compared += 1
+            if not (torch.equal(got[0], want[0]) and got[1] == want[1]):
+                mism += 1
+    if mism:
+        raise SystemExit(f"FAIL: 25 (a): march differs from plain in {mism}"
+                         f" of {compared} comparisons (max abs err "
+                         f"{march_err})")
+    log("25 other", f"(a) march == plain, bit for bit (pos, dist, active; "
+        f"both casts' ranges and cells with the plain march swapped in): "
+        f"{compared} comparisons on the Fig. 19 grid ({S['grid']}^2) and a "
+        f"70 x 130 grid without walls; scan (4,608 rays), grazing (1,152: "
+        f"cell corners and edges at 0, +-pi/4, +-pi/2, +-3pi/4, pi) and "
+        f"leaving rays (48); 1, 16 and every step of a {R_MAX} m cast")
+    add_check_launches()
+
+    # (b) Fig. 19: the filter under each policy
+    grid = grids["fig19"]
+    P, A, iters = S["particles"], S["angles"], S["iters"]
+    angles = torch.from_numpy(np.linspace(-np.pi, np.pi, A, endpoint=False)
+                              .astype(np.float32)).to(dev)
+    px, py, pth = S["pose"]
+    zeros3 = torch.zeros(3, device=dev)
+    (obs, _), _ = on_main(lambda: tmcl.ray_cast_dense(
+        grid, torch.tensor([[px, py]], device=dev).repeat(A, 1),
+        pth + angles, R_MAX), ("march",), "(b) scan")
+    pol_mean = {}
+    for policy in ("dense", "compacted", "dynamic"):
+        gen = torch.Generator().manual_seed(1)
+        st = tmcl.init_particles(gen, grid, P)
+        hist, rows, times = 1e9, [], []
+        for it in range(iters):
+            eng = (policy if policy != "dynamic"
+                   else tmcl.choose_engine(hist, threshold=S["threshold"]))
+            (st, stats), counts = on_main(
+                lambda: tmcl.mcl_step(gen, st, grid, obs, angles, zeros3, eng,
+                                      max_range=R_MAX, sigma=S["sigma"]),
+                ("march",), f"(b) {policy} step {it}")
+            hist = stats["cells_per_ray"]
+            if it > 0:
+                times.append(stats["time_s"])
+            rows.append(f"{it}:{eng[0]} {hist:.1f} cells/ray "
+                        f"{1e3 * stats['time_s']:.3f} ms march "
+                        f"{counts.get('march', 0)} compact "
+                        f"{counts.get('compact', 0)}")
+        pol_mean[policy] = statistics.mean(times)
+        xy = st.particles[:, :2].double().cpu()
+        err = float(torch.hypot(xy[:, 0] - px, xy[:, 1] - py).mean())
+        log("25 other", f"(b) Fig. 19 {policy}: {P} particles x {A} rays, "
+            f"{iters} iterations | " + "; ".join(rows) + f" | mean time_s "
+            f"(iterations 1-{iters - 1}) {1e3 * pol_mean[policy]:.3f} ms | "
+            f"mean pose error after the last step {err:.3f} m | {card}")
+    best = min(pol_mean["dense"], pol_mean["compacted"])
+    log("25 other", f"(b) Fig. 19 dynamic vs best fixed: "
+        f"{best / pol_mean['dynamic']:.3f}x (dense "
+        f"{1e3 * pol_mean['dense']:.3f}, compacted "
+        f"{1e3 * pol_mean['compacted']:.3f}, dynamic "
+        f"{1e3 * pol_mean['dynamic']:.3f} ms a cast)")
+
+    # one compacted step, card against CPU on the same draws and the
+    # card's directions
+    def recorded_update(g, dev_, dirs=None):
+        rec = {}
+        saved = (tmcl.particle_weights, tmcl.resample_indices,
+                 tmcl.ray_directions)
+        weights, resample, directions = saved
+
+        def w_rec(*a):
+            rec["sim"] = a[0]
+            rec["w"] = weights(*a)
+            return rec["w"]
+        tmcl.particle_weights = w_rec
+        tmcl.resample_indices = lambda w, u: rec.setdefault(
+            "sel", resample(w, u))
+        tmcl.ray_directions = ((lambda a: dirs.to(a.device)) if dirs
+                               is not None else (lambda a: rec.setdefault(
+                                   "dirs", directions(a))))
+        try:
+            st0 = tmcl.init_particles(torch.Generator().manual_seed(3), g, P)
+            noise = torch.randn((P, 3), generator=torch.Generator()
+                                .manual_seed(4)) * 0.02
+            _, rec["stats"] = tmcl.mcl_update(
+                st0, g, obs.to(dev_), angles.to(dev_),
+                torch.zeros(3, device=dev_), noise.to(dev_), 0.37,
+                "compacted", max_range=R_MAX, sigma=S["sigma"])
+        finally:
+            (tmcl.particle_weights, tmcl.resample_indices,
+             tmcl.ray_directions) = saved
+        return rec
+    add_check_launches()
+    a = recorded_update(grid, dev)
+    cpu_grid = tmcl.OccupancyGrid(grid.occ.cpu(), grid.cell)
+    b = recorded_update(cpu_grid, torch.device("cpu"), dirs=a["dirs"].cpu())
+    cum = torch.cumsum(b["w"].double(), 0).numpy()
+    steps_u = (0.37 + np.arange(P)) / P
+    near = np.abs(steps_u[:, None] - cum[None, :]).min(1) < 1e-6
+    sel_ok = bool((a["sel"].cpu() == b["sel"])[torch.from_numpy(~near)]
+                  .all())
+    w_ok = bool(torch.allclose(a["w"].cpu(), b["w"], rtol=1e-5, atol=0))
+    if not (torch.equal(a["sim"].cpu(), b["sim"]) and w_ok and sel_ok
+            and a["stats"]["cells"] == b["stats"]["cells"]):
+        raise SystemExit(f"FAIL: 25 (b): mcl_update card vs CPU: ranges "
+                         f"equal {torch.equal(a['sim'].cpu(), b['sim'])}, "
+                         f"cells {a['stats']['cells']} / "
+                         f"{b['stats']['cells']}, weights within rtol 1e-5 "
+                         f"{w_ok}, indices {sel_ok}")
+    org, ang = ray_cases(grid.shape, grid.cell)["scan"]
+    O, An = torch.from_numpy(org).to(dev), torch.from_numpy(ang).to(dev)
+    rd, cd = tmcl.ray_cast_dense(grid, O, An, R_MAX)
+    rc, cc = tmcl.ray_cast_compacted(grid, O, An, R_MAX)
+    if not (torch.allclose(rd, rc, rtol=0, atol=1e-6) and cc <= cd):
+        raise SystemExit(f"FAIL: 25 (b): dense vs compacted on the card: "
+                         f"max |dr| {float((rd - rc).abs().max())}, cells "
+                         f"{cc} vs {cd}")
+    log("25 other", f"(b) one compacted mcl_update, card vs CPU (the CPU "
+        f"on the card's directions): ranges and cells "
+        f"({a['stats']['cells']}) equal, weights within rtol 1e-5 (max rel "
+        f"{float(((a['w'].cpu() - b['w']).abs() / b['w']).max()):.2e}), "
+        f"resampling indices equal ({int(near.sum())} of {P} steps within "
+        f"1e-6 of a cumulative weight); dense vs compacted cast on the "
+        f"card: ranges equal, cells {cc} <= {cd}")
+
+    # march timed at Fig. 19's shape: a dense cast of the scan rays, each
+    # launch on a fresh copy of the rays' state
+    dirv = tmcl.ray_directions(An).contiguous()
+    n_steps = int(np.ceil(R_MAX / grid.cell)) + 1
+    fresh = [(O.clone(), torch.zeros(len(ang), device=dev),
+              torch.ones(len(ang), dtype=torch.bool, device=dev))
+             for _ in range(S["march_reps"] * 3 + 40)]
+    it_fresh = iter(fresh)
+
+    def one(fn=march_ops.march):
+        pos, dist, active = next(it_fresh)
+        fn(grid.occ, grid.origin, grid.cell, pos, dirv, dist, active, R_MAX,
+           n_steps)
+    if dev.type == "cuda":
+        ms = cuda_time_ms(one, S["march_reps"])
+        k_ms = kernel_device_ms(one, "march_kernel", 10, "march",
+                                required=False)
+        plain_ms = cuda_time_ms(lambda: one(march_ref), 2)
+    else:
+        ms = k_ms = plain_ms = float("nan")
+    live_steps = int(torch.round(fresh[0][1] / grid.cell).sum())
+    H, W = grid.shape
+    bms, by = bound_ms(H * W + BYTES_MARCH_RAY * len(ang),
+                       OPS_MARCH_STEP * live_steps)
+    add_check_launches()
+    log("25 other", f"(b) march at Fig. 19's shape ({len(ang)} rays, "
+        f"{n_steps} steps, {live_steps} live ray-steps, the longest ray "
+        f"{int(torch.round(fresh[0][1].max() / grid.cell))}): call "
+        f"{ms:.4f} ms, the kernel alone "
+        + ("not measured" if k_ms is None else f"{k_ms:.4f} ms")
+        + f" (torch.profiler), plain {plain_ms:.3f} ms, bound {bms:.6f} ms "
+        f"({by}) | {card}")
+    march_line = dict(
+        name="march", route="cuda",
+        source="src/repro_torch/kernels/march/csrc/march.cu",
+        replaces="src/repro/core/mcl.py:93 (jax.lax.fori_loop over "
+                 "_march_step; no Pallas kernel)",
+        max_abs_err=march_err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=None, kernel_ms=k_ms)
+
+    # (c) the filter with the collision gate: the grid's walls 0.8 m tall
+    # as a point cloud, depth 7, wavefront_persistent
+    gtree = build_octree(wall_points(grid.occ.cpu().numpy(), grid.cell),
+                         depth=S["gate_depth"])
+    cfg = EngineConfig(mode=persistent)
+    cpu_eng = CollisionEngine(gtree, cfg, device="cpu")
+
+    class Recording:
+        def __init__(self, engine):
+            self.engine, self.calls = engine, []
+
+        def query(self, obbs):
+            v, c = self.engine.query(obbs)
+            self.calls.append((obbs, v, c))
+            return v, c
+    rec = Recording(CollisionEngine(gtree, cfg, device=dev))
+    gen = torch.Generator().manual_seed(1)
+    st = tmcl.init_particles(gen, grid, P)
+    hist, rows, walls, gate_pairs = 1e9, [], [], 0
+    for it in range(iters):
+        eng = tmcl.choose_engine(hist, threshold=S["threshold"])
+        t0 = time.perf_counter()
+        (st, stats), counts = on_main(
+            lambda: tmcl.mcl_step(gen, st, grid, obs, angles, zeros3, eng,
+                                  max_range=R_MAX, sigma=S["sigma"],
+                                  collision_engine=rec),
+            ("march", "persist"), f"(c) step {it}")
+        walls.append(time.perf_counter() - t0)
+        hist = stats["cells_per_ray"]
+        obbs, v, c = rec.calls[-1]
+        vc, cc_ = cpu_eng.query(OBBs(*(x.cpu() for x in (
+            obbs.center, obbs.half, obbs.rot))))
+        bad = same_counters(c, cc_)
+        if not np.array_equal(v, vc) or bad:
+            raise SystemExit(f"FAIL: 25 (c) step {it}: gate card vs CPU: "
+                             f"verdicts equal {np.array_equal(v, vc)}, "
+                             f"counters differing {bad}")
+        gate_pairs += c.nodes_traversed
+        rows.append(f"{it}:{eng[0]} colliding {stats['colliding_particles']}"
+                    f" persist {counts.get('persist', 0)} march "
+                    f"{counts.get('march', 0)} compact "
+                    f"{counts.get('compact', 0)}")
+    log("25 other", f"(c) MCL with the gate ({len(gtree.points_sorted)} wall "
+        f"points, depth {S['gate_depth']}, {P} footprint OBBs a step, "
+        f"{persistent}): " + "; ".join(rows) + f" | gate == CPU engine "
+        f"every step (verdicts, every counter; {gate_pairs} nodes) | warm "
+        f"step wall median {1e3 * statistics.median(walls[1:]):.3f} ms "
+        f"(first {1e3 * walls[0]:.1f}) | {card}")
+
+    # (d) Table IV: P-Sphere with and without the early exit, P-Ray, and
+    # the ballquery kernel's brute force, on the cubby scene
+    sc = make_scene("cubby", num_points=S["points"])
+    tree = build_octree(sc.points, depth=S["depth"])
+    rs = np.random.RandomState(0)
+    qs = sc.points[rs.choice(len(sc.points), S["t4_queries"],
+                             replace=False)]
+    r4, k = S["t4_radius"], S["k"]
+
+    def t4_arm(name, d, r=r4, q=qs):
+        Q = torch.from_numpy(q).to(d)
+        if name == "p_ray":
+            return tbq.ball_query_pray(torch.from_numpy(sc.points).to(d), Q,
+                                       r, k, depth=S["pray_depth"])
+        return tbq.ball_query_psphere(tree, Q, r, k,
+                                      early_exit=name == "p_sphere")
+
+    def card_vs_cpu(name, tag, **kw):
+        out, counts = on_main(lambda: t4_arm(name, dev, **kw), ("compact",),
+                              tag)
+        t0 = time.perf_counter()
+        want = t4_arm(name, torch.device("cpu"), **kw)
+        t_cpu = time.perf_counter() - t0
+        bad = same_counters(out[2], want[2])
+        if not (torch.equal(out[0].cpu(), want[0])
+                and torch.equal(out[1].cpu(), want[1])) or bad:
+            raise SystemExit(f"FAIL: 25 {tag}: card vs CPU: idx equal "
+                             f"{torch.equal(out[0].cpu(), want[0])}, counts "
+                             f"equal {torch.equal(out[1].cpu(), want[1])}, "
+                             f"counters differing {bad}")
+        wall = walls_of(lambda: t4_arm(name, dev, **kw))
+        peak = peak_mib(lambda: t4_arm(name, dev, **kw))
+        return out, counts, wall, peak, t_cpu
+    t4 = {}
+    for name in ("p_sphere", "p_sphere_noexit", "p_ray"):
+        t4[name] = card_vs_cpu(name, f"(d) {name}")
+    add_check_launches()
+    brute_idx, brute = bq_ops.ball_query(
+        torch.from_numpy(qs).to(dev), torch.from_numpy(sc.points).to(dev),
+        r4, k)
+    add_check_launches()
+    counts_eq = all(torch.equal(t4[n][0][1].cpu(), brute.cpu()) for n in t4)
+    if not counts_eq:
+        raise SystemExit(f"FAIL: 25 (d): counts differ: " + ", ".join(
+            f"{n} {int((t4[n][0][1].cpu() != brute.cpu()).sum())} queries"
+            for n in t4))
+    cap = 1 << 22
+
+    def cut_note(tree_, centers, r):
+        """Whether the descent keeps only the first 2**22 pairs of a level
+        (the reference's silent cut): the levels' widths without it."""
+        c = tbq.Counters()
+        tbq._traverse_to_leaves(tree_, centers, r, c, max_frontier=1 << 40)
+        over = [(lv, w) for lv, w in enumerate(c.nodes_per_level) if w > cap]
+        return ("not hit" if not over else "hit: " + ", ".join(
+            f"level {lv} keeps {cap} of {w} pairs" for lv, w in over))
+    add_check_launches()
+    cuts = {"p_ray": cut_note(build_octree(qs, depth=S["pray_depth"]),
+                              torch.from_numpy(sc.points).to(dev), r4),
+            "p_sphere": cut_note(tree, torch.from_numpy(qs).to(dev), r4)}
+    cuts["p_sphere_noexit"] = cuts["p_sphere"]
+    add_check_launches()
+    for name, (out, counts, wall, peak, t_cpu) in t4.items():
+        c = out[2]
+        rays = len(sc.points) if name == "p_ray" else len(qs)
+        log("25 other", f"(d) Table IV {name}: {rays} rays, "
+            f"nodes {c.nodes_traversed} per level {c.nodes_per_level}, "
+            f"{c.nodes_traversed / rays:.2f} nodes a ray, leaf tests "
+            f"{c.leaf_tests}, max_frontier {cap} cut {cuts[name]} | card == "
+            f"CPU (idx in order, counts, every counter; CPU {t_cpu:.1f} s) | "
+            f"main-path launches {counts} | warm wall median of "
+            f"{S['walls']} {wall:.3f} ms | peak mem {peak:.1f} MiB | {card}")
+    ee, ne = t4["p_sphere"][0][2], t4["p_sphere_noexit"][0][2]
+    first_k = torch.equal(t4["p_ray"][0][0].cpu(), brute_idx.cpu())
+    log("25 other", f"(d) Table IV: counts equal three ways (P-Sphere, "
+        f"P-Ray, ballquery brute force; {int((brute == k).sum())} of "
+        f"{len(qs)} balls full); P-Ray's idx "
+        + ("==" if first_k else "!=") + f" the brute force's first k by "
+        f"index | nodes without / with the early exit "
+        f"{ne.nodes_traversed / max(ee.nodes_traversed, 1):.2f}x "
+        f"({ne.nodes_traversed} / {ee.nodes_traversed}) | P-Ray / "
+        f"P-Sphere wall {t4['p_ray'][2] / t4['p_sphere'][2]:.2f}x")
+
+    # (e) Fig. 17: P-Sphere over radii
+    rs = np.random.RandomState(1)
+    q17 = sc.points[rs.choice(len(sc.points), S["f17_queries"],
+                              replace=False)]
+    base, rows = None, []
+    for r in S["f17_radii"]:
+        out, counts, wall, peak, t_cpu = card_vs_cpu(
+            "p_sphere", f"(e) r {r}", r=r, q=q17)
+        add_check_launches()
+        _, brute = bq_ops.ball_query(torch.from_numpy(q17).to(dev),
+                                     torch.from_numpy(sc.points).to(dev), r,
+                                     k)
+        short = int((out[1] < brute).sum())
+        cut = cut_note(tree, torch.from_numpy(q17).to(dev), r)
+        add_check_launches()
+        base = base or wall
+        rows.append(f"r {r}: wall {wall:.3f} ms (rel {wall / base:.2f}), "
+                    f"nodes {out[2].nodes_traversed}, full "
+                    f"{int((out[1] == k).sum())}, balls short of the brute "
+                    f"force {short}, 2**22 cut {cut}, peak {peak:.1f} MiB")
+    log("25 other", f"(e) Fig. 17 P-Sphere, {len(q17)} queries, k {k}, card "
+        f"== CPU at every radius: " + "; ".join(rows) + f" | {card}")
+
+    # (f) Fig. 14: the MPAccel scenes in naive, fused and persistent
+    want = {"naive": ("sact_dense",), "wavefront_fused": ("traverse",
+                                                         "compact"),
+            persistent: ("persist",)}
+    tot = {m: [0.0, 0, 0] for m in want}
+    for i in range(S["scenarios"]):
+        msc = make_mpaccel_scenario(i, num_points=S["mpaccel_points"])
+        mtree = build_octree(msc.points, depth=S["mpaccel_depth"])
+        obbs = scene_trajectories(msc, num_trajectories=S["trajs"],
+                                  waypoints=S["wps"])
+        verdicts, rows = None, []
+        for mode, kernels in want.items():
+            cfg = EngineConfig(mode=mode)
+            eng = CollisionEngine(mtree, cfg, device=dev)
+            (v, c), counts = on_main(lambda: eng.query(obbs), kernels,
+                                     f"(f) scene {i} {mode}")
+            vc, cc_ = CollisionEngine(mtree, cfg, device="cpu").query(obbs)
+            bad = same_counters(c, cc_)
+            if not np.array_equal(v, vc) or bad:
+                raise SystemExit(f"FAIL: 25 (f) scene {i} {mode}: card vs "
+                                 f"CPU: verdicts equal {np.array_equal(v, vc)}"
+                                 f", counters differing {bad}")
+            if verdicts is not None and not np.array_equal(v, verdicts):
+                raise SystemExit(f"FAIL: 25 (f) scene {i}: {mode}'s "
+                                 f"verdicts differ from naive's")
+            verdicts = v
+            wall = walls_of(lambda: eng.query(obbs))
+            tot[mode][0] += wall
+            tot[mode][1] += c.nodes_traversed
+            tot[mode][2] += c.leaf_tests
+            rows.append(f"{mode} {wall:.3f} ms nodes {c.nodes_traversed} "
+                        f"leaf_tests {c.leaf_tests} launches {counts}")
+        log("25 other", f"(f) Fig. 14 mpaccel_{i} ({len(msc.boxes_lo)} boxes,"
+            f" {mtree.num_leaves} leaves, {obbs.n} OBBs, hits "
+            f"{int(verdicts.sum())}): card == CPU in each mode, verdicts "
+            f"equal across modes | " + "; ".join(rows))
+    log("25 other", f"(f) Fig. 14 over {S['scenarios']} scenes: warm walls "
+        f"summed " + ", ".join(f"{m} {v[0]:.3f} ms" for m, v in tot.items())
+        + f"; naive / fused {tot['naive'][0] / tot['wavefront_fused'][0]:.2f}"
+        f"x, naive / persistent "
+        f"{tot['naive'][0] / tot[persistent][0]:.2f}x; nodes, leaf tests "
+        + ", ".join(f"{m} {v[1]} / {v[2]}" for m, v in tot.items())
+        + f" | {card}")
+    add_check_launches()
+    log("25 other", f"phase 25 itself {time.perf_counter() - t_phase:.1f} s")
+    log("25 other", f"phase {lap():.1f} s")
+    return march_line
 
 
 def main() -> int:
@@ -3076,10 +3602,15 @@ def main() -> int:
                                       ragged_err)
     log("24 ragged", f"phase {lap():.1f} s")
 
-    # ---- 25. result -------------------------------------------------------
-    # launches on every main path (phases 8, 13, 17, 20, 21, 22, 23 and 24)
-    # and in the checks
-    log("25 result", f"whole script {time.perf_counter() - t_start:.1f} s")
+    # ---- 25. the other workloads (MCL, the ball query's tree forms, the
+    # MPAccel scenes) ---------------------------------------------------------
+    lines.append(other_workloads(cuda, card, main_launches,
+                                 add_check_launches, lap))
+
+    # ---- 26. result -------------------------------------------------------
+    # launches on every main path (phases 8, 13, 17, 20, 21, 22, 23, 24 and
+    # 25) and in the checks
+    log("26 result", f"whole script {time.perf_counter() - t_start:.1f} s")
     for line in lines:
         line["launches"] = main_launches[line["name"]]
         line["check_launches"] = check_launches[line["name"]]

@@ -1,9 +1,11 @@
 """Carry a scene, planner weights and LM weights across from the reference.
 
 The reference's ``Octree`` is handed over as plain numpy arrays
-(``scene_lo``, ``scene_size``, ``depth`` and, per level, ``codes``,
-``full``, ``child_start``, ``child_mask``) and becomes this package's
-:class:`repro_torch.core.octree.Octree`; the reference planner's parameter
+(``scene_lo``, ``scene_size``, ``depth``, per level ``codes``, ``full``,
+``child_start``, ``child_mask``, and the ball query's point storage) and
+becomes this package's :class:`repro_torch.core.octree.Octree`; its
+``OccupancyGrid`` becomes a :class:`repro_torch.core.mcl.OccupancyGrid`;
+the reference planner's parameter
 tree becomes a :class:`repro_torch.models.planner.Planner` state dict, and
 the reference LM's a :class:`repro_torch.models.transformer.LM` state
 dict.  So both packages can run on one scene, one planner and one LM
@@ -11,21 +13,67 @@ without this package importing the other.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.core.mcl import OccupancyGrid
 from repro_torch.core.octree import MAX_DEPTH, Octree, OctreeLevel
+
+#: The ball query's point storage of an :class:`Octree`.
+_POINT_FIELDS = ("points_sorted", "point_index", "leaf_point_start",
+                 "leaf_point_count")
+
+
+def _point_storage(points: Optional[Mapping[str, np.ndarray]],
+                   n_leaf: int) -> Dict[str, np.ndarray]:
+    """The ball query's point storage, checked: ``points_sorted (P, 3)``,
+    ``point_index (P,)`` and ``leaf_point_start`` / ``leaf_point_count``
+    ``(n_leaf,)``, whose runs cover the P points in order, none empty.
+    ``None`` gives empty storage (a tree that answers collision queries
+    only)."""
+    if points is None:
+        empty_i = np.zeros(0, np.int32)
+        return dict(points_sorted=np.zeros((0, 3), np.float32),
+                    point_index=empty_i, leaf_point_start=empty_i,
+                    leaf_point_count=empty_i)
+    out = dict(points_sorted=np.asarray(points["points_sorted"], np.float32),
+               point_index=np.asarray(points["point_index"], np.int32),
+               leaf_point_start=np.asarray(points["leaf_point_start"],
+                                           np.int32),
+               leaf_point_count=np.asarray(points["leaf_point_count"],
+                                           np.int32))
+    P = out["point_index"].shape[0]
+    want = dict(points_sorted=(P, 3), point_index=(P,),
+                leaf_point_start=(n_leaf,), leaf_point_count=(n_leaf,))
+    for name, shape in want.items():
+        if out[name].shape != shape:
+            raise ValueError(f"point storage: {name} has shape "
+                             f"{out[name].shape}, want {shape}")
+    start, count = out["leaf_point_start"], out["leaf_point_count"]
+    runs_ok = (int(count.sum()) == P and bool((count >= 1).all())
+               and (n_leaf == 0 or start[0] == 0)
+               and bool((start[1:] == start[:-1] + count[:-1]).all()))
+    if not runs_ok:
+        raise ValueError("point storage: leaf_point_start and "
+                         "leaf_point_count must cover the points in order, "
+                         "one run a leaf, none empty")
+    return out
 
 
 def octree_from_arrays(scene_lo, scene_size: float, depth: int,
-                       levels: Sequence[Mapping[str, np.ndarray]]) -> Octree:
+                       levels: Sequence[Mapping[str, np.ndarray]],
+                       points: Optional[Mapping[str, np.ndarray]] = None
+                       ) -> Octree:
     """Build an :class:`Octree` from the reference's level arrays.
 
     ``levels[l]`` maps ``codes`` (uint32, sorted), ``full`` (bool),
     ``child_start`` (int32) and ``child_mask`` (uint8) of level ``l``.
-    The point storage (ball query only) is left empty.
+    ``points``, where given, maps the ball query's point storage
+    (``points_sorted``, ``point_index``, ``leaf_point_start``,
+    ``leaf_point_count``); without it the storage is left empty.
     """
     depth = int(depth)
     if not 1 <= depth <= MAX_DEPTH or len(levels) != depth + 1:
@@ -45,22 +93,32 @@ def octree_from_arrays(scene_lo, scene_size: float, depth: int,
         if n > 1 and not (codes[1:] > codes[:-1]).all():
             raise ValueError(f"level {lv_i}: codes must be strictly sorted")
         out.append(OctreeLevel(codes=codes, **fields))
-    empty_i = np.zeros(0, np.int32)
     return Octree(scene_lo=np.asarray(scene_lo, np.float32),
                   scene_size=float(scene_size), depth=depth, levels=out,
-                  points_sorted=np.zeros((0, 3), np.float32),
-                  point_index=empty_i, leaf_point_start=empty_i,
-                  leaf_point_count=empty_i)
+                  **_point_storage(points, len(out[-1].codes)))
 
 
 def octree_from_reference(tree) -> Octree:
     """Convert any object with the reference ``Octree``'s attributes
-    (``scene_lo``, ``scene_size``, ``depth``, ``levels[l].codes`` ...)."""
+    (``scene_lo``, ``scene_size``, ``depth``, ``levels[l].codes`` ... and,
+    where it has them, the point storage's)."""
+    points = ({f: np.asarray(getattr(tree, f)) for f in _POINT_FIELDS}
+              if all(hasattr(tree, f) for f in _POINT_FIELDS) else None)
     return octree_from_arrays(
         np.asarray(tree.scene_lo), tree.scene_size, tree.depth,
         [dict(codes=np.asarray(lv.codes), full=np.asarray(lv.full),
               child_start=np.asarray(lv.child_start),
-              child_mask=np.asarray(lv.child_mask)) for lv in tree.levels])
+              child_mask=np.asarray(lv.child_mask)) for lv in tree.levels],
+        points=points)
+
+
+def grid_from_reference(grid, device=DEFAULT_DEVICE) -> OccupancyGrid:
+    """The reference's ``OccupancyGrid`` (``occ`` (H, W) bool, ``cell``,
+    ``origin``) as this package's, its cells on ``device``."""
+    occ = torch.from_numpy(np.array(grid.occ, dtype=bool))
+    return OccupancyGrid(occ=occ.to(resolve_device(device)),
+                         cell=float(grid.cell),
+                         origin=tuple(float(x) for x in grid.origin))
 
 
 def planner_from_reference(params: Mapping) -> Dict[str, torch.Tensor]:

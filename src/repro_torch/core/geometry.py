@@ -60,6 +60,16 @@ def rotation_from_euler(rpy: torch.Tensor) -> torch.Tensor:
     return torch.stack([row0, row1, row2], -2)
 
 
+def point_aabb_sq_distance(points: torch.Tensor, aabb_center: torch.Tensor,
+                           aabb_half: torch.Tensor) -> torch.Tensor:
+    """Squared distance from points (..., 3) to AABBs (..., 3) / (..., 3),
+    broadcast; 0 inside the box.  Summed ``(d0*d0 + d1*d1) + d2*d2``, the
+    reference's order, so that the card and the CPU agree bit for bit."""
+    d = torch.clamp((points - aabb_center).abs() - aabb_half, min=0.0)
+    sq = d * d
+    return (sq[..., 0] + sq[..., 1]) + sq[..., 2]
+
+
 # Modified DH parameters (a, d, alpha) per joint; 7 revolute joints.
 _PANDA_DH = np.array(
     [
@@ -163,18 +173,31 @@ def trajectory_obbs(start, goal, num_waypoints: int, base_pos=None) -> OBBs:
     return arm_link_obbs(qs, base_pos=base_pos)
 
 
+def _uniform(generator: torch.Generator, shape, lo: float, hi: float,
+             device) -> torch.Tensor:
+    u = torch.rand(shape, generator=generator, dtype=torch.float32,
+                   device=generator.device)
+    return (lo + (hi - lo) * u).to(device)
+
+
 def random_obbs(generator: torch.Generator, n: int, scene_lo: float = -1.0,
                 scene_hi: float = 1.0, min_half: float = 0.02,
                 max_half: float = 0.25, device="cpu") -> OBBs:
     """Random OBBs for testing, drawn from ``generator``."""
-    def uniform(shape, lo, hi):
-        u = torch.rand(shape, generator=generator, dtype=torch.float32,
-                       device=generator.device)
-        return (lo + (hi - lo) * u).to(device)
-    center = uniform((n, 3), scene_lo, scene_hi)
-    half = uniform((n, 3), min_half, max_half)
-    rot = rotation_from_euler(uniform((n, 3), -math.pi, math.pi))
+    center = _uniform(generator, (n, 3), scene_lo, scene_hi, device)
+    half = _uniform(generator, (n, 3), min_half, max_half, device)
+    rot = rotation_from_euler(_uniform(generator, (n, 3), -math.pi, math.pi,
+                                       device))
     return OBBs(center=center, half=half, rot=rot)
+
+
+def random_aabbs(generator: torch.Generator, n: int, scene_lo: float = -1.0,
+                 scene_hi: float = 1.0, min_half: float = 0.02,
+                 max_half: float = 0.25, device="cpu") -> AABBs:
+    """Random AABBs for testing, drawn from ``generator``."""
+    center = _uniform(generator, (n, 3), scene_lo, scene_hi, device)
+    half = _uniform(generator, (n, 3), min_half, max_half, device)
+    return AABBs(center=center, half=half)
 
 
 def obb_corners(obbs: OBBs) -> torch.Tensor:

@@ -2,12 +2,13 @@
 
 Counterpart of ``repro.data.robotics``: the four environment families of
 Table III (Cubby, Dresser, Merged Cubby, Tabletop) as box-obstacle scenes
-with 524 288 surface points, and robot-arm trajectories whose link OBB
-counts land in the paper's range.  Scene sampling is the reference's numpy
-code unchanged.  Note that the scene seed mixes in ``hash(name) % 1000``,
-and Python salts string hashes per process: the same name gives the same
-scene in both packages within one process, but a different scene in
-another process (unless ``PYTHONHASHSEED`` is fixed).
+with 524 288 surface points, robot-arm trajectories whose link OBB counts
+land in the paper's range, and the small MPAccel-style scenes of Fig. 14.
+Scene sampling is the reference's numpy code unchanged.  Note that the
+scene seed mixes in ``hash(name) % 1000``, and Python salts string hashes
+per process: the same name gives the same scene in both packages within
+one process, but a different scene in another process (unless
+``PYTHONHASHSEED`` is fixed).
 """
 from __future__ import annotations
 
@@ -158,3 +159,21 @@ def scene_trajectories(scene: Scene, num_trajectories: int = 25,
     return OBBs(center=torch.cat([o.center for o in all_obbs]),
                 half=torch.cat([o.half for o in all_obbs]),
                 rot=torch.cat([o.rot for o in all_obbs]))
+
+
+def make_mpaccel_scenario(idx: int, num_points: int = 65536) -> Scene:
+    """Small sparse scenes in the style of MPAccel (paper Fig. 14): 3 to 6
+    random boxes from ``RandomState(1000 + idx)``."""
+    rs = np.random.RandomState(1000 + idx)
+    n_obs = rs.randint(3, 7)
+    los, his = [], []
+    for _ in range(n_obs):
+        s = rs.uniform(0.05, 0.25, 3)
+        c = rs.uniform(-0.7, 0.7, 3) + np.array([0.6, 0.0, 0.4])
+        los.append(c - s / 2)
+        his.append(c + s / 2)
+    lo = np.asarray(los, np.float32)
+    hi = np.asarray(his, np.float32)
+    pts = _sample_box_surfaces(rs, lo, hi, num_points)
+    return Scene(name=f"mpaccel_{idx}", points=pts, boxes_lo=lo, boxes_hi=hi,
+                 robot_base=np.asarray([0.0, 0.0, 0.0], np.float32))

@@ -10,8 +10,8 @@ an edited kernel never loads a stale library.  Libraries land in
 ``$REPRO_TORCH_BUILD_DIR``).
 
 Every kernel builds with the same flags.  ``--fmad=false`` keeps every
-``a*b+c`` two roundings, as in the plain PyTorch versions: the collision
-and sampling kernels must agree with them bit for bit; ``wkv6`` and
+``a*b+c`` two roundings, as in the plain PyTorch versions: the collision,
+sampling and ray-march kernels must agree with them bit for bit; ``wkv6`` and
 ``flash_attention``, which sum their dot products in another order (and
 their products on the tensor cores, which the flag does not touch; each
 writes the few ``fmaf`` its CUDA-core sums want), to the tolerances stated
@@ -44,6 +44,7 @@ SOURCES: Dict[str, str] = {
     "ballquery": "kernels/ballquery/csrc/ballquery.cu",
     "wkv6": "kernels/wkv6/csrc/wkv6.cu",
     "flash_attention": "kernels/flash_attention/csrc/flash_attn.cu",
+    "march": "kernels/march/csrc/march.cu",
 }
 
 NVCC_FLAGS: List[str] = [

@@ -33,6 +33,8 @@ from repro_torch.data.robotics import (PANDA_JOINT_HI, PANDA_JOINT_LO,
 from repro_torch.engine.executor import (CollisionEngine, EngineConfig,
                                          query_batched_scenes)
 from repro_torch.kernels import _build
+from repro_torch.core import ballquery as tbq
+from repro_torch.core import mcl as tmcl
 from repro_torch.kernels.ballquery import ops as bq_ops
 from repro_torch.kernels.ballquery.cases import cloud_cases, radius_shell
 from repro_torch.kernels.ballquery.ref import ball_query_ref
@@ -44,6 +46,10 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.fps import ops as fps_ops
 from repro_torch.kernels.fps.cases import tie_cloud
 from repro_torch.kernels.fps.ref import fps_ref
+from repro_torch.kernels.march import ops as march_ops
+from repro_torch.kernels.march.cases import (nonsquare_grid, ray_cases,
+                                             wall_points)
+from repro_torch.kernels.march.ref import march_ref
 from repro_torch.kernels.persist import ops as persist_ops
 from repro_torch.kernels.persist.cases import (grazing_pool, owner_group_pool,
                                                ragged_pool, ragged_trees,
@@ -1085,3 +1091,169 @@ def test_cuda_glm4_serving_matches_cpu(cuda, monkeypatch):
             (caches["kv"][key], want_caches["kv"][key]) for key in "kv"]:
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
                                    rtol=1e-4, atol=1e-4)
+
+
+def _march_grids(cuda):
+    """Fig. 19's grid (192 x 192, walls and boxes) and one that is not
+    square, with no walls (rays leave it)."""
+    fig19 = tmcl.make_corridor_world(0, size=192, device=cuda)
+    return {"fig19": fig19,
+            "nonsquare": tmcl.OccupancyGrid(
+                occ=torch.from_numpy(nonsquare_grid()).to(cuda), cell=0.05)}
+
+
+@pytest.mark.parametrize("grid_name", ["fig19", "nonsquare"])
+def test_march_kernel_matches_plain(cuda, grid_name):
+    """Fig. 19's 4,608 scan rays, rays grazing cell edges and corners along
+    the axes and diagonals, rays leaving the grid: 1, 16 and every step of
+    a 6 m cast, pos, dist and active bit for bit."""
+    grid = _march_grids(cuda)[grid_name]
+    max_range = 6.0
+    steps = int(np.ceil(max_range / grid.cell)) + 1
+    for name, (org, ang) in ray_cases(grid.shape, grid.cell).items():
+        dirv = tmcl.ray_directions(torch.from_numpy(ang).to(cuda))
+        for n in (1, 16, steps):
+            runs = []
+            for fn in (march_ops.march, march_ref):
+                st = (torch.tensor(org, device=cuda), dirv,
+                      torch.zeros(len(ang), device=cuda),
+                      torch.ones(len(ang), dtype=torch.bool, device=cuda))
+                before = _build.launch_counts()["march"]
+                fn(grid.occ, grid.origin, grid.cell, *st, max_range, n)
+                torch.cuda.synchronize()
+                launched = _build.launch_counts()["march"] - before
+                assert launched == (fn is march_ops.march), (name, n)
+                runs.append(st)
+            for got, want in zip(runs[0], runs[1]):
+                assert torch.equal(got, want), (grid_name, name, n)
+            if n == steps:
+                assert not bool(runs[0][3].any()), (grid_name, name)
+
+
+def test_ray_casts_on_the_card_match_cpu(cuda):
+    grid = _march_grids(cuda)["fig19"]
+    org, ang = ray_cases(grid.shape, grid.cell)["scan"]
+    dirs = tmcl.ray_directions(torch.from_numpy(ang).to(cuda))
+    cpu_grid = tmcl.OccupancyGrid(grid.occ.cpu(), grid.cell)
+    for cast in (tmcl.ray_cast_dense, tmcl.ray_cast_compacted):
+        got, cells = cast(grid, torch.from_numpy(org).to(cuda),
+                          torch.from_numpy(ang).to(cuda), 6.0)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tmcl, "ray_directions", lambda a: dirs.cpu())
+            want, want_cells = cast(cpu_grid, torch.from_numpy(org),
+                                    torch.from_numpy(ang), 6.0)
+        assert torch.equal(got.cpu(), want) and cells == want_cells
+
+
+def test_march_kernel_rejects_what_it_cannot_run(cuda):
+    grid = _march_grids(cuda)["fig19"]
+    pos = torch.zeros((8, 2), device=cuda)
+    dirv = torch.ones((8, 2), device=cuda)
+    dist = torch.zeros(8, device=cuda)
+    active = torch.ones(8, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        march_ops.march(grid.occ, grid.origin, grid.cell,
+                        torch.zeros((8, 4), device=cuda)[:, ::2], dirv,
+                        dist, active, 6.0, 4)
+    with pytest.raises(ValueError, match="float32"):
+        march_ops.march(grid.occ, grid.origin, grid.cell, pos.double(), dirv,
+                        dist, active, 6.0, 4)
+    with pytest.raises(ValueError, match="one device"):
+        march_ops.march(grid.occ.cpu(), grid.origin, grid.cell, pos, dirv,
+                        dist, active, 6.0, 4)
+
+
+@pytest.mark.parametrize("arm", ["ee", "noexit", "pray"])
+def test_cuda_ball_query_tree_forms_match_cpu(cuda, arm):
+    """P-Sphere with and without the early exit and P-Ray, card against
+    CPU: indices in order, counts and every counter; counts also against
+    the ``ballquery`` kernel's brute force."""
+    rs = np.random.RandomState(6)
+    pts = rs.uniform(-1, 1, (20000, 3)).astype(np.float32)
+    qs = pts[rs.choice(len(pts), 96, replace=False)]
+    tree = build_octree(pts, depth=5)
+    r, k = 0.12, 16
+
+    def run(dev):
+        P, Q = torch.from_numpy(pts).to(dev), torch.from_numpy(qs).to(dev)
+        if arm == "pray":
+            return tbq.ball_query_pray(P, Q, r, k, depth=3)
+        return tbq.ball_query_psphere(tree, Q, r, k, chunk=4,
+                                      early_exit=arm == "ee")
+    before = _build.launch_counts()["compact"]
+    idx, cnt, c = run(cuda)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["compact"] > before
+    want_idx, want_cnt, wc = run("cpu")
+    assert torch.equal(idx.cpu(), want_idx) and torch.equal(cnt.cpu(),
+                                                            want_cnt)
+    a, b = c.as_dict(), wc.as_dict()
+    assert {f: v for f, v in a.items() if f != "wall_time_s"} == {
+        f: v for f, v in b.items() if f != "wall_time_s"}
+    _, bcnt = bq_ops.ball_query(torch.from_numpy(qs).to(cuda),
+                                torch.from_numpy(pts).to(cuda), r, k)
+    assert torch.equal(bcnt.cpu(), want_cnt)
+    assert 0 < int((want_cnt == k).sum()) < len(qs)
+
+
+def test_cuda_gated_mcl_update_matches_cpu(cuda):
+    """One gated filter step at Fig. 19's shape on the card against the
+    CPU: the CPU takes the card's directions and footprint OBBs; ranges
+    (through the resampled particles), cells and the gate exact, weights
+    to rtol 1e-5; one ``march`` and one ``persist`` launch."""
+    grid = tmcl.make_corridor_world(0, size=192, device=cuda)
+    cpu_grid = tmcl.OccupancyGrid(grid.occ.cpu(), grid.cell)
+    tree = build_octree(wall_points(grid.occ.cpu().numpy(), grid.cell),
+                        depth=6)
+    engines = {d: CollisionEngine(tree, EngineConfig(
+        mode="wavefront_persistent"), device=d) for d in (cuda, "cpu")}
+    angles = torch.linspace(-np.pi, np.pi, 25)[:-1]
+    obs = torch.rand(24, generator=torch.Generator().manual_seed(1)) * 6.0
+    st = tmcl.init_particles(torch.Generator().manual_seed(2), cpu_grid, 192)
+    noise = torch.randn((192, 3), generator=torch.Generator().manual_seed(3))
+    noise *= 0.02
+    seen = {}
+    for dev, g in ((cuda, grid), ("cpu", cpu_grid)):
+        with pytest.MonkeyPatch.context() as mp:
+            rec = seen.setdefault(dev, {"w": []})
+            weights = tmcl.particle_weights
+            mp.setattr(tmcl, "particle_weights",
+                       lambda *a: rec["w"].append(weights(*a)) or rec["w"][-1])
+            if dev == "cpu":
+                mp.setattr(tmcl, "ray_directions",
+                           lambda a: seen[cuda]["dirs"].cpu())
+                mp.setattr(tmcl, "footprint_obbs",
+                           lambda *a, **k: OBBs(*(x.cpu() for x in (
+                               seen[cuda]["obbs"].center,
+                               seen[cuda]["obbs"].half,
+                               seen[cuda]["obbs"].rot))))
+            else:
+                dirs_fn, obbs_fn = tmcl.ray_directions, tmcl.footprint_obbs
+                mp.setattr(tmcl, "ray_directions", lambda a: rec.setdefault(
+                    "dirs", dirs_fn(a)))
+                mp.setattr(tmcl, "footprint_obbs", lambda *a, **k: (
+                    rec.setdefault("obbs", obbs_fn(*a, **k))))
+            state = tmcl.MCLState(st.particles.to(dev), st.weights.to(dev))
+            before = _build.launch_counts()
+            new, stats = tmcl.mcl_update(
+                state, g, obs.to(dev), angles.to(dev),
+                torch.zeros(3, device=dev), noise.to(dev), 0.37, "dense",
+                sigma=0.5, collision_engine=engines[dev])
+            after = _build.launch_counts()
+            rec.update(new=new.particles.cpu(), stats=stats)
+            if dev != "cpu":
+                torch.cuda.synchronize()
+                assert after["march"] - before["march"] == 1
+                assert after["persist"] - before["persist"] >= 1
+    a, b = seen[cuda], seen["cpu"]
+    # no step of the resampling within 1e-6 of a cumulative weight, where
+    # the card's and the CPU's sums could part
+    cum = np.cumsum(b["w"][0].numpy().astype(np.float64))
+    steps = (0.37 + np.arange(192)) / 192
+    assert np.abs(steps[:, None] - cum[None, :]).min() > 1e-6
+    assert {f: v for f, v in a["stats"].items() if f != "time_s"} == {
+        f: v for f, v in b["stats"].items() if f != "time_s"}
+    assert 0 < a["stats"]["colliding_particles"] < 192
+    np.testing.assert_allclose(a["w"][0].cpu().numpy(), b["w"][0].numpy(),
+                               rtol=1e-5, atol=0)
+    assert torch.equal(a["new"], b["new"])

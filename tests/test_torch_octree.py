@@ -21,6 +21,7 @@ import torch
 
 from repro.core import counters as jcounters
 from repro.core import geometry as jgeo
+from repro.core import mcl as jmcl
 from repro.core import octree as joct
 from repro.core import quantize as jquant
 from repro.data import robotics as jrob
@@ -145,6 +146,52 @@ def test_convert_rejects_malformed_levels():
     bad[3]["codes"] = bad[3]["codes"][::-1].copy()
     with pytest.raises(ValueError, match="sorted"):
         convert.octree_from_arrays(ref.scene_lo, ref.scene_size, 3, bad)
+
+
+_POINT_FIELDS = ("points_sorted", "point_index", "leaf_point_start",
+                 "leaf_point_count")
+
+
+def test_convert_carries_point_storage():
+    """The ball query's point storage comes across with the levels, and a
+    storage whose runs do not cover the points in order is refused."""
+    ref = joct.build_octree(_points(7, 800), depth=4)
+    got = convert.octree_from_reference(ref)
+    _levels_equal(got, ref)
+    for f in _POINT_FIELDS:
+        a, b = getattr(got, f), np.asarray(getattr(ref, f))
+        assert a.dtype == b.dtype and np.array_equal(a, b), f
+    lv = [dict(codes=np.asarray(x.codes), full=np.asarray(x.full),
+               child_start=np.asarray(x.child_start),
+               child_mask=np.asarray(x.child_mask)) for x in ref.levels]
+    pts = {f: np.asarray(getattr(ref, f)) for f in _POINT_FIELDS}
+    bare = convert.octree_from_arrays(ref.scene_lo, ref.scene_size, 4, lv)
+    assert bare.points_sorted.shape == (0, 3)
+    assert bare.leaf_point_count.shape == (0,)
+    bad = dict(pts, point_index=pts["point_index"][:-1])
+    with pytest.raises(ValueError, match="shape"):
+        convert.octree_from_arrays(ref.scene_lo, ref.scene_size, 4, lv,
+                                   points=bad)
+    bad = dict(pts, leaf_point_start=pts["leaf_point_start"][:-1])
+    with pytest.raises(ValueError, match="shape"):
+        convert.octree_from_arrays(ref.scene_lo, ref.scene_size, 4, lv,
+                                   points=bad)
+    counts = pts["leaf_point_count"].copy()
+    counts[[0, 1]] += [1, -1]
+    with pytest.raises(ValueError, match="cover"):
+        convert.octree_from_arrays(ref.scene_lo, ref.scene_size, 4, lv,
+                                   points=dict(pts, leaf_point_count=counts))
+
+
+def test_grid_from_reference():
+    jgrid = jmcl.make_corridor_world(jax.random.PRNGKey(2), size=40)
+    got = convert.grid_from_reference(jgrid, device="cpu")
+    assert got.occ.dtype == torch.bool and got.shape == (40, 40)
+    assert np.array_equal(got.occ.numpy(), np.asarray(jgrid.occ))
+    assert got.cell == jgrid.cell and got.origin == (0.0, 0.0)
+    moved = dataclasses.replace(jgrid, origin=(-1.5, 0.25), cell=0.1)
+    got = convert.grid_from_reference(moved, device="cpu")
+    assert got.origin == (-1.5, 0.25) and got.cell == 0.1
 
 
 def test_forward_kinematics_close_to_reference():
