@@ -250,9 +250,30 @@ non-zero and prints no result):
    5, 700 OBBs each) in ``naive``, ``wavefront_fused`` and
    ``wavefront_persistent``, each card against the CPU engine, verdicts
    equal across modes, walls, nodes, leaf tests and launches;
-26. one JSON line listing every kernel with its launches on the main paths
-   (``launches``, phases 8, 13, 17, 20, 21, 22, 23, 24 and 25) and elsewhere
-   (``check_launches``), error, times (for ``persist``, ``sact_dense``,
+26. the collision service (``service_phase``) on phase 5's cubby scene:
+   (a) ``launch.serve.run_service`` over a ``RequestBatcher`` (the
+   reference's defaults: ``max_batch`` 1024, ``max_wait_ms`` 2.0, pow2
+   pads) in ``wavefront_persistent`` and ``wavefront_fused``, 8 and then
+   32 closed-loop clients, each request 12 consecutive of phase 5's
+   10,500 link OBBs: every request's verdicts against phase 8's, every
+   coalesced pool replayed on the CPU engine from the card engine's
+   capacity memo before it (verdicts and every counter), p50 / p99 ms, queries/s, launches, requests a launch, the
+   pad fraction, the main path's kernel launches, the card's busy share
+   over one traced run, and a 12-OBB request straight to the engine
+   beside phase 8's warm query; (b) ``shards=1`` (the sharded path on the
+   card) against phase 8's unsharded engine in both modes, verdicts and
+   every counter, ``shards=2`` where the machine has two cards, and
+   ``persist`` on the last block of an 8-way split (a live prefix short
+   of its pool) against its plain version; (c) ``run_service`` under
+   ``default_fault_plan(0)`` (deadline 2000 ms, ``launch_timeout_s`` 1.0)
+   at one shard: every submit resolves, only typed failures, the served
+   requests' verdicts phase 8's, an injected device loss typed
+   ``DeviceLost`` and never bisected; (d) degraded launches
+   (``wavefront_fused``, ``degrade_queue`` 2, 32 clients): every verdict
+   a superset of phase 8's, the coarser ones all flagged ``degraded``;
+27. one JSON line listing every kernel with its launches on the main paths
+   (``launches``, phases 8, 13, 17, 20, 21, 22, 23, 24, 25 and 26) and
+   elsewhere (``check_launches``), error, times (for ``persist``, ``sact_dense``,
    ``fps`` and ``ballquery`` also ``kernel_ms``, the kernel alone by
    ``torch.profiler``; ``sact_dense``'s at ``naive``'s block shape, with
    phase 10's plane as ``plane_*``; for ``ballquery`` also
@@ -274,6 +295,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -961,6 +983,327 @@ def other_workloads(dev, card: str, main_launches: dict, add_check_launches,
     log("25 other", f"phase 25 itself {time.perf_counter() - t_phase:.1f} s")
     log("25 other", f"phase {lap():.1f} s")
     return march_line
+
+
+#: Phase 26's service runs: closed-loop planner clients, each request 12
+#: consecutive link OBBs of phase 5's 10,500 (one Panda arm's links at a
+#: waypoint and a half), the reference's batcher defaults.
+SERVICE = dict(clients=(8, 32),
+               max_requests={"wavefront_persistent": 32,
+                             "wavefront_fused": 12},
+               queries=12, max_batch=1024,
+               max_wait_ms=2.0, traced_requests=8, shard_split=8,
+               shard_fcap=16384,
+               chaos_clients=8, chaos_requests=32, degrade_queue=2,
+               degrade_clients=32, degrade_requests=8, direct_reps=20)
+#: The typed errors a chaos run may resolve a request with.
+CHAOS_ERRORS = ("PlanValidationError", "InjectedFault", "SimulatedOOM",
+                "LaunchStalled", "WorkerDied", "DeviceLost",
+                "DeadlineExceeded", "Overloaded")
+
+
+def service_phase(dev, card: str, main_launches: dict, add_check_launches,
+                  lap, tree, obbs, p8_runs: dict, sizes: dict = SERVICE,
+                  check_kernels: bool = True) -> int:
+    """Phase 26: the collision service on the card (``RequestBatcher``
+    under ``launch.serve.run_service``), on ``tree`` and ``obbs`` (phase
+    5's paper-scale cubby scene and its 10,500 OBBs); ``p8_runs`` maps a
+    mode to phase 8's (verdicts, counters dict, warm wall) there.
+
+    (a) both service modes at each client count: every request's verdicts
+    against phase 8's, every coalesced pool replayed on the CPU engine
+    (verdicts and every counter), the SLO numbers, the main path's
+    launches and the card's busy share over one traced run; (b) the
+    sharded path at ``shards=1`` against phase 8's unsharded engine, and
+    ``persist`` on a sharded split's last block (a live prefix short of
+    its pool) against its plain version; (c) a chaos run at one shard;
+    (d) degraded launches.  Returns ``persist``'s max abs error there.
+    ``sizes`` and ``check_kernels`` let a rehearsal on the CPU run it at
+    a cut size."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.geometry import OBBs
+    from repro_torch.engine.batcher import RequestBatcher
+    from repro_torch.engine.executor import CollisionEngine, EngineConfig
+    from repro_torch.engine.faults import SimulatedDeviceLoss
+    from repro_torch.engine.plan import plan_queries
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.persist import ops as persist_ops
+    from repro_torch.kernels.persist.ref import persist_tiles_ref
+    from repro_torch.launch.serve import default_fault_plan, run_service
+    S = sizes
+    q = S["queries"]
+    on_card = dev.type == "cuda"
+    want_kernels = {"wavefront_persistent": ("persist",),
+                    "wavefront_fused": ("traverse", "compact")}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def on_main(fn, want=(), tag=""):
+        add_check_launches()
+        out = fn()
+        sync()
+        counts = _build.launch_counts()
+        _build.reset_launch_counts()
+        for name, n in counts.items():
+            main_launches[name] += n
+        for name in want:
+            if check_kernels and counts[name] < 1:
+                raise SystemExit(f"FAIL: 26 {tag}: {name} launched no time "
+                                 f"on the main path ({counts})")
+        return out, {k: n for k, n in counts.items() if n}
+
+    def diff(a, b):
+        return [k for k in a if k != "wall_time_s" and a[k] != b[k]]
+
+    class Recording:
+        """Forwards to an engine and keeps each pool that the batcher's
+        threads run (not the harness's warm-up, which runs on this
+        thread): its plan, the engine's capacity memo before it, and the
+        output."""
+
+        def __init__(self, inner):
+            self.inner = inner
+            self.calls = []
+
+        def __getattr__(self, name):
+            return getattr(self.inner, name)
+
+        def execute(self, plan, **kw):
+            memo = dict(self.inner._cap_memo)
+            out = self.inner.execute(plan, **kw)
+            if threading.current_thread() is not threading.main_thread():
+                # a copy: the batcher adds its pads to the counters
+                self.calls.append((plan, kw, memo, copy.deepcopy(out)))
+            return out
+
+    def served(rep, n_req, tag):
+        """Every request's verdicts against phase 8's."""
+        ref = p8_runs["wavefront_persistent"][0]
+        for i, v in enumerate(rep["verdicts"][:n_req]):
+            w = ref[np.arange(i * q, (i + 1) * q) % obbs.n]
+            if v is not None and not np.array_equal(v, w):
+                raise SystemExit(f"FAIL: 26 {tag}: request {i}'s verdicts "
+                                 f"differ from phase 8's")
+
+    # ---- (a) the healthy service -------------------------------------
+    for mode in ("wavefront_persistent", "wavefront_fused"):
+        cfg = EngineConfig(mode=mode)
+        for clients in S["clients"]:
+            requests = min(S["max_requests"][mode], obbs.n // (q * clients))
+            tag = f"{mode}, {clients} clients"
+            rec = Recording(CollisionEngine(tree, cfg, device=dev))
+            kw = dict(clients=clients, queries_per_request=q,
+                      max_batch=S["max_batch"], max_wait_ms=S["max_wait_ms"],
+                      engine=rec, obbs=obbs)
+            try:
+                rep, counts = on_main(lambda: run_service(
+                    tree, requests=requests, **kw), want_kernels[mode], tag)
+            except Exception as e:               # noqa: BLE001
+                raise SystemExit(f"FAIL: 26 {tag}: the healthy service "
+                                 f"raised {type(e).__name__}: {e}")
+            served(rep, clients * requests, tag)
+            if rep["failed"] or rep["requests"] != clients * requests:
+                raise SystemExit(f"FAIL: 26 {tag}: {rep['failures']}")
+            # every coalesced pool, replayed on the CPU from the card
+            # engine's capacity memo as it stood before that pool
+            t0 = time.perf_counter()
+            cpu = CollisionEngine(tree, cfg, device="cpu")
+            n_pools = len(rec.calls)
+            for plan, ekw, memo, (v, c) in rec.calls:
+                cpu._cap_memo = dict(memo)
+                vc, cc = cpu.execute(plan_queries(plan.obbs), **ekw)
+                bad = diff(c.as_dict(), cc.as_dict())
+                if not np.array_equal(v, vc) or bad:
+                    raise SystemExit(f"FAIL: 26 {tag}: a pool of "
+                                     f"{plan.num_queries} differs from the "
+                                     f"CPU engine ({bad or 'verdicts'})")
+            t_cpu = time.perf_counter() - t0
+            # one traced run on the warm engine: the card's busy share
+            rec.calls.clear()
+            traced_rep = None
+            with profile(activities=[ProfilerActivity.CPU]
+                         + ([ProfilerActivity.CUDA] if on_card else [])
+                         ) as prof:
+                sync()
+                t0 = time.perf_counter()
+                traced_rep, tcounts = on_main(lambda: run_service(
+                    tree, requests=S["traced_requests"], **kw),
+                    want_kernels[mode], tag + " traced")
+                sync()
+                t_traced = time.perf_counter() - t0
+            served(traced_rep, clients * S["traced_requests"], tag)
+            dev_s = sum(device_us(e) for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA) / 1e6
+            # one 12-OBB request straight to the warm engine, no batcher
+            one = OBBs(obbs.center[:q], obbs.half[:q], obbs.rot[:q])
+            direct = []
+            for _ in range(S["direct_reps"]):
+                direct.append(rec.inner.query(one)[1].wall_time_s)
+            add_check_launches()
+            log("26 service", f"(a) {tag} x {requests} requests of {q} "
+                f"OBBs: p50 {rep['p50_ms']:.3f} ms, p99 {rep['p99_ms']:.3f} "
+                f"ms, {rep['qps']:.0f} queries/s ({rep['rps']:.0f} req/s, "
+                f"wall {rep['wall_s']:.3f} s) | {rep['launches']} launches, "
+                f"{rep['mean_requests_per_launch']:.2f} requests a launch, "
+                f"{rep['mean_live_queries_per_launch']:.1f} live queries a "
+                f"launch, pad fraction {rep['pad_fraction']:.3f} | main-path "
+                f"launches {counts} | verdicts == phase 8's; {n_pools} "
+                f"coalesced pools == the CPU engine from the same capacity "
+                f"memo, verdicts and every counter ({t_cpu:.1f} s) | traced "
+                f"run of "
+                f"{S['traced_requests']} requests a client: wall "
+                f"{1e3 * t_traced:.1f} ms, device time {1e3 * dev_s:.2f} ms "
+                f"(busy {100 * dev_s / t_traced:.1f} %), launches {tcounts} "
+                f"| one {q}-OBB request straight to the engine: median "
+                f"{1e3 * statistics.median(direct):.3f} ms; phase 8's warm "
+                f"{obbs.n}-OBB query {1e3 * p8_runs[mode][2]:.3f} ms | "
+                f"{card}")
+
+    # ---- (b) the sharded path ------------------------------------------
+    for mode in ("wavefront_persistent", "wavefront_fused"):
+        eng = CollisionEngine(tree, EngineConfig(mode=mode, shards=1),
+                              device=dev)
+        (v, c), counts = on_main(lambda: eng.query(obbs), want_kernels[mode],
+                                 f"{mode} shards=1")
+        bad = diff(c.as_dict(), p8_runs[mode][1])
+        if not np.array_equal(v, p8_runs[mode][0]) or bad:
+            raise SystemExit(f"FAIL: 26 {mode} shards=1 differs from phase "
+                             f"8's unsharded engine ({bad or 'verdicts'})")
+        log("26 service", f"(b) {mode} shards=1 on {eng.shard_devices[:1]}: "
+            f"verdicts and every counter == phase 8's unsharded engine "
+            f"(pad_queries {c.pad_queries}, escalations {c.escalations}) | "
+            f"main-path launches {counts}")
+    n_dev = torch.cuda.device_count() if on_card else 1
+    if n_dev > 1:
+        for mode in ("wavefront_persistent", "wavefront_fused"):
+            eng = CollisionEngine(tree, EngineConfig(mode=mode, shards=2),
+                                  device=dev)
+            if len({str(d) for d in eng.shard_devices}) != n_dev:
+                raise SystemExit("FAIL: 26 a CUDA device repeats in "
+                                 f"{eng.shard_devices}")
+            (v, c), counts = on_main(lambda: eng.query(obbs),
+                                     want_kernels[mode], f"{mode} shards=2")
+            bad = diff(c.as_dict(), p8_runs[mode][1])
+            bad = [k for k in bad if k not in ("pad_queries", "escalations")]
+            if not np.array_equal(v, p8_runs[mode][0]) or bad:
+                raise SystemExit(f"FAIL: 26 {mode} shards=2 differs ({bad})")
+            log("26 service", f"(b) {mode} shards=2 over "
+                f"{eng.shard_devices[:2]}: == phase 8's | launches {counts}")
+    else:
+        log("26 service", "(b) one card: shards=2 not run")
+    # the last block of an 8-way split: its live prefix short of its pool
+    shards = S["shard_split"]
+    q_shard = -(-obbs.n // shards)
+    nv = obbs.n - (shards - 1) * q_shard
+    eng = CollisionEngine(tree, EngineConfig(mode="wavefront_persistent",
+                                             shards=1), device=dev)
+    host = tuple(x.cpu() for x in (obbs.center, obbs.half, obbs.rot))
+    blk = eng._shard_block(host, dev, (shards - 1) * q_shard, q_shard)
+    ins = persist_ops.pack_kernel_inputs(
+        blk["obb_c"], blk["obb_h"], blk["obb_r"], blk["dev"],
+        persist_ops.DEFAULT_BQ, num_valid=nv)
+    pkw = dict(bq=persist_ops.DEFAULT_BQ, fcap=S["shard_fcap"],
+               depth=tree.depth, ring_cap=persist_ops.DEFAULT_RING_CAP,
+               use_spheres=False, meta_format="fp32", streamed=False)
+    add_check_launches()
+    got = persist_ops.persist_tiles(**ins, **pkw)
+    want = persist_tiles_ref(**ins, **pkw)
+    err = max(int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
+              for x, y in zip(got, want))
+    if err:
+        raise SystemExit(f"FAIL: 26 persist on a short live prefix differs "
+                         f"from plain (max abs err {err})")
+    add_check_launches()
+    log("26 service", f"(b) persist on the last of {shards} blocks "
+        f"({nv} live of {q_shard} slots, {ins['sot'].shape[0]} "
+        f"tiles) == plain")
+
+    # ---- (c) chaos at one shard ----------------------------------------
+    chaos = default_fault_plan(0)
+    n_chaos = S["chaos_clients"] * S["chaos_requests"]
+    (rep, counts) = on_main(lambda: run_service(
+        tree, clients=S["chaos_clients"], requests=S["chaos_requests"],
+        queries_per_request=q, max_batch=S["max_batch"],
+        max_wait_ms=S["max_wait_ms"], mode="wavefront_persistent", shards=1,
+        deadline_ms=2000.0, launch_timeout_s=1.0, chaos=chaos, device=dev,
+        obbs=obbs))
+    served(rep, n_chaos, "chaos")
+    if rep["requests"] + rep["failed"] != n_chaos:
+        raise SystemExit("FAIL: 26 chaos: a request vanished")
+    stray = set(rep["failures"]) - set(CHAOS_ERRORS)
+    if stray:
+        raise SystemExit(f"FAIL: 26 chaos: untyped failures {stray}")
+    if rep["injected"]["device_loss"] and not rep["failures"].get(
+            "DeviceLost"):
+        raise SystemExit("FAIL: 26 chaos: a device loss at one shard did "
+                         "not fail its batch with DeviceLost")
+    # at one shard a device loss has no survivors: DeviceLost, not bisected
+    eng = CollisionEngine(tree, EngineConfig(mode="wavefront_persistent",
+                                             shards=1), device=dev)
+
+    def lose_all(shards):
+        raise SimulatedDeviceLoss(shards, shards)
+    eng.device_fault_injector = lose_all
+    with RequestBatcher(eng, max_wait_ms=200.0) as b:
+        tickets = [b.submit(OBBs(obbs.center[i:i + q], obbs.half[i:i + q],
+                                 obbs.rot[i:i + q])) for i in (0, q)]
+        kinds = []
+        for t in tickets:
+            try:
+                t.result(timeout=120)
+                kinds.append("ok")
+            except Exception as e:               # noqa: BLE001
+                kinds.append(type(e).__name__)
+    if kinds != ["DeviceLost", "DeviceLost"] or b.totals.launch_splits:
+        raise SystemExit(f"FAIL: 26 a lost last device gave {kinds}, "
+                         f"{b.totals.launch_splits} splits")
+    log("26 service", f"(c) chaos (default_fault_plan(0), deadline 2000 ms, "
+        f"launch_timeout_s 1.0, wavefront_persistent, shards=1): "
+        f"{rep['requests']} of {n_chaos} served, every submit resolved; "
+        f"failures {rep['failures']}; injected {rep['injected']}; "
+        f"reliability: " + ", ".join(
+            f"{k} {rep[k]}" for k in ("rejected", "retried",
+                                      "deadline_missed", "launch_splits",
+                                      "worker_restarts", "reshards",
+                                      "shards_lost", "degraded_launches"))
+        + f" | p50 {rep['p50_ms']:.3f} ms, p99 {rep['p99_ms']:.3f} ms over "
+        f"the served | every served request == phase 8's | a lost last "
+        f"device: both requests DeviceLost, 0 splits | launches {counts}")
+
+    # ---- (d) degraded launches -----------------------------------------
+    n_deg = S["degrade_clients"] * S["degrade_requests"]
+    (rep, counts) = on_main(lambda: run_service(
+        tree, clients=S["degrade_clients"], requests=S["degrade_requests"],
+        queries_per_request=q, max_batch=S["max_batch"],
+        max_wait_ms=S["max_wait_ms"], mode="wavefront_fused",
+        degrade_queue=S["degrade_queue"], device=dev, obbs=obbs),
+        want_kernels["wavefront_fused"], "degraded")
+    ref = p8_runs["wavefront_persistent"][0]
+    coarser = 0
+    for i, v in enumerate(rep["verdicts"]):
+        w = ref[np.arange(i * q, (i + 1) * q) % obbs.n]
+        if (w & ~v).any():
+            raise SystemExit(f"FAIL: 26 degraded request {i} missed a "
+                             f"collision")
+        coarser += int(not np.array_equal(v, w))
+    if not rep["degraded_launches"] or coarser > rep["degraded_requests"]:
+        raise SystemExit(f"FAIL: 26 degraded: {rep['degraded_launches']} "
+                         f"degraded launches, {coarser} coarser requests of "
+                         f"{rep['degraded_requests']} degraded")
+    log("26 service", f"(d) wavefront_fused, degrade_queue "
+        f"{S['degrade_queue']}, {S['degrade_clients']} clients: "
+        f"{rep['degraded_launches']} of {rep['launches']} launches "
+        f"degraded, {rep['degraded_requests']} of {n_deg} requests flagged, "
+        f"{coarser} with extra hits; every verdict a superset of phase 8's | "
+        f"p50 {rep['p50_ms']:.3f} ms, p99 {rep['p99_ms']:.3f} ms | launches "
+        f"{counts} | {card}")
+    log("26 service", f"phase {lap():.1f} s")
+    return err
 
 
 def main() -> int:
@@ -3607,10 +3950,31 @@ def main() -> int:
     lines.append(other_workloads(cuda, card, main_launches,
                                  add_check_launches, lap))
 
-    # ---- 26. result -------------------------------------------------------
-    # launches on every main path (phases 8, 13, 17, 20, 21, 22, 23, 24 and
-    # 25) and in the checks
-    log("26 result", f"whole script {time.perf_counter() - t_start:.1f} s")
+    # ---- 26. the collision service ------------------------------------------
+    svc_modes = ("wavefront_persistent", "wavefront_fused")
+    if "cubby" in scenes:
+        svc_tree, svc_obbs, _ = scenes["cubby"]
+        svc_runs = {m: p8["cubby"][m] for m in svc_modes}
+    else:
+        # phase 21 built the cubby scene; phase 8's runs on it, here
+        svc_tree = ctree
+        svc_obbs = scene_trajectories(csc, num_trajectories=25, waypoints=60)
+        svc_runs = {}
+        for m in svc_modes:
+            eng = CollisionEngine(svc_tree, EngineConfig(mode=m),
+                                  device="cuda")
+            v1, c1 = eng.query(svc_obbs)
+            walls = [eng.query(svc_obbs)[1].wall_time_s for _ in range(10)]
+            svc_runs[m] = (v1, c1.as_dict(), statistics.median(walls))
+        add_check_launches()
+    svc_err = service_phase(cuda, card, main_launches, add_check_launches,
+                            lap, svc_tree, svc_obbs, svc_runs)
+    persist_line["max_abs_err"] = max(persist_line["max_abs_err"], svc_err)
+
+    # ---- 27. result -------------------------------------------------------
+    # launches on every main path (phases 8, 13, 17, 20, 21, 22, 23, 24, 25
+    # and 26) and in the checks
+    log("27 result", f"whole script {time.perf_counter() - t_start:.1f} s")
     for line in lines:
         line["launches"] = main_launches[line["name"]]
         line["check_launches"] = check_launches[line["name"]]

@@ -54,14 +54,22 @@ mode on the megakernel's scene-exclusive tiles over the scenes' flat
 table, ``wavefront_fused`` on the reference's global-pool walk over that
 table (:func:`repro_torch.kernels.persist.ref.traverse_whole_ref`), and
 ``wavefront`` on the scenes padded to the widest one, one scene after
-another at one shared capacity; the host arms and ``naive`` refuse them.  Without a CUDA device a CUDA engine raises; it never
-drops to the CPU by itself.  Options and plan shapes this port has not
-ported raise ``NotImplementedError`` naming the ROADMAP item that adds
-them.
+another at one shared capacity; the host arms and ``naive`` refuse them.
+Sharded execution (``EngineConfig.shards``, the collision service's
+device mesh) splits a single-scene boolean pool into equal contiguous
+blocks over the engine's ``shard_devices`` and walks each block on its
+device at one shared capacity (:meth:`CollisionEngine._exec_sharded`);
+verdicts and counters equal the unsharded engine's, and a device-loss
+error re-shards the pool over the survivors.  Without a CUDA device a CUDA
+engine raises; it never drops to the CPU by itself.  Options and plan
+shapes this port has not ported raise ``NotImplementedError`` naming the
+ROADMAP item that adds them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import logging
 import time
 import weakref
 from typing import List, Optional, Sequence, Tuple, Union
@@ -96,6 +104,10 @@ from repro_torch.kernels.persist.ops import (H100_L2_BYTES,
 from repro_torch.kernels.persist.ref import traverse_whole_ref
 from repro_torch.kernels.sact.ops import pack_aabbs, pack_obbs, sact_dense
 from repro_torch.kernels.traverse.ops import traverse_step
+from repro_torch.parallel.sharding import (make_collision_mesh,
+                                           visible_devices)
+
+logger = logging.getLogger(__name__)
 
 MODES = ("naive", "rta_like", "staged_noexit", "predicated", "wavefront_host",
          "wavefront", "wavefront_fused", "wavefront_persistent")
@@ -110,8 +122,20 @@ CSR_MODES = ("wavefront_fused", "wavefront_persistent")
 DEPTH_CAP_MODES = ("wavefront_host", "wavefront", "wavefront_fused")
 
 
-def _unported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+def device_loss_count(e: BaseException) -> Optional[int]:
+    """Classify an exception as the loss of shard devices: the number
+    lost, or None if ``e`` is no device loss.  As in the reference, an
+    error with a ``device_loss`` attribute (the injected
+    ``SimulatedDeviceLoss``, which carries ``lost``) or the token
+    ``DEVICE_LOST`` in its message (count unknown: one, and the relaunch
+    probes the rest).  No other CUDA error counts: a fault on the card
+    leaves its context unusable, which no re-shard in this process can
+    recover."""
+    if getattr(e, "device_loss", False):
+        return max(1, int(getattr(e, "lost", 1)))
+    if "DEVICE_LOST" in str(e):
+        return 1
+    return None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -572,14 +596,25 @@ def traversal_cache_info() -> dict:
     """The reference's cache report, under its keys.  PyTorch compiles no
     traversal, so here ``hits``, ``misses`` and ``entries`` count the
     multi-scene table memo (:func:`_scene_tables`: tables served from it,
-    tables built, tables held), ``sharded_entries`` is 0 (sharded
-    execution is ROADMAP A.8), and ``traces`` maps each (mode, batch kind,
+    tables built, tables held), and ``traces`` maps each (mode, batch kind,
     capacity, use_spheres, streamed, meta_format, max_depth) key that a
     device-mode walk has run to 1, its first use, which is where the
-    reference traces."""
+    reference traces; a sharded walk's key is (mode, "sharded", capacity,
+    use_spheres, streamed, shards, max_depth), and ``sharded_entries``
+    counts those keys."""
     return dict(hits=_TABLE_STATS["hits"], misses=_TABLE_STATS["misses"],
-                entries=len(_TABLE_CACHE), sharded_entries=0,
+                entries=len(_TABLE_CACHE),
+                sharded_entries=sum(k[1] == "sharded" for k in _TRACE_COUNTS),
                 traces=dict(_TRACE_COUNTS))
+
+
+def _on(device: torch.device):
+    """Run under ``device`` as the current CUDA device (a no-op context
+    for the CPU): a thread starts on card 0, whatever card it launches
+    for."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 class CollisionEngine:
@@ -595,16 +630,46 @@ class CollisionEngine:
 
     def __init__(self, octree: Union[Octree, List[Octree]],
                  config: EngineConfig = EngineConfig(),
-                 device=DEFAULT_DEVICE):
+                 device=DEFAULT_DEVICE, shard_devices=None):
         self.device = resolve_device(device)
-        if config.shards is not None:
-            raise _unported("sharded execution (EngineConfig.shards)", "A.8")
+        #: The devices a sharded engine (``config.shards``) may split its
+        #: pool over, shard ``s`` on entry ``s``: by default every visible
+        #: card, this engine's first (one ``cpu`` entry for a CPU
+        #: engine).  A list may repeat a device (the CPU tests stand in
+        #: for the reference's eight virtual devices so); ``set_shards``
+        #: and the batcher's autoscaler are bounded by its length.
+        self.shard_devices = self._shard_device_list(shard_devices)
+        if config.shards is not None and \
+                config.shards > len(self.shard_devices):
+            raise ValueError(
+                f"shards={config.shards} but the engine has "
+                f"{len(self.shard_devices)} shard device(s)")
         self.cfg = config
         # Last clean frontier capacity per (query shape, scene signature).
         self._cap_memo: dict = {}
         #: Frontier capacity of the last call's clean run.
         self.last_capacity: Optional[int] = None
+        #: Called with the shard count at the top of every sharded launch
+        #: attempt (the chaos harness installs one that raises a device
+        #: loss, so the re-shard below it runs).
+        self.device_fault_injector = None
+        # Surviving shard count after a device loss (None: all of
+        # cfg.shards); sticky until set_shards.
+        self._healthy_shards: Optional[int] = None
         self.rebind_octrees(octree)
+
+    def _shard_device_list(self, shard_devices) -> List[torch.device]:
+        if shard_devices is None:
+            if self.device.type != "cuda":
+                return [self.device]
+            own = torch.device("cuda", self.device.index
+                               if self.device.index is not None
+                               else torch.cuda.current_device())
+            return [own] + [d for d in visible_devices() if d != own]
+        devs = [resolve_device(d) for d in shard_devices]
+        if not devs:
+            raise ValueError("shard_devices must name at least one device")
+        return devs
 
     def rebind_octrees(self, octree: Union[Octree, List[Octree]]) -> None:
         """(Re)bind the engine to new scene(s), keeping config and caches;
@@ -624,17 +689,54 @@ class CollisionEngine:
         self._cap_memo = {k: v for k, v in self._cap_memo.items()
                           if k[-1] == self._scene_sig}
 
+    # The surface the collision service reads (the batcher's work-based
+    # admission, degraded mode and autoscaler).
+    @property
+    def scene_nodes(self) -> int:
+        """Total node count of the bound scene(s): the per-query factor of
+        the service's predicted-work admission estimate."""
+        return sum(self._scene_sig)
+
+    @property
+    def active_shards(self) -> Optional[int]:
+        """Shards the next sharded launch uses: ``cfg.shards`` less the
+        devices lost to device-loss recoveries; None when unsharded."""
+        if self.cfg.shards is None:
+            return None
+        return (self._healthy_shards if self._healthy_shards is not None
+                else self.cfg.shards)
+
     @property
     def supports_depth_cap(self) -> bool:
         """Whether ``execute(plan, max_depth=...)`` can cap this engine's
         traversal depth (the coarser half of the degraded mode)."""
         return self.cfg.mode in DEPTH_CAP_MODES
 
-    def _device_tree(self, fmt: str) -> DeviceOctree:
-        if fmt not in self._dev:
-            self._dev[fmt] = device_octree(self.octree, meta_format=fmt,
-                                           device=self.device)
-        return self._dev[fmt]
+    def set_shards(self, shards: int) -> None:
+        """Elastic width: split later launches over ``shards`` devices
+        (the batcher's autoscaler calls this between launches).  Resets
+        the device-loss bookkeeping, which is how a lost device rejoins."""
+        if self.cfg.shards is None:
+            raise ValueError(
+                "set_shards needs an engine constructed with cfg.shards; "
+                "unsharded engines have no collision mesh to resize")
+        n_dev = len(self.shard_devices)
+        if not 1 <= shards <= n_dev:
+            raise ValueError(
+                f"shards must be in [1, {n_dev}] (shard devices), "
+                f"got {shards}")
+        self.cfg = dataclasses.replace(self.cfg, shards=shards)
+        self._healthy_shards = None
+
+    def _device_tree(self, fmt: str, device=None) -> DeviceOctree:
+        """The scene's packed level tensors in ``fmt`` on ``device``
+        (default this engine's), built once a format and device."""
+        device = self.device if device is None else device
+        key = (fmt, str(device))
+        if key not in self._dev:
+            self._dev[key] = device_octree(self.octree, meta_format=fmt,
+                                           device=device)
+        return self._dev[key]
 
     @property
     def device_tree(self) -> DeviceOctree:
@@ -717,7 +819,9 @@ class CollisionEngine:
                     "run at full depth")
             if max_depth < 1:
                 raise ValueError(f"max_depth must be >= 1, got {max_depth}")
-        if self.cfg.mode == "naive":
+        if self.cfg.shards is not None:
+            value, counters = self._exec_sharded(plan, max_depth)
+        elif self.cfg.mode == "naive":
             value, counters = self._exec_naive(plan)
         elif self.cfg.device_resident:
             value, counters = self._exec_device(plan, max_depth)
@@ -732,6 +836,137 @@ class CollisionEngine:
         device."""
         return tuple(torch.as_tensor(x, dtype=torch.float32).to(self.device)
                      for x in (plan.obb_c, plan.obb_h, plan.obb_r))
+
+    def _exec_sharded(self, plan: QueryPlan,
+                      max_depth: Optional[int] = None):
+        """Sharded execute path (``cfg.shards``): the reference's
+        ``shard_map`` over its collision mesh as a host loop over devices.
+
+        The flat pool pads with zero OBBs to ``ceil(Q / shards) * shards``
+        slots and splits into equal contiguous blocks, block ``s`` on
+        ``shard_devices[s]`` (under ``torch.cuda.device`` there); each
+        block walks at the capacity a single-device run would use, its live
+        prefix ``clip(Q - s * q_shard, 0, q_shard)`` passed as
+        ``num_valid``, so pads add no work.  Every stat is summed over the
+        blocks, ``overflow`` is their max, and one escalation ladder
+        replays all blocks together.  Verdicts and counters equal the
+        unsharded engine's (``pad_queries`` aside, and ``escalations``
+        where a block's frontier stays within a capacity the whole pool's
+        outgrows).  The resident fp32 table is pinned, one copy a distinct
+        device, so ``meta_rows`` does not depend on the split.
+
+        A launch attempt that fails with a device-loss error
+        (:func:`device_loss_count`) re-shards the pool over the surviving
+        devices and relaunches; the reduced width sticks
+        (``active_shards``) until :meth:`set_shards`.  With no survivors
+        the error propagates, which the batcher turns into ``DeviceLost``.
+        Single-scene boolean plans only, as in the reference.
+        """
+        cfg = self.cfg
+        Q = plan.num_queries
+        if plan.num_scenes != 1:
+            raise ValueError(
+                "sharded execution serves single-scene plans; multi-scene "
+                "pools are single-device for now (DESIGN.md §6)")
+        if plan.grouped:
+            raise ValueError(
+                "sharded execution serves boolean plans; owner/payload "
+                "verdict groups span shards and stay single-device")
+        host = tuple(torch.as_tensor(x, dtype=torch.float32).cpu()
+                     for x in (plan.obb_c, plan.obb_h, plan.obb_r))
+        shards = self.active_shards
+        reshards = lost_total = 0
+        while True:
+            try:
+                if self.device_fault_injector is not None:
+                    self.device_fault_injector(shards)
+                devices = make_collision_mesh(shards, self.shard_devices)
+                q_shard = -(-Q // shards)
+                pad = q_shard * shards - Q
+                counts = [min(max(Q - s * q_shard, 0), q_shard)
+                          for s in range(shards)]
+                blocks = [self._shard_block(host, d, s * q_shard, q_shard)
+                          for s, d in enumerate(devices)]
+                memo_key = ("sharded", shards, Q, max_depth, self._scene_sig)
+
+                def run(cap, blocks=blocks, counts=counts):
+                    _TRACE_COUNTS.setdefault(
+                        (cfg.mode, "sharded", cap, cfg.use_spheres, False,
+                         len(blocks), max_depth), 1)
+                    # every block is launched before any is read back, so
+                    # blocks on different cards overlap
+                    outs = [self._run_block(blk, cap, nv, max_depth)
+                            for blk, nv in zip(blocks, counts)]
+                    verdict = torch.cat([v.cpu() for v, _ in outs])
+                    st = {k: torch.stack([o[1][k].cpu() for o in outs])
+                          for k in outs[0][1]}
+                    st = {k: (v.max(0).values if k == "overflow"
+                              else v.sum(0)) for k, v in st.items()}
+                    return verdict, st
+
+                verdict, st, cap, replays = _escalate(
+                    run, Q, self._capacity(Q), cfg,
+                    start=self._cap_memo.get(memo_key))
+                break
+            except Exception as e:
+                lost = device_loss_count(e)
+                if lost is None:
+                    raise
+                lost = min(lost, shards)
+                surviving = shards - lost
+                lost_total += lost
+                self._healthy_shards = max(surviving, 1)
+                if surviving < 1:
+                    logger.error(
+                        "collision mesh lost its last %d device(s); no "
+                        "survivors to re-shard onto: %s", lost, e)
+                    raise
+                reshards += 1
+                logger.warning(
+                    "device loss mid-launch (%d of %d shard devices); "
+                    "re-sharding the %d-query pool over the %d survivors",
+                    lost, shards, Q, surviving)
+                shards = surviving
+        self._cap_memo[memo_key] = cap
+        self.last_capacity = cap
+        counters = _stats_to_counters(st, cfg.mode, replays)
+        counters.pad_queries = pad
+        counters.reshards = reshards
+        counters.shards_lost = lost_total
+        return verdict[:Q].numpy(), counters
+
+    def _shard_block(self, host, device, start: int, size: int) -> dict:
+        """Block ``[start, start + size)`` of the host pool ``host`` (zero
+        OBBs past its end) on ``device``, with the fp32 table there."""
+        with _on(device):
+            c, h, r = (x[start:start + size].to(device) for x in host)
+            short = size - c.shape[0]
+            if short:
+                c, h = (torch.cat([x, x.new_zeros(short, 3)]) for x in (c, h))
+                r = torch.cat([r, r.new_zeros(short, 3, 3)])
+            blk = dict(device=device, obb_c=c, obb_h=h, obb_r=r,
+                       dev=self._device_tree("fp32", device))
+            if self.cfg.fused:
+                blk["obb"] = pack_obbs(c, h, r)
+        return blk
+
+    def _run_block(self, blk: dict, cap: int, num_valid: int,
+                   max_depth: Optional[int]):
+        """One block's walk at capacity ``cap`` on its device."""
+        cfg = self.cfg
+        with _on(blk["device"]):
+            if cfg.persistent:
+                return traverse_whole(blk["obb_c"], blk["obb_h"],
+                                      blk["obb_r"], blk["dev"], cap,
+                                      use_spheres=cfg.use_spheres,
+                                      streamed=False, num_valid=num_valid)
+            if cfg.fused:
+                return _traverse_fused(blk["obb"], blk["dev"], cap,
+                                       cfg.use_spheres, max_depth,
+                                       num_valid=num_valid)
+            return _traverse(blk["obb_c"], blk["obb_h"], blk["obb_r"],
+                             blk["dev"], cap, cfg.use_spheres, max_depth,
+                             num_valid=num_valid)
 
     def _exec_naive(self, plan: QueryPlan):
         """CUDA-baseline arm: every OBB against every leaf AABB, all 15

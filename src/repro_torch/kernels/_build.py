@@ -55,21 +55,26 @@ NVCC_FLAGS: List[str] = [
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+#: Guards the counts: the collision service launches from several threads.
+_COUNT_LOCK = threading.Lock()
 #: Compiler output of the last build (``-Xptxas -v`` register reports).
 last_build_log: Dict[str, str] = {}
 
 
 def count_launch(name: str) -> None:
-    _LAUNCHES[name] += 1
+    with _COUNT_LOCK:
+        _LAUNCHES[name] += 1
 
 
 def launch_counts() -> Dict[str, int]:
-    return dict(_LAUNCHES)
+    with _COUNT_LOCK:
+        return dict(_LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in _LAUNCHES:
+            _LAUNCHES[name] = 0
 
 
 def _nvcc() -> str:

@@ -29,6 +29,7 @@ lane holds query 0 and node 0, in range for every later gather.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, Sequence, Tuple
 
 import torch
@@ -45,8 +46,12 @@ _MIN_STATUS = 1024
 
 #: (device index, stream) -> (status words (int64), ticket (int32)).
 _SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
-#: The last generation tag handed to the kernel, in [1, 2**30).
+#: The last generation tag handed to the kernel, in [1, 2**30), and the
+#: lock it is drawn under: two host threads (a service's worker and a
+#: launch thread it abandoned) may launch on one stream, and two launches
+#: with one tag would read each other's status words as their own.
 _gen = 0
+_GEN_LOCK = threading.Lock()
 _launch = None
 #: The raw current stream of a device, without building a Stream object
 #: (a call is paced by the host: a few microseconds matter here).
@@ -83,8 +88,9 @@ def _scratch(dev: torch.device, stream: int, n_tiles: int):
 
 def _next_gen() -> int:
     global _gen
-    _gen = _gen % (2**30 - 1) + 1
-    return _gen
+    with _GEN_LOCK:
+        _gen = _gen % (2**30 - 1) + 1
+        return _gen
 
 
 def _refuse(mask, columns, n_out) -> None:

@@ -165,7 +165,9 @@ def test_engine_cuda_raises_without_cuda(scene):
 
 def test_unported_modes_and_options_raise(scene):
     tree, ttree, arrays = scene
-    with pytest.raises(NotImplementedError, match="A.8"):
+    # sharded execution (ROADMAP A.8, now ported) is bounded by the
+    # engine's shard devices: one on a CPU engine by default
+    with pytest.raises(ValueError, match="shard device"):
         CollisionEngine(ttree, EngineConfig(mode=PERSIST, shards=2),
                         device="cpu")
     # a multi-scene engine (ROADMAP A.5.6, now ported) takes plans of its

@@ -336,7 +336,7 @@ def _pool(arrays, n_pad, seed=3):
 def test_num_valid_prefix_walks_as_the_unpadded_pool(scenes, mode):
     """A pool padded past its live prefix gives the prefix's verdicts and
     the same counters: its pads seed nothing (the live prefix that the
-    sharded executor will pass, ROADMAP A.8)."""
+    sharded executor passes, `CollisionEngine._exec_sharded`)."""
     _, ttrees, arrays = scenes
     dev = toct.device_octree(ttrees[0], device="cpu")
     padded = _pool(arrays, 11)
@@ -418,5 +418,6 @@ def test_multi_scene_refusals_and_cache_info(scenes):
     assert set(info) == set(jexe.traversal_cache_info())
     assert info["hits"] >= before["hits"] + 1
     assert 1 <= info["entries"] <= texe._TABLE_CACHE_MAX
-    assert info["sharded_entries"] == 0
+    # ragged batches never take the sharded path (single-scene pools only)
+    assert info["sharded_entries"] == before["sharded_entries"]
     assert any(k[:2] == (FUSED, "single") for k in info["traces"])
