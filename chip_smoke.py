@@ -271,8 +271,30 @@ non-zero and prints no result):
    ``DeviceLost`` and never bisected; (d) degraded launches
    (``wavefront_fused``, ``degrade_queue`` 2, 32 clients): every verdict
    a superset of phase 8's, the coarser ones all flagged ``degraded``;
-27. one JSON line listing every kernel with its launches on the main paths
-   (``launches``, phases 8, 13, 17, 20, 21, 22, 23, 24, 25 and 26) and
+27. training on the card (``train_phase``): (a) the WKV6 backward kernel
+   (``wkv6_bwd.cu``) against ``wkv6_bwd_ref`` on ``kernels/wkv6/cases.py::
+   bwd_cases`` (T 33 and 256, D 64, three decay regimes, with and without
+   the final state's gradient, fp32 and bf16), bit for bit on a second
+   run, and at RWKV-6's training shape (B 8, H 32, T 1024, D 64, bf16
+   views) against autograd through ``wkv6_chunked_ref``, timed (the call,
+   the kernel alone) against its bound (bytes, or the chunked backward's
+   operations, as phase 17's; the step form's printed beside it); (b)
+   ``launch/train_planner.py``'s default (cubby, 65,536 points, depth 6,
+   ``wavefront_fused``, 6 expert episodes, 60 steps of B 32 on a
+   1,024-point cloud, FPS) with step 1 card against CPU (loss and every
+   gradient within ``PLANNER_GRAD_TOL``), the loss falling below 0.8x, the
+   8 gated plans against the CPU engine on the card's FK arrays, and
+   ``--full`` (widen 10, 24 episodes, 300 steps) the same way: step walls,
+   a traced step's busy share, peak memory, success and caught counts; (c)
+   RWKV-6 1.6B at full width and depth, bf16, B 8 x S 1024 in 4
+   microbatches, 5 steps through ``lm/train.py`` (launches: 2 ``wkv6`` and
+   1 ``wkv6_bwd`` a layer a microbatch a step), a checkpoint at step 2
+   restored into a fresh model and optimizer that runs steps 3-4 to the
+   uninterrupted run's bits, step walls, busy share and peak memory; (d)
+   its 2-layer fp32 cut card against CPU: loss, every gradient and two
+   AdamW steps within ``LM_TRAIN_TOL``;
+28. one JSON line listing every kernel with its launches on the main paths
+   (``launches``, phases 8, 13, 17, 20, 21, 22, 23, 24, 25, 26 and 27) and
    elsewhere (``check_launches``), error, times (for ``persist``, ``sact_dense``,
    ``fps`` and ``ballquery`` also ``kernel_ms``, the kernel alone by
    ``torch.profiler``; ``sact_dense``'s at ``naive``'s block shape, with
@@ -1304,6 +1326,517 @@ def service_phase(dev, card: str, main_launches: dict, add_check_launches,
         f"{counts} | {card}")
     log("26 service", f"phase {lap():.1f} s")
     return err
+
+
+#: Phase 27's sizes: the WKV6 backward at RWKV-6's training shape, the
+#: planner trainer's two widths (``launch/train_planner.py``'s default and
+#: ``--full``), RWKV-6 1.6B at full width and depth, and its 2-layer fp32
+#: cut card against CPU.
+TRAIN = dict(
+    bwd_shape=(8, 32, 1024, 64), bwd_reps=10,
+    scene_points=65536, depth=6, planner_steps=60, full_steps=300,
+    lm_batch=8, lm_seq=1024, lm_steps=5, lm_ckpt_every=3,
+    cut_layers=2, cut_batch=2, cut_seq=256, cut_opt_steps=2)
+#: The planner's step on the card against the CPU (PERF.md's planner
+#: tolerance): fp32 products summed in another order, TF32 off.
+PLANNER_GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
+#: The 2-layer fp32 RWKV-6 cut, card against CPU: loss, gradients and
+#: parameters after the optimizer steps (the forward's ``LM_FP32_TOL``).
+LM_TRAIN_TOL = dict(rtol=1e-4, atol=1e-4)
+# fp32 operations of the WKV6 backward's step-by-step recurrence a row and
+# step, printed beside its bound for the record: S's update (3 D^2), dr (2
+# D^2), dk, dv and rowsum(G (.) S) (2 D^2 each), G's update (3 D^2); the
+# bonus terms and w = exp(logw), ~12 D.
+OPS_WKV6_BWD_D2, OPS_WKV6_BWD_D = 14, 12
+
+
+def wkv6_bwd_bound(rows: int, T: int, D: int, nbytes: float):
+    """The WKV6 backward's bound, counted as the forward's: the larger of its
+    bytes' time and the chunked form's operations (chunks of L = 32 steps,
+    8-step sub-blocks, per row and chunk).  Tensor products, each three times
+    for the 3xTF32 split: the chunk's boundary state recomputed (2 L D^2), dO
+    S^T, r~^T dO (into dS), v dS^T and k~ dS (2 L D^2 each); A = r~ k~^T, dA k~
+    and dA^T r~ on the off-diagonal sub-blocks ((L^2 - 8 L) D each); dA = dO
+    v^T and A^T dO with the bonus on the diagonal (L (L + 1) D each).
+    Elementwise fp32: the cumsum (L D), the decayed r and k (3 L D each), the
+    bonus terms of dr, dk, dv and du (10 L D), the rescaling of dr~ and dk~ (2
+    L D), dlogw's products and reverse cumsum (4 L D), the diagonal sub-blocks
+    of A, dr and dk (5 a term of 28 pairs a sub-block each), the decays of S
+    and dS and dlogw's state term (4 D^2).
+    Returns (bound_ms, bound_by)."""
+    L_c, chunks = 32, rows * -(-T // 32)
+    tensor = 3 * chunks * (10 * L_c * D * D + 3 * (L_c * L_c - 8 * L_c) * D
+                           + 2 * L_c * (L_c + 1) * D)
+    elem = chunks * (L_c * D * (1 + 6 + 10 + 2 + 4)
+                     + 3 * (L_c // 8) * 28 * 5 * D + 4 * D * D)
+    t_ops = max(tensor / PEAK_TF32_PER_S, elem / PEAK_FP32_PER_S)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def train_phase(dev, card: str, main_launches: dict, add_check_launches,
+                lap, sizes: dict = TRAIN, check_kernels: bool = True):
+    """Phase 27: training on the card.
+
+    (a) the WKV6 backward kernel against its plain version
+    (``wkv6_bwd_ref``) on ``kernels/wkv6/cases.py::bwd_cases`` in fp32 and
+    bf16, bit for bit on a second run, and at RWKV-6's training shape
+    (bf16 (B, H, T, D) views) against autograd through
+    ``wkv6_chunked_ref``, timed; (b) ``launch/train_planner.py``'s default
+    (60 steps, FPS) with step 1 card against CPU, the loss falling, the 8
+    gated plans against the CPU engine on the card's FK arrays, then
+    ``--full``; (c) RWKV-6 1.6B trained 5 steps at full width and depth
+    through ``lm/train.py``, checkpointed at step 2 and resumed bit for
+    bit; (d) its 2-layer fp32 cut card against CPU: loss, every gradient
+    and two AdamW steps.  Returns the JSON line of ``wkv6_bwd``.
+    ``sizes`` and ``check_kernels`` let a rehearsal on the CPU run it at a
+    cut size (the timers and the profiler run only on the card)."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.core.geometry import NUM_LINKS, arm_link_obbs
+    from repro_torch.engine.executor import CollisionEngine, EngineConfig
+    from repro_torch.engine.plan import QueryPlan
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.wkv6 import ops as wkv6_ops
+    from repro_torch.kernels.wkv6.cases import (bwd_cases, make_case,
+                                                within_tol)
+    from repro_torch.kernels.wkv6.ref import wkv6_bwd_ref, wkv6_chunked_ref
+    from repro_torch.launch import train_planner as tp
+    from repro_torch.lm import train as lm_train
+    from repro_torch.models import api as lm_api
+    from repro_torch.models.planner import Planner
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import train_loop
+    S = sizes
+    on_card = dev.type == "cuda"
+    names = ("dr", "dk", "dv", "dlogw", "du")
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def peak_reset():
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+
+    def on_main(fn, want=(), tag=""):
+        """Run ``fn`` as a main path: launch counts set to 0 just before,
+        read just after, added to ``main_launches``."""
+        add_check_launches()
+        out = fn()
+        sync()
+        counts = _build.launch_counts()
+        _build.reset_launch_counts()
+        for name, n in counts.items():
+            main_launches[name] += n
+        for name in want:
+            if check_kernels and counts[name] < 1:
+                raise SystemExit(f"FAIL: 27 {tag}: {name} launched no time "
+                                 f"on the main path ({counts})")
+        return out, {k: n for k, n in counts.items() if n}
+
+    def busy(fn):
+        """(traced wall s, device s, the largest device kernels and host
+        operations) of one ``fn()`` under the profiler."""
+        if not on_card:
+            return 1.0, 0.0, ""
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        ev = prof.key_averages()
+        on_dev = [e for e in ev if e.device_type == DeviceType.CUDA]
+        dev_s = sum(device_us(e) for e in on_dev) / 1e6
+        host = [e for e in ev if e.device_type != DeviceType.CUDA]
+        top = ("card: " + "; ".join(
+            f"{e.key[:40]} {device_us(e) / 1e3:.1f} ms x{e.count}"
+            for e in sorted(on_dev, key=device_us, reverse=True)[:4])
+            + " | host, self: " + "; ".join(
+            f"{e.key[:32]} {e.self_cpu_time_total / 1e3:.1f} ms x{e.count}"
+            for e in sorted(host, key=lambda e: e.self_cpu_time_total,
+                            reverse=True)[:5]))
+        return wall, dev_s, top
+
+    def grads_of(x_outs, xs, g_outs):
+        got = torch.autograd.grad(x_outs, xs, g_outs)
+        sync()
+        return got
+
+    # ---- (a) the WKV6 backward against its plain version ----------------
+    n_cases = 0
+    for case in bwd_cases():
+        for dtype in (torch.float32, torch.bfloat16):
+            ins = [torch.from_numpy(case[n]).to(dev, dtype) for n in "rkv"]
+            ins += [torch.from_numpy(case[n]).to(dev)
+                    for n in ("logw", "u")]
+            do = torch.from_numpy(case["do"]).to(dev, dtype)
+            ds = (None if case["dstate"] is None
+                  else torch.from_numpy(case["dstate"]).to(dev))
+            runs = []
+            for _ in range(2):
+                xs = [x.clone().requires_grad_() for x in ins]
+                o, st = wkv6_ops.wkv6(*xs)
+                outs, gs = [o], [do]
+                if ds is not None:
+                    outs, gs = [o, st], [do, ds]
+                runs.append(grads_of(outs, xs, gs))
+            want = wkv6_bwd_ref(*ins, do, ds)
+            for name, g, g2, w in zip(names, runs[0], runs[1], want):
+                dn = ("float32" if name in ("dlogw", "du")
+                      else str(dtype)[6:])
+                ex = within_tol(g, w, dn)
+                if ex > 0 or not bool(g.isfinite().all()):
+                    raise SystemExit(f"FAIL: 27 wkv6_bwd {name} differs "
+                                     f"from plain on {case['name']} {dtype}"
+                                     f" (excess {ex:.3g})")
+                if not torch.equal(g, g2):
+                    raise SystemExit(f"FAIL: 27 wkv6_bwd {name} not "
+                                     f"deterministic on {case['name']}")
+            n_cases += 1
+    add_check_launches()
+    log("27 train", f"(a) wkv6_bwd within cases.TOL of wkv6_bwd_ref and"
+        f" bit for bit on a second run on {n_cases} cases (T 33/256, D 64, "
+        "ordinary/strong/weak decays, with and without dS, per-row and "
+        "shared u, fp32 and bf16)")
+
+    # RWKV-6's training shape: bf16 (B, H, T, D) views of (B, T, H, D)
+    Bq, H, T, D = S["bwd_shape"]
+    case = make_case(Bq * H, T, D, "ordinary", per_row_u=False, seed=27)
+    rs = np.random.RandomState(27)
+
+    def view(a, dt):
+        return (torch.from_numpy(a).to(dev, dt).reshape(Bq, H, T, D)
+                .transpose(1, 2).contiguous().transpose(1, 2))
+    heads = [view(case[n], dt) for n, dt in (
+        ("r", torch.bfloat16), ("k", torch.bfloat16),
+        ("v", torch.bfloat16), ("logw", torch.float32))]
+    u = torch.from_numpy((rs.normal(size=(H, D)) * 0.3)
+                         .astype(np.float32)).to(dev)
+    do = view(rs.normal(size=(Bq * H, T, D)).astype(np.float32),
+              torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        xs = [x.clone().requires_grad_() for x in heads + [u]]
+        o, _ = wkv6_ops.wkv6_heads(*xs)
+        runs.append(grads_of([o], xs, [do]))
+    fold = [x.reshape(Bq * H, T, D).clone().requires_grad_()
+            for x in heads]
+    u_rows = u[None].expand(Bq, H, D).reshape(Bq * H, D).clone()
+    u_rows.requires_grad_()
+    o_c, _ = wkv6_chunked_ref(*fold, u_rows)
+    want = grads_of([o_c], fold + [u_rows], [do.reshape(Bq * H, T, D)])
+    want = list(want[:4]) + [want[4].reshape(Bq, H, D).sum(0)]
+    del o_c, fold, u_rows
+    bwd_err = 0.0
+    for name, g, g2, w in zip(names, runs[0], runs[1], want):
+        g = g.reshape(w.shape)
+        dn = "float32" if name in ("dlogw", "du") else "bfloat16"
+        ex = within_tol(g, w, dn)
+        if ex > 0 or not torch.equal(runs[0][names.index(name)], g2):
+            raise SystemExit(f"FAIL: 27 wkv6_bwd {name} at RWKV-6's shape: "
+                             f"excess {ex:.3g} over autograd through "
+                             f"wkv6_chunked_ref, or not deterministic")
+        bwd_err = max(bwd_err, float((g.float() - w.float()).abs().max()))
+    del runs, want
+    add_check_launches()
+    xs = [x.detach() for x in heads + [u]]
+
+    def bwd_call():
+        return wkv6_ops._backward(*xs, do, None, True)
+
+    if on_card:
+        ms = cuda_time_ms(bwd_call, S["bwd_reps"])
+        kern_ms = kernel_device_ms(bwd_call, "wkv6_bwd_kernel",
+                                   S["bwd_reps"], "wkv6_bwd")
+        fold = [x.reshape(Bq * H, T, D) for x in xs[:4]]
+        u_rows = u[None].expand(Bq, H, D).reshape(Bq * H, D)
+        plain_ms = cuda_time_ms(
+            lambda: wkv6_bwd_ref(*fold, u_rows, do.reshape(Bq * H, T, D)),
+            1, warmup=0)
+        del fold, u_rows
+    else:
+        ms = kern_ms = plain_ms = float("nan")
+    add_check_launches()
+    rows = Bq * H
+    # read once: r, k, v, do (bf16), logw (fp32), u; written once: dr, dk,
+    # dv (bf16), dlogw (fp32), du
+    bwd_bytes = rows * T * D * (4 * 2 + 4 + 3 * 2 + 4) + 2 * H * D * 4
+    bms, by = wkv6_bwd_bound(rows, T, D, bwd_bytes)
+    step_ops = rows * T * (OPS_WKV6_BWD_D2 * D * D + OPS_WKV6_BWD_D * D)
+    step_bms = 1e3 * step_ops / PEAK_FP32_PER_S
+    line = dict(name="wkv6_bwd", route="cuda",
+                source="src/repro_torch/kernels/wkv6/csrc/wkv6_bwd.cu",
+                replaces="none: the reference differentiates "
+                         "src/repro/kernels/wkv6/ref.py:10 (wkv6_ref's "
+                         "lax.scan); the forward is "
+                         "src/repro/kernels/wkv6/kernel.py:27",
+                max_abs_err=bwd_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=None,
+                kernel_ms=kern_ms)
+    log("27 train", f"(a) wkv6_bwd at RWKV-6's training shape (B {Bq}, H "
+        f"{H}, T {T}, D {D}, bf16 views): within cases.TOL of autograd "
+        f"through wkv6_chunked_ref, deterministic, max abs err "
+        f"{bwd_err:.4g}; call {ms:.4f} ms, kernel on the card {kern_ms:.4f}"
+        f" ms (torch.profiler, {kern_ms / bms:.1f}x the bound), plain "
+        f"{plain_ms:.3f} ms, bound {bms:.5f} ms ({by}: {bwd_bytes} B; the "
+        f"chunked form's operations; the step form's {step_ops} fp32 "
+        f"operations would take {step_bms:.5f} ms) | {card}")
+    del heads, xs, do, u
+    log("27 train", f"(a) phase part {lap():.1f} s")
+
+    # ---- (b) planner training --------------------------------------------
+    def gate_on_cpu(data_cpu_engine, evals):
+        """Each gated plan's verdicts against the CPU engine handed the
+        card's FK arrays (C.15)."""
+        for i, e in enumerate(evals):
+            traj = torch.from_numpy(e["result"].trajectory).to(dev)
+            ob = arm_link_obbs(traj)
+            plan = QueryPlan(kind="trajectory", obb_c=ob.center.cpu(),
+                             obb_h=ob.half.cpu(), obb_r=ob.rot.cpu(),
+                             out_shape=(traj.shape[0], NUM_LINKS),
+                             reduce_last=True)
+            flags, _ = data_cpu_engine.execute(plan)
+            if not np.array_equal(np.asarray(flags),
+                                  e["result"].colliding_waypoints):
+                raise SystemExit(f"FAIL: 27 planner: gated plan {i}'s "
+                                 "verdicts differ from the CPU engine's on "
+                                 "the card's FK arrays")
+
+    for full in (False, True):
+        tag = "--full" if full else "default"
+        steps = S["full_steps"] if full else S["planner_steps"]
+        peak_reset()
+        t0 = time.perf_counter()
+        gen = torch.Generator().manual_seed(0)
+        cpu_planner = Planner(widen=10 if full else 1, generator=gen,
+                              device="cpu")
+        planner = copy.deepcopy(cpu_planner).to(dev)
+
+        def check_step1(data):
+            """Step 1 card against CPU: the same parameters and batch."""
+            idx = copy.deepcopy(data.rs).randint(0, len(data.qs), tp.BATCH)
+            gl, gg = tp.loss_and_grads(
+                planner, tp.batch_at(data, idx, dev), "fps", None)
+            wl, wg = tp.loss_and_grads(
+                cpu_planner, tp.batch_at(data, idx, "cpu"), "fps", None)
+            errs = {"loss": abs(float(gl) - float(wl))}
+            if not torch.allclose(gl.cpu(), wl, **PLANNER_GRAD_TOL):
+                raise SystemExit(f"FAIL: 27 planner step 1 loss card "
+                                 f"{float(gl)} vs CPU {float(wl)}")
+            for n, g in gg.items():
+                if not torch.allclose(g.cpu(), wg[n], **PLANNER_GRAD_TOL):
+                    raise SystemExit(f"FAIL: 27 planner step 1 gradient {n}"
+                                     " card vs CPU beyond "
+                                     f"{PLANNER_GRAD_TOL}")
+                errs[n] = float((g.cpu() - wg[n]).abs().max())
+            return max(errs.values())
+
+        def train_and_evaluate(data):
+            losses, walls = tp.train(planner, data, steps, "fps", log=None)
+            return losses, walls, tp.evaluate(planner, data, "fps", log=None)
+
+        data, c_setup = on_main(
+            lambda: tp.setup(full, dev, num_points=S["scene_points"],
+                             depth=S["depth"]),
+            ("traverse", "compact"), f"planner {tag} expert data")
+        if not full:
+            step1_err = check_step1(data)
+            add_check_launches()
+        (losses, walls, evals), c_train = on_main(
+            lambda: train_and_evaluate(data),
+            ("fps", "ballquery", "traverse", "compact"), f"planner {tag}")
+        counts = {k: c_setup.get(k, 0) + c_train.get(k, 0)
+                  for k in set(c_setup) | set(c_train)}
+        secs = time.perf_counter() - t0
+        peak = peak_gib()
+        # the default run's loss must fall below 0.8x its first, as
+        # test_substrate.py::test_planner_bc_loss_decreases asks of the
+        # reference; --full's is printed
+        if not (np.isfinite(losses).all()
+                and (full or losses[-1] < 0.8 * losses[0])):
+            raise SystemExit(f"FAIL: 27 planner {tag}: the loss did not fall"
+                             f" below 0.8x its first ({losses[0]:.4f} -> "
+                             f"{losses[-1]:.4f})")
+        cpu_engine = CollisionEngine(data.engine.octrees[0],
+                                     EngineConfig(mode="wavefront_fused"),
+                                     device="cpu")
+        gate_on_cpu(cpu_engine, evals)
+        ok = sum(e["collision_free"] and e["reached"] for e in evals)
+        caught = sum(not e["collision_free"] for e in evals)
+        traced = dataclasses.replace(data, rs=copy.deepcopy(data.rs))
+        w_tr, d_tr, top = busy(lambda: tp.train(planner, traced, 1, "fps",
+                                                log=None))
+        add_check_launches()
+        n_params = sum(p.numel() for p in planner.parameters())
+        warm = statistics.median(walls[min(5, len(walls) - 1):])
+        log("27 train", f"(b) planner {tag}: {n_params} parameters, "
+            f"{len(data.qs)} expert tuples, {steps} steps: loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}; warm step wall "
+            f"{1e3 * warm:.2f} ms (median of steps 5+), a traced step "
+            f"{1e3 * w_tr:.2f} ms, device {1e3 * d_tr:.2f} ms (busy "
+            f"{100 * d_tr / w_tr:.1f} %); {len(evals)} gated plans: "
+            f"success {ok}, caught {caught}, each == the CPU engine on the "
+            f"card's FK; main-path launches {counts}; peak mem "
+            f"{peak:.3f} GiB; {secs:.1f} s in all | {card}")
+        log("27 train", f"(b) planner {tag}, the traced step's largest: "
+            f"{top}")
+        if not full:
+            log("27 train", f"(b) step 1 card == CPU within "
+                f"{PLANNER_GRAD_TOL}: max abs err "
+                f"{step1_err:.3g} (loss and every "
+                "gradient)")
+        del planner, cpu_planner, data, evals
+    log("27 train", f"(b) phase part {lap():.1f} s")
+
+    # ---- (c) RWKV-6 1.6B training at full width and depth ------------------
+    cfg = get_config("rwkv6_1_6b")
+    micro = cfg.train_microbatches
+    shape = ShapeSpec("t", S["lm_seq"], S["lm_batch"], "train")
+    ck_dir = tempfile.mkdtemp(prefix="repro_torch_train_")
+    kw = dict(batch=S["lm_batch"], seq=S["lm_seq"], microbatches=micro,
+              ckpt_dir=ck_dir, device=dev, log=None)
+    try:
+        peak_reset()
+        t0 = time.perf_counter()
+        res, counts = on_main(
+            lambda: lm_train.train(cfg, S["lm_steps"],
+                                   ckpt_every=S["lm_ckpt_every"], **kw),
+            ("wkv6", "wkv6_bwd"), "rwkv6 training")
+        t_run = time.perf_counter() - t0
+        peak = peak_gib()
+        fwd_want = 2 * cfg.num_layers * micro * S["lm_steps"]
+        if check_kernels and (counts.get("wkv6") != fwd_want or counts.get(
+                "wkv6_bwd") != fwd_want // 2):
+            raise SystemExit(f"FAIL: 27 rwkv6 training launched {counts}; "
+                             f"want {fwd_want} wkv6 (forward and remat, a "
+                             f"layer a microbatch a step) and "
+                             f"{fwd_want // 2} wkv6_bwd")
+        if not (np.isfinite(res.losses).all()
+                and np.isfinite(res.grad_norms).all()):
+            raise SystemExit(f"FAIL: 27 rwkv6 training: losses "
+                             f"{res.losses}, grad norms {res.grad_norms}")
+        losses, gnorms, walls = res.losses, res.grad_norms, res.walls
+        n_weights = sum(p.numel() for p in res.model.parameters())
+        # kept on the card: a copy to the host of 16 GB would cost more
+        # than the steps
+        final = {k: v.detach().clone()
+                 for k, v in res.model.state_dict().items()}
+        final_opt = {key: {k: v.clone()
+                           for k, v in res.opt_state[key].items()}
+                     for key in ("m", "v")}
+        # one more step, traced (the model is done with)
+        batch = {key: torch.from_numpy(x).to(dev)
+                 for key, x in synth_batch(cfg, shape, 99).items()}
+        step_fn = train_loop.make_train_step(cfg, opt_mod.OptConfig(), micro)
+        w_tr, d_tr, top = busy(lambda: step_fn(res.model, res.opt_state,
+                                               batch))
+        del res, batch, step_fn
+        add_check_launches()
+        t0 = time.perf_counter()
+        again, _ = on_main(
+            lambda: lm_train.train(cfg, S["lm_steps"], ckpt_every=10 ** 6,
+                                   resume=True, **kw),
+            ("wkv6", "wkv6_bwd"), "rwkv6 resume")
+        t_resume = time.perf_counter() - t0
+        if again.start != S["lm_ckpt_every"]:
+            raise SystemExit(f"FAIL: 27 rwkv6 resume started at step "
+                             f"{again.start}")
+        diff = [k for k, v in again.model.state_dict().items()
+                if not torch.equal(v.detach(), final[k])]
+        diff += [f"{key}:{k}" for key in ("m", "v")
+                 for k, v in again.opt_state[key].items()
+                 if not torch.equal(v, final_opt[key][k])]
+        if diff or again.losses != losses[again.start:]:
+            raise SystemExit(f"FAIL: 27 rwkv6 resume from step "
+                             f"{again.start - 1} differs from the "
+                             f"uninterrupted run: {diff[:4]}, losses "
+                             f"{again.losses} vs {losses[again.start:]}")
+        del again, final, final_opt
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    warm = statistics.median(walls[1:])
+    tokens = S["lm_batch"] * S["lm_seq"]
+    log("27 train", f"(c) {cfg.name}: {n_weights} weights, bf16, B "
+        f"{S['lm_batch']} x S {S['lm_seq']} in {micro} microbatches, "
+        f"{S['lm_steps']} steps through lm/train.py: losses "
+        + ", ".join(f"{x:.4f}" for x in losses) + "; grad norms "
+        + ", ".join(f"{x:.3f}" for x in gnorms)
+        + f"; step walls " + ", ".join(f"{1e3 * x:.1f}" for x in walls)
+        + f" ms (warm median {1e3 * warm:.1f} ms, {tokens / warm:.0f} "
+        f"tokens/s); a traced step {1e3 * w_tr:.1f} ms, device "
+        f"{1e3 * d_tr:.1f} ms (busy {100 * d_tr / w_tr:.1f} %); main-path "
+        f"launches {counts}; peak mem {peak:.3f} GiB; the run {t_run:.1f} s"
+        f" (steps {sum(walls):.1f} s; the rest the draw of the weights, "
+        f"the checkpoint's copy to the host and its writer) | {card}")
+    log("27 train", f"(c) the traced step's largest: {top}")
+    log("27 train", f"(c) checkpoint at step {S['lm_ckpt_every'] - 1}, a "
+        f"fresh model and optimizer restored from it ran steps "
+        f"{S['lm_ckpt_every']}-{S['lm_steps'] - 1} in {t_resume:.1f} s "
+        "(draw, restore, steps): parameters and moments equal the "
+        "uninterrupted run's bit for bit")
+    log("27 train", f"(c) phase part {lap():.1f} s")
+
+    # ---- (d) the 2-layer fp32 cut, card against CPU -------------------------
+    cut = cfg.replace(num_layers=S["cut_layers"], param_dtype="float32",
+                      compute_dtype="float32")
+    cpu_lm = lm_api.init_params(cut, torch.Generator().manual_seed(7),
+                                device="cpu")
+    card_lm = copy.deepcopy(cpu_lm).to(dev)
+    batch = synth_batch(cut, ShapeSpec("t", S["cut_seq"], S["cut_batch"],
+                                       "train"), 0)
+    loss_fn = lm_api.make_loss_fn(cut)
+    ocfg = opt_mod.OptConfig()
+    sides = {}
+    for tag, model, d in (("card", card_lm, dev), ("cpu", cpu_lm, "cpu")):
+        b = {key: torch.from_numpy(x).to(d) for key, x in batch.items()}
+        params = dict(model.named_parameters())
+        state = opt_mod.init_opt_state(params, ocfg)
+        for i in range(S["cut_opt_steps"]):
+            loss, _ = loss_fn(model, b)
+            grads = dict(zip(params, torch.autograd.grad(
+                loss, list(params.values()))))
+            if i == 0:
+                first = (loss.detach(), grads)
+            opt_mod.adamw_update(params, grads, state, ocfg,
+                                 opt_mod.stacked_decay)
+        sides[tag] = (first, {k: v.detach() for k, v in params.items()})
+    add_check_launches()
+    ((l_c, g_c), p_c), ((l_h, g_h), p_h) = sides["card"], sides["cpu"]
+    errs = {"loss": abs(float(l_c) - float(l_h))}
+    pairs = ([("loss", l_c, l_h)] + [(f"grad {k}", g, g_h[k])
+                                     for k, g in g_c.items()]
+             + [(f"param {k}", p, p_h[k]) for k, p in p_c.items()])
+    for name, a, b in pairs:
+        a = a.cpu()
+        if not torch.allclose(a, b, **LM_TRAIN_TOL):
+            raise SystemExit(f"FAIL: 27 rwkv6 {S['cut_layers']}-layer fp32 "
+                             f"{name}: card vs CPU beyond {LM_TRAIN_TOL} "
+                             f"(max err {float((a - b).abs().max()):.3g})")
+        kind = name.split()[0]
+        errs[kind] = max(errs.get(kind, 0.0), float((a - b).abs().max()))
+    del cpu_lm, card_lm, sides
+    log("27 train", f"(d) {cfg.name} at full width, {S['cut_layers']} "
+        f"layers, fp32 (TF32 off), B {S['cut_batch']} x S {S['cut_seq']}: "
+        f"loss, every gradient and the parameters after "
+        f"{S['cut_opt_steps']} AdamW steps card == CPU within "
+        f"{LM_TRAIN_TOL}; max err " + ", ".join(
+            f"{k} {v:.3g}" for k, v in errs.items()) + f" | {card}")
+    log("27 train", f"(d) phase part {lap():.1f} s")
+    return line
 
 
 def main() -> int:
@@ -3971,10 +4504,14 @@ def main() -> int:
                             lap, svc_tree, svc_obbs, svc_runs)
     persist_line["max_abs_err"] = max(persist_line["max_abs_err"], svc_err)
 
-    # ---- 27. result -------------------------------------------------------
-    # launches on every main path (phases 8, 13, 17, 20, 21, 22, 23, 24, 25
-    # and 26) and in the checks
-    log("27 result", f"whole script {time.perf_counter() - t_start:.1f} s")
+    # ---- 27. training on the card ------------------------------------------
+    lines.append(train_phase(cuda, card, main_launches, add_check_launches,
+                             lap))
+
+    # ---- 28. result -------------------------------------------------------
+    # launches on every main path (phases 8, 13, 17, 20, 21, 22, 23, 24, 25,
+    # 26 and 27) and in the checks
+    log("28 result", f"whole script {time.perf_counter() - t_start:.1f} s")
     for line in lines:
         line["launches"] = main_launches[line["name"]]
         line["check_launches"] = check_launches[line["name"]]

@@ -6,14 +6,16 @@ The reference's ``Octree`` is handed over as plain numpy arrays
 becomes this package's :class:`repro_torch.core.octree.Octree`; its
 ``OccupancyGrid`` becomes a :class:`repro_torch.core.mcl.OccupancyGrid`;
 the reference planner's parameter
-tree becomes a :class:`repro_torch.models.planner.Planner` state dict, and
-the reference LM's a :class:`repro_torch.models.transformer.LM` state
-dict.  So both packages can run on one scene, one planner and one LM
-without this package importing the other.
+tree becomes a :class:`repro_torch.models.planner.Planner` state dict, the
+reference LM's a :class:`repro_torch.models.transformer.LM` state dict,
+and an optimizer state of either (``m``, ``v``, ``step``) the port's
+(:func:`opt_state_from_reference`).  So both packages can run on one
+scene, one planner and one LM, and train them, without this package
+importing the other.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence
+from typing import Callable, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -181,3 +183,26 @@ def lm_from_reference(cfg, params: Mapping) -> Dict[str, torch.Tensor]:
         for layer in range(L):
             state[f"blocks.{layer}.{name}"] = _tensor(stacked[layer])
     return state
+
+
+def opt_state_from_reference(state: Mapping,
+                             params_to_state: Callable[[Mapping], Dict]
+                             ) -> Dict:
+    """The reference's ``init_opt_state`` / ``adamw_update`` state (``m``
+    and ``v`` trees of numpy arrays shaped as the parameters, ``step``) as
+    the port's (:func:`repro_torch.train.optimizer.init_opt_state`'s
+    layout).  ``params_to_state`` converts a parameter-shaped tree:
+    :func:`planner_from_reference` (its transposes) or
+    ``functools.partial(lm_from_reference, cfg)`` (its unstacking).  The
+    moments keep their dtype (fp32, or bf16 for ``state_dtype=
+    "bfloat16"``); the tensors lie on the CPU."""
+    out = {}
+    for key in ("m", "v"):
+        bf16 = any(np.asarray(x).dtype.name == "bfloat16"
+                   for x in _flatten(state[key]).values())
+        conv = params_to_state(state[key])
+        out[key] = {name: (t.to(torch.bfloat16) if bf16 else t)
+                    for name, t in conv.items()}
+    out["step"] = torch.tensor(int(np.asarray(state["step"])),
+                               dtype=torch.int32)
+    return out

@@ -6,7 +6,8 @@ CUDA tensors and the plain version
 tensors; a build or launch failure raises, and so do what the kernel
 cannot run: another head width than 16, 32, 64 or 128, mixed devices or
 dtypes, and inputs that need a gradient (the kernel has no backward, as
-the reference's has none; training is ROADMAP A.11).
+the reference's has none; the flash-attention backward and GLM-4
+training are the next item of ROADMAP A.11).
 
 The kernel replaces the reference's ``flash_attention/kernel.py::
 flash_kernel``; the tensor cores bound it (4 d operations a causal pair:
@@ -101,8 +102,10 @@ def _check(q, k, v) -> None:
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         raise NotImplementedError(
-            "flash_attention has no backward (training is ROADMAP A.11); "
-            "call it under torch.no_grad() or torch.inference_mode()")
+            "flash_attention has no backward yet (the flash-attention "
+            "backward and GLM-4 training are the next item of ROADMAP "
+            "A.11); call it under torch.no_grad() or "
+            "torch.inference_mode()")
     step = 16 // q.element_size()
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.stride(3) != 1 or any(s % step for s in x.stride()[:3]):

@@ -1,9 +1,11 @@
-"""Inputs that stress the WKV6 kernel, and the tolerance it is held to.
+"""Inputs that stress the WKV6 kernels, and the tolerances they are held to.
 
 Shared by the CPU tests and the card checks (``chip_smoke.py``,
 ``tests/test_torch_kernels_gpu.py``).  Each case is a dict of numpy
 arrays ``r``, ``k``, ``v``, ``logw`` (BH, T, D) float32 and ``u`` (BH, D)
-or (D,) float32, plus its ``name``.
+or (D,) float32, plus its ``name``; a backward case
+(:func:`make_bwd_case`) adds ``do`` (BH, T, D) and ``dstate`` (BH, D, D)
+or None, the gradients of the output and of the final state.
 """
 from __future__ import annotations
 
@@ -81,7 +83,13 @@ def edge_cases(BH: int = 3) -> List[Dict]:
 #: differences), the plain version the step-by-step recurrence in einsum
 #: order: the two differ by a few roundings of 2**-24 relative to the
 #: largest terms.  bf16 outputs: the same, and a rounding to bf16 that the
-#: fp32 difference may flip, one bf16 ulp (2**-7 relative).
+#: fp32 difference may flip, one bf16 ulp (2**-7 relative).  The backward
+#: kernel is held to the same values: it and its plain version (the reverse
+#: recurrence) walk the same recurrence in fp32, the kernel summing each
+#: row's terms by columns and shuffles, the plain version in einsum order,
+#: so they too differ by a few roundings relative to the largest terms,
+#: which the state's gradient makes up to T times an output's gradient
+#: under weak decay (hence atol against max|want|).
 TOL = {"float32": dict(atol=2e-5, rtol=0.0),
        "bfloat16": dict(atol=2e-5, rtol=2.0 ** -7)}
 
@@ -93,3 +101,40 @@ def within_tol(got, want, dtype_name: str) -> float:
     scale = max(1.0, float(want.abs().max())) if want.numel() else 1.0
     bound = tol["atol"] * scale + tol["rtol"] * want.abs()
     return float(((got - want).abs() - bound).max()) if want.numel() else 0.0
+
+
+def make_bwd_case(BH: int, T: int, D: int, decay: str = "ordinary",
+                  per_row_u: bool = True, with_dstate: bool = True,
+                  seed: int = 0) -> Dict:
+    """A forward case and the gradients that flow into it: ``do`` of the
+    output's scale and, with ``with_dstate``, ``dstate`` of the final
+    state's."""
+    case = make_case(BH, T, D, decay, per_row_u, seed)
+    rs = np.random.RandomState(seed + 7919)
+    case["do"] = rs.normal(size=(BH, T, D)).astype(np.float32)
+    case["dstate"] = ((rs.normal(size=(BH, D, D)) * 0.5).astype(np.float32)
+                      if with_dstate else None)
+    case["name"] += f" dS={'given' if with_dstate else 'none'}"
+    return case
+
+
+#: The backward kernel's lengths: past one chunk of any width's, and the
+#: model's training steps a few chunks deep; D the model's 64.
+BWD_LENGTHS = (33, 256)
+
+
+def bwd_cases(BH: int = 3, D: int = 64, lengths=BWD_LENGTHS) -> List[Dict]:
+    """Every decay regime (ordinary; strong, where ``w`` underflows and a
+    gradient that multiplies it must vanish, not blow up; weak, where the
+    state's gradient keeps growing over the whole sequence) at each length,
+    with and without the final state's gradient, per-row and shared
+    ``u`` in turn."""
+    out, seed = [], 2000
+    for T in lengths:
+        for decay in DECAYS:
+            for with_dstate in (True, False):
+                seed += 1
+                out.append(make_bwd_case(BH, T, D, decay, seed % 2 == 0,
+                                         with_dstate, seed))
+    return out
+

@@ -1,4 +1,4 @@
-"""Dispatch for the WKV6 kernel.
+"""Dispatch for the WKV6 kernels: the forward and its backward.
 
 :func:`wkv6` and :func:`wkv6_heads` run the CUDA kernel (``csrc/wkv6.cu``:
 the chunked form, chunks of 32 steps with their products on the tensor
@@ -12,18 +12,24 @@ Both start from a zero state and return ``(o, final state)``.  ``r``,
 comes back in r's dtype and layout, the state in fp32.  The four inputs
 share one layout with a unit stride on the last axis, so the (B, H, T, D)
 view of a model's (B, T, H, D) projections goes in as it lies.  The
-kernel takes D <= 128 and has no backward (the reference's kernel has no
-VJP): on the card, inputs that need a gradient raise.
+kernel takes D <= 128.
+
+When grad mode is on and an input needs a gradient, both go through
+:class:`WKV6Function`: its forward is the same kernel (or plain version),
+its backward the backward kernel (``csrc/wkv6_bwd.cu``, one CTA a row and
+a fixed-order sum of ``du`` over the rows that share a bonus row, so two
+runs give the same bits) on CUDA tensors and its plain version
+(:func:`repro_torch.kernels.wkv6.ref.wkv6_bwd_ref`) on CPU tensors.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.wkv6.ref import wkv6_ref
+from repro_torch.kernels.wkv6.ref import wkv6_bwd_ref, wkv6_ref
 
 #: Widest key/value width the kernel takes.
 MAX_D = 128
@@ -93,11 +99,6 @@ def _launch(r, k, v, logw, u, B: int, H: int, sb: int, sh: int, st: int,
     if strides[-1] != 1:
         raise ValueError(f"wkv6 needs a unit stride on the last axis, got "
                          f"strides {strides}")
-    if torch.is_grad_enabled() and any(
-            x.requires_grad for x in (r, k, v, logw, u)):
-        raise NotImplementedError(
-            "wkv6 kernel has no backward (training is ROADMAP A.11); call "
-            "it under torch.no_grad() or torch.inference_mode()")
     if u.stride(-1) != 1:
         raise ValueError(f"wkv6 needs u with a unit stride on its last axis, "
                          f"got strides {u.stride()}")
@@ -116,6 +117,144 @@ def _launch(r, k, v, logw, u, B: int, H: int, sb: int, sh: int, st: int,
     return o, state
 
 
+def _bwd_lib():
+    lib = _build.load("wkv6_bwd")
+    fn = lib.wkv6_bwd_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                       + [ctypes.c_longlong] * 5 + [ctypes.c_int]
+                       + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p] * 3)
+        fn.restype = ctypes.c_int
+        lib.wkv6_bwd_workspace.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.wkv6_bwd_workspace.restype = ctypes.c_longlong
+    return lib
+
+
+def _launch_bwd(r, k, v, logw, u, do, dstate, B: int, H: int, sb: int,
+                sh: int, st: int, sub: int, suh: int, du_groups: int,
+                du_shape) -> Tuple[torch.Tensor, ...]:
+    """One backward launch over the B*H rows of :func:`_launch`, and the
+    fixed-order sum of each row's ``du`` into ``du_shape``: row b*H + h adds
+    to group (b*H + h) % du_groups.  ``do`` and the gradients share r's
+    layout; ``dstate`` is (B*H, D, D) fp32 or None."""
+    T, D = r.shape[-2], r.shape[-1]
+    strides = r.stride()
+    if do.stride() != strides or do.dtype != r.dtype:
+        do = torch.empty_strided(r.shape, strides, dtype=r.dtype,
+                                 device=r.device).copy_(do)
+    if dstate is not None:
+        dstate = dstate.to(torch.float32).reshape(B * H, D, D).contiguous()
+    grads = [torch.empty_strided(r.shape, strides, dtype=dt, device=r.device)
+             for dt in (r.dtype, r.dtype, r.dtype, torch.float32)]
+    du = torch.empty(du_shape, dtype=torch.float32, device=r.device)
+    if T == 0 or B * H == 0:
+        for g in grads:
+            g.zero_()
+        return (*grads, du.zero_())
+    lib = _bwd_lib()
+    du_rows = torch.empty((B * H, D), dtype=torch.float32, device=r.device)
+    ckpt = torch.empty(B * H * lib.wkv6_bwd_workspace(T, D),
+                       dtype=torch.float32, device=r.device)
+    dr, dk, dv, dlogw = grads
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.wkv6_bwd_launch(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
+            u.data_ptr(), do.data_ptr(),
+            None if dstate is None else dstate.data_ptr(), B, H, T, D, sb,
+            sh, st, sub, suh, int(r.dtype == torch.bfloat16), dr.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), dlogw.data_ptr(), du.data_ptr(),
+            B * H // du_groups, du_groups, du_rows.data_ptr(),
+            ckpt.data_ptr(), stream)
+    _build.check(status, "wkv6_bwd")
+    _build.count_launch("wkv6_bwd")
+    return dr, dk, dv, dlogw, du
+
+
+def _fold(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, T, D) -> (B*H, T, D)."""
+    return x.reshape(-1, *x.shape[-2:])
+
+
+def _forward(r, k, v, logw, u, heads: bool):
+    """The forward of :func:`wkv6` (``heads`` False) or :func:`wkv6_heads`
+    on checked inputs: the kernel on the card, the plain version on the
+    CPU."""
+    if heads:
+        B, H, T, D = r.shape
+        if r.device.type == "cpu":
+            o, s = wkv6_ref(_fold(r), _fold(k), _fold(v), _fold(logw),
+                            u[None].expand(B, H, D).reshape(B * H, D))
+            return o.reshape(B, H, T, D), s.reshape(B, H, D, D)
+        u = u if u.stride(-1) == 1 else u.contiguous()
+        sb, sh, st, _ = r.stride()
+        o, s = _launch(r, k, v, logw, u, B, H, sb, sh, st, 0, u.stride(0))
+        return o, s.reshape(B, H, D, D)
+    if r.device.type == "cpu":
+        return wkv6_ref(r, k, v, logw, u)
+    BH = r.shape[0]
+    u = u if u.stride(-1) == 1 else u.contiguous()
+    sub = u.stride(0) if u.ndim == 2 else 0
+    return _launch(r, k, v, logw, u, BH, 1, r.stride(0), 0, r.stride(1), sub,
+                   0)
+
+
+def _backward(r, k, v, logw, u, do, dstate, heads: bool):
+    """The gradients of :func:`_forward` as ``(dr, dk, dv, dlogw, du)``, in
+    the inputs' dtypes and shapes (``du`` fp32): the backward kernel on the
+    card, its plain version on the CPU."""
+    if heads:
+        B, H, T, D = r.shape
+        if r.device.type == "cpu":
+            ds = None if dstate is None else dstate.reshape(B * H, D, D)
+            dr, dk, dv, dlogw, du = wkv6_bwd_ref(
+                _fold(r), _fold(k), _fold(v), _fold(logw),
+                u[None].expand(B, H, D).reshape(B * H, D), _fold(do), ds)
+            return (dr.reshape(r.shape), dk.reshape(r.shape),
+                    dv.reshape(r.shape), dlogw.reshape(r.shape),
+                    du.reshape(B, H, D).sum(0))
+        u = u if u.stride(-1) == 1 else u.contiguous()
+        sb, sh, st, _ = r.stride()
+        return _launch_bwd(r, k, v, logw, u, do, dstate, B, H, sb, sh, st,
+                           0, u.stride(0), H, (H, D))
+    if r.device.type == "cpu":
+        return wkv6_bwd_ref(r, k, v, logw, u, do, dstate)
+    BH, _, D = r.shape
+    u = u if u.stride(-1) == 1 else u.contiguous()
+    sub = u.stride(0) if u.ndim == 2 else 0
+    return _launch_bwd(r, k, v, logw, u, do, dstate, BH, 1, r.stride(0), 0,
+                       r.stride(1), sub, 0, BH if u.ndim == 2 else 1,
+                       tuple(u.shape))
+
+
+class WKV6Function(torch.autograd.Function):
+    """WKV6 with a gradient: forward :func:`_forward`, backward
+    :func:`_backward` (the backward kernel on the card).  ``heads`` picks
+    :func:`wkv6_heads`' form over :func:`wkv6`'s.  A gradient that no
+    output received (the final state's, in training) is taken as 0."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, heads: bool):
+        ctx.set_materialize_grads(False)
+        ctx.heads = heads
+        ctx.save_for_backward(r, k, v, logw, u)
+        return _forward(r, k, v, logw, u, heads)
+
+    @staticmethod
+    def backward(ctx, do, dstate):
+        r, k, v, logw, u = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(r)
+        dr, dk, dv, dlogw, du = _backward(r, k, v, logw, u, do, dstate,
+                                          ctx.heads)
+        return dr, dk, dv, dlogw, du, None
+
+
+def _needs_grad(*xs) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          logw: torch.Tensor, u: torch.Tensor
          ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -124,13 +263,10 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if r.ndim != 3:
         raise ValueError(f"wkv6 wants (BH, T, D), got {tuple(r.shape)}")
     BH, T, D = r.shape
-    dev = _check(r, k, v, logw, u, ((D,), (BH, D)))
-    if dev.type == "cpu":
-        return wkv6_ref(r, k, v, logw, u)
-    u = u if u.stride(-1) == 1 else u.contiguous()
-    sub = u.stride(0) if u.ndim == 2 else 0
-    return _launch(r, k, v, logw, u, BH, 1, r.stride(0), 0, r.stride(1), sub,
-                   0)
+    _check(r, k, v, logw, u, ((D,), (BH, D)))
+    if _needs_grad(r, k, v, logw, u):
+        return WKV6Function.apply(r, k, v, logw, u, False)
+    return _forward(r, k, v, logw, u, False)
 
 
 def wkv6_heads(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -145,14 +281,7 @@ def wkv6_heads(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if u.shape != (H, D):
         raise ValueError(f"wkv6_heads: u has shape {tuple(u.shape)}, want "
                          f"({H}, {D})")
-    dev = _check(r, k, v, logw, u, ((H, D),))
-    if dev.type == "cpu":
-        def fold(x):
-            return x.reshape(B * H, T, D)
-        o, s = wkv6_ref(fold(r), fold(k), fold(v), fold(logw),
-                        u[None].expand(B, H, D).reshape(B * H, D))
-        return o.reshape(B, H, T, D), s.reshape(B, H, D, D)
-    u = u if u.stride(-1) == 1 else u.contiguous()
-    sb, sh, st, _ = r.stride()
-    o, s = _launch(r, k, v, logw, u, B, H, sb, sh, st, 0, u.stride(0))
-    return o, s.reshape(B, H, D, D)
+    _check(r, k, v, logw, u, ((H, D),))
+    if _needs_grad(r, k, v, logw, u):
+        return WKV6Function.apply(r, k, v, logw, u, True)
+    return _forward(r, k, v, logw, u, True)

@@ -10,10 +10,12 @@ with key/value width D and a data-dependent per-channel decay
 Contract (also of ``csrc/wkv6.cu``): ``r``, ``k``, ``v``, ``logw``
 (BH, T, D); ``u`` one bonus row per batch·head row (BH, D), or (D,) shared
 by all; fp32 inside; ``o`` in r's dtype, the final state (BH, D, D) fp32.
+:func:`wkv6_bwd_ref` is the plain version of the backward kernel,
+``csrc/wkv6_bwd.cu``.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -41,6 +43,57 @@ def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = (torch.stack(outs, 1) if outs
          else torch.zeros((BH, 0, D), dtype=torch.float32, device=r.device))
     return o.to(r.dtype), S
+
+
+def wkv6_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 logw: torch.Tensor, u: torch.Tensor, do: torch.Tensor,
+                 dstate: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, ...]:
+    """Plain version of ``csrc/wkv6_bwd.cu``: the gradients of
+    :func:`wkv6_ref`'s outputs, given ``do`` (BH, T, D), the gradient of
+    ``o``, and ``dstate`` (BH, D, D), that of the final state (None: 0).
+
+    The explicit reverse recurrence, in fp32.  With ``G_t`` the gradient of
+    ``S_t`` (``G_{T-1} = dstate``), walking t down from T - 1::
+
+        dr_t    = S_{t-1} do_t + u ⊙ k_t (do_t · v_t)
+        dk_t    = G_t v_t + r_t ⊙ u (do_t · v_t)
+        dv_t    = G_tᵀ k_t + (r_t · (u ⊙ k_t)) do_t
+        dlogw_t = w_t ⊙ rowsum(G_t ⊙ S_{t-1})
+        du     += r_t ⊙ k_t (do_t · v_t)
+        G_{t-1} = diag(w_t) G_t + r_t do_tᵀ
+
+    Returns ``(dr, dk, dv, dlogw, du)``: dr, dk, dv in r's dtype, dlogw
+    fp32, du fp32 in u's shape ((BH, D), or (D,) summed over the rows).
+    Every state S_{t-1} is kept, so memory grows as T BH D²."""
+    BH, T, D = r.shape
+    f32 = dict(dtype=torch.float32, device=r.device)
+    w = torch.exp(logw.float())
+    uf = u.float()
+    ur = uf[None].expand(BH, D) if u.ndim == 1 else uf
+    rf, kf, vf, gf = r.float(), k.float(), v.float(), do.float()
+    S = torch.zeros((BH, D, D), **f32)
+    prev = []
+    for t in range(T):
+        prev.append(S)
+        S = w[:, t, :, None] * S + kf[:, t, :, None] * vf[:, t, None, :]
+    G = (torch.zeros((BH, D, D), **f32) if dstate is None
+         else dstate.float())
+    dr, dk, dv, dlogw = (torch.zeros((BH, T, D), **f32) for _ in range(4))
+    du = torch.zeros((BH, D), **f32)
+    for t in reversed(range(T)):
+        rt, kt, vt, gt, wt = rf[:, t], kf[:, t], vf[:, t], gf[:, t], w[:, t]
+        dov = (gt * vt).sum(-1, keepdim=True)
+        rku = (rt * ur * kt).sum(-1, keepdim=True)
+        dr[:, t] = torch.einsum("bij,bj->bi", prev[t], gt) + ur * kt * dov
+        dk[:, t] = torch.einsum("bij,bj->bi", G, vt) + rt * ur * dov
+        dv[:, t] = torch.einsum("bij,bi->bj", G, kt) + rku * gt
+        dlogw[:, t] = wt * (G * prev[t]).sum(-1)
+        du += rt * kt * dov
+        G = wt[:, :, None] * G + rt[:, :, None] * gt[:, None, :]
+    if u.ndim == 1:
+        du = du.sum(0)
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dlogw, du)
 
 
 def wkv6_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

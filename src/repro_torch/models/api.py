@@ -1,14 +1,19 @@
-"""Model API used by the server.
+"""Model API used by the server and the trainer.
 
 Counterpart of ``repro.models.api`` for the ``dense`` (attention) and
 ``ssm`` (RWKV-6) families: ``init_params`` builds the model,
 ``make_prefill_fn`` and ``make_decode_fn`` return the serving functions,
-which run under ``torch.inference_mode()`` (the kernels have no
-backward).  Prefill pads the attention KV caches to the decode horizon
-with the reference's ``_pad_caches`` (the identity for RWKV's O(1)
-state).  The other families, training (``make_loss_fn``) and the
-abstract shapes of the dry-run are not ported (ROADMAP A.11): each
-function raises for them.
+which run under ``torch.inference_mode()``, and ``make_loss_fn`` the
+training loss, which runs in grad mode where its caller asks for a
+gradient.  The RWKV-6 gradient runs on the card (the WKV6 backward
+kernel); the ``dense`` family's loss runs on the card under
+``torch.no_grad()``, but its gradient meets the flash kernel, which has no
+backward yet (the next item of ROADMAP A.11).  ``batch_spec`` gives a
+batch's shapes as ``meta`` tensors (the reference's ShapeDtypeStructs).
+Prefill pads the attention KV caches to the decode horizon with the
+reference's ``_pad_caches`` (the identity for RWKV's O(1) state).  The
+other families and the abstract shapes of the dry-run are not ported
+(ROADMAP A.11): each function raises for them.
 """
 from __future__ import annotations
 
@@ -18,6 +23,10 @@ import torch
 
 from repro_torch.core.device import DEFAULT_DEVICE
 from repro_torch.models import transformer as tfm
+from repro_torch.models.common import softmax_cross_entropy
+
+#: Weight of the MoE balance term in the loss, as the reference's.
+AUX_LOSS_WEIGHT = 0.01
 
 
 def init_params(cfg, generator: Optional[torch.Generator] = None,
@@ -25,6 +34,32 @@ def init_params(cfg, generator: Optional[torch.Generator] = None,
     """The model with weights drawn from ``generator`` (see
     :class:`repro_torch.models.transformer.LM`)."""
     return tfm.LM(cfg, generator, device)
+
+
+def batch_spec(cfg, shape) -> Dict[str, torch.Tensor]:
+    """One global batch of this (arch, shape) as ``meta`` tensors: int32
+    ``tokens`` (B, S) and, for a ``train`` shape, ``labels``."""
+    tfm.require_ported(cfg)
+    B, S = shape.global_batch, shape.seq_len
+    spec = {"tokens": torch.empty((B, S), dtype=torch.int32, device="meta")}
+    if shape.kind == "train":
+        spec["labels"] = torch.empty((B, S), dtype=torch.int32,
+                                     device="meta")
+    return spec
+
+
+def make_loss_fn(cfg) -> Callable:
+    """``loss_fn(model, batch)`` -> ``(loss, {"xent", "moe_aux"})``: the
+    token-mean cross entropy of ``batch["labels"]`` under the logits of
+    ``batch["tokens"]``, plus :data:`AUX_LOSS_WEIGHT` times the MoE term
+    (0 for the ported families)."""
+    tfm.require_ported(cfg)
+
+    def loss_fn(model: tfm.LM, batch: Dict):
+        logits, aux, _ = model.lm_forward(batch["tokens"], with_aux=True)
+        loss = softmax_cross_entropy(logits, batch["labels"])
+        return loss + AUX_LOSS_WEIGHT * aux, {"xent": loss, "moe_aux": aux}
+    return loss_fn
 
 
 def make_prefill_fn(cfg, max_len: Optional[int] = None) -> Callable:

@@ -2,8 +2,8 @@
 
 Counterpart of ``repro.models.common`` (``dtype_of``, ``dense_init``,
 ``embed_init``, ``rmsnorm``, ``layernorm``, ``init_norm``, ``apply_norm``,
-``rope_freqs``, ``apply_rope``, ``activation``).  The cross entropy waits
-for training (ROADMAP A.11).  The reference's sharding hints
+``rope_freqs``, ``apply_rope``, ``activation``, ``softmax_cross_entropy``).
+The reference's sharding hints
 (``shard_hint``, ``shard_hint_spec``, ``BATCH_AXES``) have no counterpart:
 the port runs a model on one card.  The port's random streams differ from
 ``jax.random``: weights that must agree with the reference are carried
@@ -120,6 +120,22 @@ def activation(name: str):
     if name == "relu2":             # nemotron squared-ReLU
         return lambda x: torch.relu(x).square()
     raise ValueError(name)
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          z_loss: float = 0.0) -> torch.Tensor:
+    """Stable token-mean cross entropy; logits (..., V) taken in fp32,
+    labels (...) integer ids.  ``z_loss`` adds ``z_loss * logsumexp²`` a
+    token, as the reference.  The label's logit is a gather (the
+    reference's masked reduction picks the same one value; it avoids a
+    gather only for a vocabulary sharded over devices)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * lse.square()
+    return loss.mean()
 
 
 def dense_linear(c_in: int, c_out: int, generator: Optional[torch.Generator],

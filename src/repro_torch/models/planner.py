@@ -1,16 +1,18 @@
 """MpiNet-lite: neural motion planner = PointNet++ encoder + MLP policy.
 
-Counterpart of ``repro.models.planner`` (serving: ``planner_apply``,
-``encode_cloud``, ``rollout``; ``planner_loss`` and training wait for
-ROADMAP A.10).  The policy predicts the next joint-space delta from (cloud
-feature, current configuration, goal), is rolled out autoregressively,
-and is always validated by the explicit collision gate
-(:mod:`repro_torch.core.pipeline`): the paper's safety argument (section
-II-B).
+Counterpart of ``repro.models.planner``: serving (``planner_apply``,
+``encode_cloud``, ``rollout``) and training (:func:`planner_loss`, which
+behaviour-clones an expert; the trainer is
+:mod:`repro_torch.launch.train_planner`).  The policy predicts the next
+joint-space delta from (cloud feature, current configuration, goal), is
+rolled out autoregressively, and is always validated by the explicit
+collision gate (:mod:`repro_torch.core.pipeline`): the paper's safety
+argument (section II-B).  Where the reference passes a parameter tree,
+the port passes the :class:`Planner` module.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -84,3 +86,18 @@ class Planner(nn.Module):
         is encoded once per plan (static scene, as in MpiNet)."""
         feat = self.encode_cloud(cloud, sampling, generator)
         return self.policy_rollout(feat, q0, goal, num_steps)
+
+
+def planner_loss(planner: Planner, batch: Dict, sampling: str = "fps",
+                 generator: Optional[torch.Generator] = None
+                 ) -> Tuple[torch.Tensor, Dict]:
+    """Behaviour cloning: the mean square error between the policy's delta
+    on (cloud feature, q, goal) and ``batch["expert_delta"]``; ``batch``
+    holds ``cloud`` (B, N, 3), ``q``, ``goal``, ``expert_delta`` (B, 7) on
+    the planner's device.  Returns ``(mse, {"mse": mse})``.  The FPS and
+    ball-query kernels give indices only; the gradient flows through the
+    encoder's gathers, MLPs and max-pools."""
+    feat = planner.encode_cloud(batch["cloud"], sampling, generator)
+    pred = planner(feat, batch["q"], batch["goal"])
+    mse = (pred - batch["expert_delta"]).square().mean()
+    return mse, {"mse": mse}

@@ -11,7 +11,10 @@ run.  The two per-neighbour MLP layers are plain ``nn.Linear`` products.
 
 Masking follows the reference exactly: -1 neighbour slots are clamped to
 0 before gathering (torch gathers do not clamp), set to ``-inf`` before
-the max, and an empty ball pools to 0.
+the max, and an empty ball pools to 0.  The pools are ``torch.amax``,
+whose gradient splits evenly among tied maxima as ``jnp.max``'s does
+(``Tensor.max(dim)`` would send it all to one): a point that a ball
+holds twice ties with itself.
 """
 from __future__ import annotations
 
@@ -87,7 +90,7 @@ class SetAbstraction(nn.Module):
             g = torch.cat([g, feats[rows, safe]], -1)
         h = torch.relu(self.mlp2(torch.relu(self.mlp1(g))))
         h = h.masked_fill((nidx < 0)[..., None], float("-inf"))
-        pooled = h.max(dim=2).values
+        pooled = torch.amax(h, dim=2)
         pooled = torch.where(torch.isfinite(pooled), pooled, 0.0)  # empty balls
         return SAOutput(center_idx=cidx, centers=centers, neighbor_idx=nidx,
                         count=count, feats=pooled)
@@ -123,4 +126,4 @@ class PointNetEncoder(nn.Module):
         :meth:`encode_layers`."""
         layers = self.encode_layers(xyz, sampling, generator,
                                     **radii_and_counts)
-        return layers[-1].feats.max(dim=1).values
+        return torch.amax(layers[-1].feats, dim=1)

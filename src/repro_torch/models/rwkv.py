@@ -5,7 +5,10 @@ Counterpart of ``repro.models.rwkv``.  Parameters keep the names, layouts
 ``init_rwkv_block``.  The sequence form of the time mix (prefill, no
 state) runs the WKV6 recurrence through
 :func:`repro_torch.kernels.wkv6.ops.wkv6_heads`: the CUDA kernel on the
-card, its plain version on the CPU.  Decode carries O(1) state per layer,
+card, its plain version on the CPU; in training its gradient to r, k, v,
+logw and ``u`` comes from the backward kernel
+(:class:`repro_torch.kernels.wkv6.ops.WKV6Function`, its plain version
+on the CPU).  Decode carries O(1) state per layer,
 ``{"wkv": (B, H, D, D) fp32, "tm_shift": (B, d), "cm_shift": (B, d)}``,
 and takes one token at a time with :func:`wkv_step`, tensor code in fp32
 (the reference runs that step as its scan, not a kernel).  The decay is

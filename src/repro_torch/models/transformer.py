@@ -5,8 +5,11 @@ Counterpart of ``repro.models.transformer`` for the ``attn`` block type
 attention-free RWKV-6 stack (``rwkv``, the ``ssm`` family): an embedding,
 ``num_layers`` blocks in an ``nn.ModuleList`` (the reference stacks them
 on a leading L axis for ``lax.scan``; here a Python loop runs them), the
-final norm and an untied ``lm_head``.  The ``hybrid`` block type, MoE,
-tied embeddings, prefix embeddings, sliding windows, remat and the
+final norm and an untied ``lm_head``.  Under ``cfg.remat`` and grad mode
+each block runs through ``torch.utils.checkpoint`` (non-reentrant), as
+the reference remats each scanned layer: its activations are recomputed
+in the backward, its kernel launched a second time.  The ``hybrid`` block
+type, MoE, tied embeddings, prefix embeddings, sliding windows and the
 sharding hints are not ported (ROADMAP A.11).
 
 Decode caches keep the reference's layout, stacked L-leading:
@@ -22,6 +25,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import attention as attn
@@ -133,26 +137,38 @@ class LM(nn.Module):
         return apply_norm(self.ln_f, x, self.cfg) @ self.lm_head
 
     def lm_forward(self, tokens: torch.Tensor, collect_cache: bool = False,
-                   last_only: bool = False
-                   ) -> Tuple[torch.Tensor, Optional[Dict]]:
-        """tokens (B, S) -> (logits (B, S, V), caches or None).
+                   last_only: bool = False, with_aux: bool = False):
+        """tokens (B, S) -> (logits (B, S, V), caches or None), or with
+        ``with_aux`` the reference's ``(logits, aux, caches)``: ``aux`` is
+        the MoE balance term, an fp32 0 for the ported families.
 
         ``last_only`` unembeds only the last position (logits (B, 1, V)),
         all that prefill returns.  On the card every block runs one kernel
         launch: the WKV6 recurrence (``rwkv``) or the flash attention
-        (``attn``).
+        (``attn``); in training under ``cfg.remat``, two.
         """
         x = self._embed(tokens)
         positions = torch.arange(tokens.shape[1], device=x.device)
+        remat = (self.cfg.remat and torch.is_grad_enabled()
+                 and not collect_cache)
         caches = []
         for block in self.blocks:
-            x, cache = block_seq(block, x, self.cfg, positions,
-                                 collect_cache)
+            if remat:
+                x = checkpoint(_block_out, block, x, self.cfg, positions,
+                               use_reentrant=False)
+                cache = None
+            else:
+                x, cache = block_seq(block, x, self.cfg, positions,
+                                     collect_cache)
             caches.append(cache)
         if last_only:
             x = x[:, -1:]
         logits = self._unembed(x)
-        return logits, (_stack(caches) if collect_cache else None)
+        caches = _stack(caches) if collect_cache else None
+        if with_aux:
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            return logits, aux, caches
+        return logits, caches
 
     forward = lm_forward
 
@@ -172,6 +188,12 @@ class LM(nn.Module):
         logits = self._unembed(x)[:, 0]
         return logits, (caches if self.cfg.block_type == "attn"
                         else _stack(new))
+
+
+def _block_out(block, x: torch.Tensor, cfg,
+               positions: torch.Tensor) -> torch.Tensor:
+    """One block's output over a full sequence (the remat body)."""
+    return block_seq(block, x, cfg, positions, False)[0]
 
 
 def _layer(tree: Dict, layer: int) -> Dict:

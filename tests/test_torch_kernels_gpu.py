@@ -65,9 +65,10 @@ from repro_torch.kernels.traverse import ops as traverse_ops
 from repro_torch.kernels.traverse.cases import grazing_frontier
 from repro_torch.kernels.traverse.ref import traverse_test_ref
 from repro_torch.kernels.wkv6 import ops as wkv6_ops
-from repro_torch.kernels.wkv6.cases import (edge_cases, hard_cases,
-                                            make_case, within_tol)
-from repro_torch.kernels.wkv6.ref import wkv6_ref
+from repro_torch.kernels.wkv6.cases import (bwd_cases, edge_cases,
+                                            hard_cases, make_case,
+                                            within_tol)
+from repro_torch.kernels.wkv6.ref import wkv6_bwd_ref, wkv6_ref
 from repro_torch.models import api as lm_api
 from repro_torch.models.planner import Planner
 from repro_torch.models.transformer import LM
@@ -1120,6 +1121,140 @@ def test_wkv6_heads_kernel_reads_the_model_layout(cuda, D):
     assert within_tol(s.reshape(B * H, D, D), want_s, "float32") <= 0
 
 
+def _wkv6_grads(ins, do, dstate, heads=False):
+    """The gradients of (r, k, v, logw, u) through the wrappers' autograd
+    function, and the backward kernel's launches."""
+    xs = [x.detach().clone().requires_grad_() for x in ins]
+    before = _build.launch_counts()["wkv6_bwd"]
+    o, s = (wkv6_ops.wkv6_heads if heads else wkv6_ops.wkv6)(*xs)
+    outs, grads = [o], [do]
+    if dstate is not None:
+        outs.append(s)
+        grads.append(dstate)
+    got = torch.autograd.grad(outs, xs, grads)
+    torch.cuda.synchronize()
+    return got, _build.launch_counts()["wkv6_bwd"] - before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", bwd_cases(), ids=lambda c: c["name"])
+def test_wkv6_bwd_kernel_matches_plain_and_is_deterministic(cuda, case,
+                                                            dtype):
+    """The backward kernel against the reverse recurrence on every decay
+    regime, with and without the final state's gradient; two runs give the
+    same bits (no atomics)."""
+    ins = _wkv6_inputs(case, cuda, dtype)
+    do = torch.from_numpy(case["do"]).to(cuda, dtype)
+    ds = (None if case["dstate"] is None
+          else torch.from_numpy(case["dstate"]).to(cuda))
+    got, n = _wkv6_grads(ins, do, ds)
+    assert n == 1
+    want = wkv6_bwd_ref(*ins, do, ds)
+    names = ("dr", "dk", "dv", "dlogw", "du")
+    for name, g, w, x in zip(names, got, want, ins):
+        assert g.dtype == x.dtype and g.shape == x.shape, name
+        assert bool(g.isfinite().all()), name
+        dname = "float32" if name in ("dlogw", "du") else str(dtype)[6:]
+        assert within_tol(g, w, dname) <= 0, name
+    again, _ = _wkv6_grads(ins, do, ds)
+    for name, a, b in zip(names, got, again):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("decay", ["ordinary", "strong"])
+def test_wkv6_bwd_heads_at_model_width(cuda, decay):
+    """bf16 (B, H, T, D) views of (B, T, H, D) projections at the model's
+    D = 64, a bonus row per head: the gradients come back in the views'
+    layout and ``du`` is the sum over the batch rows of each head."""
+    B, H, T, D = 2, 3, 100, 64
+    case = make_case(B * H, T, D, decay, per_row_u=False, seed=11)
+    rs = np.random.RandomState(11)
+    u = torch.from_numpy(rs.normal(size=(H, D)).astype(np.float32)).to(cuda)
+
+    def view(a, dt):
+        return (torch.from_numpy(a).to(cuda, dt).reshape(B, H, T, D)
+                .transpose(1, 2).contiguous().transpose(1, 2))
+    views = [view(case[n], dt) for n, dt in (
+        ("r", torch.bfloat16), ("k", torch.bfloat16), ("v", torch.bfloat16),
+        ("logw", torch.float32))]
+    do = view(rs.normal(size=(B * H, T, D)).astype(np.float32),
+              torch.bfloat16)
+    got, n = _wkv6_grads(views + [u], do, None, heads=True)
+    assert n == 1
+    assert got[0].stride() == views[0].stride()
+    fold = [x.reshape(B * H, T, D) for x in views + [do]]
+    want = wkv6_bwd_ref(*fold[:4], u[None].expand(B, H, D).reshape(-1, D),
+                        fold[4])
+    for i, (name, dname) in enumerate((("dr", "bfloat16"),
+                                       ("dk", "bfloat16"),
+                                       ("dv", "bfloat16"),
+                                       ("dlogw", "float32"))):
+        assert within_tol(got[i].reshape(B * H, T, D), want[i],
+                              dname) <= 0, name
+    assert within_tol(got[4], want[4].reshape(B, H, D).sum(0),
+                          "float32") <= 0
+
+
+def test_planner_training_step_card_matches_cpu(cuda):
+    """One behaviour-cloning step (``launch/train_planner.py``'s loss and
+    gradients, then AdamW) on the card against the same planner and batch
+    on the CPU: the loss, every gradient and the updated parameters within
+    the planner tolerance of PERF.md (rtol 1e-4, atol 1e-5; fp32 products
+    summed in another order, TF32 off).  The learning rate is the warm-up's
+    first (3e-6): AdamW moves a weight by about lr whatever the
+    gradient's size, so a larger one would turn a gradient within rounding
+    of 0 into a difference of 2 lr."""
+    from repro_torch.launch import train_planner as tp
+    from repro_torch.train import optimizer as opt_mod
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rs = np.random.RandomState(0)
+    B = 8
+    host = {"cloud": rs.uniform(-1, 1, (B, 1024, 3)),
+            "q": rs.uniform(-1, 1, (B, 7)), "goal": rs.uniform(-1, 1, (B, 7)),
+            "expert_delta": rs.uniform(-0.4, 0.4, (B, 7))}
+    cpu = Planner(device="cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    cfg = opt_mod.OptConfig(lr=3e-4, warmup_steps=100, weight_decay=0.01)
+    tol = dict(rtol=1e-4, atol=1e-5)
+    before = _build.launch_counts()
+    out = {}
+    for name, model, dev in (("card", card, cuda), ("cpu", cpu, "cpu")):
+        batch = {k: torch.from_numpy(v.astype(np.float32)).to(dev)
+                 for k, v in host.items()}
+        loss, grads = tp.loss_and_grads(model, batch, "fps", None)
+        params = dict(model.named_parameters())
+        opt_mod.adamw_update(params, grads, opt_mod.init_opt_state(
+            params, cfg), cfg)
+        out[name] = (loss, grads, {k: p.detach() for k, p in params.items()})
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    assert after["fps"] - before["fps"] == 3
+    assert after["ballquery"] - before["ballquery"] == 3
+    (lc, gc, pc), (lh, gh, ph) = out["card"], out["cpu"]
+    assert torch.allclose(lc.cpu(), lh, **tol)
+    for n in gh:
+        assert torch.allclose(gc[n].cpu(), gh[n], **tol), n
+        assert torch.allclose(pc[n].cpu(), ph[n], **tol), n
+
+
+def test_dense_family_gradient_raises_on_the_card(cuda):
+    """GLM-4's loss runs on the card under ``no_grad``; its gradient meets
+    the flash kernel's refusal, which names the next item of ROADMAP A.11
+    (the flash-attention backward), on CUDA tensors as on CPU ones."""
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.configs.base import ShapeSpec
+    cfg = get_smoke_config("glm4_9b")
+    model = lm_api.init_params(cfg, device=cuda)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in synth_batch(
+        cfg, ShapeSpec("t", 32, 2, "train"), 0).items()}
+    loss_fn = lm_api.make_loss_fn(cfg)
+    with torch.no_grad():
+        loss, _ = loss_fn(model, batch)
+    assert bool(loss.isfinite())
+    with pytest.raises(NotImplementedError, match="next item of ROADMAP"):
+        loss_fn(model, batch)
+
+
 def test_wkv6_kernel_rejects_what_it_cannot_run(cuda):
     case = make_case(2, 8, 16, seed=1)
     r, k, v, logw, u = _wkv6_inputs(case, cuda, torch.float32)
@@ -1129,8 +1264,9 @@ def test_wkv6_kernel_rejects_what_it_cannot_run(cuda):
     with pytest.raises(ValueError, match="one layout"):
         wkv6_ops.wkv6(r, k.transpose(0, 1).contiguous().transpose(0, 1), v,
                       logw, u)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        wkv6_ops.wkv6(r.requires_grad_(), k, v, logw, u)
+    with pytest.raises(ValueError, match="unit stride"):
+        wkv6_ops.wkv6(*(x.transpose(1, 2).contiguous().transpose(1, 2)
+                        .requires_grad_() for x in (r, k, v, logw)), u)
     big = torch.zeros((1, 4, 129), device=cuda)
     with pytest.raises(ValueError, match="D <= 128"):
         wkv6_ops.wkv6(big, big, big, big, torch.zeros(129, device=cuda))
