@@ -293,10 +293,37 @@ non-zero and prints no result):
    uninterrupted run's bits, step walls, busy share and peak memory; (d)
    its 2-layer fp32 cut card against CPU: loss, every gradient and two
    AdamW steps within ``LM_TRAIN_TOL``;
-28. one JSON line listing every kernel with its launches on the main paths
-   (``launches``, phases 8, 13, 17, 20, 21, 22, 23, 24, 25, 26 and 27) and
+28. dense-transformer training on the card (``dense_train_phase``): (a)
+   the flash-attention backward kernel (``flash_attn_bwd.cu``) against
+   ``flash_attention_bwd_ref`` on ``kernels/flash_attention/cases.py::
+   bwd_cases`` (d 16-128, groups of 1, 3, 9 and 16, causal and not, Tq !=
+   Tk, Tk no multiple of a key tile, both layouts, x8 scores in fp32; fp32
+   and bf16) within ``cases.BWD_TOL``, the forward's lse against
+   ``attention_lse_ref``'s, bit for bit on a second call, and at GLM-4
+   9B's training microbatch (q (2, 32, 4096, 128), k and v (2, 2, 4096,
+   128), causal, bf16 views of (B, T, H, d)) against the fp32 plain
+   version, timed (the call, the two kernels alone by ``torch.profiler``)
+   against its bound, plain version and ``scaled_dot_product_attention``'s
+   backward, with the forward timed with and without its lse; (b) GLM-4
+   9B at full width cut to 8 of its 40 layers (its full depth's weights,
+   gradients and moments do not fit one card), bf16, B 8 x S 4096 in 4
+   microbatches, 5 steps through ``lm/train.py`` (launches: 2
+   ``flash_attention`` and 1 ``flash_attention_bwd`` a layer a microbatch
+   a step, nothing else), finite losses and gradient norms, step walls,
+   tokens/s, a traced step's busy share, peak memory under the card's;
+   (c) the 2-layer fp32 cuts of GLM-4 (group 16) and StarCoder2 (group 9)
+   at full width card against CPU (``flash_fp32`` and the fp32 backward):
+   loss, every gradient and two AdamW steps within ``LM_TRAIN_TOL``; (d)
+   StarCoder2 7B at full width and depth through phases 19 and 20's
+   functions (``dense_cut_vs_cpu``, ``dense_serve``): its 2-layer fp32 cut
+   card against CPU, the full bf16 serve (32 ``flash_attention`` a
+   prefill), the kernel on the captured prefill inputs, walls and
+   consistency;
+29. one JSON line listing every kernel with its launches on the main paths
+   (``launches``, phases 8, 13, 17, 20, 21, 22, 23, 24, 25, 26, 27 and 28) and
    elsewhere (``check_launches``), error, times (for ``persist``, ``sact_dense``,
-   ``fps`` and ``ballquery`` also ``kernel_ms``, the kernel alone by
+   ``fps``, ``ballquery``, ``wkv6_bwd`` and ``flash_attention_bwd`` also
+   ``kernel_ms``, the kernel alone by
    ``torch.profiler``; ``sact_dense``'s at ``naive``'s block shape, with
    phase 10's plane as ``plane_*``; for ``ballquery`` also
    ``single_plan``, the single plan's three layers) and bound; the
@@ -1375,6 +1402,79 @@ def wkv6_bwd_bound(rows: int, T: int, D: int, nbytes: float):
                                        else "operations")
 
 
+def traced_busy(fn, on_card: bool):
+    """(traced wall s, device s, the largest device kernels and host
+    operations) of one ``fn()`` under the profiler; a run off the card
+    gives (1, 0, "")."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    if not on_card:
+        return 1.0, 0.0, ""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = prof.key_averages()
+    on_dev = [e for e in ev if e.device_type == DeviceType.CUDA]
+    dev_s = sum(device_us(e) for e in on_dev) / 1e6
+    host = [e for e in ev if e.device_type != DeviceType.CUDA]
+    top = ("card: " + "; ".join(
+        f"{e.key[:40]} {device_us(e) / 1e3:.1f} ms x{e.count}"
+        for e in sorted(on_dev, key=device_us, reverse=True)[:4])
+        + " | host, self: " + "; ".join(
+        f"{e.key[:32]} {e.self_cpu_time_total / 1e3:.1f} ms x{e.count}"
+        for e in sorted(host, key=lambda e: e.self_cpu_time_total,
+                        reverse=True)[:5]))
+    return wall, dev_s, top
+
+
+def lm_train_card_vs_cpu(cut, card_lm, cpu_lm, dev, batch: dict,
+                         opt_steps: int, phase: str) -> dict:
+    """The loss, every gradient and the parameters after ``opt_steps``
+    AdamW steps of ``card_lm`` on ``dev`` against ``cpu_lm`` (the same
+    weights) on the CPU, on one host ``batch``, within ``LM_TRAIN_TOL``.
+    Returns the largest error of each kind."""
+    import torch
+    from repro_torch.models import api as lm_api
+    from repro_torch.train import optimizer as opt_mod
+    loss_fn = lm_api.make_loss_fn(cut)
+    ocfg = opt_mod.OptConfig()
+    sides = {}
+    for tag, model, d in (("card", card_lm, dev), ("cpu", cpu_lm, "cpu")):
+        b = {key: torch.from_numpy(x).to(d) for key, x in batch.items()}
+        params = dict(model.named_parameters())
+        state = opt_mod.init_opt_state(params, ocfg)
+        for i in range(opt_steps):
+            loss, _ = loss_fn(model, b)
+            grads = dict(zip(params, torch.autograd.grad(
+                loss, list(params.values()))))
+            if i == 0:
+                first = (loss.detach(), grads)
+            opt_mod.adamw_update(params, grads, state, ocfg,
+                                 opt_mod.stacked_decay)
+        sides[tag] = (first, {k: v.detach() for k, v in params.items()})
+    ((l_c, g_c), p_c), ((l_h, g_h), p_h) = sides["card"], sides["cpu"]
+    errs = {"loss": abs(float(l_c) - float(l_h))}
+    pairs = ([("loss", l_c, l_h)] + [(f"grad {k}", g, g_h[k])
+                                     for k, g in g_c.items()]
+             + [(f"param {k}", p, p_h[k]) for k, p in p_c.items()])
+    # compared where the card's tensors lie: the CPU's copied over once
+    # (at full width the CPU would take tens of seconds for the same sums)
+    for name, a, b in pairs:
+        b = b.to(a.device)
+        err = float((a - b).abs().max())
+        if not torch.allclose(a, b, **LM_TRAIN_TOL):
+            raise SystemExit(f"FAIL: {phase} {cut.name} fp32 {name}: card "
+                             f"vs CPU beyond {LM_TRAIN_TOL} (max err "
+                             f"{err:.3g})")
+        kind = name.split()[0]
+        errs[kind] = max(errs.get(kind, 0.0), err)
+    return errs
+
+
 def train_phase(dev, card: str, main_launches: dict, add_check_launches,
                 lap, sizes: dict = TRAIN, check_kernels: bool = True):
     """Phase 27: training on the card.
@@ -1397,8 +1497,6 @@ def train_phase(dev, card: str, main_launches: dict, add_check_launches,
     import tempfile
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.base import ShapeSpec, get_config
     from repro_torch.data.pipeline import synth_batch
     from repro_torch.core.geometry import NUM_LINKS, arm_link_obbs
@@ -1448,28 +1546,7 @@ def train_phase(dev, card: str, main_launches: dict, add_check_launches,
         return out, {k: n for k, n in counts.items() if n}
 
     def busy(fn):
-        """(traced wall s, device s, the largest device kernels and host
-        operations) of one ``fn()`` under the profiler."""
-        if not on_card:
-            return 1.0, 0.0, ""
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        ev = prof.key_averages()
-        on_dev = [e for e in ev if e.device_type == DeviceType.CUDA]
-        dev_s = sum(device_us(e) for e in on_dev) / 1e6
-        host = [e for e in ev if e.device_type != DeviceType.CUDA]
-        top = ("card: " + "; ".join(
-            f"{e.key[:40]} {device_us(e) / 1e3:.1f} ms x{e.count}"
-            for e in sorted(on_dev, key=device_us, reverse=True)[:4])
-            + " | host, self: " + "; ".join(
-            f"{e.key[:32]} {e.self_cpu_time_total / 1e3:.1f} ms x{e.count}"
-            for e in sorted(host, key=lambda e: e.self_cpu_time_total,
-                            reverse=True)[:5]))
-        return wall, dev_s, top
+        return traced_busy(fn, on_card)
 
     def grads_of(x_outs, xs, g_outs):
         got = torch.autograd.grad(x_outs, xs, g_outs)
@@ -1798,37 +1875,10 @@ def train_phase(dev, card: str, main_launches: dict, add_check_launches,
     card_lm = copy.deepcopy(cpu_lm).to(dev)
     batch = synth_batch(cut, ShapeSpec("t", S["cut_seq"], S["cut_batch"],
                                        "train"), 0)
-    loss_fn = lm_api.make_loss_fn(cut)
-    ocfg = opt_mod.OptConfig()
-    sides = {}
-    for tag, model, d in (("card", card_lm, dev), ("cpu", cpu_lm, "cpu")):
-        b = {key: torch.from_numpy(x).to(d) for key, x in batch.items()}
-        params = dict(model.named_parameters())
-        state = opt_mod.init_opt_state(params, ocfg)
-        for i in range(S["cut_opt_steps"]):
-            loss, _ = loss_fn(model, b)
-            grads = dict(zip(params, torch.autograd.grad(
-                loss, list(params.values()))))
-            if i == 0:
-                first = (loss.detach(), grads)
-            opt_mod.adamw_update(params, grads, state, ocfg,
-                                 opt_mod.stacked_decay)
-        sides[tag] = (first, {k: v.detach() for k, v in params.items()})
+    errs = lm_train_card_vs_cpu(cut, card_lm, cpu_lm, dev, batch,
+                                S["cut_opt_steps"], "27 rwkv6")
     add_check_launches()
-    ((l_c, g_c), p_c), ((l_h, g_h), p_h) = sides["card"], sides["cpu"]
-    errs = {"loss": abs(float(l_c) - float(l_h))}
-    pairs = ([("loss", l_c, l_h)] + [(f"grad {k}", g, g_h[k])
-                                     for k, g in g_c.items()]
-             + [(f"param {k}", p, p_h[k]) for k, p in p_c.items()])
-    for name, a, b in pairs:
-        a = a.cpu()
-        if not torch.allclose(a, b, **LM_TRAIN_TOL):
-            raise SystemExit(f"FAIL: 27 rwkv6 {S['cut_layers']}-layer fp32 "
-                             f"{name}: card vs CPU beyond {LM_TRAIN_TOL} "
-                             f"(max err {float((a - b).abs().max()):.3g})")
-        kind = name.split()[0]
-        errs[kind] = max(errs.get(kind, 0.0), float((a - b).abs().max()))
-    del cpu_lm, card_lm, sides
+    del cpu_lm, card_lm
     log("27 train", f"(d) {cfg.name} at full width, {S['cut_layers']} "
         f"layers, fp32 (TF32 off), B {S['cut_batch']} x S {S['cut_seq']}: "
         f"loss, every gradient and the parameters after "
@@ -1836,6 +1886,567 @@ def train_phase(dev, card: str, main_launches: dict, add_check_launches,
         f"{LM_TRAIN_TOL}; max err " + ", ".join(
             f"{k} {v:.3g}" for k, v in errs.items()) + f" | {card}")
     log("27 train", f"(d) phase part {lap():.1f} s")
+    return line
+
+
+def dense_cut_vs_cpu(arch: str, phase: str, cuda, card: str,
+                     add_check_launches, lap) -> None:
+    """Phases 19 and 28 (d): the dense model ``arch`` at full width cut to
+    ``LM_CUT_LAYERS`` layers, in fp32 (TF32 off), weights drawn on the card
+    and copied to a CPU twin: B = ``LM_CUT_BATCH``, a prompt of
+    ``LM_CUT_PROMPT`` tokens and ``LM_CUT_STEPS`` teacher-forced decode
+    steps, logits and the k and v caches within ``LM_FP32_TOL``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import api as lm_api
+    g_full = get_config(arch)
+    g_cut = g_full.replace(num_layers=LM_CUT_LAYERS, param_dtype="float32",
+                           compute_dtype="float32")
+    t0 = time.perf_counter()
+    g_card = lm_api.init_params(
+        g_cut, torch.Generator(device=cuda).manual_seed(7), device=cuda)
+    g_cpu = lm_api.init_params(g_cut, device="meta").to_empty(device="cpu")
+    g_cpu.load_state_dict(g_card.state_dict())
+    t_init = time.perf_counter() - t0
+    rs = np.random.RandomState(1)
+    toks = torch.from_numpy(rs.randint(0, g_cut.vocab_size,
+                                       (LM_CUT_BATCH, LM_CUT_PROMPT)))
+    forced = torch.from_numpy(rs.randint(0, g_cut.vocab_size,
+                                         (LM_CUT_STEPS, LM_CUT_BATCH)))
+    prefill_g = lm_api.make_prefill_fn(g_cut, LM_CUT_PROMPT + LM_CUT_STEPS)
+    decode_g = lm_api.make_decode_fn(g_cut)
+    g_err = {}
+
+    def compare(tag, got, want):
+        """Logits and every cache tensor, card against CPU, now: the
+        attention caches are written in place by the next step."""
+        lg, cg = got
+        lh, ch = want
+        pairs = [("logits", lg, lh)] + [
+            (f"kv.{key}", cg["kv"][key], ch["kv"][key]) for key in "kv"]
+        for key, a, b in pairs:
+            a = a.cpu()
+            if not (a.shape == b.shape and torch.allclose(a, b,
+                                                          **LM_FP32_TOL)):
+                raise SystemExit(f"FAIL: {arch} 2-layer fp32 {tag} {key}: "
+                                 f"card vs CPU beyond {LM_FP32_TOL} (max err "
+                                 f"{float((a - b).abs().max()):.3g})")
+            g_err[key] = max(g_err.get(key, 0.0), float((a - b).abs().max()))
+
+    got = prefill_g(g_card, {"tokens": toks.to(cuda)})
+    want = prefill_g(g_cpu, {"tokens": toks})
+    compare("prefill", got, want)
+    for i, tok in enumerate(forced):
+        got = decode_g(g_card, tok.to(cuda), LM_CUT_PROMPT + i, got[1])
+        want = decode_g(g_cpu, tok, LM_CUT_PROMPT + i, want[1])
+        compare(f"step {i}", got, want)
+    del g_card, g_cpu, got, want
+    add_check_launches()
+    log(phase, f"full width, {LM_CUT_LAYERS} layers, B="
+        f"{LM_CUT_BATCH}, prompt {LM_CUT_PROMPT}, {LM_CUT_STEPS} "
+        f"teacher-forced steps: card == CPU within {LM_FP32_TOL}; max err "
+        + ", ".join(f"{k} {v:.3g}" for k, v in g_err.items())
+        + f" | weights drawn on the card and copied to the CPU in "
+        f"{t_init:.1f} s | {lap():.1f} s | {card}")
+
+
+def dense_serve(arch: str, phase: str, cuda, card: str, main_launches: dict,
+                add_check_launches, lap) -> dict:
+    """Phases 20 and 28 (d): ``lm.serve.serve`` on the full-depth bf16
+    dense model ``arch`` (weights drawn on the card from a seeded
+    generator), ``LM_BATCH`` prompts of ``LM_PROMPT`` tokens and
+    ``LM_TOKENS`` greedy tokens; one ``flash_attention`` a layer in the
+    prefill and none in decode; the kernel against its plain version on
+    the captured prefill inputs; warm walls, peak memory, busy shares, the
+    kernel's time against its bound, plain version and
+    ``scaled_dot_product_attention``; prefill/decode consistency.  Returns
+    the ``flash_attention`` line of the JSON result."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import cases as flash_cases
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.lm.serve import serve
+    from repro_torch.models import api as lm_api
+    g_full = get_config(arch)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    lm = lm_api.init_params(g_full,
+                             torch.Generator(device=cuda).manual_seed(0),
+                             device=cuda)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_weights = sum(p.numel() for p in lm.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+    prompts = np.random.RandomState(0).randint(
+        0, g_full.vocab_size, (LM_BATCH, LM_PROMPT))
+    serve(lm, prompts, 2)                                  # warm-up
+    add_check_launches()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    res = serve(lm, prompts, LM_TOKENS)
+    counts = _build.launch_counts()
+    _build.reset_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for name, n in counts.items():
+        main_launches[name] += n
+    want = {name: (g_full.num_layers if name == "flash_attention" else 0)
+            for name in counts}
+    if counts != want:
+        raise SystemExit(f"FAIL: {arch} serve launched {counts}, want {want} "
+                         "(one flash_attention per layer in the prefill, "
+                         "none in decode)")
+    with torch.inference_mode():                 # the next free KV slot
+        lm.lm_decode_step(res.tokens[:, -1], LM_PROMPT + LM_TOKENS - 1,
+                           res.caches)
+    torch.cuda.synchronize()
+    if any(_build.launch_counts().values()):
+        raise SystemExit(f"FAIL: a {arch} decode step launched "
+                         f"{_build.launch_counts()}")
+    gen_toks = res.tokens.cpu()
+    kv_shape = tuple(res.caches["kv"]["k"].shape)
+    if not (gen_toks.shape == (LM_BATCH, LM_TOKENS)
+            and bool(((gen_toks >= 0)
+                      & (gen_toks < g_full.vocab_size)).all())
+            and bool(res.logits.float().isfinite().all())
+            and kv_shape == (g_full.num_layers, LM_BATCH,
+                             LM_PROMPT + LM_TOKENS, g_full.num_kv_heads,
+                             g_full.hd)):
+        raise SystemExit(f"FAIL: {arch} serve: bad tokens, logits or caches "
+                         f"{kv_shape}")
+    # the kernel on the 40 prefill inputs of one serve, against its plain
+    # version on the same inputs
+    with Recorder({"flash": (flash_ops, "flash_attention")}) as rec_f:
+        serve(lm, prompts, 1)
+    add_check_launches()
+    calls = rec_f.calls["flash"]
+    if len(calls) != g_full.num_layers:
+        raise SystemExit(f"FAIL: recorder saw {len(calls)} flash_attention "
+                         "calls")
+    fa_err = 0.0
+    with torch.inference_mode():
+        for li, (fn, ca, ck) in enumerate(calls):
+            o = fn(*ca, **ck)
+            wo = attention_ref(*ca, **ck)
+            ex = flash_cases.within_tol(o, wo, "bfloat16")
+            if ex > 0:
+                raise SystemExit(f"FAIL: flash_attention differs from plain "
+                                 f"on layer {li}'s prefill input (excess "
+                                 f"{ex:.3g})")
+            fa_err = max(fa_err, float((o.float() - wo.float()).abs().max()))
+        fn, ca, ck = calls[0]
+        q, k, v = ca[:3]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib_err = float((sdpa(q, k, v, is_causal=True, enable_gqa=True)
+                         .float() - attention_ref(q, k, v).float())
+                        .abs().max())
+        ms = cuda_time_ms(lambda: fn(*ca, **ck), 20)
+        plain_ms = cuda_time_ms(lambda: attention_ref(*ca, **ck), 2)
+        lib_ms = cuda_time_ms(
+            lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), 20)
+    add_check_launches()
+    Bq, Hq, T, d = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    # read once: q, k, v; written once: o (all bf16).  Operations: per
+    # query row i and key j <= i, q.k and p*v, 2 d products and 2 d sums
+    # on the bf16 tensor cores; the softmax (scale, max, exp, sum,
+    # rescale: ~6 fp32 operations a pair) runs beside them on the CUDA
+    # cores, so the least time is the larger of the two.
+    pairs = sum(min(i + 1, Tk) for i in range(T)) * Bq * Hq
+    fa_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    fa_mma, fa_fp32 = 4 * d * pairs, 6 * pairs
+    t_bytes = fa_bytes / PEAK_BYTES_PER_S
+    t_ops = max(fa_mma / PEAK_BF16_PER_S, fa_fp32 / PEAK_FP32_PER_S)
+    fa_bound, fa_by = (1e3 * max(t_bytes, t_ops),
+                       "bytes" if t_bytes >= t_ops else "operations")
+    line = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/flash_attn.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:25",
+        max_abs_err=fa_err, ms=ms, plain_ms=plain_ms, bound_ms=fa_bound,
+        bound_by=fa_by, library_ms=lib_ms)
+    # warm walls: 10 serves
+    pre, dec = [], []
+    for _ in range(10):
+        rr = serve(lm, prompts, LM_TOKENS)
+        pre.append(rr.prefill_s)
+        dec.append(statistics.mean(rr.decode_s))
+    del rr
+    add_check_launches()
+    pre_ms, dec_ms = (1e3 * statistics.median(x) for x in (pre, dec))
+    # prefill/decode consistency: decode token S+1 after prefilling S
+    # tokens against the last logits of a forward pass over S+1 tokens
+    tokens = torch.from_numpy(prompts).to(cuda)
+    logits, caches = lm_api.make_prefill_fn(g_full)(lm, {"tokens": tokens})
+    nxt = logits.argmax(-1)
+    step, _ = lm_api.make_decode_fn(g_full)(lm, nxt, LM_PROMPT, caches)
+    with torch.inference_mode():
+        full, _ = lm.lm_forward(torch.cat([tokens, nxt[:, None]], 1),
+                                 last_only=True)
+    step, full = step.float(), full[:, -1].float()
+    del caches
+    delta = float((step - full).abs().max())
+    top2 = full.topk(2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    agree = step.argmax(-1) == full.argmax(-1)
+    near_tie = gap <= 2 * delta
+    if not (delta <= LM_CONSIST_ATOL and bool((agree | near_tie).all())):
+        raise SystemExit(f"FAIL: {arch} prefill/decode consistency: max|d| "
+                         f"{delta:.4g} (bound {LM_CONSIST_ATOL}), greedy "
+                         f"agrees on {int(agree.sum())} of {LM_BATCH} rows")
+    add_check_launches()
+    # busy share: one warm prefill alone, then one warm serve; decode's
+    # share is the difference of the two
+    traced = []
+    for n_tok in (1, LM_TOKENS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            serve(lm, prompts, n_tok)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        on_card = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        traced.append((wall, sum(device_us(e) for e in on_card) / 1e6,
+                       sum(e.count for e in on_card), on_card))
+    add_check_launches()
+    (w_pre, d_pre, n_pre, on_pre), (w_all, d_all, n_all, on_card) = traced
+    top_pre = sorted(on_pre, key=device_us, reverse=True)[:5]
+    top = sorted(on_card, key=device_us, reverse=True)[:5]
+    log(phase, f"{g_full.name}: {n_weights} weights, "
+        f"{w_bytes / 1e9:.3f} GB bf16, drawn on the card in {t_init:.1f} s "
+        f"| B={LM_BATCH} prompt {LM_PROMPT}, {LM_TOKENS} greedy tokens, KV "
+        f"caches {kv_shape} | main-path launches {counts} (decode step: 0) "
+        f"| warm median prefill {pre_ms:.3f} ms, decode {dec_ms:.3f} "
+        f"ms/token, {LM_BATCH / (dec_ms / 1e3):.1f} tokens/s | peak mem "
+        f"{peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB held before the "
+        f"serve, of which {base / 2**30:.3f} GiB before the model) | {card}")
+    log(phase, f"flash_attention on the {len(calls)} captured "
+        f"prefill inputs (B={Bq}, Hq={Hq}, Hkv={Hkv}, T={T}, d={d}, "
+        f"{q.dtype}, q strides {q.stride()}, v strides {v.stride()}): "
+        f"kernel within cases.TOL of plain, max abs err {fa_err:.4g}; "
+        f"kernel {ms:.4f} ms a launch ({g_full.num_layers * ms:.3f} ms a "
+        f"prefill), plain on card {plain_ms:.3f} ms, "
+        f"scaled_dot_product_attention(enable_gqa) {lib_ms:.4f} ms (max abs "
+        f"diff to plain {lib_err:.4g}), bound {fa_bound:.5f} ms ({fa_by}: "
+        f"{fa_bytes} B, {fa_mma} bf16 tensor ops, {fa_fp32} fp32 ops) | "
+        f"achieved {fa_mma / ms / 1e9:.1f} TFLOP/s on the tensor cores, "
+        f"{100 * fa_bound / ms:.1f} % of the bound, {ms / lib_ms:.3f}x "
+        f"scaled_dot_product_attention | {card}")
+    log(phase, f"prefill/decode consistency at {LM_PROMPT + 1} "
+        f"tokens: max|d| logits {delta:.4g} (bound {LM_CONSIST_ATOL}), "
+        f"greedy agrees on {int(agree.sum())} of {LM_BATCH} rows, smallest "
+        f"top-2 gap {float(gap.min()):.4g}, logits std "
+        f"{float(full.std()):.3f}")
+    log(phase, f"torch.profiler: a warm prefill, traced wall "
+        f"{1e3 * w_pre:.3f} ms, device time {1e3 * d_pre:.3f} ms (busy "
+        f"{100 * d_pre / w_pre:.1f} %), {n_pre} kernels and copies, largest: "
+        + "; ".join(f"{e.key[:48]} {device_us(e) / 1e3:.3f} ms x{e.count}"
+                    for e in top_pre)
+        + f" | its {LM_TOKENS - 1} decode steps, traced wall "
+        f"{1e3 * (w_all - w_pre):.3f} ms, device time "
+        f"{1e3 * (d_all - d_pre):.3f} ms (busy "
+        f"{100 * (d_all - d_pre) / (w_all - w_pre):.1f} %), "
+        f"{(n_all - n_pre) // (LM_TOKENS - 1)} kernels and copies a token; "
+        f"largest over the serve: "
+        + "; ".join(f"{e.key[:48]} {device_us(e) / 1e3:.3f} ms x{e.count}"
+                    for e in top) + f" | {lap():.1f} s | {card}")
+    del lm, rec_f, calls, q, k, v, res
+    return line
+
+
+#: Phase 28's sizes: the backward at GLM-4 9B's training microbatch (B,
+#: Hq, Hkv, T, d), GLM-4 9B at full width cut to ``layers`` of its 40
+#: (its weights, gradients and fp32 moments at full depth, ~150 GB, do not
+#: fit one card), B 8 x S 4096 in 4 microbatches, and the 2-layer fp32
+#: cuts card against CPU at a B x S the CPU side runs in seconds.
+DENSE_TRAIN = dict(
+    bwd_shape=(2, 32, 2, 4096, 128), bwd_reps=10, layers=8, lm_batch=8,
+    lm_seq=4096, lm_steps=5, cut_layers=2, cut_batch=2, cut_seq=64,
+    cut_opt_steps=2)
+
+
+def flash_bwd_bound(q, k, causal: bool = True):
+    """The bf16 flash-attention backward's bound: the larger of its bytes
+    (q, k, v, o, do and lse read once, dq, dk and dv written once) over the
+    memory rate and its five products (S, dP, dV, dK, dQ: 2 d operations a
+    seen pair each) at the bf16 tensor-core rate, beside the ~8 fp32
+    operations a pair of the softmax's gradient at the fp32 rate.  Returns
+    (ms, bound_by, bytes, tensor operations)."""
+    Bq, Hq, Tq, d = q.shape
+    Tk = k.shape[2]
+    pairs = (sum(min(i + 1, Tk) for i in range(Tq)) if causal
+             else Tq * Tk) * Bq * Hq
+    nbytes = ((4 * q.numel() + 4 * k.numel()) * q.element_size()
+              + Bq * Hq * Tq * 4)
+    mma = 10 * d * pairs
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = max(mma / PEAK_BF16_PER_S, 8 * pairs / PEAK_FP32_PER_S)
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, mma)
+
+
+def dense_train_phase(dev, card: str, main_launches: dict,
+                      add_check_launches, lap) -> dict:
+    """Phase 28: dense-transformer training on the card.
+
+    (a) the flash-attention backward kernel (``flash_attn_bwd.cu``) against
+    its plain version on ``kernels/flash_attention/cases.py::bwd_cases`` in
+    fp32 and bf16 (the forward's lse against ``attention_lse_ref``'s too),
+    bit for bit on a second call, and at GLM-4 9B's training microbatch
+    (bf16 views of (B, T, H, d)) against the fp32 plain version, timed
+    (the call; the kernels alone by ``torch.profiler``) beside its bound,
+    the plain version and ``scaled_dot_product_attention``'s backward, and
+    the forward with and without its lse; (b) GLM-4 9B at full width cut
+    to 8 of its 40 layers, bf16, trained 5 steps through ``lm/train.py``;
+    (c) the 2-layer fp32 cuts of GLM-4 and StarCoder2 card against CPU;
+    (d) StarCoder2 7B served at full width and depth (phases 19 and 20's
+    functions).  Sizes are :data:`DENSE_TRAIN`'s.  Returns the JSON line of
+    ``flash_attention_bwd``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import cases as flash_cases
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_lse_ref, flash_attention_bwd_ref)
+    from repro_torch.lm import train as lm_train
+    from repro_torch.models import api as lm_api
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import train_loop
+    S = DENSE_TRAIN
+    names = ("dq", "dk", "dv")
+    sync = torch.cuda.synchronize
+
+    # ---- (a) the backward against its plain version ---------------------
+    n_cases, lse_err, bf16_excess = 0, 0.0, -1.0
+    for case in flash_cases.bwd_cases():
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = flash_cases.bwd_tensors(case, dev, dtype)
+            causal, ss = case["causal"], case["score_scale"]
+            o, lse = flash_ops._forward(q, k, v, causal, True)
+            got = flash_ops._backward(q, k, v, o, lse, do, causal)
+            again = flash_ops._backward(q, k, v, o, lse, do, causal)
+            want = flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
+            _, want_lse = attention_lse_ref(q, k, v, causal)
+            sync()
+            ex = flash_cases.lse_within_tol(lse, want_lse, ss)
+            if ex > 0:
+                raise SystemExit(f"FAIL: 28 flash_attention lse differs from"
+                                 f" attention_lse_ref on {case['name']} "
+                                 f"{dtype} (excess {ex:.3g})")
+            lse_err = max(lse_err, float((lse - want_lse).abs().max()))
+            dname = str(dtype)[6:]
+            for name, g, g2, w in zip(names, got, again, want):
+                ex = flash_cases.bwd_within_tol(g, w, dname, ss)
+                # x8 scores are held in fp32 only (bwd_cases' docstring)
+                held = dtype == torch.float32 or ss == 1.0
+                if held and dtype == torch.bfloat16:
+                    bf16_excess = max(bf16_excess, ex)
+                if (held and ex > 0) or not bool(g.isfinite().all()):
+                    raise SystemExit(f"FAIL: 28 flash_attention_bwd {name} "
+                                     f"differs from plain on {case['name']}"
+                                     f" {dname} (excess {ex:.3g})")
+                if not torch.equal(g, g2):
+                    raise SystemExit(f"FAIL: 28 flash_attention_bwd {name} "
+                                     f"not deterministic on {case['name']} "
+                                     f"{dname}")
+            n_cases += 1
+    add_check_launches()
+    log("28 dense train", f"(a) flash_attention_bwd within cases.BWD_TOL of "
+        f"flash_attention_bwd_ref and bit for bit on a second call, the "
+        f"forward's lse within cases.LSE_ATOL of attention_lse_ref (max err "
+        f"{lse_err:.3g}; bf16 rows' largest excess over their bound "
+        f"{bf16_excess:.3g}), on {n_cases} cases (d 16-128; groups "
+        f"{'/'.join(map(str, flash_cases.BWD_GROUPS))}; causal and not; Tq "
+        f"!= Tk; Tk no multiple of a key tile; both layouts; x8 scores held "
+        f"in fp32; fp32 and bf16)")
+
+    # GLM-4 9B's training microbatch: bf16 (B, H, T, d) views of (B, T, H,
+    # d) projections, causal
+    Bq, Hq, Hkv, T, d = S["bwd_shape"]
+    gen = torch.Generator(device=dev).manual_seed(28)
+
+    def view(h):
+        return torch.randn((Bq, T, h, d), generator=gen, device=dev,
+                           dtype=torch.bfloat16).transpose(1, 2)
+    q, k, v, do = view(Hq), view(Hkv), view(Hkv), view(Hq)
+    o, lse = flash_ops._forward(q, k, v, True, True)
+    got = flash_ops._backward(q, k, v, o, lse, do, True)
+    again = flash_ops._backward(q, k, v, o, lse, do, True)
+    sync()
+    _, want_lse = attention_lse_ref(q, k, v, True)
+    ex = flash_cases.lse_within_tol(lse, want_lse)
+    del want_lse
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, True)
+    bwd_err, excesses = 0.0, []
+    for name, g, g2, w in zip(names, got, again, want):
+        exg = flash_cases.bwd_within_tol(g, w, "bfloat16")
+        excesses.append(f"{name} {exg:.3g}")
+        if ex > 0 or exg > 0 or not torch.equal(g, g2):
+            raise SystemExit(f"FAIL: 28 flash_attention_bwd {name} at GLM-4's"
+                             f" training shape: excess {exg:.3g} over "
+                             f"flash_attention_bwd_ref (lse {ex:.3g}), or "
+                             f"not deterministic")
+        bwd_err = max(bwd_err, float((g.float() - w.float()).abs().max()))
+    del got, again, want
+    add_check_launches()
+
+    def bwd_call():
+        return flash_ops._backward(q, k, v, o, lse, do, True)
+
+    ms = cuda_time_ms(bwd_call, S["bwd_reps"])
+    kern_ms = sum(kernel_device_ms(bwd_call, key, S["bwd_reps"],
+                                   "flash_attention_bwd")
+                  for key in ("bwd_dq_bf16", "bwd_dkdv_bf16"))
+    plain_ms = cuda_time_ms(
+        lambda: flash_attention_bwd_ref(q, k, v, o, lse, do, True), 1,
+        warmup=0)
+    fwd_ms = cuda_time_ms(lambda: flash_ops._forward(q, k, v, True,
+                                                     False), 10)
+    fwd_lse_ms = cuda_time_ms(lambda: flash_ops._forward(q, k, v, True,
+                                                         True), 10)
+    # the yardstick, never used by the port: SDPA's backward alone,
+    # its forward's graph kept
+    xs = [x.detach().requires_grad_() for x in (q, k, v)]
+    out = torch.nn.functional.scaled_dot_product_attention(
+        *xs, is_causal=True, enable_gqa=True)
+    lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
+        out, xs, do, retain_graph=True), 10)
+    del xs, out
+    add_check_launches()
+    bms, by, bwd_bytes, bwd_mma = flash_bwd_bound(q, k)
+    line = dict(name="flash_attention_bwd", route="cuda",
+                source="src/repro_torch/kernels/flash_attention/csrc/"
+                       "flash_attn_bwd.cu",
+                replaces="none: the reference differentiates "
+                         "src/repro/models/flash_jnp.py:32 (flash_mha's "
+                         "custom VJP, _flash_bwd :85); the forward is "
+                         "src/repro/kernels/flash_attention/kernel.py:25",
+                max_abs_err=bwd_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                kernel_ms=kern_ms, fwd_ms=fwd_ms, fwd_lse_ms=fwd_lse_ms)
+    log("28 dense train", f"(a) flash_attention_bwd at GLM-4 9B's training "
+        f"microbatch (B {Bq}, Hq {Hq}, Hkv {Hkv}, T {T}, d {d}, causal, bf16 "
+        f"views): within cases.BWD_TOL of the fp32 plain version row by "
+        f"row (largest excess over a row's bound: {', '.join(excesses)}), "
+        f"deterministic, max abs err {bwd_err:.4g}; call {ms:.4f} ms, the "
+        f"two kernels on the card {kern_ms:.4f} ms (torch.profiler, "
+        f"{kern_ms / bms:.1f}x the bound), plain {plain_ms:.3f} ms, "
+        f"scaled_dot_product_attention's backward {lib_ms:.4f} ms, bound "
+        f"{bms:.4f} ms ({by}: {bwd_mma} bf16 tensor ops, {bwd_bytes} B) | "
+        f"achieved {bwd_mma / kern_ms / 1e9:.1f} TFLOP/s | forward "
+        f"{fwd_ms:.4f} ms, with its lse {fwd_lse_ms:.4f} ms | {card}")
+    del q, k, v, o, lse, do
+    log("28 dense train", f"(a) phase part {lap():.1f} s")
+
+    # ---- (b) GLM-4 9B at full width, cut in depth, trained ---------------
+    cfg = get_config("glm4_9b").replace(num_layers=S["layers"])
+    micro = cfg.train_microbatches
+    steps = S["lm_steps"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    add_check_launches()
+    t0 = time.perf_counter()
+    res = lm_train.train(cfg, steps, batch=S["lm_batch"], seq=S["lm_seq"],
+                         microbatches=micro, ckpt_every=10 ** 6, device=dev,
+                         log=None)
+    sync()
+    t_run = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    _build.reset_launch_counts()
+    for n_, c_ in counts.items():
+        main_launches[n_] += c_
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    fwd_want = 2 * cfg.num_layers * micro * steps
+    want_counts = {n_: (fwd_want if n_ == "flash_attention" else
+                        fwd_want // 2 if n_ == "flash_attention_bwd" else 0)
+                   for n_ in counts}
+    if counts != want_counts:
+        raise SystemExit(f"FAIL: 28 glm4 training launched {counts}; want "
+                         f"{want_counts} (flash_attention twice a layer a "
+                         f"microbatch a step, forward and remat, and "
+                         f"flash_attention_bwd once; no other kernel)")
+    if not (np.isfinite(res.losses).all()
+            and np.isfinite(res.grad_norms).all()):
+        raise SystemExit(f"FAIL: 28 glm4 training: losses {res.losses}, "
+                         f"grad norms {res.grad_norms}")
+    if peak >= total:
+        raise SystemExit(f"FAIL: 28 glm4 training peak {peak} B past the "
+                         f"card's {total} B")
+    n_weights = sum(p.numel() for p in res.model.parameters())
+    batch = {key: torch.from_numpy(x).to(dev) for key, x in synth_batch(
+        cfg, ShapeSpec("t", S["lm_seq"], S["lm_batch"], "train"),
+        99).items()}
+    step_fn = train_loop.make_train_step(cfg, opt_mod.OptConfig(), micro)
+    w_tr, d_tr, top = traced_busy(
+        lambda: step_fn(res.model, res.opt_state, batch), True)
+    losses, gnorms, walls = res.losses, res.grad_norms, res.walls
+    del res, batch, step_fn
+    add_check_launches()
+    warm = statistics.median(walls[1:])
+    tokens = S["lm_batch"] * S["lm_seq"]
+    log("28 dense train", f"(b) {cfg.name} at full width cut to "
+        f"{cfg.num_layers} of its 40 layers: {n_weights} weights, bf16, B "
+        f"{S['lm_batch']} x S {S['lm_seq']} in {micro} microbatches, "
+        f"{steps} steps through lm/train.py: losses "
+        + ", ".join(f"{x:.4f}" for x in losses) + "; grad norms "
+        + ", ".join(f"{x:.3f}" for x in gnorms)
+        + "; step walls " + ", ".join(f"{1e3 * x:.1f}" for x in walls)
+        + f" ms (warm median {1e3 * warm:.1f} ms, {tokens / warm:.0f} "
+        f"tokens/s, 6 N D = {6 * n_weights * tokens / warm / 1e12:.1f} "
+        f"TFLOP/s); a traced step {1e3 * w_tr:.1f} ms, device "
+        f"{1e3 * d_tr:.1f} ms (busy {100 * d_tr / w_tr:.1f} %); main-path "
+        f"launches { {k_: c_ for k_, c_ in counts.items() if c_} }; peak mem "
+        f"{peak / 2**30:.3f} GiB of {total / 2**30:.1f}; the run "
+        f"{t_run:.1f} s (steps {sum(walls):.1f} s; the rest the draw of the "
+        f"weights) | {card}")
+    log("28 dense train", f"(b) the traced step's largest: {top}")
+    log("28 dense train", f"(b) phase part {lap():.1f} s")
+
+    # ---- (c) the 2-layer fp32 cuts, card against CPU -----------------------
+    for arch in ("glm4_9b", "starcoder2_7b"):
+        cut = get_config(arch).replace(
+            num_layers=S["cut_layers"], param_dtype="float32",
+            compute_dtype="float32")
+        t0 = time.perf_counter()
+        card_lm = lm_api.init_params(
+            cut, torch.Generator(device=dev).manual_seed(7), device=dev)
+        cpu_lm = lm_api.init_params(cut, device="meta").to_empty(
+            device="cpu")
+        cpu_lm.load_state_dict(card_lm.state_dict())
+        batch = synth_batch(cut, ShapeSpec("t", S["cut_seq"],
+                                           S["cut_batch"], "train"), 0)
+        errs = lm_train_card_vs_cpu(cut, card_lm, cpu_lm, dev, batch,
+                                    S["cut_opt_steps"], "28")
+        add_check_launches()
+        del card_lm, cpu_lm
+        log("28 dense train", f"(c) {arch} at full width, "
+            f"{S['cut_layers']} layers, fp32 (TF32 off; flash_fp32 and the "
+            f"fp32 backward), group {cut.num_heads // cut.num_kv_heads}, B "
+            f"{S['cut_batch']} x S {S['cut_seq']}: loss, every gradient and "
+            f"the parameters after {S['cut_opt_steps']} AdamW steps card == "
+            f"CPU within {LM_TRAIN_TOL}; max err " + ", ".join(
+                f"{k_} {v_:.3g}" for k_, v_ in errs.items())
+            + f" | {time.perf_counter() - t0:.1f} s | {card}")
+    log("28 dense train", f"(c) phase part {lap():.1f} s")
+
+    # ---- (d) StarCoder2 7B served at full width and depth ------------------
+    dense_cut_vs_cpu("starcoder2_7b", "28 dense train (d) fp32", dev, card,
+                     add_check_launches, lap)
+    dense_serve("starcoder2_7b", "28 dense train (d) serve", dev, card,
+                main_launches, add_check_launches, lap)
     return line
 
 
@@ -3263,243 +3874,12 @@ def main() -> int:
         f"scores; fp32 and bf16) in {lap():.1f} s")
 
     # ---- 19. GLM-4 9B, 2 layers at full width, fp32, card vs CPU ----------
-    g_full = get_config("glm4_9b")
-    g_cut = g_full.replace(num_layers=LM_CUT_LAYERS, param_dtype="float32",
-                           compute_dtype="float32")
-    t0 = time.perf_counter()
-    g_card = lm_api.init_params(
-        g_cut, torch.Generator(device=cuda).manual_seed(7), device=cuda)
-    g_cpu = lm_api.init_params(g_cut, device="meta").to_empty(device="cpu")
-    g_cpu.load_state_dict(g_card.state_dict())
-    t_init = time.perf_counter() - t0
-    rs = np.random.RandomState(1)
-    toks = torch.from_numpy(rs.randint(0, g_cut.vocab_size,
-                                       (LM_CUT_BATCH, LM_CUT_PROMPT)))
-    forced = torch.from_numpy(rs.randint(0, g_cut.vocab_size,
-                                         (LM_CUT_STEPS, LM_CUT_BATCH)))
-    prefill_g = lm_api.make_prefill_fn(g_cut, LM_CUT_PROMPT + LM_CUT_STEPS)
-    decode_g = lm_api.make_decode_fn(g_cut)
-    g_err = {}
-
-    def compare(tag, got, want):
-        """Logits and every cache tensor, card against CPU, now: the
-        attention caches are written in place by the next step."""
-        lg, cg = got
-        lh, ch = want
-        pairs = [("logits", lg, lh)] + [
-            (f"kv.{key}", cg["kv"][key], ch["kv"][key]) for key in "kv"]
-        for key, a, b in pairs:
-            a = a.cpu()
-            if not (a.shape == b.shape and torch.allclose(a, b,
-                                                          **LM_FP32_TOL)):
-                raise SystemExit(f"FAIL: glm4 2-layer fp32 {tag} {key}: card "
-                                 f"vs CPU beyond {LM_FP32_TOL} (max err "
-                                 f"{float((a - b).abs().max()):.3g})")
-            g_err[key] = max(g_err.get(key, 0.0), float((a - b).abs().max()))
-
-    got = prefill_g(g_card, {"tokens": toks.to(cuda)})
-    want = prefill_g(g_cpu, {"tokens": toks})
-    compare("prefill", got, want)
-    for i, tok in enumerate(forced):
-        got = decode_g(g_card, tok.to(cuda), LM_CUT_PROMPT + i, got[1])
-        want = decode_g(g_cpu, tok, LM_CUT_PROMPT + i, want[1])
-        compare(f"step {i}", got, want)
-    del g_card, g_cpu, got, want
-    add_check_launches()
-    log("19 glm4 fp32", f"full width, {LM_CUT_LAYERS} layers, B="
-        f"{LM_CUT_BATCH}, prompt {LM_CUT_PROMPT}, {LM_CUT_STEPS} "
-        f"teacher-forced steps: card == CPU within {LM_FP32_TOL}; max err "
-        + ", ".join(f"{k} {v:.3g}" for k, v in g_err.items())
-        + f" | weights drawn on the card and copied to the CPU in "
-        f"{t_init:.1f} s | {lap():.1f} s | {card}")
+    dense_cut_vs_cpu("glm4_9b", "19 glm4 fp32", cuda, card,
+                     add_check_launches, lap)
 
     # ---- 20. GLM-4 9B serving at full width -------------------------------
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    t0 = time.perf_counter()
-    glm = lm_api.init_params(g_full,
-                             torch.Generator(device=cuda).manual_seed(0),
-                             device=cuda)
-    torch.cuda.synchronize()
-    t_init = time.perf_counter() - t0
-    n_weights = sum(p.numel() for p in glm.parameters())
-    w_bytes = sum(p.numel() * p.element_size() for p in glm.parameters())
-    prompts = np.random.RandomState(0).randint(
-        0, g_full.vocab_size, (LM_BATCH, LM_PROMPT))
-    serve(glm, prompts, 2)                                  # warm-up
-    add_check_launches()
-    torch.cuda.synchronize()
-    held = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    _build.reset_launch_counts()
-    res = serve(glm, prompts, LM_TOKENS)
-    counts = _build.launch_counts()
-    _build.reset_launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    for name, n in counts.items():
-        main_launches[name] += n
-    want = {name: (g_full.num_layers if name == "flash_attention" else 0)
-            for name in counts}
-    if counts != want:
-        raise SystemExit(f"FAIL: glm4 serve launched {counts}, want {want} "
-                         "(one flash_attention per layer in the prefill, "
-                         "none in decode)")
-    with torch.inference_mode():                 # the next free KV slot
-        glm.lm_decode_step(res.tokens[:, -1], LM_PROMPT + LM_TOKENS - 1,
-                           res.caches)
-    torch.cuda.synchronize()
-    if any(_build.launch_counts().values()):
-        raise SystemExit(f"FAIL: a glm4 decode step launched "
-                         f"{_build.launch_counts()}")
-    gen_toks = res.tokens.cpu()
-    kv_shape = tuple(res.caches["kv"]["k"].shape)
-    if not (gen_toks.shape == (LM_BATCH, LM_TOKENS)
-            and bool(((gen_toks >= 0)
-                      & (gen_toks < g_full.vocab_size)).all())
-            and bool(res.logits.float().isfinite().all())
-            and kv_shape == (g_full.num_layers, LM_BATCH,
-                             LM_PROMPT + LM_TOKENS, g_full.num_kv_heads,
-                             g_full.hd)):
-        raise SystemExit(f"FAIL: glm4 serve: bad tokens, logits or caches "
-                         f"{kv_shape}")
-    # the kernel on the 40 prefill inputs of one serve, against its plain
-    # version on the same inputs
-    with Recorder({"flash": (flash_ops, "flash_attention")}) as rec_f:
-        serve(glm, prompts, 1)
-    add_check_launches()
-    calls = rec_f.calls["flash"]
-    if len(calls) != g_full.num_layers:
-        raise SystemExit(f"FAIL: recorder saw {len(calls)} flash_attention "
-                         "calls")
-    fa_err = 0.0
-    with torch.inference_mode():
-        for li, (fn, ca, ck) in enumerate(calls):
-            o = fn(*ca, **ck)
-            wo = attention_ref(*ca, **ck)
-            ex = flash_cases.within_tol(o, wo, "bfloat16")
-            if ex > 0:
-                raise SystemExit(f"FAIL: flash_attention differs from plain "
-                                 f"on layer {li}'s prefill input (excess "
-                                 f"{ex:.3g})")
-            fa_err = max(fa_err, float((o.float() - wo.float()).abs().max()))
-        fn, ca, ck = calls[0]
-        q, k, v = ca[:3]
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib_err = float((sdpa(q, k, v, is_causal=True, enable_gqa=True)
-                         .float() - attention_ref(q, k, v).float())
-                        .abs().max())
-        ms = cuda_time_ms(lambda: fn(*ca, **ck), 20)
-        plain_ms = cuda_time_ms(lambda: attention_ref(*ca, **ck), 2)
-        lib_ms = cuda_time_ms(
-            lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), 20)
-    add_check_launches()
-    Bq, Hq, T, d = q.shape
-    Hkv, Tk = k.shape[1], k.shape[2]
-    # read once: q, k, v; written once: o (all bf16).  Operations: per
-    # query row i and key j <= i, q.k and p*v, 2 d products and 2 d sums
-    # on the bf16 tensor cores; the softmax (scale, max, exp, sum,
-    # rescale: ~6 fp32 operations a pair) runs beside them on the CUDA
-    # cores, so the least time is the larger of the two.
-    pairs = sum(min(i + 1, Tk) for i in range(T)) * Bq * Hq
-    fa_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    fa_mma, fa_fp32 = 4 * d * pairs, 6 * pairs
-    t_bytes = fa_bytes / PEAK_BYTES_PER_S
-    t_ops = max(fa_mma / PEAK_BF16_PER_S, fa_fp32 / PEAK_FP32_PER_S)
-    fa_bound, fa_by = (1e3 * max(t_bytes, t_ops),
-                       "bytes" if t_bytes >= t_ops else "operations")
-    lines.append(dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/kernels/flash_attention/csrc/flash_attn.cu",
-        replaces="src/repro/kernels/flash_attention/kernel.py:25",
-        max_abs_err=fa_err, ms=ms, plain_ms=plain_ms, bound_ms=fa_bound,
-        bound_by=fa_by, library_ms=lib_ms))
-    # warm walls: 10 serves
-    pre, dec = [], []
-    for _ in range(10):
-        rr = serve(glm, prompts, LM_TOKENS)
-        pre.append(rr.prefill_s)
-        dec.append(statistics.mean(rr.decode_s))
-    del rr
-    add_check_launches()
-    pre_ms, dec_ms = (1e3 * statistics.median(x) for x in (pre, dec))
-    # prefill/decode consistency: decode token S+1 after prefilling S
-    # tokens against the last logits of a forward pass over S+1 tokens
-    tokens = torch.from_numpy(prompts).to(cuda)
-    logits, caches = lm_api.make_prefill_fn(g_full)(glm, {"tokens": tokens})
-    nxt = logits.argmax(-1)
-    step, _ = lm_api.make_decode_fn(g_full)(glm, nxt, LM_PROMPT, caches)
-    with torch.inference_mode():
-        full, _ = glm.lm_forward(torch.cat([tokens, nxt[:, None]], 1),
-                                 last_only=True)
-    step, full = step.float(), full[:, -1].float()
-    del caches
-    delta = float((step - full).abs().max())
-    top2 = full.topk(2, dim=-1).values
-    gap = top2[:, 0] - top2[:, 1]
-    agree = step.argmax(-1) == full.argmax(-1)
-    near_tie = gap <= 2 * delta
-    if not (delta <= LM_CONSIST_ATOL and bool((agree | near_tie).all())):
-        raise SystemExit(f"FAIL: glm4 prefill/decode consistency: max|d| "
-                         f"{delta:.4g} (bound {LM_CONSIST_ATOL}), greedy "
-                         f"agrees on {int(agree.sum())} of {LM_BATCH} rows")
-    add_check_launches()
-    # busy share: one warm prefill alone, then one warm serve; decode's
-    # share is the difference of the two
-    traced = []
-    for n_tok in (1, LM_TOKENS):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            serve(glm, prompts, n_tok)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        on_card = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA]
-        traced.append((wall, sum(device_us(e) for e in on_card) / 1e6,
-                       sum(e.count for e in on_card), on_card))
-    add_check_launches()
-    (w_pre, d_pre, n_pre, on_pre), (w_all, d_all, n_all, on_card) = traced
-    top_pre = sorted(on_pre, key=device_us, reverse=True)[:5]
-    top = sorted(on_card, key=device_us, reverse=True)[:5]
-    log("20 glm4 serve", f"{g_full.name}: {n_weights} weights, "
-        f"{w_bytes / 1e9:.3f} GB bf16, drawn on the card in {t_init:.1f} s "
-        f"| B={LM_BATCH} prompt {LM_PROMPT}, {LM_TOKENS} greedy tokens, KV "
-        f"caches {kv_shape} | main-path launches {counts} (decode step: 0) "
-        f"| warm median prefill {pre_ms:.3f} ms, decode {dec_ms:.3f} "
-        f"ms/token, {LM_BATCH / (dec_ms / 1e3):.1f} tokens/s | peak mem "
-        f"{peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB held before the "
-        f"serve, of which {base / 2**30:.3f} GiB before the model) | {card}")
-    log("20 glm4 serve", f"flash_attention on the {len(calls)} captured "
-        f"prefill inputs (B={Bq}, Hq={Hq}, Hkv={Hkv}, T={T}, d={d}, "
-        f"{q.dtype}, q strides {q.stride()}, v strides {v.stride()}): "
-        f"kernel within cases.TOL of plain, max abs err {fa_err:.4g}; "
-        f"kernel {ms:.4f} ms a launch ({g_full.num_layers * ms:.3f} ms a "
-        f"prefill), plain on card {plain_ms:.3f} ms, "
-        f"scaled_dot_product_attention(enable_gqa) {lib_ms:.4f} ms (max abs "
-        f"diff to plain {lib_err:.4g}), bound {fa_bound:.5f} ms ({fa_by}: "
-        f"{fa_bytes} B, {fa_mma} bf16 tensor ops, {fa_fp32} fp32 ops) | "
-        f"achieved {fa_mma / ms / 1e9:.1f} TFLOP/s on the tensor cores, "
-        f"{100 * fa_bound / ms:.1f} % of the bound, {ms / lib_ms:.3f}x "
-        f"scaled_dot_product_attention | {card}")
-    log("20 glm4 serve", f"prefill/decode consistency at {LM_PROMPT + 1} "
-        f"tokens: max|d| logits {delta:.4g} (bound {LM_CONSIST_ATOL}), "
-        f"greedy agrees on {int(agree.sum())} of {LM_BATCH} rows, smallest "
-        f"top-2 gap {float(gap.min()):.4g}, logits std "
-        f"{float(full.std()):.3f}")
-    log("20 glm4 serve", f"torch.profiler: a warm prefill, traced wall "
-        f"{1e3 * w_pre:.3f} ms, device time {1e3 * d_pre:.3f} ms (busy "
-        f"{100 * d_pre / w_pre:.1f} %), {n_pre} kernels and copies, largest: "
-        + "; ".join(f"{e.key[:48]} {device_us(e) / 1e3:.3f} ms x{e.count}"
-                    for e in top_pre)
-        + f" | its {LM_TOKENS - 1} decode steps, traced wall "
-        f"{1e3 * (w_all - w_pre):.3f} ms, device time "
-        f"{1e3 * (d_all - d_pre):.3f} ms (busy "
-        f"{100 * (d_all - d_pre) / (w_all - w_pre):.1f} %), "
-        f"{(n_all - n_pre) // (LM_TOKENS - 1)} kernels and copies a token; "
-        f"largest over the serve: "
-        + "; ".join(f"{e.key[:48]} {device_us(e) / 1e3:.3f} ms x{e.count}"
-                    for e in top) + f" | {lap():.1f} s | {card}")
-    del glm, rec_f, calls, q, k, v, res
+    lines.append(dense_serve("glm4_9b", "20 glm4 serve", cuda, card,
+                             main_launches, add_check_launches, lap))
 
     # ---- 21. swept-edge CCD at fig_edges' full scale -------------------------
     if "cubby" in scenes:
@@ -4508,10 +4888,14 @@ def main() -> int:
     lines.append(train_phase(cuda, card, main_launches, add_check_launches,
                              lap))
 
-    # ---- 28. result -------------------------------------------------------
+    # ---- 28. dense-transformer training on the card -----------------------
+    lines.append(dense_train_phase(cuda, card, main_launches,
+                                   add_check_launches, lap))
+
+    # ---- 29. result -------------------------------------------------------
     # launches on every main path (phases 8, 13, 17, 20, 21, 22, 23, 24, 25,
-    # 26 and 27) and in the checks
-    log("28 result", f"whole script {time.perf_counter() - t_start:.1f} s")
+    # 26, 27 and 28) and in the checks
+    log("29 result", f"whole script {time.perf_counter() - t_start:.1f} s")
     for line in lines:
         line["launches"] = main_launches[line["name"]]
         line["check_launches"] = check_launches[line["name"]]

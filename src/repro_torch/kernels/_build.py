@@ -12,11 +12,11 @@ an edited kernel never loads a stale library.  Libraries land in
 Every kernel builds with the same flags.  ``--fmad=false`` keeps every
 ``a*b+c`` two roundings, as in the plain PyTorch versions: the collision,
 sampling and ray-march kernels must agree with them bit for bit; ``wkv6``,
-``wkv6_bwd`` and ``flash_attention``, which sum their dot products in
-another order (and their products on the tensor cores, which the flag does
-not touch; each writes the few ``fmaf`` its CUDA-core sums want), to the
-tolerances stated in ``kernels/wkv6/cases.py`` and
-``kernels/flash_attention/cases.py``.
+``wkv6_bwd``, ``flash_attention`` and ``flash_attention_bwd``, which sum
+their dot products in another order (and their products on the tensor
+cores, which the flag does not touch; each writes the few ``fmaf`` its
+CUDA-core sums want), to the tolerances stated in ``kernels/wkv6/cases.py``
+and ``kernels/flash_attention/cases.py``.
 
 Each wrapper counts its launches here (:func:`count_launch`), so a run can
 show that its main path really went through the kernels.
@@ -46,6 +46,7 @@ SOURCES: Dict[str, str] = {
     "wkv6": "kernels/wkv6/csrc/wkv6.cu",
     "wkv6_bwd": "kernels/wkv6/csrc/wkv6_bwd.cu",
     "flash_attention": "kernels/flash_attention/csrc/flash_attn.cu",
+    "flash_attention_bwd": "kernels/flash_attention/csrc/flash_attn_bwd.cu",
     "march": "kernels/march/csrc/march.cu",
 }
 

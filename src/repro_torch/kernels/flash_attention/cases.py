@@ -129,3 +129,113 @@ def within_tol(got, want, dtype_name: str, score_scale: float = 1.0
         return 0.0
     bound = tol["atol"] * max(1.0, score_scale) + tol["rtol"] * want.abs()
     return float(((got - want).abs() - bound).max())
+
+
+# ---- the backward ----------------------------------------------------------
+
+#: Query heads per KV head in the backward's cases: plain multi-head,
+#: starcoder2's smoke config's 3 and its full config's 9 (groups that are
+#: no power of two), glm4's 16.
+BWD_GROUPS = (1, 3, 9, 16)
+
+
+def bwd_cases() -> List[Dict]:
+    """Inputs of the backward: :func:`make_case`'s arrays plus ``do``, the
+    output's gradient.  Every width; every group of :data:`BWD_GROUPS`;
+    causal with Tq = Tk (three tokens, past one and two of the bf16
+    kernels' 64-row tiles, 256), with Tq < Tk and Tq > Tk (causal from 0
+    on both);
+    non-causal Tq != Tk with Tk no multiple of a key tile (32 or 64); both
+    layouts; and large-magnitude scores (x8), which the tests hold in fp32
+    only (a bf16 rounding of a score of ~64 moves its softmax weight
+    itself, ROADMAP C.13).  No case has one token: the gradient of a
+    softmax over one key is 0, and what both sides compute is the rounding
+    of dP - delta (it is row 0 of every causal case, beside rows whose
+    gradients set the scale)."""
+    specs = [  # B, Hkv, group, Tq, Tk, d, causal, layout, scale
+        (2, 2, 1, 100, 100, 16, True, "bhtd", 1.0),
+        (1, 2, 3, 130, 130, 32, True, "bthd", 1.0),
+        (1, 1, 9, 65, 65, 128, True, "bthd", 1.0),
+        (1, 2, 16, 200, 200, 64, True, "bthd", 1.0),
+        (1, 2, 16, 256, 256, 128, True, "bthd", 1.0),
+        (1, 1, 16, 3, 3, 128, True, "bhtd", 1.0),
+        (1, 1, 9, 64, 129, 64, True, "bthd", 1.0),
+        (1, 2, 1, 150, 70, 32, True, "bhtd", 1.0),
+        (2, 1, 4, 40, 72, 16, False, "bthd", 1.0),
+        (1, 2, 3, 97, 33, 128, False, "bhtd", 1.0),
+        (1, 1, 9, 33, 200, 32, False, "bthd", 1.0),
+        (1, 2, 16, 200, 200, 128, True, "bthd", LARGE),
+        (1, 1, 3, 100, 100, 16, False, "bhtd", LARGE),
+    ]
+    out = []
+    for i, (B, Hkv, g, Tq, Tk, d, causal, layout, scale) in enumerate(specs):
+        case = make_case(B, Hkv, g, Tq, Tk, d, causal, layout, scale,
+                         seed=100 + i)
+        case["do"] = np.random.RandomState(200 + i).normal(
+            size=case["q"].shape).astype(np.float32)
+        out.append(case)
+    return out
+
+
+def bwd_tensors(case: Dict, device, dtype=torch.float32):
+    """(q, k, v, do) on ``device`` in ``dtype``, ``do`` in q's layout."""
+    q, k, v = tensors(case, device, dtype)
+    do = torch.from_numpy(case["do"]).to(device, dtype)
+    if case["layout"] == "bthd":
+        do = do.transpose(1, 2).contiguous().transpose(1, 2)
+    return q, k, v, do
+
+
+#: A gradient against the plain version.  fp32: ``|got - want| <= rtol *
+#: max|want| * scale + atol`` with ``scale = max(1, score_scale)``.  The
+#: kernels sum each score's d products, each dP and each gradient's terms in
+#: another order than the plain version's matrix products; the error grows
+#: with the scores (a score s carries 2**-24 |s| into its weight exp(s -
+#: lse)): at x8 scores (std ~64) the fp32 plain version itself misses 1e-5
+#: of max|grad| against a float64 computation at d 128
+#: (``tests/test_torch_flash_grad.py::
+#: test_fp32_backward_at_x8_scores_needs_the_score_scale``), hence the score
+#: scale, as in :data:`TOL`.  bf16 against the fp32 plain version on the
+#: same bf16 inputs: the kernels round P and dS to bf16 (2**-9 relative)
+#: before the tensor-core products, and each gradient to bf16.  So each row
+#: (a query's dq, a key's dk or dv, along d) is held to ``rtol`` of its own
+#: max|want|: in causal attention the first keys' dk and dv are tens of
+#: times the last keys', and a bound from the whole tensor's max would pass
+#: a kernel that mangled the last keys.  ``floor``, of the whole tensor's
+#: max|want|, is for rows whose exact gradient is 0 (a causal case's first
+#: query, whose softmax has one key): they carry only the fp32 rounding of
+#: dP - delta, which both sides compute in fp32, held as fp32 holds a
+#: gradient.
+BWD_TOL = {"float32": dict(rtol=1e-5, atol=1e-6),
+           "bfloat16": dict(rtol=2e-2, floor=1e-5)}
+#: The forward's row log-sum-exp against the plain version's, absolute:
+#: a few fp32 roundings of the largest scaled score (~1e-6 at scores of
+#: order 1), times the score scale; bf16 inputs are exact in fp32 and their
+#: scores summed in fp32, so the same bound holds.
+LSE_ATOL = 1e-5
+
+
+def bwd_within_tol(got, want, dtype_name: str, score_scale: float = 1.0
+                   ) -> float:
+    """The largest excess over :data:`BWD_TOL` (<= 0 passes): of the
+    tensor's largest error over its bound in fp32, of any element's error
+    over its row's bound in bf16."""
+    tol = BWD_TOL[dtype_name]
+    got, want = got.float(), want.float()
+    if not want.numel():
+        return 0.0
+    if dtype_name == "float32":
+        bound = (tol["rtol"] * float(want.abs().max()) * max(1.0, score_scale)
+                 + tol["atol"])
+        return float((got - want).abs().max()) - bound
+    row = want.abs().amax(-1, keepdim=True)
+    bound = tol["rtol"] * row + tol["floor"] * float(row.max())
+    return float(((got - want).abs() - bound).max())
+
+
+def lse_within_tol(got, want, score_scale: float = 1.0) -> float:
+    """The largest excess of a row log-sum-exp over :data:`LSE_ATOL`."""
+    if not want.numel():
+        return 0.0
+    return (float((got.float() - want.float()).abs().max())
+            - LSE_ATOL * max(1.0, score_scale))

@@ -77,7 +77,12 @@
 // fp32 inputs: flash_fp32<D>, the same loop on the CUDA cores in fp32, 64
 // rows a CTA of 4 warps, each thread a 4 x 8 block of the score tile and 4
 // rows x d/8 columns of the output (the products cannot go to the bf16
-// tensor cores and keep the fp32 contract).  No main path runs it.
+// tensor cores and keep the fp32 contract).  fp32 training (the 2-layer
+// fp32 cuts that hold the card against the CPU) runs it.
+//
+// Both kernels write each row's log-sum-exp when the launch is given an
+// lse tensor: natural-log units, the backward's input (flash_attn_bwd.cu).
+// With none, serving runs exactly as before.
 //
 // Tensors are addressed by strides with a unit stride on d; every other
 // stride is a multiple of 16 bytes and the bases 16-byte aligned (the
@@ -115,6 +120,7 @@ struct Args {
   int B, Hq, group, Tq, Tk, causal;
   int nq;                     // query tiles a head
   float scale_log2;           // log2(e) / sqrt(d)
+  float* lse;                 // (B, Hq, Tq) row log-sum-exp, or null
 };
 
 // Work item w: head (b, h) and query tile; the last (largest causal) query
@@ -743,6 +749,23 @@ __global__ void __launch_bounds__(NT, 1)
       l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
       l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
       l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+      if (a.lse != nullptr && t == 0) {
+        // the row's log-sum-exp of the scaled scores in natural-log units,
+        // as the backward reads it: the softmax ran in base 2 on s * sl2,
+        // so lse = (m sl2 + log2 l) ln 2; a row that saw no key keeps
+        // NEG_INF
+        float* lr = a.lse + static_cast<long long>(x.b * a.Hq + x.h) * a.Tq;
+        if (row0 < a.Tq) {
+          lr[row0] = m0 == NEG_INF ? NEG_INF
+                                   : (m0 * sl2 + log2f(fmaxf(l0, 1e-30f))) *
+                                         0.6931471805599453f;
+        }
+        if (row1 < a.Tq) {
+          lr[row1] = m1 == NEG_INF ? NEG_INF
+                                   : (m1 * sl2 + log2f(fmaxf(l1, 1e-30f))) *
+                                         0.6931471805599453f;
+        }
+      }
       // one division a row, then multiplies (64 IEEE divisions a thread
       // would cost the epilogue more than the rest of it)
       const float r0 = 1.f / fmaxf(l0, 1e-30f);
@@ -795,6 +818,7 @@ struct Args {
   int Hq, group, Tq, Tk, causal;
   int64_t sqb, sqh, sqt, skb, skh, skt, svb, svh, svt, sob, soh, sot;
   float scale;
+  float* lse;   // (B, Hq, Tq) row log-sum-exp (natural log), or null
 };
 
 // The keys a query tile starting at row q0 must visit: [0, end).
@@ -937,6 +961,10 @@ __global__ void __launch_bounds__(NT) flash_fp32(const Args a) {
     const int row = q0 + 4 * tr + i;
     if (row >= a.Tq) continue;
     const float l = fmaxf(l_r[i], 1e-30f);
+    if (a.lse != nullptr && tc == 0) {   // natural log: m_r is scaled
+      a.lse[static_cast<int64_t>(bh) * a.Tq + row] =
+          m_r[i] == NEG_INF ? NEG_INF : m_r[i] + logf(l);
+    }
 #pragma unroll
     for (int c = 0; c < D / 8; ++c) {
       o[(int64_t)row * a.sot + tc + 8 * c] = acc[i][c] / l;
@@ -1024,7 +1052,8 @@ int launch_bf16(const Args& a, int B, int Hkv, cudaStream_t s) {
   const int nq = (a.Tq + hop::BQ - 1) / hop::BQ;
   const hop::Args ha{B,  a.Hq,     a.group, a.Tq, a.Tk, a.causal, nq,
                      static_cast<float>(1.4426950408889634 /
-                                        sqrt(static_cast<double>(D)))};
+                                        sqrt(static_cast<double>(D))),
+                     a.lse};
   const int smem = hop::smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(
       hop::flash_hopper<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1051,10 +1080,14 @@ int launch(const Args& a, int B, int Hkv, int bf16, cudaStream_t s) {
 
 // q (B, Hq, Tq, d), k and v (B, Hkv, Tk, d), o (B, Hq, Tq, d), each at its
 // strides (b, h, t, 1), in bf16 (bf16 != 0) or fp32; d in {16, 32, 64,
-// 128}; Hq a multiple of Hkv; Tk >= 1.  Returns the launch error, if any
-// (cudaErrorInvalidValue for arguments out of range).
+// 128}; Hq a multiple of Hkv; Tk >= 1.  lse: null, or a (B, Hq, Tq) fp32
+// contiguous tensor that takes each row's log-sum-exp of the scaled scores
+// in natural-log units (the backward's input; a row that saw no key gets
+// NEG_INF).  Returns the launch error, if any (cudaErrorInvalidValue for
+// arguments out of range).
 extern "C" int flash_attn_launch(
-    const void* q, const void* k, const void* v, void* o, int B, int Hq,
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int B, int Hq,
     int Hkv, int Tq, int Tk, int d, long long sqb, long long sqh,
     long long sqt, long long skb, long long skh, long long skt,
     long long svb, long long svh, long long svt, long long sob,
@@ -1070,7 +1103,7 @@ extern "C" int flash_attn_launch(
   if (B == 0 || Tq == 0) return 0;
   Args a{q,   k,   v,   o,   Hq,  Hq / Hkv, Tq,  Tk,  causal ? 1 : 0,
          sqb, sqh, sqt, skb, skh, skt,      svb, svh, svt, sob,
-         soh, sot, 1.0f / sqrtf(static_cast<float>(d))};
+         soh, sot, 1.0f / sqrtf(static_cast<float>(d)), lse};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 16: return launch<16>(a, B, Hkv, bf16, s);

@@ -1,13 +1,19 @@
-"""Dispatch for the flash-attention kernel.
+"""Dispatch for the flash-attention kernels: the forward and its backward.
 
 :func:`flash_attention` runs the CUDA kernel (``csrc/flash_attn.cu``) on
 CUDA tensors and the plain version
 (:func:`repro_torch.kernels.flash_attention.ref.attention_ref`) on CPU
 tensors; a build or launch failure raises, and so do what the kernel
 cannot run: another head width than 16, 32, 64 or 128, mixed devices or
-dtypes, and inputs that need a gradient (the kernel has no backward, as
-the reference's has none; the flash-attention backward and GLM-4
-training are the next item of ROADMAP A.11).
+dtypes, and misaligned strides.  When grad mode is on and an input needs
+a gradient, it goes through :class:`FlashAttentionFunction`: the forward
+kernel then also writes each row's log-sum-exp, and the backward is the
+backward kernel (``csrc/flash_attn_bwd.cu``, counted as
+``flash_attention_bwd``: a dq kernel whose prologue computes ``delta =
+rowsum(do * o)``, then a dk/dv kernel, deterministic, no atomics), with
+the plain versions (:func:`~repro_torch.kernels.flash_attention.ref.
+attention_lse_ref`, :func:`~repro_torch.kernels.flash_attention.ref.
+flash_attention_bwd_ref`) on CPU tensors.
 
 The kernel replaces the reference's ``flash_attention/kernel.py::
 flash_kernel``; the tensor cores bound it (4 d operations a causal pair:
@@ -21,7 +27,7 @@ consumer warpgroups of 64 query rows each run both products on ``wgmma``
 as it lies), the online softmax in base 2 between them, masks only on the
 tiles that cross the diagonal or Tk, and a TMA store of o.  fp32 inputs
 take a loop on the CUDA cores (the bf16 tensor cores would break the fp32
-contract); no main path runs it.
+contract); fp32 training runs it.
 
 q (B, Hq, Tq, d), k and v (B, Hkv, Tk, d), fp32 or bf16, are read through
 their strides (TMA tensor maps over (d, T, H, B)): the (B, H, T, d) views
@@ -29,18 +35,23 @@ of a model's (B, T, H, d) projections go in as they lie, with no copy.
 Each needs a unit stride on d, its other strides in whole 16-byte steps
 and a 16-byte aligned base (TMA's and the fp32 kernel's 16-byte loads).
 The output is (B, Hq, Tq, d) in q's dtype, a view of a (B, Tq, Hq, d)
-tensor, which a model's output projection reads as it lies.  The
+tensor, which a model's output projection reads as it lies; so are the
+gradients of q, k and v.  The output's gradient is read through its
+strides too, and copied once where they do not meet the same rules.  The
 reference wrapper's ``bq``, ``bk`` and ``interpret`` are TPU tiling
 choices and not part of this signature.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_lse_ref,
+                                                     attention_ref,
+                                                     flash_attention_bwd_ref)
 
 #: Head widths the kernel is built for.
 WIDTHS = (16, 32, 64, 128)
@@ -49,7 +60,7 @@ WIDTHS = (16, 32, 64, 128)
 def _lib():
     fn = _build.load("flash_attention").flash_attn_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                        + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 2
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -100,19 +111,119 @@ def _check(q, k, v) -> None:
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if devs.pop().type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention has no backward yet (the flash-attention "
-            "backward and GLM-4 training are the next item of ROADMAP "
-            "A.11); call it under torch.no_grad() or "
-            "torch.inference_mode()")
-    step = 16 // q.element_size()
     for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.stride(3) != 1 or any(s % step for s in x.stride()[:3]):
+        if not _kernel_strides(x):
             raise ValueError(
                 f"flash_attention: {name} has strides {x.stride()}; the "
                 f"kernel needs a unit stride on d and the others in "
-                f"multiples of {step} elements (16 bytes)")
+                f"multiples of {16 // x.element_size()} elements (16 bytes)")
+
+
+def _kernel_strides(x: torch.Tensor) -> bool:
+    """A unit stride on d and the others in whole 16-byte steps."""
+    step = 16 // x.element_size()
+    return x.stride(3) == 1 and not any(s % step for s in x.stride()[:3])
+
+
+def _bthd(B: int, H: int, T: int, d: int, like: torch.Tensor
+          ) -> torch.Tensor:
+    """An uninitialised (B, H, T, d) view of a (B, T, H, d) tensor."""
+    return torch.empty((B, T, H, d), dtype=like.dtype,
+                       device=like.device).transpose(1, 2)
+
+
+def _forward(q, k, v, causal: bool, with_lse: bool
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``(o, lse or None)`` on checked inputs: the kernel on the card, the
+    plain version on the CPU."""
+    if q.device.type == "cpu":
+        if with_lse:
+            return attention_lse_ref(q, k, v, causal)
+        return attention_ref(q, k, v, causal), None
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} is not 16-byte "
+                             f"aligned")
+    B, Hq, Tq, d = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    o = _bthd(B, Hq, Tq, d, q)
+    lse = (torch.empty((B, Hq, Tq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    launch = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        o.data_ptr(), None if lse is None else lse.data_ptr(),
+                        B, Hq, Hkv, Tq, Tk, d,
+                        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                        *o.stride()[:3], int(causal),
+                        int(q.dtype == torch.bfloat16), stream)
+    _build.check(status, "flash_attention")
+    _build.count_launch("flash_attention")
+    return o, lse
+
+
+def _bwd_lib():
+    fn = _build.load("flash_attention_bwd").flash_attn_bwd_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                       + [ctypes.POINTER(ctypes.c_longlong)]
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _backward(q, k, v, o, lse, do, causal: bool
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` from the forward's ``o`` and ``lse`` and the
+    output's gradient ``do``: the backward kernel on the card (one call,
+    two kernels), the plain version on the CPU."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
+    if (do.dtype != q.dtype or not _kernel_strides(do)
+            or do.data_ptr() % 16):
+        # the kernel reads do as it reads q; autograd may hand it over in
+        # another layout (or dtype): one copy
+        do = _bthd(*q.shape, q).copy_(do)
+    B, Hq, Tq, d = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    dq, dk, dv = (_bthd(B, Hq, Tq, d, q), _bthd(B, Hkv, Tk, d, k),
+                  _bthd(B, Hkv, Tk, d, v))
+    delta = torch.empty((B, Hq, Tq), dtype=torch.float32, device=q.device)
+    lse = lse.contiguous()
+    strides = (ctypes.c_longlong * 24)(*[
+        s for x in (q, k, v, o, do, dq, dk, dv) for s in x.stride()[:3]])
+    launch = _bwd_lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                        dv.data_ptr(), B, Hq, Hkv, Tq, Tk, d, strides,
+                        int(causal), int(q.dtype == torch.bfloat16), stream)
+    _build.check(status, "flash_attention_bwd")
+    _build.count_launch("flash_attention_bwd")
+    return dq, dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Flash attention with a gradient: the forward kernel with the rows'
+    log-sum-exp (saved with q, k, v and o), the backward kernel; their
+    plain versions on CPU tensors.  Under non-reentrant checkpointing the
+    forward runs again in the backward, and the recomputed ``o`` and
+    ``lse`` are the ones the backward reads."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        o, lse = _forward(q, k, v, causal, True)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        return (*_backward(q, k, v, o, lse, do, ctx.causal), None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -120,24 +231,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Softmax attention over (B, H, T, d); k and v may have fewer heads
     (GQA, KV head ``h // (Hq // Hkv)``).  Returns (B, Hq, Tq, d)."""
     _check(q, k, v)
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal)
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.data_ptr() % 16:
-            raise ValueError(f"flash_attention: {name} is not 16-byte "
-                             f"aligned")
-    B, Hq, Tq, d = q.shape
-    Hkv, Tk = k.shape[1], k.shape[2]
-    o = torch.empty((B, Tq, Hq, d), dtype=q.dtype,
-                    device=q.device).transpose(1, 2)
-    launch = _lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        o.data_ptr(), B, Hq, Hkv, Tq, Tk, d,
-                        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                        *o.stride()[:3], int(causal),
-                        int(q.dtype == torch.bfloat16), stream)
-    _build.check(status, "flash_attention")
-    _build.count_launch("flash_attention")
-    return o
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return FlashAttentionFunction.apply(q, k, v, causal)
+    return _forward(q, k, v, causal, False)[0]

@@ -1,7 +1,8 @@
-"""Plain PyTorch version of the flash-attention kernel: softmax attention.
+"""Plain PyTorch versions of the flash-attention kernels: softmax
+attention, its row log-sum-exp and its backward.
 
-Counterpart of ``repro.kernels.flash_attention.ref.attention_ref``, with
-the contract of the reference's Pallas wrapper
+:func:`attention_ref` is the counterpart of ``repro.kernels.flash_attention.
+ref.attention_ref``, with the contract of the reference's Pallas wrapper
 (``repro.kernels.flash_attention.ops.flash_attention``) and of
 ``csrc/flash_attn.cu``:
 
@@ -12,23 +13,107 @@ the contract of the reference's Pallas wrapper
 - causal: key j is seen by query i when ``i >= j``, both counted from 0,
   also when Tq != Tk;
 - scores, softmax and the weighted sum in fp32; the output in q's dtype.
+
+:func:`attention_lse_ref` adds the fp32 row log-sum-exp of the scaled
+scores, (B, Hq, Tq), in natural-log units: what the forward kernel writes
+for the backward.  :func:`flash_attention_bwd_ref` is the backward of
+``csrc/flash_attn_bwd.cu``: the reference's ``models/flash_jnp.py::
+_flash_bwd`` formulas (``delta = rowsum(do * o)``, ``P = exp(S * scale -
+lse)``, ``dS = P * (dP - delta) * scale``) over the whole sequence, in
+fp32, ``dk`` and ``dv`` summed over the query heads of each KV head's
+group.  A row whose ``lse`` is the finite ``NEG_INF`` of a row that saw no
+key gets weights 0 (not ``exp`` of the rounding residual).
 """
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
+
+#: The reference's finite mask value (``flash_jnp.NEG_INF``).
+NEG_INF = -1e30
+
+
+def _causal_mask(Tq: int, Tk: int, device) -> torch.Tensor:
+    qi = torch.arange(Tq, device=device)[:, None]
+    kj = torch.arange(Tk, device=device)[None, :]
+    return qi >= kj
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool
+            ) -> torch.Tensor:
+    """fp32 scaled scores (B, Hq, Tq, Tk), masked keys at -inf."""
+    d, group = q.shape[3], q.shape[1] // k.shape[1]
+    kf = k.float().repeat_interleave(group, dim=1)
+    s = torch.matmul(q.float(), kf.transpose(-1, -2)) / (d ** 0.5)
+    if causal:
+        s = s.masked_fill(~_causal_mask(q.shape[2], k.shape[2], q.device),
+                          float("-inf"))
+    return s
+
+
+def _weighted(p: torch.Tensor, v: torch.Tensor, group: int) -> torch.Tensor:
+    return torch.matmul(p, v.float().repeat_interleave(group, dim=1))
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool = True) -> torch.Tensor:
+    p = torch.softmax(_scores(q, k, causal), dim=-1)
+    return _weighted(p, v, q.shape[1] // k.shape[1]).to(q.dtype)
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(o, lse)``: o as :func:`attention_ref`, lse (B, Hq, Tq) fp32."""
+    s = _scores(q, k, causal)
+    p = torch.softmax(s, dim=-1)
+    o = _weighted(p, v, q.shape[1] // k.shape[1]).to(q.dtype)
+    return o, torch.logsumexp(s, dim=-1)
+
+
+def attention_bwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                      mask: Optional[torch.Tensor]
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward's formulas in fp32 over one block of queries and keys:
+    ``mask`` (Tq, Tk) bool (None: every key seen) in the block's own
+    positions, ``lse`` the block's rows'.  Returns fp32 ``(dq, dk, dv)``,
+    dk and dv summed over each KV head's group (B, Hkv, Tk, d)."""
     B, Hq, Tq, d = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     group = Hq // Hkv
+    scale = 1.0 / (d ** 0.5)
+    qf, dof = q.float(), do.float()
     kf = k.float().repeat_interleave(group, dim=1)
     vf = v.float().repeat_interleave(group, dim=1)
-    s = torch.matmul(q.float(), kf.transpose(-1, -2)) / (d ** 0.5)
-    if causal:
-        qi = torch.arange(Tq, device=q.device)[:, None]
-        kj = torch.arange(Tk, device=q.device)[None, :]
-        s = s.masked_fill(qi < kj, float("-inf"))
-    p = torch.softmax(s, dim=-1)
-    return torch.matmul(p, vf).to(q.dtype)
+    delta = (dof * o.float()).sum(-1)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    lse = lse.float()[..., None]
+    p = torch.exp(s - lse)
+    seen = lse > NEG_INF / 2
+    if mask is not None:
+        seen = seen & mask
+    p = torch.where(seen, p, torch.zeros((), device=p.device))
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.matmul(ds, kf)
+    dk = torch.matmul(ds.transpose(-1, -2), qf)
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    fold = (B, Hkv, group, Tk, d)
+    return dq, dk.view(fold).sum(2), dv.view(fold).sum(2)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            lse: torch.Tensor, do: torch.Tensor,
+                            causal: bool = True
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """``(dq, dk, dv)`` of softmax attention given the forward's ``o`` and
+    ``lse`` and the output's gradient ``do`` (q's shape), each gradient in
+    its input's dtype."""
+    mask = (_causal_mask(q.shape[2], k.shape[2], q.device) if causal
+            else None)
+    dq, dk, dv = attention_bwd_f32(q, k, v, o, lse, do, mask)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

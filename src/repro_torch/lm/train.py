@@ -4,10 +4,14 @@ Counterpart of ``repro.lm.train`` on one card (no mesh): the same flags
 and loop, plus ``--device`` (the card unless the caller asks for the
 CPU).  The default trains the architecture's smoke config, ``--full`` its
 full config; the model is drawn from a generator seeded 0 on the device.
-``--arch`` defaults to ``rwkv6_1_6b``: the reference's default,
-``glm4_9b``, needs the flash-attention backward (ROADMAP A.11).
+``--arch`` defaults to ``glm4_9b``, as the reference's; its gradient runs
+through the flash-attention backward kernel, RWKV-6's through the WKV6
+one.  GLM-4 9B's full config (9.4 B weights, ~150 GB of weights,
+gradients and moments) does not fit one 80 GB card; a caller trains it
+cut in depth, ``train(get_config("glm4_9b").replace(num_layers=8),
+...)``.
 
-  python3 -m repro_torch.lm.train --arch rwkv6_1_6b --device cuda --steps 20
+  python3 -m repro_torch.lm.train --device cuda --steps 20
   python3 -m repro_torch.lm.train --arch rwkv6_1_6b --full --device cuda \\
       --seq 1024 --microbatches 4
   ... --resume            # continue from the latest committed checkpoint
@@ -132,7 +136,7 @@ def train(cfg, steps: int, batch: int = 8, seq: int = 64, lr: float = 3e-4,
 
 def main(argv=None) -> TrainResult:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default="rwkv6_1_6b")
+    ap.add_argument("--arch", default="glm4_9b")
     ap.add_argument("--full", action="store_true",
                     help="full config (default: smoke config)")
     ap.add_argument("--steps", type=int, default=20)

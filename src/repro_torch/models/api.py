@@ -5,10 +5,10 @@ Counterpart of ``repro.models.api`` for the ``dense`` (attention) and
 ``make_prefill_fn`` and ``make_decode_fn`` return the serving functions,
 which run under ``torch.inference_mode()``, and ``make_loss_fn`` the
 training loss, which runs in grad mode where its caller asks for a
-gradient.  The RWKV-6 gradient runs on the card (the WKV6 backward
-kernel); the ``dense`` family's loss runs on the card under
-``torch.no_grad()``, but its gradient meets the flash kernel, which has no
-backward yet (the next item of ROADMAP A.11).  ``batch_spec`` gives a
+gradient.  Both families' gradients run on the card through hand-written
+backward kernels: RWKV-6's through the WKV6 backward, the ``dense``
+family's through the flash-attention backward
+(``kernels/flash_attention/csrc/flash_attn_bwd.cu``).  ``batch_spec`` gives a
 batch's shapes as ``meta`` tensors (the reference's ShapeDtypeStructs).
 Prefill pads the attention KV caches to the decode horizon with the
 reference's ``_pad_caches`` (the identity for RWKV's O(1) state).  The

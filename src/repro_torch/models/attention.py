@@ -1,17 +1,24 @@
-"""GQA attention: prefill through the flash-attention kernel, cached decode.
+"""GQA attention: training and prefill through the flash-attention kernels,
+cached decode.
 
 Counterpart of ``repro.models.attention``.  Parameters keep the
 reference's names, layouts and init (``wq (d, H, hd)``, ``wk``/``wv (d,
 K, hd)``, ``wo (H, hd, d)`` times 1/sqrt(2L), zero ``bq``/``bk``/``bv``
-under ``qkv_bias``).  Every prefill's attention goes through
+under ``qkv_bias``).  The reference's three implementations of the same
+function are here as plain tensor code: :func:`dense_attention` (the (S,
+T) scores at once), :func:`chunked_attention` (the two-level online
+softmax) and, in :mod:`repro_torch.models.flash_train`, ``flash_jnp``'s
+custom VJP.  Where the reference's ``attention_ctx`` picks one of them by
+size (dense up to S T = 2**22, else flash when power-of-two chunks divide
+S and T, else chunked), the port's sends every size through
 :func:`repro_torch.kernels.flash_attention.ops.flash_attention`: the CUDA
-kernel on the card, its plain version on the CPU.  The reference picks
-one of three implementations of the same function by size
-(``dense_attention``, ``flash_jnp``'s custom VJP, ``chunked_attention``);
-those, and the sliding window, which the kernel does not have, are not
-ported (ROADMAP A.11).  Decode attends one token over the KV cache in
-tensor code, as the reference's ``decode_attention`` (jnp there, no
-kernel).
+kernels on the card (the forward and, in grad mode, its hand-written
+backward), their plain versions on the CPU; the function is the same, the
+sums run in another order.  The sliding window, which the kernels, like
+the reference's Pallas kernel, do not have, is refused there (ROADMAP
+A.11); ``_mask`` and the plain functions take it.  Decode attends one
+token over the KV cache in tensor code, as the reference's
+``decode_attention`` (jnp there, no kernel).
 """
 from __future__ import annotations
 
@@ -70,10 +77,93 @@ def project_out(params, ctx: torch.Tensor) -> torch.Tensor:
     return ctx.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
 
 
+def _mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
+          window: int) -> torch.Tensor:
+    m = torch.ones(torch.broadcast_shapes(qpos.shape, kpos.shape),
+                   dtype=torch.bool, device=qpos.device)
+    if causal:
+        m &= qpos >= kpos
+    if window:
+        m &= (qpos - kpos) < window
+    return m
+
+
+def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg,
+                    causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+    """(B, S, H, hd) x (B, T, K, hd) -> (B, S, H, hd), the (S, T) scores
+    at once (the reference's small-S path)."""
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    g = H // K
+    qr = q.reshape(B, S, K, g, hd)
+    s = torch.einsum("bskgh,btkh->bkgst", qr, k) / (hd ** 0.5)
+    qpos = torch.arange(S, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(T, device=q.device)[None, :]
+    s = torch.where(_mask(qpos, kpos, causal, cfg.sliding_window), s,
+                    NEG_INF)
+    p = torch.softmax(s.float(), -1).to(q.dtype)
+    ctx = torch.einsum("bkgst,btkh->bskgh", p, v)
+    return ctx.reshape(B, S, H, hd)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      cfg, causal: bool = True, q_chunk: int = 512,
+                      k_chunk: int = 1024) -> torch.Tensor:
+    """The flash-style two-level loop: never the whole (S, T) scores."""
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    g = H // K
+    q_chunk = min(q_chunk, S)
+    k_chunk = min(k_chunk, T)
+    if S % q_chunk or T % k_chunk:
+        raise ValueError(f"chunked_attention: chunks ({q_chunk}, "
+                         f"{k_chunk}) do not divide (S, T) = ({S}, {T})")
+    scale = 1.0 / (hd ** 0.5)
+    dev = q.device
+    out = torch.empty_like(q)
+    for qi in range(S // q_chunk):
+        rows = slice(qi * q_chunk, (qi + 1) * q_chunk)
+        qc = q[:, rows].reshape(B, q_chunk, K, g, hd).permute(0, 2, 3, 1, 4)
+        m = torch.full((B, K, g, q_chunk), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, K, g, q_chunk, hd), dtype=torch.float32,
+                          device=dev)
+        qpos = qi * q_chunk + torch.arange(q_chunk, device=dev)[:, None]
+        for ki in range(T // k_chunk):
+            cols = slice(ki * k_chunk, (ki + 1) * k_chunk)
+            kc, vc = k[:, cols].transpose(1, 2), v[:, cols].transpose(1, 2)
+            s = torch.einsum("bkgqh,bkth->bkgqt", qc, kc).float() * scale
+            kpos = ki * k_chunk + torch.arange(k_chunk, device=dev)[None, :]
+            s = torch.where(_mask(qpos, kpos, causal, cfg.sliding_window), s,
+                            NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgqt,bkth->bkgqh", p.to(qc.dtype), vc).float()
+            m = m_new
+        o = (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+        out[:, rows] = o.permute(0, 3, 1, 2, 4).reshape(B, q_chunk, H, hd)
+    return out
+
+
+def _pick_chunk(n: int, target: int, floor: int = 64) -> int:
+    """Largest power-of-two divisor of n that is <= target (>= floor)."""
+    c = target
+    while c >= floor:
+        if n % c == 0:
+            return c
+        c //= 2
+    return 0
+
+
 def attention_ctx(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg,
                   causal: bool = True) -> torch.Tensor:
     """(B, S, H, hd) x (B, T, K, hd) -> (B, S, H, hd), every size through
-    the flash-attention kernel (its plain version on the CPU)."""
+    the flash-attention kernels (their plain versions on the CPU); in grad
+    mode the backward is the hand-written one."""
     if cfg.sliding_window:
         raise NotImplementedError(
             f"{cfg.name}: sliding-window attention is not ported (ROADMAP "

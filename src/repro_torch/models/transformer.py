@@ -8,7 +8,9 @@ on a leading L axis for ``lax.scan``; here a Python loop runs them), the
 final norm and an untied ``lm_head``.  Under ``cfg.remat`` and grad mode
 each block runs through ``torch.utils.checkpoint`` (non-reentrant), as
 the reference remats each scanned layer: its activations are recomputed
-in the backward, its kernel launched a second time.  The ``hybrid`` block
+in the backward, its kernel launched a second time (the WKV6 recurrence,
+or the flash attention with its rows' log-sum-exp), and then its backward
+kernel once.  The ``hybrid`` block
 type, MoE, tied embeddings, prefix embeddings, sliding windows and the
 sharding hints are not ported (ROADMAP A.11).
 
@@ -145,7 +147,8 @@ class LM(nn.Module):
         ``last_only`` unembeds only the last position (logits (B, 1, V)),
         all that prefill returns.  On the card every block runs one kernel
         launch: the WKV6 recurrence (``rwkv``) or the flash attention
-        (``attn``); in training under ``cfg.remat``, two.
+        (``attn``); in training under ``cfg.remat``, two, and its backward
+        kernel one.
         """
         x = self._embed(tokens)
         positions = torch.arange(tokens.shape[1], device=x.device)

@@ -120,17 +120,32 @@ def adamw_update(params: Mapping[str, torch.Tensor],
     bc1 = float(1 - torch.tensor(b1, dtype=torch.float32) ** stepf)
     bc2 = float(1 - torch.tensor(b2, dtype=torch.float32) ** stepf)
     lr_f = float(lr)
+    # The same operations in the same order as
+    # m = b1 m + (1 - b1) g, v = b2 v + (1 - b2) g^2,
+    # p -= lr ((m / bc1) / (sqrt(v / bc2) + eps) + wd p), each rounded alike,
+    # written in place where a value is not read again: an fp32 moment or
+    # parameter is its own fp32 copy, so it takes the update where it lies,
+    # and a tensor of the 620 M-row embedding costs two temporaries, not a
+    # dozen.
     for name, p in params.items():
         g = grads[name]
         g32 = (g * scale.to(device=g.device, dtype=g.dtype)).float()
         m, v = state["m"][name], state["v"][name]
-        m32 = b1 * m.float() + (1 - b1) * g32
-        v32 = b2 * v.float() + (1 - b2) * g32.square()
-        delta = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
+        m32 = m.float().mul_(b1).add_(g32 * (1 - b1))
+        v32 = v.float().mul_(b2).add_(g32.square_().mul_(1 - b2))
+        del g32
+        delta = m32.div(bc1).div_(v32.div(bc2).sqrt_().add_(cfg.eps))
         if decay(name, p):
-            delta = delta + cfg.weight_decay * p.float()
-        p.copy_((p.float() - lr_f * delta).to(p.dtype))
-        m.copy_(m32.to(m.dtype))
-        v.copy_(v32.to(v.dtype))
+            delta.add_(p.float() * cfg.weight_decay)
+        delta.mul_(lr_f)
+        if p.dtype == torch.float32:
+            p.sub_(delta)
+        else:
+            p.copy_(p.float().sub_(delta))
+        del delta
+        if m32 is not m:
+            m.copy_(m32)
+        if v32 is not v:
+            v.copy_(v32)
     state["step"] = step
     return params, state, {"lr": lr, "grad_norm": gnorm}

@@ -23,8 +23,10 @@ from repro.models import attention as jattn
 from repro.models.common import apply_rope as japply_rope
 from repro_torch.configs.base import get_smoke_config
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.kernels.flash_attention.cases import (hard_cases, make_case,
+from repro_torch.kernels.flash_attention.cases import (bwd_within_tol,
+                                                       hard_cases, make_case,
                                                        tensors, within_tol)
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models import attention as attn
 from repro_torch.models.common import apply_rope
 
@@ -154,10 +156,21 @@ def test_decode_attention_and_cache_update_match_reference():
 
 
 def test_flash_attention_rejects_what_the_kernel_cannot_run():
+    """The refusals, and what is no longer one: an input that needs a
+    gradient now gets it (``FlashAttentionFunction``; on the CPU the plain
+    backward), equal to ``autograd`` through the plain forward within
+    ``cases.BWD_TOL``."""
     case = make_case(1, 1, 2, 8, 8, 16, True)
     q, k, v = tensors(case, "cpu")
-    with pytest.raises(NotImplementedError, match="no backward"):
-        flash_ops.flash_attention(q.requires_grad_(), k, v)
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = flash_ops.flash_attention(*xs)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out.sum(), xs)
+    ys = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(attention_ref(*ys).sum(), ys)
+    for g, w in zip(got, want):
+        assert bool(g.isfinite().all())
+        assert bwd_within_tol(g, w, "float32") <= 0
     odd = torch.zeros((1, 2, 8, 24))
     with pytest.raises(ValueError, match="head width"):
         flash_ops.flash_attention(odd, odd[:, :1], odd[:, :1])

@@ -1,7 +1,11 @@
-"""Port parity: GLM-4 serving (prefill, greedy decode) against the reference.
+"""Port parity: dense-model serving (prefill, greedy decode) against the
+reference: GLM-4 and StarCoder2.
 
 On ``glm4_smoke`` (2 layers, d 128, 8 query heads on 2 KV heads of 16,
-SwiGLU d_ff 384, vocab 512, fp32), weights from the reference's
+SwiGLU d_ff 384, vocab 512, fp32) and ``starcoder2_smoke`` (2 layers, d
+144, 9 query heads on 3 KV heads of 16, LayerNorm with bias, gelu d_ff
+576, vocab 512, fp32), the ``models`` fixture's two cases, weights from
+the reference's
 ``api.init_params(cfg, PRNGKey(1))`` are carried across by
 :func:`repro_torch.convert.lm_from_reference`; prompts come from numpy
 seeds.  The port's prefill runs every layer's attention through
@@ -38,16 +42,17 @@ CONSIST_TOL = dict(rtol=2e-3, atol=2e-3)
 B, S, STEPS = 2, 48, 4
 MAX_LEN = S + 8
 ARCH = "glm4_9b"
+ARCHS = ("glm4_9b", "starcoder2_7b")
 
 
 def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-@pytest.fixture(scope="module")
-def models():
-    cfg = get_smoke_config(ARCH)
-    jcfg = jget_smoke_config(ARCH)
+@pytest.fixture(scope="module", params=ARCHS)
+def models(request):
+    cfg = get_smoke_config(request.param)
+    jcfg = jget_smoke_config(request.param)
     params = _np(japi.init_params(jcfg, jax.random.PRNGKey(1)))
     port = LM(cfg, device="cpu")
     port.load_state_dict(lm_from_reference(cfg, params), strict=True)
@@ -163,7 +168,7 @@ def test_prefill_runs_flash_attention_once_per_layer(models, prompts,
 
 @pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
 def test_lm_from_reference_fills_every_weight(models, param_dtype):
-    cfg = get_smoke_config(ARCH).replace(param_dtype=param_dtype)
+    cfg = models[0].replace(param_dtype=param_dtype)
     params = models[2]
     if param_dtype == "bfloat16":
         params = jax.tree_util.tree_map(
@@ -178,24 +183,33 @@ def test_lm_from_reference_fills_every_weight(models, param_dtype):
     got = port.state_dict()
     bits = np.uint16 if param_dtype == "bfloat16" else np.float32
     view = torch.int16 if param_dtype == "bfloat16" else torch.float32
-    for key, leaf in (("blocks.1.attn.wq", params["blocks"]["attn"]["wq"][1]),
-                      ("blocks.1.ffn.w_down",
-                       params["blocks"]["ffn"]["w_down"][1])):
+    down = "w_down" if cfg.mlp_act == "swiglu" else "w_out"
+    pairs = [("blocks.1.attn.wq", params["blocks"]["attn"]["wq"][1]),
+             (f"blocks.1.ffn.{down}", params["blocks"]["ffn"][down][1])]
+    if cfg.norm == "layernorm":           # the bias the reference carries
+        pairs.append(("blocks.1.ln2.bias", params["blocks"]["ln2"]["bias"][1]))
+    for key, leaf in pairs:
         assert np.array_equal(got[key].view(view).numpy().view(bits),
                               np.asarray(leaf).view(bits)), key
 
 
-def test_full_model_weight_count_and_shapes_on_meta():
-    cfg = get_config(ARCH)
+@pytest.mark.parametrize("arch,count,shapes", [
+    ("glm4_9b", 9_399_767_040,
+     {"blocks.39.attn.wq": (4096, 32, 128), "blocks.0.attn.wk": (4096, 2, 128),
+      "blocks.0.attn.wo": (32, 128, 4096),
+      "blocks.0.ffn.w_gate": (4096, 13696), "lm_head": (4096, 151552)}),
+    ("starcoder2_7b", 7_399_351_296,
+     {"blocks.31.attn.wq": (4608, 36, 128), "blocks.0.attn.wk": (4608, 4, 128),
+      "blocks.0.attn.wo": (36, 128, 4608), "blocks.0.ffn.w_in": (4608, 18432),
+      "blocks.0.ln1.bias": (4608,), "lm_head": (4608, 49152)})])
+def test_full_model_weight_count_and_shapes_on_meta(arch, count, shapes):
+    cfg = get_config(arch)
     model = LM(cfg, device="meta")
     n = sum(p.numel() for p in model.parameters())
-    assert n == 9_399_767_040
+    assert n == count
     state = model.state_dict()
-    assert tuple(state["blocks.39.attn.wq"].shape) == (4096, 32, 128)
-    assert tuple(state["blocks.0.attn.wk"].shape) == (4096, 2, 128)
-    assert tuple(state["blocks.0.attn.wo"].shape) == (32, 128, 4096)
-    assert tuple(state["blocks.0.ffn.w_gate"].shape) == (4096, 13696)
-    assert tuple(state["lm_head"].shape) == (4096, 151552)
+    for key, shape in shapes.items():
+        assert tuple(state[key].shape) == shape, key
     assert state["embed"].dtype == torch.bfloat16
 
 
@@ -237,4 +251,4 @@ def test_serve_on_cuda_raises_without_a_card(models, prompts):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve(models[3], prompts, 2, device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        api.init_params(get_smoke_config(ARCH))
+        api.init_params(models[0])

@@ -9,9 +9,10 @@ also run on a machine that has only PyTorch and the CUDA toolkit:
 The collision and sampling comparisons are exact: those kernels are built
 with ``--fmad=false`` and keep the plain versions' operation order, and
 the SACT planes put pairs that graze a separating plane on their
-diagonal.  ``wkv6`` and ``flash_attention`` sum their dot products in
-another order than their plain versions and are held to the ``TOL`` of
-their ``cases.py``.
+diagonal.  ``wkv6``, ``wkv6_bwd``, ``flash_attention`` and
+``flash_attention_bwd`` sum their dot products in another order than
+their plain versions and are held to the tolerances of their
+``cases.py``.
 """
 import copy
 import subprocess
@@ -44,7 +45,9 @@ from repro_torch.kernels.compact import ops as compact_ops
 from repro_torch.kernels.compact.ref import compact_ref
 from repro_torch.kernels.flash_attention import cases as flash_cases
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_lse_ref,
+                                                     attention_ref,
+                                                     flash_attention_bwd_ref)
 from repro_torch.kernels.fps import ops as fps_ops
 from repro_torch.kernels.fps.cases import tie_cloud
 from repro_torch.kernels.fps.ref import fps_ref
@@ -1237,22 +1240,108 @@ def test_planner_training_step_card_matches_cpu(cuda):
         assert torch.allclose(pc[n].cpu(), ph[n], **tol), n
 
 
-def test_dense_family_gradient_raises_on_the_card(cuda):
-    """GLM-4's loss runs on the card under ``no_grad``; its gradient meets
-    the flash kernel's refusal, which names the next item of ROADMAP A.11
-    (the flash-attention backward), on CUDA tensors as on CPU ones."""
+@pytest.mark.parametrize("arch", ["glm4_9b", "starcoder2_7b"])
+def test_dense_family_training_card_matches_cpu(cuda, arch, monkeypatch):
+    """The smoke model's loss and every gradient on the card (fp32, TF32
+    off: ``flash_fp32`` and the fp32 backward) against the same weights
+    and batch on the CPU, rtol = atol = 1e-4; under remat each layer
+    launches ``flash_attention`` twice and ``flash_attention_bwd`` once."""
     from repro_torch.data.pipeline import synth_batch
     from repro_torch.configs.base import ShapeSpec
-    cfg = get_smoke_config("glm4_9b")
-    model = lm_api.init_params(cfg, device=cuda)
-    batch = {k: torch.from_numpy(v).to(cuda) for k, v in synth_batch(
-        cfg, ShapeSpec("t", 32, 2, "train"), 0).items()}
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_smoke_config(arch)
+    cpu = lm_api.init_params(cfg, device="cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    host = synth_batch(cfg, ShapeSpec("t", 48, 2, "train"), 0)
     loss_fn = lm_api.make_loss_fn(cfg)
-    with torch.no_grad():
+    out = {}
+    before = _build.launch_counts()
+    for name, model, dev in (("card", card, cuda), ("cpu", cpu, "cpu")):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
         loss, _ = loss_fn(model, batch)
-    assert bool(loss.isfinite())
-    with pytest.raises(NotImplementedError, match="next item of ROADMAP"):
-        loss_fn(model, batch)
+        out[name] = (loss.detach(), torch.autograd.grad(
+            loss, list(model.parameters())))
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    assert after["flash_attention"] - before["flash_attention"] == \
+        2 * cfg.num_layers
+    assert after["flash_attention_bwd"] - before["flash_attention_bwd"] == \
+        cfg.num_layers
+    (lc, gc), (lh, gh) = out["card"], out["cpu"]
+    assert torch.allclose(lc.cpu(), lh, rtol=1e-4, atol=1e-4)
+    for (n, _), a, b in zip(cpu.named_parameters(), gc, gh):
+        assert bool(a.isfinite().all()), n
+        assert torch.allclose(a.cpu(), b, rtol=1e-4, atol=1e-4), n
+
+
+def _flash_grads(q, k, v, do, causal):
+    """The kernels' o, lse and gradients of q, k, v (one forward with lse,
+    one backward call), and the backward's launch count."""
+    before = _build.launch_counts()["flash_attention_bwd"]
+    o, lse = flash_ops._forward(q, k, v, causal, True)
+    got = flash_ops._backward(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    return o, lse, got, _build.launch_counts()["flash_attention_bwd"] - before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", flash_cases.bwd_cases(),
+                         ids=lambda c: c["name"])
+def test_flash_attention_bwd_kernel_matches_plain_and_is_deterministic(
+        cuda, case, dtype):
+    """The forward's lse against ``attention_lse_ref``'s, and the backward
+    kernel against ``flash_attention_bwd_ref`` on the same q, k, v, o, lse
+    and do; a second call gives the same bits (no atomics).  The
+    large-magnitude cases are held in fp32 only (their bf16 pass checks
+    that the gradients come back finite)."""
+    q, k, v, do = flash_cases.bwd_tensors(case, cuda, dtype)
+    o, lse, got, n = _flash_grads(q, k, v, do, case["causal"])
+    assert n == 1
+    dname = str(dtype)[6:]
+    _, want_lse = attention_lse_ref(q, k, v, case["causal"])
+    assert flash_cases.lse_within_tol(lse, want_lse,
+                                      case["score_scale"]) <= 0
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, case["causal"])
+    for name, g, w, x in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        assert g.dtype == x.dtype and g.shape == x.shape, name
+        assert bool(g.isfinite().all()), name
+        if dtype == torch.float32 or case["score_scale"] == 1.0:
+            assert flash_cases.bwd_within_tol(
+                g, w, dname, case["score_scale"]) <= 0, name
+    again = flash_ops._backward(q, k, v, o, lse, do, case["causal"])
+    for name, a, b in zip(("dq", "dk", "dv"), got, again):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_flash_attention_gradient_through_autograd(cuda, remat):
+    """``flash_attention`` in grad mode: one forward launch (two under
+    non-reentrant checkpointing, whose recomputed lse the backward reads)
+    and one backward launch; the gradients equal the kernels' own on the
+    same inputs.  ``do`` is a contiguous (B, H, T, d) tensor, which the
+    kernel reads as it lies, while q, k and v are views of (B, T, H, d)
+    ones."""
+    from torch.utils.checkpoint import checkpoint
+    case = flash_cases.make_case(2, 2, 9, 130, 130, 128, True, "bthd", seed=5)
+    q, k, v = flash_cases.tensors(case, cuda, torch.bfloat16)
+    do = torch.from_numpy(np.random.RandomState(6).normal(
+        size=q.shape).astype(np.float32)).to(cuda, torch.bfloat16)
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = _build.launch_counts()
+    if remat:
+        o = checkpoint(flash_ops.flash_attention, *xs, True,
+                       use_reentrant=False)
+    else:
+        o = flash_ops.flash_attention(*xs, True)
+    got = torch.autograd.grad(o, xs, do)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    assert after["flash_attention"] - before["flash_attention"] == \
+        (2 if remat else 1)
+    assert after["flash_attention_bwd"] - before["flash_attention_bwd"] == 1
+    _, _, want, _ = _flash_grads(q, k, v, do, True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def test_wkv6_kernel_rejects_what_it_cannot_run(cuda):
@@ -1318,8 +1407,6 @@ def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
 def test_flash_attention_kernel_rejects_what_it_cannot_run(cuda):
     case = flash_cases.make_case(1, 1, 2, 8, 8, 16, True)
     q, k, v = flash_cases.tensors(case, cuda)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        flash_ops.flash_attention(q.clone().requires_grad_(), k, v)
     with pytest.raises(ValueError, match="several devices"):
         flash_ops.flash_attention(q, k.cpu(), v)
     with pytest.raises(ValueError, match="16-byte"):

@@ -233,7 +233,7 @@ def test_caches_are_stacked_layer_leading():
 
 def test_unported_architectures_raise_naming_roadmap():
     with pytest.raises(NotImplementedError, match="A.11"):
-        get_config("starcoder2_7b")
+        get_config("granite_moe_1b_a400m")
     with pytest.raises(NotImplementedError, match="A.11"):
         get_smoke_config("hymba_1_5b")
     with pytest.raises(KeyError):
