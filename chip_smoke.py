@@ -277,8 +277,9 @@ non-zero and prints no result):
    the final state's gradient, fp32 and bf16), bit for bit on a second
    run, and at RWKV-6's training shape (B 8, H 32, T 1024, D 64, bf16
    views) against autograd through ``wkv6_chunked_ref``, timed (the call,
-   the kernel alone) against its bound (bytes, or the chunked backward's
-   operations, as phase 17's; the step form's printed beside it); (b)
+   the four kernels alone; the call at a training microbatch, B 2) against
+   its bound (bytes, or the chunked backward's operations, as phase 17's;
+   the step form's printed beside it); (b)
    ``launch/train_planner.py``'s default (cubby, 65,536 points, depth 6,
    ``wavefront_fused``, 6 expert episodes, 60 steps of B 32 on a
    1,024-point cloud, FPS) with step 1 card against CPU (loss and every
@@ -302,7 +303,7 @@ non-zero and prints no result):
    ``attention_lse_ref``'s, bit for bit on a second call, and at GLM-4
    9B's training microbatch (q (2, 32, 4096, 128), k and v (2, 2, 4096,
    128), causal, bf16 views of (B, T, H, d)) against the fp32 plain
-   version, timed (the call, the two kernels alone by ``torch.profiler``)
+   version, timed (the call, the four kernels alone by ``torch.profiler``)
    against its bound, plain version and ``scaled_dot_product_attention``'s
    backward, with the forward timed with and without its lse; (b) GLM-4
    9B at full width cut to 8 of its 40 layers (its full depth's weights,
@@ -1637,8 +1638,17 @@ def train_phase(dev, card: str, main_launches: dict, add_check_launches,
 
     if on_card:
         ms = cuda_time_ms(bwd_call, S["bwd_reps"])
-        kern_ms = kernel_device_ms(bwd_call, "wkv6_bwd_kernel",
-                                   S["bwd_reps"], "wkv6_bwd")
+        # the call's four kernels: the carries' chunk terms, their scan,
+        # every chunk, du's sum
+        kern_parts = {key: kernel_device_ms(bwd_call, key, S["bwd_reps"],
+                                            "wkv6_bwd")
+                      for key in ("wkv6_bwd_update", "wkv6_bwd_scan",
+                                  "wkv6_bwd_chunk", "wkv6_bwd_du_sum")}
+        kern_ms = sum(kern_parts.values())
+        # a training microbatch (lm/train.py's B 8 in 4): B 2 of the 8
+        micro_ms = cuda_time_ms(
+            lambda: wkv6_ops._backward(*[x[:2] for x in xs[:4]], u, do[:2],
+                                       None, True), S["bwd_reps"])
         fold = [x.reshape(Bq * H, T, D) for x in xs[:4]]
         u_rows = u[None].expand(Bq, H, D).reshape(Bq * H, D)
         plain_ms = cuda_time_ms(
@@ -1646,7 +1656,8 @@ def train_phase(dev, card: str, main_launches: dict, add_check_launches,
             1, warmup=0)
         del fold, u_rows
     else:
-        ms = kern_ms = plain_ms = float("nan")
+        ms = kern_ms = plain_ms = micro_ms = float("nan")
+        kern_parts = {}
     add_check_launches()
     rows = Bq * H
     # read once: r, k, v, do (bf16), logw (fp32), u; written once: dr, dk,
@@ -1663,15 +1674,18 @@ def train_phase(dev, card: str, main_launches: dict, add_check_launches,
                          "src/repro/kernels/wkv6/kernel.py:27",
                 max_abs_err=bwd_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by, library_ms=None,
-                kernel_ms=kern_ms)
+                kernel_ms=kern_ms, microbatch_ms=micro_ms)
     log("27 train", f"(a) wkv6_bwd at RWKV-6's training shape (B {Bq}, H "
         f"{H}, T {T}, D {D}, bf16 views): within cases.TOL of autograd "
         f"through wkv6_chunked_ref, deterministic, max abs err "
-        f"{bwd_err:.4g}; call {ms:.4f} ms, kernel on the card {kern_ms:.4f}"
-        f" ms (torch.profiler, {kern_ms / bms:.1f}x the bound), plain "
+        f"{bwd_err:.4g}; call {ms:.4f} ms, kernels on the card "
+        f"{kern_ms:.4f} ms ("
+        + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in kern_parts.items())
+        + f"; torch.profiler, {kern_ms / bms:.1f}x the bound), plain "
         f"{plain_ms:.3f} ms, bound {bms:.5f} ms ({by}: {bwd_bytes} B; the "
         f"chunked form's operations; the step form's {step_ops} fp32 "
-        f"operations would take {step_bms:.5f} ms) | {card}")
+        f"operations would take {step_bms:.5f} ms); at a training "
+        f"microbatch (B 2, BH {2 * H}) call {micro_ms:.4f} ms | {card}")
     del heads, xs, do, u
     log("27 train", f"(a) phase part {lap():.1f} s")
 
@@ -2306,9 +2320,13 @@ def dense_train_phase(dev, card: str, main_launches: dict,
         return flash_ops._backward(q, k, v, o, lse, do, True)
 
     ms = cuda_time_ms(bwd_call, S["bwd_reps"])
-    kern_ms = sum(kernel_device_ms(bwd_call, key, S["bwd_reps"],
-                                   "flash_attention_bwd")
-                  for key in ("bwd_dq_bf16", "bwd_dkdv_bf16"))
+    # the call's four kernels (the partials' sum runs where the group is
+    # split, as at this shape)
+    kern_parts = {key: kernel_device_ms(bwd_call, key, S["bwd_reps"],
+                                        "flash_attention_bwd")
+                  for key in ("bwd_prep_bf16", "bwd_dkdv_hopper",
+                              "bwd_dkdv_reduce", "bwd_dq_hopper")}
+    kern_ms = sum(kern_parts.values())
     plain_ms = cuda_time_ms(
         lambda: flash_attention_bwd_ref(q, k, v, o, lse, do, True), 1,
         warmup=0)
@@ -2341,8 +2359,10 @@ def dense_train_phase(dev, card: str, main_launches: dict,
         f"views): within cases.BWD_TOL of the fp32 plain version row by "
         f"row (largest excess over a row's bound: {', '.join(excesses)}), "
         f"deterministic, max abs err {bwd_err:.4g}; call {ms:.4f} ms, the "
-        f"two kernels on the card {kern_ms:.4f} ms (torch.profiler, "
-        f"{kern_ms / bms:.1f}x the bound), plain {plain_ms:.3f} ms, "
+        f"kernels on the card {kern_ms:.4f} ms ("
+        + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in kern_parts.items())
+        + f"; torch.profiler, {kern_ms / bms:.1f}x the bound), plain "
+        f"{plain_ms:.3f} ms, "
         f"scaled_dot_product_attention's backward {lib_ms:.4f} ms, bound "
         f"{bms:.4f} ms ({by}: {bwd_mma} bf16 tensor ops, {bwd_bytes} B) | "
         f"achieved {bwd_mma / kern_ms / 1e9:.1f} TFLOP/s | forward "
@@ -2574,6 +2594,15 @@ def main() -> int:
             f"two consumer warpgroups at {c['consumer_regs']}, by setmaxnreg),"
             f" {c['smem_bytes']} B dynamic shared memory, {c['rows']} query "
             f"rows, {c['keys']} keys a tile, {c['stages']} ring stages")
+    for d in flash_ops.WIDTHS:
+        c = flash_ops.bwd_kernel_config(d)
+        log("2 build", f"flash_attention_bwd bf16 at d {d}: bwd_dkdv_hopper "
+            f"and bwd_dq_hopper, {c['threads']} threads a CTA (a producer "
+            f"warpgroup at {c['producer_regs']} registers a thread, two "
+            f"consumer warpgroups at {c['consumer_regs']}, by setmaxnreg); "
+            f"dk/dv {c['keys']} keys a CTA, {c['dkdv_smem_bytes']} B dynamic "
+            f"shared memory; dq {c['rows']} query rows a CTA, "
+            f"{c['dq_smem_bytes']} B; {c['stages']} ring stages")
     shape = persist_ops.kernel_shape()
     log("2 build", f"persist: a cluster of {shape['cluster']} CTAs of "
         f"{shape['threads']} threads a tile, {shape['smem_bytes']} B dynamic "

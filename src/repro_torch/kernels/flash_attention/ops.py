@@ -8,12 +8,14 @@ cannot run: another head width than 16, 32, 64 or 128, mixed devices or
 dtypes, and misaligned strides.  When grad mode is on and an input needs
 a gradient, it goes through :class:`FlashAttentionFunction`: the forward
 kernel then also writes each row's log-sum-exp, and the backward is the
-backward kernel (``csrc/flash_attn_bwd.cu``, counted as
-``flash_attention_bwd``: a dq kernel whose prologue computes ``delta =
-rowsum(do * o)``, then a dk/dv kernel, deterministic, no atomics), with
-the plain versions (:func:`~repro_torch.kernels.flash_attention.ref.
-attention_lse_ref`, :func:`~repro_torch.kernels.flash_attention.ref.
-flash_attention_bwd_ref`) on CPU tensors.
+backward kernels (``csrc/flash_attn_bwd.cu``, one call counted as
+``flash_attention_bwd``; bf16: ``delta = rowsum(do * o)`` and the rows'
+base-2 lse, a dk/dv kernel over chunks of each group's query heads, the
+chunks' fp32 partials summed in chunk order, a dq kernel, all on ``wgmma``
+and TMA; deterministic, no atomics), with the plain versions
+(:func:`~repro_torch.kernels.flash_attention.ref.attention_lse_ref`,
+:func:`~repro_torch.kernels.flash_attention.ref.flash_attention_bwd_ref`)
+on CPU tensors.
 
 The kernel replaces the reference's ``flash_attention/kernel.py::
 flash_kernel``; the tensor cores bound it (4 d operations a causal pair:
@@ -164,20 +166,38 @@ def _forward(q, k, v, causal: bool, with_lse: bool
 
 
 def _bwd_lib():
-    fn = _build.load("flash_attention_bwd").flash_attn_bwd_launch
+    lib = _build.load("flash_attention_bwd")
+    fn = lib.flash_attn_bwd_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                        + [ctypes.POINTER(ctypes.c_longlong)]
                        + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    return fn
+        lib.flash_attn_bwd_workspace.argtypes = [ctypes.c_int] * 7
+        lib.flash_attn_bwd_workspace.restype = ctypes.c_longlong
+    return lib
+
+
+def bwd_kernel_config(d: int) -> dict:
+    """The bf16 backward kernels' shape at head width ``d`` (for reports):
+    dynamic shared memory of the dk/dv and the dq kernel, threads a CTA,
+    producer and consumer registers a thread, keys a dk/dv CTA, queries a
+    dq CTA and ring stages.  Needs the built library."""
+    fn = _build.load("flash_attention_bwd").flash_attn_bwd_config
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * 8)()
+    _build.check(fn(d, info), "flash_attention_bwd")
+    return dict(zip(("dkdv_smem_bytes", "dq_smem_bytes", "threads",
+                     "producer_regs", "consumer_regs", "keys", "rows",
+                     "stages"), info))
 
 
 def _backward(q, k, v, o, lse, do, causal: bool
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` from the forward's ``o`` and ``lse`` and the
-    output's gradient ``do``: the backward kernel on the card (one call,
-    two kernels), the plain version on the CPU."""
+    output's gradient ``do``: the backward kernels on the card (one call),
+    the plain version on the CPU."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
     if (do.dtype != q.dtype or not _kernel_strides(do)
@@ -189,18 +209,24 @@ def _backward(q, k, v, o, lse, do, causal: bool
     Hkv, Tk = k.shape[1], k.shape[2]
     dq, dk, dv = (_bthd(B, Hq, Tq, d, q), _bthd(B, Hkv, Tk, d, k),
                   _bthd(B, Hkv, Tk, d, v))
-    delta = torch.empty((B, Hq, Tq), dtype=torch.float32, device=q.device)
     lse = lse.contiguous()
     strides = (ctypes.c_longlong * 24)(*[
         s for x in (q, k, v, o, do, dq, dk, dv) for s in x.stride()[:3]])
-    launch = _bwd_lib()
+    lib = _bwd_lib()
+    bf16 = int(q.dtype == torch.bfloat16)
     with torch.cuda.device(q.device):
+        # the workspace: delta and lse rows, and the dk/dv partials where
+        # a group's query heads are split (by the card's SM count)
+        nbytes = lib.flash_attn_bwd_workspace(B, Hq, Hkv, Tq, Tk, d, bf16)
+        if nbytes < 0:
+            raise ValueError("flash_attention_bwd: arguments out of range")
+        ws = torch.empty(max(nbytes, 1), dtype=torch.uint8, device=q.device)
         stream = torch.cuda.current_stream().cuda_stream
-        status = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                        dv.data_ptr(), B, Hq, Hkv, Tq, Tk, d, strides,
-                        int(causal), int(q.dtype == torch.bfloat16), stream)
+        status = lib.flash_attn_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), ws.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, Hq, Hkv, Tq, Tk, d, strides,
+            int(causal), bf16, stream)
     _build.check(status, "flash_attention_bwd")
     _build.count_launch("flash_attention_bwd")
     return dq, dk, dv

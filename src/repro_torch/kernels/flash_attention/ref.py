@@ -23,6 +23,9 @@ lse)``, ``dS = P * (dP - delta) * scale``) over the whole sequence, in
 fp32, ``dk`` and ``dv`` summed over the query heads of each KV head's
 group.  A row whose ``lse`` is the finite ``NEG_INF`` of a row that saw no
 key gets weights 0 (not ``exp`` of the rounding residual).
+:func:`flash_attention_bwd_split_ref` sums dk and dv as the bf16 kernels
+do: over chunks of each group's query heads, partials added in chunk
+order.
 """
 from __future__ import annotations
 
@@ -116,4 +119,32 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     mask = (_causal_mask(q.shape[2], k.shape[2], q.device) if causal
             else None)
     dq, dk, dv = attention_bwd_f32(q, k, v, o, lse, do, mask)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_split_ref(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, o: torch.Tensor,
+                                  lse: torch.Tensor, do: torch.Tensor,
+                                  causal: bool = True, heads: int = 1
+                                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """:func:`flash_attention_bwd_ref` as the bf16 kernels split it: each
+    KV head's group of query heads in chunks of ``heads`` (the last one
+    shorter), dk and dv the fp32 partials of the chunks added in chunk
+    order, then rounded once to the inputs' dtype."""
+    B, Hq, Tq, d = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    mask = _causal_mask(Tq, Tk, q.device) if causal else None
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    for h0 in range(0, group, heads):
+        sel = [hk * group + h for hk in range(Hkv)
+               for h in range(h0, min(group, h0 + heads))]
+        dq_c, dk_c, dv_c = attention_bwd_f32(q[:, sel], k, v, o[:, sel],
+                                             lse[:, sel], do[:, sel], mask)
+        dq[:, sel] = dq_c
+        dk += dk_c
+        dv += dv_c
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -16,10 +16,13 @@ kernel takes D <= 128.
 
 When grad mode is on and an input needs a gradient, both go through
 :class:`WKV6Function`: its forward is the same kernel (or plain version),
-its backward the backward kernel (``csrc/wkv6_bwd.cu``, one CTA a row and
-a fixed-order sum of ``du`` over the rows that share a bonus row, so two
-runs give the same bits) on CUDA tensors and its plain version
-(:func:`repro_torch.kernels.wkv6.ref.wkv6_bwd_ref`) on CPU tensors.
+its backward the backward kernels (``csrc/wkv6_bwd.cu``: the chunked
+backward, each chunk's terms of the state's and its gradient's carries at
+once, an elementwise scan over the chunks, then every (row, chunk) at
+once on the tensor cores in 3xTF32, and a fixed-order sum of ``du`` over
+the chunks and the rows that share a bonus row, so two runs give the same
+bits) on CUDA tensors and its plain version (:func:`repro_torch.kernels.
+wkv6.ref.wkv6_bwd_ref`, the reverse recurrence) on CPU tensors.
 """
 from __future__ import annotations
 
@@ -124,7 +127,7 @@ def _bwd_lib():
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                        + [ctypes.c_longlong] * 5 + [ctypes.c_int]
                        + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
-                       + [ctypes.c_void_p] * 3)
+                       + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
         lib.wkv6_bwd_workspace.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.wkv6_bwd_workspace.restype = ctypes.c_longlong
@@ -153,9 +156,10 @@ def _launch_bwd(r, k, v, logw, u, do, dstate, B: int, H: int, sb: int,
             g.zero_()
         return (*grads, du.zero_())
     lib = _bwd_lib()
-    du_rows = torch.empty((B * H, D), dtype=torch.float32, device=r.device)
-    ckpt = torch.empty(B * H * lib.wkv6_bwd_workspace(T, D),
-                       dtype=torch.float32, device=r.device)
+    # the chunk-start states, the state's gradient at each chunk's end,
+    # each chunk's du and decay
+    ws = torch.empty(B * H * lib.wkv6_bwd_workspace(T, D),
+                     dtype=torch.float32, device=r.device)
     dr, dk, dv, dlogw = grads
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -165,8 +169,7 @@ def _launch_bwd(r, k, v, logw, u, do, dstate, B: int, H: int, sb: int,
             None if dstate is None else dstate.data_ptr(), B, H, T, D, sb,
             sh, st, sub, suh, int(r.dtype == torch.bfloat16), dr.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), dlogw.data_ptr(), du.data_ptr(),
-            B * H // du_groups, du_groups, du_rows.data_ptr(),
-            ckpt.data_ptr(), stream)
+            B * H // du_groups, du_groups, ws.data_ptr(), stream)
     _build.check(status, "wkv6_bwd")
     _build.count_launch("wkv6_bwd")
     return dr, dk, dv, dlogw, du

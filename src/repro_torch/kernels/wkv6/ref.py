@@ -156,3 +156,150 @@ def wkv6_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = (torch.cat(outs, 1)[:, :T] if outs
          else torch.zeros((BH, 0, D), **f32))
     return o.to(dtype), S
+
+
+def wkv6_bwd_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         logw: torch.Tensor, u: torch.Tensor,
+                         do: torch.Tensor,
+                         dstate: Optional[torch.Tensor] = None,
+                         chunk: int = 32, sub: int = 8
+                         ) -> Tuple[torch.Tensor, ...]:
+    """The chunked backward that ``csrc/wkv6_bwd.cu`` computes, in fp32,
+    with the factoring of :func:`wkv6_chunked_ref`: same contract as
+    :func:`wkv6_bwd_ref`.
+
+    Three stages, as the kernel runs them:
+
+    1. the state at every chunk's start, ``S_0 = 0``, ``S_{c+1} =
+       exp(lc[-1]) S_c + kS^T v`` (the forward's update);
+    2. the state's gradient at every chunk's end, ``G_{nc-1} = dstate``
+       (or 0), ``G_{c-1} = exp(lc[-1]) G_c + (r exp(lcp))^T do`` over
+       chunk c: the only reverse carry;
+    3. every chunk on its own, from ``S_c``, ``S_{c+1}`` and ``G_c``, with
+       ``B = do v^T`` and the forward's ``A`` (bonus on its diagonal)::
+
+         drs = exp(lcp) (do S_c^T),  dks = exp(lc[-1] - lc) (v G_c^T)
+         drf = drs + rdec sum_{I<J} mid[I,J] B[:,I] kE[I]
+               + the diagonal sub-blocks, pairs two or more steps apart
+         dkf = kdec sum_{J>I} mid[I,J] B[J,:]^T rA[J] + the same
+         dr = drf + B[t,t-1] k[t-1] + u k dov
+         dk = dks + dkf + B[t+1,t] r[t+1] + r u dov
+         dv = kS G_c + A^T do
+         dlogw[t] = exp(lc[-1]) rowsum(G_c S_c) + sum_{s>t} r drf[s]
+                    + sum_{s<t} k dks[s] - sum_{s>=t} k dkf[s]
+
+       (``rdec = exp(lcp - lcp[b])`` and ``kdec = exp(lc[e] - lc)``, so
+       ``rA = r rdec``, ``kE = k kdec``; ``dov = diag(B)``; the
+       off-diagonal sums leave out the one adjacent pair across a block
+       boundary.)  dlogw[t] = w_t rowsum(G_t S_{t-1}), expanded over the
+       chunk's state and steps: every term in it carries the decays
+       between its two steps, so under strong decays no sum of order 1 is
+       subtracted from another (the chunk's reverse cumsum of ``r dr - k
+       dk`` would subtract the adjacent pairs' and the bonus's terms).
+
+    Every exponent is a difference of cumsums that is <= 0; lcp is the
+    exclusive cumsum itself, never ``lc - logw``.  T is padded to the chunk
+    with zero r, k, v, do and logw = 0, which change nothing."""
+    BH, T, D = r.shape
+    if chunk % sub or sub < 1:
+        raise ValueError(f"chunk {chunk} is no multiple of sub {sub}")
+    L, dev = chunk, r.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    ur = u.float()
+    if ur.ndim == 1:
+        ur = ur[None].expand(BH, D)
+    pad = (-T) % L
+    rp, kp, vp, lw, gp = (torch.nn.functional.pad(x.float(), (0, 0, 0, pad))
+                          for x in (r, k, v, logw, do))
+    nc = (T + pad) // L
+    step = torch.arange(L, device=dev)
+    blk = step // sub
+    first, last = blk * sub, blk * sub + sub - 1
+    later = (blk[:, None] > blk[None, :]).float()          # J(t) > I(s)
+    same = ((blk[:, None] == blk[None, :])
+            & (step[:, None] > step[None, :])).float()      # s < t, one block
+
+    def chunk_terms(c):
+        sl = slice(c * L, (c + 1) * L)
+        lwc = lw[:, sl]
+        lc = torch.cumsum(lwc, 1)
+        lcp = torch.cat([torch.zeros((BH, 1, D), **f32), lc[:, :-1]], 1)
+        lcp_b, lc_e, lcL = lcp[:, ::sub], lc[:, sub - 1::sub], lc[:, -1]
+        rdec = torch.exp(lcp - lcp[:, first])
+        kdec = torch.exp(lc[:, last] - lc)
+        gJ = torch.exp(lcp_b)[:, blk]                 # exp(lcp[b(t)])
+        hI = torch.exp(lcL[:, None] - lc_e)[:, blk]   # exp(lc[-1] - lc[e(t)])
+        mid = torch.exp(torch.clamp(lcp_b[:, None] - lc_e[:, :, None],
+                                    max=0.0))         # (BH, I, J, D)
+        return dict(sl=sl, lc=lc, lcp=lcp, rdec=rdec, kdec=kdec, gJ=gJ, hI=hI,
+                    mid_ts=mid[:, blk][:, :, blk].transpose(1, 2),
+                    wL=torch.exp(lcL))
+
+    terms = [chunk_terms(c) for c in range(nc)]
+    # ---- 1. chunk-start states
+    S = [torch.zeros((BH, D, D), **f32)]
+    for c, x in enumerate(terms):
+        kS = kp[:, x["sl"]] * x["kdec"] * x["hI"]
+        S.append(x["wL"][:, :, None] * S[-1]
+                 + kS.transpose(1, 2) @ vp[:, x["sl"]])
+    # ---- 2. the reverse carry of the state's gradient
+    G = [None] * nc
+    G[-1] = (torch.zeros((BH, D, D), **f32) if dstate is None
+             else dstate.float().reshape(BH, D, D))
+    for c in range(nc - 1, 0, -1):
+        x = terms[c]
+        rg = rp[:, x["sl"]] * x["rdec"] * x["gJ"]
+        G[c - 1] = (x["wL"][:, :, None] * G[c]
+                    + rg.transpose(1, 2) @ gp[:, x["sl"]])
+    # ---- 3. every chunk on its own
+    far = (step[:, None] - step[None, :] >= 2).float()      # s <= t - 2
+    adj = (step[:, None] - step[None, :] == 1).float()      # s == t - 1
+    dr, dk, dv, dlogw = (torch.zeros((BH, nc * L, D), **f32)
+                         for _ in range(4))
+    du = torch.zeros((BH, D), **f32)
+    for c, x in enumerate(terms):
+        sl = x["sl"]
+        rc, kc, vc, gc = rp[:, sl], kp[:, sl], vp[:, sl], gp[:, sl]
+        lc, lcp, mid_ts = x["lc"], x["lcp"], x["mid_ts"]
+        rA, kE = rc * x["rdec"], kc * x["kdec"]
+        B = gc @ vc.transpose(1, 2)                       # B[t, s] = do_t v_s
+        dov = torch.diagonal(B, dim1=1, dim2=2)[..., None]
+        # e[t, s] = exp(min(lcp[t] - lc[s], 0)): the diagonal sub-blocks
+        e = torch.exp(torch.clamp(lcp[:, :, None] - lc[:, None], max=0.0))
+        A = torch.einsum("btd,btsd,bsd->bts", rA, mid_ts, kE) * later
+        A = A + torch.einsum("btd,bsd,btsd->bts", rc, kc, e) * same
+        A = A + torch.diag_embed((rc * ur[:, None] * kc).sum(-1))
+        # the state terms; the pairs two or more steps apart (factored
+        # through the sub-blocks across blocks); the adjacent pairs, whose
+        # decay exp(lcp[t] - lc[t-1]) is 1; the bonus
+        drs = x["rdec"] * x["gJ"] * (gc @ S[c].transpose(1, 2))
+        dks = x["kdec"] * x["hI"] * (vc @ G[c].transpose(1, 2))
+        bl, bs = B * later * far, B * same * far
+        drf = (drs + x["rdec"] * torch.einsum("bts,btsd,bsd->btd",
+                                              bl, mid_ts, kE)
+               + torch.einsum("bts,bsd,btsd->btd", bs, kc, e))
+        dkf = (x["kdec"] * torch.einsum("bst,bstd,bsd->btd", bl, mid_ts, rA)
+               + torch.einsum("bst,bsd,bstd->btd", bs, rc, e))
+        drc = (drf + torch.einsum("bts,bsd->btd", B * adj, kc)
+               + ur[:, None] * kc * dov)
+        dkc = (dks + dkf + torch.einsum("bst,bsd->btd", B * adj, rc)
+               + rc * ur[:, None] * dov)
+        kS = kc * x["kdec"] * x["hI"]
+        dvc = kS @ G[c] + A.transpose(1, 2) @ gc
+        # dlogw[t] = w_t rowsum(G_t S_{t-1}) = exp(lc[-1]) rowsum(G_c S_c)
+        #   + sum_{s>t} r drf[s] + sum_{s<t} k dks[s] - sum_{s>=t} k dkf[s]
+        # (the adjacent pairs and the bonus cancel out of it exactly, so no
+        # term of order 1 is subtracted from another under strong decay)
+        qg = x["wL"] * (G[c] * S[c]).sum(-1)              # (BH, D)
+        zero = torch.zeros((BH, 1, D), **f32)
+        ra = torch.flip(torch.cumsum(torch.flip(rc * drf, [1]), 1), [1])
+        kb = torch.cumsum(kc * dks, 1)
+        kf = torch.flip(torch.cumsum(torch.flip(kc * dkf, [1]), 1), [1])
+        dlogw[:, sl] = (qg[:, None] + torch.cat([ra[:, 1:], zero], 1)
+                        + torch.cat([zero, kb[:, :-1]], 1) - kf)
+        dr[:, sl], dk[:, sl], dv[:, sl] = drc, dkc, dvc
+        du += (rc * kc * dov).sum(1)
+    if u.ndim == 1:
+        du = du.sum(0)
+    return (dr[:, :T].to(r.dtype), dk[:, :T].to(k.dtype),
+            dv[:, :T].to(v.dtype), dlogw[:, :T], du)

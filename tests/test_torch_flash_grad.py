@@ -31,11 +31,9 @@ from repro_torch.kernels.flash_attention.cases import (bwd_cases,
                                                        bwd_within_tol,
                                                        lse_within_tol,
                                                        within_tol)
-from repro_torch.kernels.flash_attention.ref import (NEG_INF,
-                                                     attention_bwd_f32,
-                                                     attention_lse_ref,
-                                                     attention_ref,
-                                                     flash_attention_bwd_ref)
+from repro_torch.kernels.flash_attention.ref import (
+    NEG_INF, attention_bwd_f32, attention_lse_ref, attention_ref,
+    flash_attention_bwd_ref, flash_attention_bwd_split_ref)
 from repro_torch.models import attention as attn
 from repro_torch.models import flash_train
 
@@ -150,6 +148,25 @@ def test_flash_attention_gradient_under_checkpoint_and_on_its_cases():
             assert torch.equal(g, w) and torch.equal(g, r), case["name"]
             assert bwd_within_tol(g, a, "float32",
                                   case["score_scale"]) <= 0, case["name"]
+
+
+@pytest.mark.parametrize("heads", [1, 6])
+@pytest.mark.parametrize("case", bwd_cases(), ids=lambda c: c["name"])
+def test_split_bwd_ref_matches_bwd_ref(case, heads):
+    """The bf16 kernels' split of each group's query heads (chunks of
+    ``heads``, dk and dv the partials added in chunk order) against the
+    whole-group plain version: the same fp32 formulas summed in another
+    order, within ``BWD_TOL``; dq is computed a head at a time either way,
+    so it is the same bits."""
+    q, k, v, do = bwd_tensors(case, "cpu")
+    causal = case["causal"]
+    o, lse = attention_lse_ref(q, k, v, causal)
+    got = flash_attention_bwd_split_ref(q, k, v, o, lse, do, causal, heads)
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
+    assert torch.equal(got[0], want[0])
+    for name, g, w in zip(("dk", "dv"), got[1:], want[1:]):
+        assert g.shape == w.shape, name
+        assert bwd_within_tol(g, w, "float32", case["score_scale"]) <= 0, name
 
 
 def test_bwd_ref_gives_zero_to_rows_that_saw_no_key():

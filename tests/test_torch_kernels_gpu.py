@@ -69,8 +69,8 @@ from repro_torch.kernels.traverse.cases import grazing_frontier
 from repro_torch.kernels.traverse.ref import traverse_test_ref
 from repro_torch.kernels.wkv6 import ops as wkv6_ops
 from repro_torch.kernels.wkv6.cases import (bwd_cases, edge_cases,
-                                            hard_cases, make_case,
-                                            within_tol)
+                                            hard_cases, make_bwd_case,
+                                            make_case, within_tol)
 from repro_torch.kernels.wkv6.ref import wkv6_bwd_ref, wkv6_ref
 from repro_torch.models import api as lm_api
 from repro_torch.models.planner import Planner
@@ -1164,6 +1164,50 @@ def test_wkv6_bwd_kernel_matches_plain_and_is_deterministic(cuda, case,
         assert torch.equal(a, b), name
 
 
+def _wkv6_bwd_held(case, dev, dtype):
+    """The backward kernel's gradients on ``case`` against the reverse
+    recurrence within ``cases.TOL``, one launch, the same bits twice."""
+    ins = _wkv6_inputs(case, dev, dtype)
+    do = torch.from_numpy(case["do"]).to(dev, dtype)
+    ds = (None if case["dstate"] is None
+          else torch.from_numpy(case["dstate"]).to(dev))
+    got, n = _wkv6_grads(ins, do, ds)
+    assert n == 1
+    want = wkv6_bwd_ref(*ins, do, ds)
+    names = ("dr", "dk", "dv", "dlogw", "du")
+    for name, g, w in zip(names, got, want):
+        assert bool(g.isfinite().all()), name
+        dname = "float32" if name in ("dlogw", "du") else str(dtype)[6:]
+        assert within_tol(g, w, dname) <= 0, name
+    again, _ = _wkv6_grads(ins, do, ds)
+    for name, a, b in zip(names, got, again):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 32, 33, 64, 128])
+@pytest.mark.parametrize("T", [31, 32, 33, 65])
+def test_wkv6_bwd_kernel_at_chunk_edges(cuda, T, D, dtype):
+    """The chunked backward at its chunk edges (chunks of 32 steps, 16 at D
+    128) at every width it takes (33 padded to 64), strong and weak decays
+    in turn, with the final state's gradient."""
+    decay = "strong" if (T + D) % 2 else "weak"
+    case = make_bwd_case(3, T, D, decay, per_row_u=T % 2 == 0,
+                         with_dstate=True, seed=131 * T + D)
+    _wkv6_bwd_held(case, cuda, dtype)
+
+
+@pytest.mark.parametrize("decay", ["strong", "weak"])
+@pytest.mark.parametrize("BH", [100, 160])
+def test_wkv6_bwd_kernel_below_and_above_the_sm_count(cuda, BH, decay):
+    """Row counts below and above the card's 132 SMs at the model's D =
+    64, bf16, three chunks and a ragged one, with the final state's
+    gradient."""
+    case = make_bwd_case(BH, 100, 64, decay, per_row_u=True,
+                         with_dstate=True, seed=BH)
+    _wkv6_bwd_held(case, cuda, torch.bfloat16)
+
+
 @pytest.mark.parametrize("decay", ["ordinary", "strong"])
 def test_wkv6_bwd_heads_at_model_width(cuda, decay):
     """bf16 (B, H, T, D) views of (B, T, H, D) projections at the model's
@@ -1311,6 +1355,68 @@ def test_flash_attention_bwd_kernel_matches_plain_and_is_deterministic(
     again = flash_ops._backward(q, k, v, o, lse, do, case["causal"])
     for name, a, b in zip(("dq", "dk", "dv"), got, again):
         assert torch.equal(a, b), name
+
+
+def _flash_bwd_held(case, dev):
+    """The bf16 backward on ``case`` against the fp32 plain version row by
+    row (``cases.BWD_TOL``), one launch, the same bits twice."""
+    q, k, v, do = flash_cases.bwd_tensors(case, dev, torch.bfloat16)
+    o, lse, got, n = _flash_grads(q, k, v, do, case["causal"])
+    assert n == 1
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, case["causal"])
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert bool(g.isfinite().all()), name
+        assert flash_cases.bwd_within_tol(g, w, "bfloat16") <= 0, name
+    again = flash_ops._backward(q, k, v, o, lse, do, case["causal"])
+    for name, a, b in zip(("dq", "dk", "dv"), got, again):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("group", [3, 9])
+@pytest.mark.parametrize("Tq,Tk,causal", [(63, 63, True), (65, 65, True),
+                                          (127, 127, True), (129, 129, True),
+                                          (65, 63, False), (127, 129, True)])
+def test_flash_attention_bwd_at_the_tile_edges(cuda, Tq, Tk, causal, group):
+    """Tk one short of and one past the dk/dv kernel's 64-key tile, Tq of
+    the dq kernel's 128-query tile (rows past Tq in the last tiles), Tq !=
+    Tk, groups of 3 and 9 query heads split across CTAs, d 128."""
+    case = flash_cases.make_case(2, 2, group, Tq, Tk, 128, causal, "bthd",
+                                 seed=Tq + Tk + group)
+    case["do"] = np.random.RandomState(group).normal(
+        size=case["q"].shape).astype(np.float32)
+    _flash_bwd_held(case, cuda)
+
+
+@pytest.mark.parametrize("group", [9, 11])
+def test_flash_attention_bwd_with_uneven_head_chunks(cuda, group):
+    """Enough key tiles that the group is split into chunks of several
+    heads, the last one shorter (on 132 SMs, 9 as 2 + 2 + 2 + 2 + 1 and 11
+    as 3 + 3 + 3 + 2), their partials added in chunk order."""
+    case = flash_cases.make_case(4, 2, group, 1000, 1000, 64, True, "bthd",
+                                 seed=group)
+    case["do"] = np.random.RandomState(group).normal(
+        size=case["q"].shape).astype(np.float32)
+    _flash_bwd_held(case, cuda)
+
+
+def test_flash_attention_bwd_kernel_gives_zero_to_rows_that_saw_no_key(
+        cuda):
+    """Rows whose lse is the finite NEG_INF get weights 0: dq 0 there, and
+    nothing of them in dk or dv, as the plain version."""
+    from repro_torch.kernels.flash_attention.ref import NEG_INF
+    case = flash_cases.make_case(1, 2, 3, 100, 100, 64, False, "bhtd",
+                                 seed=7)
+    q, k, v = flash_cases.tensors(case, cuda, torch.bfloat16)
+    do = torch.from_numpy(np.random.RandomState(8).normal(
+        size=q.shape).astype(np.float32)).to(cuda, torch.bfloat16)
+    o, lse = flash_ops._forward(q, k, v, False, True)
+    lse[:, :, [5, 77]] = NEG_INF
+    got = flash_ops._backward(q, k, v, o, lse, do, False)
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, False)
+    assert bool((got[0][:, :, [5, 77]] == 0).all())
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert bool(g.isfinite().all()), name
+        assert flash_cases.bwd_within_tol(g, w, "bfloat16") <= 0, name
 
 
 @pytest.mark.parametrize("remat", [False, True])
