@@ -140,10 +140,11 @@ non-zero and prints no result):
    0 in decode, every other kernel 0); the kernel against its plain
    version on the 40 prefill inputs a recorder captured; warm prefill and
    decode walls (median of 10 serves), tokens/s, peak memory, a profiled
-   serve's busy share, the kernel's time per launch against its bound, its
-   plain version and ``scaled_dot_product_attention`` (the yardstick,
-   never used by the port), its achieved TFLOP/s, share of the bound and
-   ratio to the yardstick, and the prefill/decode consistency of the
+   serve's busy share (the card's activity traced), the kernel's time per
+   launch against its bound, its plain version and
+   ``scaled_dot_product_attention`` (the yardstick, never used by the
+   port), its achieved TFLOP/s, share of the bound and ratio to the
+   yardstick, and the prefill/decode consistency of the
    logits at 1025 tokens (``LM_CONSIST_ATOL``);
 21. swept-edge CCD at ``benchmarks/run.py::fig_edges``' full scale: the
    cubby scene (524,288 points, depth 7), 64 PRM edges drawn as
@@ -315,20 +316,41 @@ non-zero and prints no result):
    (c) the 2-layer fp32 cuts of GLM-4 (group 16) and StarCoder2 (group 9)
    at full width card against CPU (``flash_fp32`` and the fp32 backward):
    loss, every gradient and two AdamW steps within ``LM_TRAIN_TOL``; (d)
-   StarCoder2 7B at full width and depth through phases 19 and 20's
-   functions (``dense_cut_vs_cpu``, ``dense_serve``): its 2-layer fp32 cut
-   card against CPU, the full bf16 serve (32 ``flash_attention`` a
-   prefill), the kernel on the captured prefill inputs, walls and
+   StarCoder2 7B at full width through phases 19 and 20's functions
+   (``dense_cut_vs_cpu``, ``dense_serve``): its 2-layer fp32 cut card
+   against CPU, the bf16 serve on 8 of its 32 layers (a
+   ``flash_attention`` a layer a prefill; GLM-4 serves the family at full
+   depth), the kernel on the captured prefill inputs, walls and
    consistency;
-29. one JSON line listing every kernel with its launches on the main paths
-   (``launches``, phases 8, 13, 17, 20, 21, 22, 23, 24, 25, 26, 27 and 28) and
-   elsewhere (``check_launches``), error, times (for ``persist``, ``sact_dense``,
-   ``fps``, ``ballquery``, ``wkv6_bwd`` and ``flash_attention_bwd`` also
-   ``kernel_ms``, the kernel alone by
+29. the ``moe`` and ``vlm`` families (``moe_vlm_phase``): (a) Granite-MoE
+   1B at full width cut to 2 layers, fp32, card against CPU through
+   ``dense_cut_vs_cpu`` (logits and caches within ``LM_FP32_TOL``; every
+   layer's routes, expert ids, buffer positions and kept flags, exactly,
+   a near tie of the k-th and (k+1)-th probabilities said so and its rows
+   set apart; the share of pairs dropped); (b) its full 24-layer bf16
+   serve through ``dense_serve`` (the prefill's drop share, the prefill's
+   ``flash_attention`` at d 64, group 2, against its plain version, bound
+   and SDPA, the consistency at capacity factor 8 on the same weights);
+   (c) the flash backward at its training microbatch (q (2, 16, 4096,
+   64)), then Granite trained at full width and depth through
+   ``lm/train.py`` (B 8 x S 4096, 4 microbatches, 5 steps: losses, the
+   balance term, walls, busy share, peak memory) and its 2-layer fp32
+   cut's step card against CPU; (d) Pixtral 12B: its 2-layer fp32 cut
+   card against CPU and its full 40-layer bf16 serve, each prompt after
+   256 patch embeddings drawn from a seed (prefill Tq 1,280, group 4, 32
+   heads of 128 on d 5,120; decode at ``256 + S + i``); (e) Pixtral
+   trained at full width cut to ``MOE_VLM["pixtral_layers"]`` of its 40
+   layers;
+30. one JSON line listing every kernel with its launches on the main paths
+   (``launches``, phases 8, 13, 17, 20, 21, 22, 23, 24, 25, 26, 27, 28 and
+   29) and elsewhere (``check_launches``), error, times (for ``persist``,
+   ``sact_dense``, ``fps``, ``ballquery``, ``wkv6_bwd`` and
+   ``flash_attention_bwd`` also ``kernel_ms``, the kernel alone by
    ``torch.profiler``; ``sact_dense``'s at ``naive``'s block shape, with
    phase 10's plane as ``plane_*``; for ``ballquery`` also
-   ``single_plan``, the single plan's three layers) and bound; the
-   last line is
+   ``single_plan``, the single plan's three layers; ``flash_attention``'s
+   and ``flash_attention_bwd``'s ``shape``, and phase 29's shapes under
+   ``shapes``) and bound; the last line is
    ``{"ok": true, "device": {...}}``.
 
 Each phase prints its seconds.
@@ -385,6 +407,9 @@ LM_FP32_TOL = dict(rtol=1e-4, atol=1e-4)
 LM_CONSIST_ATOL = 0.25
 LM_BATCH, LM_PROMPT, LM_TOKENS = 8, 1024, 32
 LM_CUT_LAYERS, LM_CUT_BATCH, LM_CUT_PROMPT, LM_CUT_STEPS = 2, 2, 64, 4
+# The attention models' warm walls (dense_serve): the median of this many
+# serves.
+LM_WARM_SERVES = 10
 # GLM-4 9B serving (phases 19-20) uses the same sizes and tolerances, so the
 # two LM paths read alike: the same reasons hold (fp32 products summed in
 # another order; bf16 roundings that cuBLAS places differently for 8 rows
@@ -1288,10 +1313,23 @@ def service_phase(dev, card: str, main_launches: dict, add_check_launches,
     stray = set(rep["failures"]) - set(CHAOS_ERRORS)
     if stray:
         raise SystemExit(f"FAIL: 26 chaos: untyped failures {stray}")
-    if rep["injected"]["device_loss"] and not rep["failures"].get(
-            "DeviceLost"):
+    # a loss that fires in a call already stalled (stall_s past
+    # launch_timeout_s) surfaces after its batch failed as LaunchStalled;
+    # every other loss must fail its batch with DeviceLost
+    lost = rep["injected"]["device_loss"]
+    after_stall = rep["injected"]["device_loss_after_stall"]
+    n_lost = rep["failures"].get("DeviceLost", 0)
+    n_stalled = rep["failures"].get("LaunchStalled", 0)
+    if lost > after_stall and not n_lost:
         raise SystemExit("FAIL: 26 chaos: a device loss at one shard did "
                          "not fail its batch with DeviceLost")
+    if n_stalled < after_stall:
+        raise SystemExit(f"FAIL: 26 chaos: {after_stall} device loss(es) "
+                         f"in stalled calls but {n_stalled} LaunchStalled "
+                         f"failures")
+    log("26 service", f"(c) chaos: {lost} device loss(es) drawn, "
+        f"{after_stall} of them in a call already stalled; {n_lost} "
+        f"DeviceLost and {n_stalled} LaunchStalled request failures")
     # at one shard a device loss has no survivors: DeviceLost, not bisected
     eng = CollisionEngine(tree, EngineConfig(mode="wavefront_persistent",
                                              shards=1), device=dev)
@@ -1430,6 +1468,33 @@ def traced_busy(fn, on_card: bool):
         for e in sorted(host, key=lambda e: e.self_cpu_time_total,
                         reverse=True)[:5]))
     return wall, dev_s, top
+
+
+def traced_serves(serve_n, host: bool = False) -> list:
+    """A warm prefill alone (``serve_n(1)``), then a warm serve of
+    ``LM_TOKENS`` tokens, each under the profiler: for each, (traced wall
+    s, device s, device records, the device's key averages); decode's
+    busy share is the difference of the two.  The LM serves record the
+    card's activity alone: the host's operator records (~100k a serve)
+    cost ~100 s a serve to gather and lengthen the traced wall.
+    ``host=True`` records them too (``tools/serve_trace_modes.py`` sets
+    the two readings side by side)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    acts = ([ProfilerActivity.CPU] if host else []) + [ProfilerActivity.CUDA]
+    traced = []
+    for n_tok in (1, LM_TOKENS):
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            serve_n(n_tok)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        on_card = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        traced.append((wall, sum(device_us(e) for e in on_card) / 1e6,
+                       sum(e.count for e in on_card), on_card))
+    return traced
 
 
 def lm_train_card_vs_cpu(cut, card_lm, cpu_lm, dev, batch: dict,
@@ -1903,17 +1968,76 @@ def train_phase(dev, card: str, main_launches: dict, add_check_launches,
     return line
 
 
+def compare_routes(tag: str, card_calls, cpu_calls, batch: int,
+                   excluded: set) -> dict:
+    """Each recorded ``models/ffn.py::moe_route`` call of the card against
+    the CPU's, both replayed on their recorded inputs: expert ids, buffer
+    positions and kept flags exactly equal.  A token's ids may differ only
+    where the CPU's k-th and (k+1)-th probabilities lie within twice the
+    call's largest router-logit difference (the greedy-token checks'
+    rule); its dispatch group (a batch row in prefill, the whole batch in
+    decode) is then said so and joins ``excluded``: those rows are compared
+    no further.  Returns the pairs compared, those the routes drop, and the
+    near-tie tokens."""
+    import torch
+    out = dict(pairs=0, dropped=0, ties=0)
+    if len(card_calls) != len(cpu_calls):
+        raise SystemExit(f"FAIL: {tag}: {len(card_calls)} moe_route calls on "
+                         f"the card, {len(cpu_calls)} on the CPU")
+    for layer, ((fc, ac, kc), (fh, ah, kh)) in enumerate(zip(card_calls,
+                                                             cpu_calls)):
+        with torch.inference_mode():
+            got = [t.cpu() for t in fc(*ac, **kc)]
+            want = fh(*ah, **kh)
+        probs, idx, pos, keep = want[0], want[2], want[3], want[4]
+        k = idx.shape[-1]
+        for g in range(idx.shape[0]):
+            rows = {g} if idx.shape[0] == batch else set(range(batch))
+            if rows & excluded:
+                continue
+            if all(torch.equal(a[g], b[g]) for a, b in zip(got[2:], want[2:])):
+                out["pairs"] += idx[g].numel()
+                out["dropped"] += int((~keep[g]).sum())
+                continue
+            differ = (got[2][g] != idx[g]).any(-1)
+            with torch.inference_mode():
+                delta = float(((ac[1][g].float() @ ac[0]["router"]).cpu()
+                               - ah[1][g].float() @ ah[0]["router"]
+                               ).abs().max())
+            top = probs[g].sort(-1, descending=True).values
+            gap = top[:, k - 1] - top[:, k]
+            if not bool(differ.any()) or bool((gap[differ] > 2 * delta).any()):
+                raise SystemExit(
+                    f"FAIL: {tag} layer call {layer} group {g}: routes differ "
+                    f"card vs CPU ({int(differ.sum())} tokens' experts) where "
+                    f"the k-th and (k+1)-th probabilities are further apart "
+                    f"than 2 x {delta:.3g}")
+            out["ties"] += int(differ.sum())
+            excluded |= rows
+            log(tag, f"layer call {layer} group {g}: {int(differ.sum())} "
+                f"tokens route otherwise on the card, each a near tie (top-k "
+                f"gap <= 2 x {delta:.3g}, the router-logit difference); rows "
+                f"{sorted(rows)} are compared no further")
+    return out
+
+
 def dense_cut_vs_cpu(arch: str, phase: str, cuda, card: str,
                      add_check_launches, lap) -> None:
-    """Phases 19 and 28 (d): the dense model ``arch`` at full width cut to
-    ``LM_CUT_LAYERS`` layers, in fp32 (TF32 off), weights drawn on the card
-    and copied to a CPU twin: B = ``LM_CUT_BATCH``, a prompt of
-    ``LM_CUT_PROMPT`` tokens and ``LM_CUT_STEPS`` teacher-forced decode
-    steps, logits and the k and v caches within ``LM_FP32_TOL``."""
+    """Phases 19, 28 (d) and 29 (a, d): the attention model ``arch`` at
+    full width cut to ``LM_CUT_LAYERS`` layers, in fp32 (TF32 off), weights
+    drawn on the card and copied to a CPU twin: B = ``LM_CUT_BATCH``, a
+    prompt of ``LM_CUT_PROMPT`` tokens and ``LM_CUT_STEPS`` teacher-forced
+    decode steps, logits and the k and v caches within ``LM_FP32_TOL``.  A
+    ``vlm`` model's prompts follow ``num_patches`` patch embeddings drawn
+    from a seed, and its decode positions follow both.  A MoE model's
+    routes are held card against CPU at every layer of every call
+    (:func:`compare_routes`), and the share of pairs dropped is
+    printed."""
     import numpy as np
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.models import api as lm_api
+    from repro_torch.models import ffn as ffn_mod
     g_full = get_config(arch)
     g_cut = g_full.replace(num_layers=LM_CUT_LAYERS, param_dtype="float32",
                            compute_dtype="float32")
@@ -1928,58 +2052,111 @@ def dense_cut_vs_cpu(arch: str, phase: str, cuda, card: str,
                                        (LM_CUT_BATCH, LM_CUT_PROMPT)))
     forced = torch.from_numpy(rs.randint(0, g_cut.vocab_size,
                                          (LM_CUT_STEPS, LM_CUT_BATCH)))
-    prefill_g = lm_api.make_prefill_fn(g_cut, LM_CUT_PROMPT + LM_CUT_STEPS)
+    P = g_cut.num_patches if g_cut.family == "vlm" else 0
+    host = {"tokens": toks}
+    if P:
+        host["patch_embeds"] = torch.from_numpy(rs.normal(
+            size=(LM_CUT_BATCH, P, g_cut.d_model)).astype(np.float32))
+    prefill_g = lm_api.make_prefill_fn(g_cut,
+                                       P + LM_CUT_PROMPT + LM_CUT_STEPS)
     decode_g = lm_api.make_decode_fn(g_cut)
-    g_err = {}
+    targets = ({"route": (ffn_mod, "moe_route")} if g_cut.num_experts
+               else {})
+    g_err, excluded = {}, set()
+    routes = dict(pairs=0, dropped=0, ties=0)
+
+    def run(tag, on_card, on_cpu):
+        """Both sides of one call, then their routes and outputs."""
+        with Recorder(targets) as rec_c:
+            got = on_card()
+        with Recorder(targets) as rec_h:
+            want = on_cpu()
+        if targets:
+            r = compare_routes(f"{phase} {tag}", rec_c.calls["route"],
+                               rec_h.calls["route"], LM_CUT_BATCH, excluded)
+            for key in r:
+                routes[key] += r[key]
+            if tag == "prefill":
+                routes["prefill_pairs"] = r["pairs"]
+                routes["prefill_dropped"] = r["dropped"]
+        compare(tag, got, want)
+        return got, want
 
     def compare(tag, got, want):
-        """Logits and every cache tensor, card against CPU, now: the
-        attention caches are written in place by the next step."""
+        """Logits and every cache tensor, card against CPU, now (the
+        attention caches are written in place by the next step), on the
+        rows no near-tie route has set apart."""
+        rows = [b for b in range(LM_CUT_BATCH) if b not in excluded]
         lg, cg = got
         lh, ch = want
-        pairs = [("logits", lg, lh)] + [
-            (f"kv.{key}", cg["kv"][key], ch["kv"][key]) for key in "kv"]
-        for key, a, b in pairs:
+        pairs = [("logits", lg, lh, 0)] + [
+            (f"kv.{key}", cg["kv"][key], ch["kv"][key], 1) for key in "kv"]
+        for key, a, b, dim in pairs:
             a = a.cpu()
-            if not (a.shape == b.shape and torch.allclose(a, b,
-                                                          **LM_FP32_TOL)):
+            if a.shape != b.shape:
+                raise SystemExit(f"FAIL: {arch} 2-layer fp32 {tag} {key}: "
+                                 f"shape {tuple(a.shape)} vs {tuple(b.shape)}")
+            a, b = a.index_select(dim, torch.tensor(rows)), b.index_select(
+                dim, torch.tensor(rows))
+            if not torch.allclose(a, b, **LM_FP32_TOL):
                 raise SystemExit(f"FAIL: {arch} 2-layer fp32 {tag} {key}: "
                                  f"card vs CPU beyond {LM_FP32_TOL} (max err "
                                  f"{float((a - b).abs().max()):.3g})")
             g_err[key] = max(g_err.get(key, 0.0), float((a - b).abs().max()))
 
-    got = prefill_g(g_card, {"tokens": toks.to(cuda)})
-    want = prefill_g(g_cpu, {"tokens": toks})
-    compare("prefill", got, want)
+    got, want = run("prefill",
+                    lambda: prefill_g(g_card, {key: t.to(cuda)
+                                               for key, t in host.items()}),
+                    lambda: prefill_g(g_cpu, host))
     for i, tok in enumerate(forced):
-        got = decode_g(g_card, tok.to(cuda), LM_CUT_PROMPT + i, got[1])
-        want = decode_g(g_cpu, tok, LM_CUT_PROMPT + i, want[1])
-        compare(f"step {i}", got, want)
+        pos = P + LM_CUT_PROMPT + i
+        got, want = run(f"step {i}",
+                        lambda: decode_g(g_card, tok.to(cuda), pos, got[1]),
+                        lambda: decode_g(g_cpu, tok, pos, want[1]))
     del g_card, g_cpu, got, want
     add_check_launches()
+    if len(excluded) == LM_CUT_BATCH:
+        raise SystemExit(f"FAIL: {arch}: near-tie routes left no row to "
+                         "compare")
+    route_note = ""
+    if targets:
+        C = ffn_mod.moe_capacity(g_cut, LM_CUT_PROMPT)
+        pre, pre_drop = routes["prefill_pairs"], routes["prefill_dropped"]
+        route_note = (
+            f" | routes (expert ids, buffer positions, kept flags) of every "
+            f"layer card == CPU on {routes['pairs']} (token, slot) pairs, "
+            f"near-tie tokens {routes['ties']}, rows set apart "
+            f"{sorted(excluded)}; the prefill (C {C} a row) drops "
+            f"{pre_drop} of {pre} pairs ({100 * pre_drop / max(pre, 1):.2f} "
+            f"%), the decode steps {routes['dropped'] - pre_drop}")
     log(phase, f"full width, {LM_CUT_LAYERS} layers, B="
-        f"{LM_CUT_BATCH}, prompt {LM_CUT_PROMPT}, {LM_CUT_STEPS} "
-        f"teacher-forced steps: card == CPU within {LM_FP32_TOL}; max err "
-        + ", ".join(f"{k} {v:.3g}" for k, v in g_err.items())
-        + f" | weights drawn on the card and copied to the CPU in "
-        f"{t_init:.1f} s | {lap():.1f} s | {card}")
+        f"{LM_CUT_BATCH}, {f'{P} patch embeddings + ' if P else ''}prompt "
+        f"{LM_CUT_PROMPT}, {LM_CUT_STEPS} teacher-forced steps (positions "
+        f"from {P + LM_CUT_PROMPT}): card == CPU within {LM_FP32_TOL}; max "
+        f"err " + ", ".join(f"{k} {v:.3g}" for k, v in g_err.items())
+        + route_note + f" | weights drawn on the card and copied to the CPU "
+        f"in {t_init:.1f} s | {lap():.1f} s | {card}")
 
 
 def dense_serve(arch: str, phase: str, cuda, card: str, main_launches: dict,
-                add_check_launches, lap) -> dict:
-    """Phases 20 and 28 (d): ``lm.serve.serve`` on the full-depth bf16
-    dense model ``arch`` (weights drawn on the card from a seeded
-    generator), ``LM_BATCH`` prompts of ``LM_PROMPT`` tokens and
-    ``LM_TOKENS`` greedy tokens; one ``flash_attention`` a layer in the
-    prefill and none in decode; the kernel against its plain version on
-    the captured prefill inputs; warm walls, peak memory, busy shares, the
-    kernel's time against its bound, plain version and
-    ``scaled_dot_product_attention``; prefill/decode consistency.  Returns
-    the ``flash_attention`` line of the JSON result."""
+                add_check_launches, lap, num_layers: int = 0) -> dict:
+    """Phases 20, 28 (d) and 29 (b, d): ``lm.serve.serve`` on the bf16
+    attention model ``arch`` at full width and depth (cut to
+    ``num_layers`` where given; weights drawn on the card
+    from a seeded generator), ``LM_BATCH`` prompts of ``LM_PROMPT`` tokens
+    (after ``num_patches`` patch embeddings drawn from a seed for a
+    ``vlm`` model) and ``LM_TOKENS`` greedy tokens; one ``flash_attention``
+    a layer in the prefill and none in decode; the kernel against its
+    plain version on the captured prefill inputs; warm walls (the median of
+    ``LM_WARM_SERVES``), peak memory,
+    busy shares, the kernel's time against its bound, plain version and
+    ``scaled_dot_product_attention``; a MoE model's share of pairs dropped
+    in the prefill; prefill/decode consistency (a MoE model's at capacity
+    factor 8 on the same weights: the prefill drops pairs that a decode
+    group never does).  Returns the ``flash_attention`` line of the JSON
+    result."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import cases as flash_cases
@@ -1987,10 +2164,13 @@ def dense_serve(arch: str, phase: str, cuda, card: str, main_launches: dict,
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.lm.serve import serve
     from repro_torch.models import api as lm_api
+    from repro_torch.models import ffn as ffn_mod
     g_full = get_config(arch)
+    if num_layers:
+        g_full = g_full.replace(num_layers=num_layers)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
-    t0 = time.perf_counter()
+    t0 = t_begin = time.perf_counter()
     lm = lm_api.init_params(g_full,
                              torch.Generator(device=cuda).manual_seed(0),
                              device=cuda)
@@ -1998,15 +2178,22 @@ def dense_serve(arch: str, phase: str, cuda, card: str, main_launches: dict,
     t_init = time.perf_counter() - t0
     n_weights = sum(p.numel() for p in lm.parameters())
     w_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
-    prompts = np.random.RandomState(0).randint(
-        0, g_full.vocab_size, (LM_BATCH, LM_PROMPT))
-    serve(lm, prompts, 2)                                  # warm-up
+    rs = np.random.RandomState(0)
+    prompts = rs.randint(0, g_full.vocab_size, (LM_BATCH, LM_PROMPT))
+    P = g_full.num_patches if g_full.family == "vlm" else 0
+    patches = (torch.from_numpy(rs.normal(size=(
+        LM_BATCH, P, g_full.d_model)).astype(np.float32)).to(cuda)
+               if P else None)
+
+    def serve_(n: int):
+        return serve(lm, prompts, n, patch_embeds=patches)
+    serve_(2)                                              # warm-up
     add_check_launches()
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
-    res = serve(lm, prompts, LM_TOKENS)
+    res = serve_(LM_TOKENS)
     counts = _build.launch_counts()
     _build.reset_launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -2019,7 +2206,7 @@ def dense_serve(arch: str, phase: str, cuda, card: str, main_launches: dict,
                          "(one flash_attention per layer in the prefill, "
                          "none in decode)")
     with torch.inference_mode():                 # the next free KV slot
-        lm.lm_decode_step(res.tokens[:, -1], LM_PROMPT + LM_TOKENS - 1,
+        lm.lm_decode_step(res.tokens[:, -1], P + LM_PROMPT + LM_TOKENS - 1,
                            res.caches)
     torch.cuda.synchronize()
     if any(_build.launch_counts().values()):
@@ -2032,16 +2219,32 @@ def dense_serve(arch: str, phase: str, cuda, card: str, main_launches: dict,
                       & (gen_toks < g_full.vocab_size)).all())
             and bool(res.logits.float().isfinite().all())
             and kv_shape == (g_full.num_layers, LM_BATCH,
-                             LM_PROMPT + LM_TOKENS, g_full.num_kv_heads,
+                             P + LM_PROMPT + LM_TOKENS, g_full.num_kv_heads,
                              g_full.hd)):
         raise SystemExit(f"FAIL: {arch} serve: bad tokens, logits or caches "
                          f"{kv_shape}")
-    # the kernel on the 40 prefill inputs of one serve, against its plain
-    # version on the same inputs
-    with Recorder({"flash": (flash_ops, "flash_attention")}) as rec_f:
-        serve(lm, prompts, 1)
+    # the kernel on the prefill inputs of one serve (a layer each), against
+    # its plain version on the same inputs; a MoE model's routes
+    targets = {"flash": (flash_ops, "flash_attention")}
+    if g_full.num_experts:
+        targets["route"] = (ffn_mod, "moe_route")
+    with Recorder(targets) as rec_f:
+        serve_(1)
     add_check_launches()
     calls = rec_f.calls["flash"]
+    drop_note = ""
+    if g_full.num_experts:
+        kept = pairs_ = 0
+        with torch.inference_mode():
+            for fn, ca, ck in rec_f.calls.pop("route"):
+                keep = fn(*ca, **ck)[4]
+                kept += int(keep.sum())
+                pairs_ += keep.numel()
+        drop_note = (f" | the prefill drops {pairs_ - kept} of {pairs_} "
+                     f"(token, slot) pairs over its {g_full.num_layers} "
+                     f"layers ({100 * (pairs_ - kept) / pairs_:.2f} %; C "
+                     f"{ffn_mod.moe_capacity(g_full, P + LM_PROMPT)} a row "
+                     f"of {P + LM_PROMPT} tokens)")
     if len(calls) != g_full.num_layers:
         raise SystemExit(f"FAIL: recorder saw {len(calls)} flash_attention "
                          "calls")
@@ -2086,25 +2289,39 @@ def dense_serve(arch: str, phase: str, cuda, card: str, main_launches: dict,
         source="src/repro_torch/kernels/flash_attention/csrc/flash_attn.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:25",
         max_abs_err=fa_err, ms=ms, plain_ms=plain_ms, bound_ms=fa_bound,
-        bound_by=fa_by, library_ms=lib_ms)
-    # warm walls: 10 serves
+        bound_by=fa_by, library_ms=lib_ms,
+        shape=dict(q=list(q.shape), k=list(k.shape)))
+    # warm walls
+    t_checks = time.perf_counter()
     pre, dec = [], []
-    for _ in range(10):
-        rr = serve(lm, prompts, LM_TOKENS)
+    for _ in range(LM_WARM_SERVES):
+        rr = serve_(LM_TOKENS)
         pre.append(rr.prefill_s)
         dec.append(statistics.mean(rr.decode_s))
     del rr
     add_check_launches()
     pre_ms, dec_ms = (1e3 * statistics.median(x) for x in (pre, dec))
+    t_warm = time.perf_counter()
     # prefill/decode consistency: decode token S+1 after prefilling S
-    # tokens against the last logits of a forward pass over S+1 tokens
+    # tokens (after the prefix) against the last logits of a forward pass
+    # over S+1 tokens; a MoE model at capacity factor 8, where no pair drops
+    c_cfg = (g_full.replace(moe_capacity_factor=8.0) if g_full.num_experts
+             else g_full)
     tokens = torch.from_numpy(prompts).to(cuda)
-    logits, caches = lm_api.make_prefill_fn(g_full)(lm, {"tokens": tokens})
-    nxt = logits.argmax(-1)
-    step, _ = lm_api.make_decode_fn(g_full)(lm, nxt, LM_PROMPT, caches)
-    with torch.inference_mode():
-        full, _ = lm.lm_forward(torch.cat([tokens, nxt[:, None]], 1),
-                                 last_only=True)
+    batch = {"tokens": tokens}
+    if P:
+        batch["patch_embeds"] = patches
+    lm.cfg = c_cfg
+    try:
+        logits, caches = lm_api.make_prefill_fn(c_cfg)(lm, batch)
+        nxt = logits.argmax(-1)
+        step, _ = lm_api.make_decode_fn(c_cfg)(lm, nxt, P + LM_PROMPT,
+                                               caches)
+        with torch.inference_mode():
+            full, _ = lm.lm_forward(torch.cat([tokens, nxt[:, None]], 1),
+                                     patches, last_only=True)
+    finally:
+        lm.cfg = g_full
     step, full = step.float(), full[:, -1].float()
     del caches
     delta = float((step - full).abs().max())
@@ -2119,30 +2336,30 @@ def dense_serve(arch: str, phase: str, cuda, card: str, main_launches: dict,
     add_check_launches()
     # busy share: one warm prefill alone, then one warm serve; decode's
     # share is the difference of the two
-    traced = []
-    for n_tok in (1, LM_TOKENS):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            serve(lm, prompts, n_tok)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        on_card = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA]
-        traced.append((wall, sum(device_us(e) for e in on_card) / 1e6,
-                       sum(e.count for e in on_card), on_card))
+    t_consist = time.perf_counter()
+    traced = traced_serves(serve_)
     add_check_launches()
     (w_pre, d_pre, n_pre, on_pre), (w_all, d_all, n_all, on_card) = traced
+    stages = (f"stages: set-up and kernel checks {t_checks - t_begin:.1f} s, "
+              f"{LM_WARM_SERVES} warm serves {t_warm - t_checks:.1f} s, "
+              f"consistency "
+              f"{t_consist - t_warm:.1f} s, traced serves "
+              f"{time.perf_counter() - t_consist:.1f} s")
     top_pre = sorted(on_pre, key=device_us, reverse=True)[:5]
     top = sorted(on_card, key=device_us, reverse=True)[:5]
-    log(phase, f"{g_full.name}: {n_weights} weights, "
+    log(phase, f"{g_full.name}"
+        + (f" cut to {num_layers} of its {get_config(arch).num_layers} "
+           f"layers" if num_layers else "") + f": {n_weights} weights, "
         f"{w_bytes / 1e9:.3f} GB bf16, drawn on the card in {t_init:.1f} s "
-        f"| B={LM_BATCH} prompt {LM_PROMPT}, {LM_TOKENS} greedy tokens, KV "
+        f"| B={LM_BATCH} {f'{P} patch embeddings + ' if P else ''}prompt "
+        f"{LM_PROMPT}, {LM_TOKENS} greedy tokens, KV "
         f"caches {kv_shape} | main-path launches {counts} (decode step: 0) "
-        f"| warm median prefill {pre_ms:.3f} ms, decode {dec_ms:.3f} "
+        f"| warm median of {LM_WARM_SERVES}: prefill {pre_ms:.3f} ms, "
+        f"decode {dec_ms:.3f} "
         f"ms/token, {LM_BATCH / (dec_ms / 1e3):.1f} tokens/s | peak mem "
         f"{peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB held before the "
-        f"serve, of which {base / 2**30:.3f} GiB before the model) | {card}")
+        f"serve, of which {base / 2**30:.3f} GiB before the model)"
+        f"{drop_note} | {card}")
     log(phase, f"flash_attention on the {len(calls)} captured "
         f"prefill inputs (B={Bq}, Hq={Hq}, Hkv={Hkv}, T={T}, d={d}, "
         f"{q.dtype}, q strides {q.stride()}, v strides {v.stride()}): "
@@ -2155,8 +2372,9 @@ def dense_serve(arch: str, phase: str, cuda, card: str, main_launches: dict,
         f"achieved {fa_mma / ms / 1e9:.1f} TFLOP/s on the tensor cores, "
         f"{100 * fa_bound / ms:.1f} % of the bound, {ms / lib_ms:.3f}x "
         f"scaled_dot_product_attention | {card}")
-    log(phase, f"prefill/decode consistency at {LM_PROMPT + 1} "
-        f"tokens: max|d| logits {delta:.4g} (bound {LM_CONSIST_ATOL}), "
+    log(phase, f"prefill/decode consistency at {P + LM_PROMPT + 1} "
+        f"positions{' (capacity factor 8)' if g_full.num_experts else ''}: "
+        f"max|d| logits {delta:.4g} (bound {LM_CONSIST_ATOL}), "
         f"greedy agrees on {int(agree.sum())} of {LM_BATCH} rows, smallest "
         f"top-2 gap {float(gap.min()):.4g}, logits std "
         f"{float(full.std()):.3f}")
@@ -2172,20 +2390,21 @@ def dense_serve(arch: str, phase: str, cuda, card: str, main_launches: dict,
         f"{(n_all - n_pre) // (LM_TOKENS - 1)} kernels and copies a token; "
         f"largest over the serve: "
         + "; ".join(f"{e.key[:48]} {device_us(e) / 1e3:.3f} ms x{e.count}"
-                    for e in top) + f" | {lap():.1f} s | {card}")
-    del lm, rec_f, calls, q, k, v, res
+                    for e in top) + f" | {stages} | {lap():.1f} s | {card}")
+    del lm, rec_f, calls, q, k, v, res, patches
     return line
 
 
 #: Phase 28's sizes: the backward at GLM-4 9B's training microbatch (B,
 #: Hq, Hkv, T, d), GLM-4 9B at full width cut to ``layers`` of its 40
 #: (its weights, gradients and fp32 moments at full depth, ~150 GB, do not
-#: fit one card), B 8 x S 4096 in 4 microbatches, and the 2-layer fp32
-#: cuts card against CPU at a B x S the CPU side runs in seconds.
+#: fit one card), B 8 x S 4096 in 4 microbatches, the 2-layer fp32
+#: cuts card against CPU at a B x S the CPU side runs in seconds, and
+#: StarCoder2 7B served on ``serve_layers`` of its 32 layers.
 DENSE_TRAIN = dict(
     bwd_shape=(2, 32, 2, 4096, 128), bwd_reps=10, layers=8, lm_batch=8,
     lm_seq=4096, lm_steps=5, cut_layers=2, cut_batch=2, cut_seq=64,
-    cut_opt_steps=2)
+    cut_opt_steps=2, serve_layers=8)
 
 
 def flash_bwd_bound(q, k, causal: bool = True):
@@ -2208,6 +2427,231 @@ def flash_bwd_bound(q, k, causal: bool = True):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, mma)
 
 
+def flash_bwd_timed(dev, shape, seed: int, reps: int, phase: str,
+                    what: str, card: str) -> dict:
+    """The flash-attention backward at a training microbatch ``shape`` (B,
+    Hq, Hkv, T, d): bf16 (B, H, T, d) views of (B, T, H, d) projections,
+    causal, against the fp32 plain version row by row and bit for bit on a
+    second call; timed (the call by CUDA events, its four kernels alone by
+    ``torch.profiler``) beside its bound, the plain version,
+    ``scaled_dot_product_attention``'s backward, and the forward with and
+    without its lse.  Returns the JSON line's numbers."""
+    import torch
+    from repro_torch.kernels.flash_attention import cases as flash_cases
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_lse_ref, flash_attention_bwd_ref)
+    Bq, Hq, Hkv, T, d = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def view(h):
+        return torch.randn((Bq, T, h, d), generator=gen, device=dev,
+                           dtype=torch.bfloat16).transpose(1, 2)
+    q, k, v, do = view(Hq), view(Hkv), view(Hkv), view(Hq)
+    o, lse = flash_ops._forward(q, k, v, True, True)
+    got = flash_ops._backward(q, k, v, o, lse, do, True)
+    again = flash_ops._backward(q, k, v, o, lse, do, True)
+    torch.cuda.synchronize()
+    _, want_lse = attention_lse_ref(q, k, v, True)
+    ex = flash_cases.lse_within_tol(lse, want_lse)
+    del want_lse
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, True)
+    bwd_err, excesses = 0.0, []
+    for name, g, g2, w in zip(("dq", "dk", "dv"), got, again, want):
+        exg = flash_cases.bwd_within_tol(g, w, "bfloat16")
+        excesses.append(f"{name} {exg:.3g}")
+        if ex > 0 or exg > 0 or not torch.equal(g, g2):
+            raise SystemExit(f"FAIL: {phase} flash_attention_bwd {name} at "
+                             f"{what} training shape: excess {exg:.3g} over "
+                             f"flash_attention_bwd_ref (lse {ex:.3g}), or "
+                             f"not deterministic")
+        bwd_err = max(bwd_err, float((g.float() - w.float()).abs().max()))
+    del got, again, want
+
+    def bwd_call():
+        return flash_ops._backward(q, k, v, o, lse, do, True)
+
+    ms = cuda_time_ms(bwd_call, reps)
+    # the call's four kernels (the partials' sum runs only where the group
+    # is split)
+    kern_parts = {key: kernel_device_ms(bwd_call, key, reps,
+                                        "flash_attention_bwd",
+                                        required=key != "bwd_dkdv_reduce")
+                  for key in ("bwd_prep_bf16", "bwd_dkdv_hopper",
+                              "bwd_dkdv_reduce", "bwd_dq_hopper")}
+    kern_ms = sum(x for x in kern_parts.values() if x is not None)
+    plain_ms = cuda_time_ms(
+        lambda: flash_attention_bwd_ref(q, k, v, o, lse, do, True), 1,
+        warmup=0)
+    fwd_ms = cuda_time_ms(lambda: flash_ops._forward(q, k, v, True,
+                                                     False), 10)
+    fwd_lse_ms = cuda_time_ms(lambda: flash_ops._forward(q, k, v, True,
+                                                         True), 10)
+    # the yardstick, never used by the port: SDPA's backward alone, its
+    # forward's graph kept
+    xs = [x.detach().requires_grad_() for x in (q, k, v)]
+    out = torch.nn.functional.scaled_dot_product_attention(
+        *xs, is_causal=True, enable_gqa=True)
+    lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
+        out, xs, do, retain_graph=True), 10)
+    del xs, out
+    bms, by, bwd_bytes, bwd_mma = flash_bwd_bound(q, k)
+    log(phase, f"flash_attention_bwd at {what} training microbatch (B {Bq}, "
+        f"Hq {Hq}, Hkv {Hkv}, T {T}, d {d}, causal, bf16 views): within "
+        f"cases.BWD_TOL of the fp32 plain version row by row (largest "
+        f"excess over a row's bound: {', '.join(excesses)}), deterministic, "
+        f"max abs err {bwd_err:.4g}; call {ms:.4f} ms, the kernels on the "
+        f"card {kern_ms:.4f} ms ("
+        + ", ".join(f"{k_} {'not measured' if v_ is None else f'{v_:.4f}'}"
+                    for k_, v_ in kern_parts.items())
+        + f"; torch.profiler, {kern_ms / bms:.1f}x the bound), plain "
+        f"{plain_ms:.3f} ms, scaled_dot_product_attention's backward "
+        f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}: {bwd_mma} bf16 tensor "
+        f"ops, {bwd_bytes} B) | achieved {bwd_mma / kern_ms / 1e9:.1f} "
+        f"TFLOP/s | forward {fwd_ms:.4f} ms, with its lse {fwd_lse_ms:.4f} "
+        f"ms | {card}")
+    del q, k, v, o, lse, do
+    return dict(max_abs_err=bwd_err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms, kernel_ms=kern_ms,
+                fwd_ms=fwd_ms, fwd_lse_ms=fwd_lse_ms,
+                shape=dict(q=[Bq, Hq, T, d], k=[Bq, Hkv, T, d]))
+
+
+def lm_train_on_card(cfg, phase: str, dev, card: str, main_launches: dict,
+                     add_check_launches, S: dict) -> None:
+    """Phases 28 (b) and 29 (c, e): the attention model ``cfg`` (bf16, at
+    full width, cut in depth where its full state does not fit the card)
+    trained ``S["lm_steps"]`` steps of B ``S["lm_batch"]`` x S
+    ``S["lm_seq"]`` in ``cfg.train_microbatches`` microbatches through
+    ``lm/train.py``: launches 2 ``flash_attention`` and 1
+    ``flash_attention_bwd`` a layer a microbatch a step and nothing else,
+    finite losses and gradient norms, step walls, tokens/s (a ``vlm``
+    batch's patch positions counted), the MoE balance term, a traced
+    step's busy share and largest kernels, peak memory under the card's."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.kernels import _build
+    from repro_torch.lm import train as lm_train
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import train_loop
+    micro = cfg.train_microbatches
+    steps = S["lm_steps"]
+    full_layers = get_config(cfg.name).num_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    add_check_launches()
+    t0 = time.perf_counter()
+    res = lm_train.train(cfg, steps, batch=S["lm_batch"], seq=S["lm_seq"],
+                         microbatches=micro, ckpt_every=10 ** 6, device=dev,
+                         log=None)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    _build.reset_launch_counts()
+    for n_, c_ in counts.items():
+        main_launches[n_] += c_
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    fwd_want = 2 * cfg.num_layers * micro * steps
+    want_counts = {n_: (fwd_want if n_ == "flash_attention" else
+                        fwd_want // 2 if n_ == "flash_attention_bwd" else 0)
+                   for n_ in counts}
+    if counts != want_counts:
+        raise SystemExit(f"FAIL: {phase} {cfg.name} training launched "
+                         f"{counts}; want {want_counts} (flash_attention "
+                         f"twice a layer a microbatch a step, forward and "
+                         f"remat, and flash_attention_bwd once; no other "
+                         f"kernel)")
+    if not (np.isfinite(res.losses).all()
+            and np.isfinite(res.grad_norms).all()):
+        raise SystemExit(f"FAIL: {phase} {cfg.name} training: losses "
+                         f"{res.losses}, grad norms {res.grad_norms}")
+    if peak >= total:
+        raise SystemExit(f"FAIL: {phase} {cfg.name} training peak {peak} B "
+                         f"past the card's {total} B")
+    n_weights = sum(p.numel() for p in res.model.parameters())
+    # 6 N D over the weights a token runs through: a MoE token's top k
+    # experts of E
+    n_active = n_weights
+    if cfg.num_experts:
+        n_active -= ((cfg.num_experts - cfg.experts_per_token)
+                     * (3 if cfg.mlp_act == "swiglu" else 2)
+                     * cfg.d_model * cfg.d_ff * cfg.num_layers)
+    batch = {key: torch.from_numpy(x).to(dev) for key, x in synth_batch(
+        cfg, ShapeSpec("t", S["lm_seq"], S["lm_batch"], "train"),
+        99).items()}
+    step_fn = train_loop.make_train_step(cfg, opt_mod.OptConfig(), micro)
+    traced = {}
+    w_tr, d_tr, top = traced_busy(lambda: traced.update(
+        m=step_fn(res.model, res.opt_state, batch)[2]), True)
+    losses, gnorms, walls = res.losses, res.grad_norms, res.walls
+    auxes, traced_aux = res.moe_aux, float(traced["m"]["moe_aux"])
+    del res, batch, step_fn, traced
+    add_check_launches()
+    warm = statistics.median(walls[1:])
+    P = cfg.num_patches if cfg.family == "vlm" else 0
+    tokens = S["lm_batch"] * (P + S["lm_seq"])
+    aux_note = (("; moe_aux (the last microbatch's) " + ", ".join(
+        f"{x:.4f}" for x in auxes) + f", traced step {traced_aux:.4f}")
+        if cfg.num_experts else "")
+    log(phase, f"{cfg.name} at full width"
+        + (f" cut to {cfg.num_layers} of its {full_layers} layers"
+           if cfg.num_layers != full_layers else ", full depth")
+        + f": {n_weights} weights ({n_active} active a token), bf16, B "
+        f"{S['lm_batch']} x S {S['lm_seq']}"
+        + (f" after {P} patch embeddings" if P else "")
+        + f" in {micro} microbatches, {steps} steps through lm/train.py: "
+        f"losses " + ", ".join(f"{x:.4f}" for x in losses) + "; grad norms "
+        + ", ".join(f"{x:.3f}" for x in gnorms) + aux_note
+        + "; step walls " + ", ".join(f"{1e3 * x:.1f}" for x in walls)
+        + f" ms (warm median {1e3 * warm:.1f} ms, {tokens / warm:.0f} "
+        f"tokens/s, 6 N D = {6 * n_active * tokens / warm / 1e12:.1f} "
+        f"TFLOP/s); a traced step {1e3 * w_tr:.1f} ms, device "
+        f"{1e3 * d_tr:.1f} ms (busy {100 * d_tr / w_tr:.1f} %); main-path "
+        f"launches { {k_: c_ for k_, c_ in counts.items() if c_} }; peak mem "
+        f"{peak / 2**30:.3f} GiB of {total / 2**30:.1f}; the run "
+        f"{t_run:.1f} s (steps {sum(walls):.1f} s; the rest the draw of the "
+        f"weights) | {card}")
+    log(phase, f"the traced step's largest: {top}")
+
+
+def lm_train_cut_vs_cpu(arch: str, phase: str, dev, card: str,
+                        add_check_launches, S: dict) -> None:
+    """Phases 28 (c) and 29 (c): the model ``arch`` at full width cut to
+    ``S["cut_layers"]`` layers in fp32 (TF32 off: ``flash_fp32`` and the
+    fp32 backward), weights drawn on the card and copied to the CPU: loss,
+    every gradient and the parameters after ``S["cut_opt_steps"]`` AdamW
+    steps within ``LM_TRAIN_TOL``."""
+    import torch
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.models import api as lm_api
+    cut = get_config(arch).replace(num_layers=S["cut_layers"],
+                                   param_dtype="float32",
+                                   compute_dtype="float32")
+    t0 = time.perf_counter()
+    card_lm = lm_api.init_params(
+        cut, torch.Generator(device=dev).manual_seed(7), device=dev)
+    cpu_lm = lm_api.init_params(cut, device="meta").to_empty(device="cpu")
+    cpu_lm.load_state_dict(card_lm.state_dict())
+    batch = synth_batch(cut, ShapeSpec("t", S["cut_seq"], S["cut_batch"],
+                                       "train"), 0)
+    errs = lm_train_card_vs_cpu(cut, card_lm, cpu_lm, dev, batch,
+                                S["cut_opt_steps"], phase)
+    add_check_launches()
+    del card_lm, cpu_lm
+    log(phase, f"{arch} at full width, {S['cut_layers']} layers, fp32 (TF32 "
+        f"off; flash_fp32 and the fp32 backward), group "
+        f"{cut.num_heads // cut.num_kv_heads}, B {S['cut_batch']} x S "
+        f"{S['cut_seq']}: loss, every gradient and the parameters after "
+        f"{S['cut_opt_steps']} AdamW steps card == CPU within "
+        f"{LM_TRAIN_TOL}; max err " + ", ".join(
+            f"{k_} {v_:.3g}" for k_, v_ in errs.items())
+        + f" | {time.perf_counter() - t0:.1f} s | {card}")
+
+
 def dense_train_phase(dev, card: str, main_launches: dict,
                       add_check_launches, lap) -> dict:
     """Phase 28: dense-transformer training on the card.
@@ -2225,19 +2669,12 @@ def dense_train_phase(dev, card: str, main_launches: dict,
     (d) StarCoder2 7B served at full width and depth (phases 19 and 20's
     functions).  Sizes are :data:`DENSE_TRAIN`'s.  Returns the JSON line of
     ``flash_attention_bwd``."""
-    import numpy as np
     import torch
-    from repro_torch.configs.base import ShapeSpec, get_config
-    from repro_torch.data.pipeline import synth_batch
-    from repro_torch.kernels import _build
+    from repro_torch.configs.base import get_config
     from repro_torch.kernels.flash_attention import cases as flash_cases
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ref import (
         attention_lse_ref, flash_attention_bwd_ref)
-    from repro_torch.lm import train as lm_train
-    from repro_torch.models import api as lm_api
-    from repro_torch.train import optimizer as opt_mod
-    from repro_torch.train import train_loop
     S = DENSE_TRAIN
     names = ("dq", "dk", "dv")
     sync = torch.cuda.synchronize
@@ -2286,64 +2723,10 @@ def dense_train_phase(dev, card: str, main_launches: dict,
         f"!= Tk; Tk no multiple of a key tile; both layouts; x8 scores held "
         f"in fp32; fp32 and bf16)")
 
-    # GLM-4 9B's training microbatch: bf16 (B, H, T, d) views of (B, T, H,
-    # d) projections, causal
-    Bq, Hq, Hkv, T, d = S["bwd_shape"]
-    gen = torch.Generator(device=dev).manual_seed(28)
-
-    def view(h):
-        return torch.randn((Bq, T, h, d), generator=gen, device=dev,
-                           dtype=torch.bfloat16).transpose(1, 2)
-    q, k, v, do = view(Hq), view(Hkv), view(Hkv), view(Hq)
-    o, lse = flash_ops._forward(q, k, v, True, True)
-    got = flash_ops._backward(q, k, v, o, lse, do, True)
-    again = flash_ops._backward(q, k, v, o, lse, do, True)
-    sync()
-    _, want_lse = attention_lse_ref(q, k, v, True)
-    ex = flash_cases.lse_within_tol(lse, want_lse)
-    del want_lse
-    want = flash_attention_bwd_ref(q, k, v, o, lse, do, True)
-    bwd_err, excesses = 0.0, []
-    for name, g, g2, w in zip(names, got, again, want):
-        exg = flash_cases.bwd_within_tol(g, w, "bfloat16")
-        excesses.append(f"{name} {exg:.3g}")
-        if ex > 0 or exg > 0 or not torch.equal(g, g2):
-            raise SystemExit(f"FAIL: 28 flash_attention_bwd {name} at GLM-4's"
-                             f" training shape: excess {exg:.3g} over "
-                             f"flash_attention_bwd_ref (lse {ex:.3g}), or "
-                             f"not deterministic")
-        bwd_err = max(bwd_err, float((g.float() - w.float()).abs().max()))
-    del got, again, want
+    # GLM-4 9B's training microbatch
+    line = flash_bwd_timed(dev, S["bwd_shape"], 28, S["bwd_reps"],
+                           "28 dense train (a)", "GLM-4 9B's", card)
     add_check_launches()
-
-    def bwd_call():
-        return flash_ops._backward(q, k, v, o, lse, do, True)
-
-    ms = cuda_time_ms(bwd_call, S["bwd_reps"])
-    # the call's four kernels (the partials' sum runs where the group is
-    # split, as at this shape)
-    kern_parts = {key: kernel_device_ms(bwd_call, key, S["bwd_reps"],
-                                        "flash_attention_bwd")
-                  for key in ("bwd_prep_bf16", "bwd_dkdv_hopper",
-                              "bwd_dkdv_reduce", "bwd_dq_hopper")}
-    kern_ms = sum(kern_parts.values())
-    plain_ms = cuda_time_ms(
-        lambda: flash_attention_bwd_ref(q, k, v, o, lse, do, True), 1,
-        warmup=0)
-    fwd_ms = cuda_time_ms(lambda: flash_ops._forward(q, k, v, True,
-                                                     False), 10)
-    fwd_lse_ms = cuda_time_ms(lambda: flash_ops._forward(q, k, v, True,
-                                                         True), 10)
-    # the yardstick, never used by the port: SDPA's backward alone,
-    # its forward's graph kept
-    xs = [x.detach().requires_grad_() for x in (q, k, v)]
-    out = torch.nn.functional.scaled_dot_product_attention(
-        *xs, is_causal=True, enable_gqa=True)
-    lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
-        out, xs, do, retain_graph=True), 10)
-    del xs, out
-    add_check_launches()
-    bms, by, bwd_bytes, bwd_mma = flash_bwd_bound(q, k)
     line = dict(name="flash_attention_bwd", route="cuda",
                 source="src/repro_torch/kernels/flash_attention/csrc/"
                        "flash_attn_bwd.cu",
@@ -2351,123 +2734,105 @@ def dense_train_phase(dev, card: str, main_launches: dict,
                          "src/repro/models/flash_jnp.py:32 (flash_mha's "
                          "custom VJP, _flash_bwd :85); the forward is "
                          "src/repro/kernels/flash_attention/kernel.py:25",
-                max_abs_err=bwd_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bms, bound_by=by, library_ms=lib_ms,
-                kernel_ms=kern_ms, fwd_ms=fwd_ms, fwd_lse_ms=fwd_lse_ms)
-    log("28 dense train", f"(a) flash_attention_bwd at GLM-4 9B's training "
-        f"microbatch (B {Bq}, Hq {Hq}, Hkv {Hkv}, T {T}, d {d}, causal, bf16 "
-        f"views): within cases.BWD_TOL of the fp32 plain version row by "
-        f"row (largest excess over a row's bound: {', '.join(excesses)}), "
-        f"deterministic, max abs err {bwd_err:.4g}; call {ms:.4f} ms, the "
-        f"kernels on the card {kern_ms:.4f} ms ("
-        + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in kern_parts.items())
-        + f"; torch.profiler, {kern_ms / bms:.1f}x the bound), plain "
-        f"{plain_ms:.3f} ms, "
-        f"scaled_dot_product_attention's backward {lib_ms:.4f} ms, bound "
-        f"{bms:.4f} ms ({by}: {bwd_mma} bf16 tensor ops, {bwd_bytes} B) | "
-        f"achieved {bwd_mma / kern_ms / 1e9:.1f} TFLOP/s | forward "
-        f"{fwd_ms:.4f} ms, with its lse {fwd_lse_ms:.4f} ms | {card}")
-    del q, k, v, o, lse, do
+                **line)
     log("28 dense train", f"(a) phase part {lap():.1f} s")
 
     # ---- (b) GLM-4 9B at full width, cut in depth, trained ---------------
-    cfg = get_config("glm4_9b").replace(num_layers=S["layers"])
-    micro = cfg.train_microbatches
-    steps = S["lm_steps"]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    add_check_launches()
-    t0 = time.perf_counter()
-    res = lm_train.train(cfg, steps, batch=S["lm_batch"], seq=S["lm_seq"],
-                         microbatches=micro, ckpt_every=10 ** 6, device=dev,
-                         log=None)
-    sync()
-    t_run = time.perf_counter() - t0
-    counts = _build.launch_counts()
-    _build.reset_launch_counts()
-    for n_, c_ in counts.items():
-        main_launches[n_] += c_
-    peak = torch.cuda.max_memory_allocated()
-    total = torch.cuda.get_device_properties(dev).total_memory
-    fwd_want = 2 * cfg.num_layers * micro * steps
-    want_counts = {n_: (fwd_want if n_ == "flash_attention" else
-                        fwd_want // 2 if n_ == "flash_attention_bwd" else 0)
-                   for n_ in counts}
-    if counts != want_counts:
-        raise SystemExit(f"FAIL: 28 glm4 training launched {counts}; want "
-                         f"{want_counts} (flash_attention twice a layer a "
-                         f"microbatch a step, forward and remat, and "
-                         f"flash_attention_bwd once; no other kernel)")
-    if not (np.isfinite(res.losses).all()
-            and np.isfinite(res.grad_norms).all()):
-        raise SystemExit(f"FAIL: 28 glm4 training: losses {res.losses}, "
-                         f"grad norms {res.grad_norms}")
-    if peak >= total:
-        raise SystemExit(f"FAIL: 28 glm4 training peak {peak} B past the "
-                         f"card's {total} B")
-    n_weights = sum(p.numel() for p in res.model.parameters())
-    batch = {key: torch.from_numpy(x).to(dev) for key, x in synth_batch(
-        cfg, ShapeSpec("t", S["lm_seq"], S["lm_batch"], "train"),
-        99).items()}
-    step_fn = train_loop.make_train_step(cfg, opt_mod.OptConfig(), micro)
-    w_tr, d_tr, top = traced_busy(
-        lambda: step_fn(res.model, res.opt_state, batch), True)
-    losses, gnorms, walls = res.losses, res.grad_norms, res.walls
-    del res, batch, step_fn
-    add_check_launches()
-    warm = statistics.median(walls[1:])
-    tokens = S["lm_batch"] * S["lm_seq"]
-    log("28 dense train", f"(b) {cfg.name} at full width cut to "
-        f"{cfg.num_layers} of its 40 layers: {n_weights} weights, bf16, B "
-        f"{S['lm_batch']} x S {S['lm_seq']} in {micro} microbatches, "
-        f"{steps} steps through lm/train.py: losses "
-        + ", ".join(f"{x:.4f}" for x in losses) + "; grad norms "
-        + ", ".join(f"{x:.3f}" for x in gnorms)
-        + "; step walls " + ", ".join(f"{1e3 * x:.1f}" for x in walls)
-        + f" ms (warm median {1e3 * warm:.1f} ms, {tokens / warm:.0f} "
-        f"tokens/s, 6 N D = {6 * n_weights * tokens / warm / 1e12:.1f} "
-        f"TFLOP/s); a traced step {1e3 * w_tr:.1f} ms, device "
-        f"{1e3 * d_tr:.1f} ms (busy {100 * d_tr / w_tr:.1f} %); main-path "
-        f"launches { {k_: c_ for k_, c_ in counts.items() if c_} }; peak mem "
-        f"{peak / 2**30:.3f} GiB of {total / 2**30:.1f}; the run "
-        f"{t_run:.1f} s (steps {sum(walls):.1f} s; the rest the draw of the "
-        f"weights) | {card}")
-    log("28 dense train", f"(b) the traced step's largest: {top}")
+    lm_train_on_card(get_config("glm4_9b").replace(num_layers=S["layers"]),
+                     "28 dense train (b)", dev, card, main_launches,
+                     add_check_launches, S)
     log("28 dense train", f"(b) phase part {lap():.1f} s")
 
     # ---- (c) the 2-layer fp32 cuts, card against CPU -----------------------
     for arch in ("glm4_9b", "starcoder2_7b"):
-        cut = get_config(arch).replace(
-            num_layers=S["cut_layers"], param_dtype="float32",
-            compute_dtype="float32")
-        t0 = time.perf_counter()
-        card_lm = lm_api.init_params(
-            cut, torch.Generator(device=dev).manual_seed(7), device=dev)
-        cpu_lm = lm_api.init_params(cut, device="meta").to_empty(
-            device="cpu")
-        cpu_lm.load_state_dict(card_lm.state_dict())
-        batch = synth_batch(cut, ShapeSpec("t", S["cut_seq"],
-                                           S["cut_batch"], "train"), 0)
-        errs = lm_train_card_vs_cpu(cut, card_lm, cpu_lm, dev, batch,
-                                    S["cut_opt_steps"], "28")
-        add_check_launches()
-        del card_lm, cpu_lm
-        log("28 dense train", f"(c) {arch} at full width, "
-            f"{S['cut_layers']} layers, fp32 (TF32 off; flash_fp32 and the "
-            f"fp32 backward), group {cut.num_heads // cut.num_kv_heads}, B "
-            f"{S['cut_batch']} x S {S['cut_seq']}: loss, every gradient and "
-            f"the parameters after {S['cut_opt_steps']} AdamW steps card == "
-            f"CPU within {LM_TRAIN_TOL}; max err " + ", ".join(
-                f"{k_} {v_:.3g}" for k_, v_ in errs.items())
-            + f" | {time.perf_counter() - t0:.1f} s | {card}")
+        lm_train_cut_vs_cpu(arch, "28 dense train (c)", dev, card,
+                            add_check_launches, S)
     log("28 dense train", f"(c) phase part {lap():.1f} s")
 
     # ---- (d) StarCoder2 7B served at full width and depth ------------------
     dense_cut_vs_cpu("starcoder2_7b", "28 dense train (d) fp32", dev, card,
                      add_check_launches, lap)
+    # at 8 of its 32 layers: the dense family is served at full depth by
+    # GLM-4 (phase 20), and the script's time limit holds phase 29 too
     dense_serve("starcoder2_7b", "28 dense train (d) serve", dev, card,
-                main_launches, add_check_launches, lap)
+                main_launches, add_check_launches, lap,
+                num_layers=DENSE_TRAIN["serve_layers"])
     return line
+
+
+#: Phase 29's sizes: the flash backward at Granite-MoE 1B's training
+#: microbatch (B, Hq, Hkv, T, d); Granite-MoE trained at full width and
+#: depth and Pixtral 12B at full width cut to ``pixtral_layers`` of its 40
+#: (its weights, gradients and fp32 moments at full depth, ~196 GB, do
+#: not fit one card; on an H100 ``tools/pixtral_train_depth.py`` peaked
+#: at 70.8 GiB on 9 layers and 74.4 on 10 of the card's 79.2, a layer
+#: adding ~3.6 GiB of bf16 weights, fp32 gradient sums and moments; this
+#: script holds ~2.6 GiB more before phase 29, and on 10 layers here the
+#: allocator ran out, 69.0 GiB allocated and 5.8 cached), each B 8 x
+#: S 4096 (Pixtral's 256 patch embeddings
+#: before each row) in 4 microbatches, 5 steps; Granite's 2-layer fp32 cut
+#: card against CPU at phase 28's size.
+MOE_VLM = dict(bwd_shape=(2, 16, 8, 4096, 64), bwd_reps=10,
+               pixtral_layers=9, lm_batch=8, lm_seq=4096, lm_steps=5,
+               cut_layers=2, cut_batch=2, cut_seq=64, cut_opt_steps=2)
+
+
+def moe_vlm_phase(dev, card: str, main_launches: dict, add_check_launches,
+                  lap):
+    """Phase 29: the ``moe`` and ``vlm`` families on the card.
+
+    (a) Granite-MoE 1B at full width cut to 2 layers, fp32, card against
+    CPU, its routes held exactly (:func:`dense_cut_vs_cpu`); (b) served at
+    full width and depth, bf16 (:func:`dense_serve`, the consistency at
+    capacity factor 8); (c) the flash backward at its training
+    microbatch, then trained at full width and depth through
+    ``lm/train.py`` (:func:`lm_train_on_card`) and its 2-layer fp32 cut's
+    training step card against CPU; (d) Pixtral 12B's 2-layer fp32 cut card
+    against CPU and its full bf16 serve with 256 patch embeddings before
+    each prompt; (e) Pixtral trained at full width, cut in depth.  Sizes
+    are :data:`MOE_VLM`'s.  Returns the new shapes' figures for the JSON
+    line's ``flash_attention`` and ``flash_attention_bwd`` entries."""
+    import torch
+    from repro_torch.configs.base import get_config
+    S = MOE_VLM
+    fa_shapes, bwd_shapes = {}, {}
+
+    def shape_figures(line):
+        return {key: line[key] for key in (
+            "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "kernel_ms") if key in line}
+
+    # ---- (a) Granite-MoE, 2 layers at full width, fp32, card vs CPU -------
+    dense_cut_vs_cpu("granite_moe_1b_a400m", "29 moe (a) fp32", dev, card,
+                     add_check_launches, lap)
+    # ---- (b) Granite-MoE served at full width and depth --------------------
+    fa_shapes["granite_prefill"] = shape_figures(dense_serve(
+        "granite_moe_1b_a400m", "29 moe (b) serve", dev, card, main_launches,
+        add_check_launches, lap))
+    # ---- (c) Granite-MoE trained at full width and depth -------------------
+    bwd_shapes["granite_microbatch"] = shape_figures(flash_bwd_timed(
+        dev, S["bwd_shape"], 29, S["bwd_reps"], "29 moe (c)",
+        "Granite-MoE 1B's", card))
+    add_check_launches()
+    lm_train_on_card(get_config("granite_moe_1b_a400m"), "29 moe (c) train",
+                     dev, card, main_launches, add_check_launches, S)
+    lm_train_cut_vs_cpu("granite_moe_1b_a400m", "29 moe (c) fp32 train",
+                        dev, card, add_check_launches, S)
+    log("29 moe", f"(c) phase part {lap():.1f} s")
+    # ---- (d) Pixtral 12B served at full width and depth --------------------
+    dense_cut_vs_cpu("pixtral_12b", "29 vlm (d) fp32", dev, card,
+                     add_check_launches, lap)
+    fa_shapes["pixtral_prefill"] = shape_figures(dense_serve(
+        "pixtral_12b", "29 vlm (d) serve", dev, card, main_launches,
+        add_check_launches, lap))
+    # ---- (e) Pixtral 12B trained at full width, cut in depth ---------------
+    torch.cuda.empty_cache()             # the serves' cached blocks
+    lm_train_on_card(get_config("pixtral_12b").replace(
+        num_layers=S["pixtral_layers"]), "29 vlm (e) train", dev, card,
+        main_launches, add_check_launches, S)
+    torch.cuda.empty_cache()
+    log("29 vlm", f"(e) phase part {lap():.1f} s")
+    return fa_shapes, bwd_shapes
 
 
 def main() -> int:
@@ -3828,18 +4193,7 @@ def main() -> int:
     add_check_launches()
     # busy share: one warm prefill alone, then one warm serve; decode's
     # share is the difference of the two
-    traced = []
-    for n_tok in (1, LM_TOKENS):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            serve(lm, prompts, n_tok)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        on_card = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA]
-        traced.append((wall, sum(device_us(e) for e in on_card) / 1e6,
-                       sum(e.count for e in on_card), on_card))
+    traced = traced_serves(lambda n_tok: serve(lm, prompts, n_tok))
     add_check_launches()
     (w_pre, d_pre, n_pre, _), (w_all, d_all, n_all, on_card) = traced
     top = sorted(on_card, key=device_us, reverse=True)[:4]
@@ -4921,10 +5275,17 @@ def main() -> int:
     lines.append(dense_train_phase(cuda, card, main_launches,
                                    add_check_launches, lap))
 
-    # ---- 29. result -------------------------------------------------------
+    # ---- 29. the MoE and VLM families ---------------------------------------
+    fa_shapes, bwd_shapes = moe_vlm_phase(cuda, card, main_launches,
+                                          add_check_launches, lap)
+    by_name = {line["name"]: line for line in lines}
+    by_name["flash_attention"]["shapes"] = fa_shapes
+    by_name["flash_attention_bwd"]["shapes"] = bwd_shapes
+
+    # ---- 30. result -------------------------------------------------------
     # launches on every main path (phases 8, 13, 17, 20, 21, 22, 23, 24, 25,
-    # 26, 27 and 28) and in the checks
-    log("29 result", f"whole script {time.perf_counter() - t_start:.1f} s")
+    # 26, 27, 28 and 29) and in the checks
+    log("30 result", f"whole script {time.perf_counter() - t_start:.1f} s")
     for line in lines:
         line["launches"] = main_launches[line["name"]]
         line["check_launches"] = check_launches[line["name"]]

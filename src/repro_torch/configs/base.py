@@ -4,9 +4,8 @@ Field for field the reference's ``repro.configs.base``: the port keeps its
 own copy so that it imports nothing of the JAX package.  Each architecture
 the port serves has its own ``configs/<id>.py`` exposing ``CONFIG`` (the
 full-scale config) and ``SMOKE_CONFIG`` (same family, reduced to CPU
-scale).  ``rwkv6_1_6b``, ``glm4_9b`` and ``starcoder2_7b`` have one so far;
-:func:`get_config` and :func:`get_smoke_config` raise for the others,
-naming ROADMAP A.11.
+scale): :data:`PORTED_ARCHS`; :func:`get_config` and
+:func:`get_smoke_config` raise for the others, naming ROADMAP A.11.
 """
 from __future__ import annotations
 
@@ -132,7 +131,8 @@ ARCH_REGISTRY = (
 
 
 #: Architectures of ``ARCH_REGISTRY`` with a config file in the port.
-PORTED_ARCHS = ("rwkv6_1_6b", "glm4_9b", "starcoder2_7b")
+PORTED_ARCHS = ("rwkv6_1_6b", "glm4_9b", "starcoder2_7b",
+                "granite_moe_1b_a400m", "arctic_480b", "pixtral_12b")
 
 
 def _config_module(name: str):

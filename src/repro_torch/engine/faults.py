@@ -198,8 +198,14 @@ class FaultyEngine:
         self.inner = engine
         self.faults = faults
         self.calls = 0
+        # ``device_loss_after_stall`` counts the device losses that fired in
+        # a call already stalled: with ``stall_s`` past the batcher's
+        # ``launch_timeout_s`` that batch has failed as LaunchStalled before
+        # its loss surfaces, so the loss can leave no DeviceLost behind.
         self.injected = {"exception": 0, "oom": 0, "stall": 0, "crash": 0,
-                         "poison": 0, "device_loss": 0}
+                         "poison": 0, "device_loss": 0,
+                         "device_loss_after_stall": 0}
+        self._call = threading.local()
         if faults.device_loss_rate > 0.0:
             # Device loss must fire INSIDE the sharded launch attempt (the
             # recovery loop lives in _exec_sharded, below the execute
@@ -211,6 +217,8 @@ class FaultyEngine:
         f = self.faults
         if shards > 0 and f._fire(f.device_loss_rate):
             self.injected["device_loss"] += 1
+            if getattr(self._call, "stalled", False):
+                self.injected["device_loss_after_stall"] += 1
             raise SimulatedDeviceLoss(min(f.devices_lost, shards), shards)
 
     # The batcher reads these off the engine it serves.
@@ -252,6 +260,7 @@ class FaultyEngine:
                 max_depth: Optional[int] = None) -> Tuple[np.ndarray,
                                                           Counters]:
         self.calls += 1
+        self._call.stalled = False
         f = self.faults
         if f.poison_nan and not bool(
                 torch.isfinite(torch.as_tensor(plan.obb_c)).all()
@@ -264,6 +273,7 @@ class FaultyEngine:
             raise WorkerKill("injected: worker thread killed mid-launch")
         if f._fire(f.stall_rate):
             self.injected["stall"] += 1
+            self._call.stalled = True
             time.sleep(f.stall_s)
         if f._fire(f.oom_rate):
             self.injected["oom"] += 1

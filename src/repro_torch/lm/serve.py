@@ -4,20 +4,24 @@ The loop of the reference's ``examples/serve_lm.py::main`` on the card:
 one prefill of the prompt batch (its last logits give the first token),
 then ``num_tokens - 1`` greedy decode steps, each from the previous
 step's argmax, over RWKV-6's O(1) state or the attention models' KV
-caches (sized to the prompt plus the tokens decoded).  The stage walls
-end in ``torch.cuda.synchronize()`` on the card, so they time the
-device's work and not the enqueue.
+caches (sized to the prefix, the prompt and the tokens decoded).  A
+``vlm`` model takes its image as ``patch_embeds`` (B, ``num_patches``,
+d), prepended to the prompt: its decode positions continue after both,
+at ``num_patches + S + i``.  The stage walls end in
+``torch.cuda.synchronize()`` on the card, so they time the device's work
+and not the enqueue.
 
     model = api.init_params(get_config("glm4_9b"),
                             torch.Generator("cuda").manual_seed(0))
     res = serve(model, prompts, num_tokens=32)      # device="cuda"
     res.tokens, res.prefill_s, res.decode_s
+    serve(pixtral, prompts, 32, patch_embeds=patches)  # a vlm model
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
@@ -39,11 +43,13 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def serve(model, prompts, num_tokens: int,
-          device=DEFAULT_DEVICE) -> ServeResult:
-    """Prefill ``prompts`` (B, S) token ids and decode ``num_tokens`` greedy
-    tokens on ``device`` (the card unless the caller asks for the CPU; with
-    no card it raises).  ``model`` must already lie on that device."""
+def serve(model, prompts, num_tokens: int, device=DEFAULT_DEVICE,
+          patch_embeds: Optional[torch.Tensor] = None) -> ServeResult:
+    """Prefill ``prompts`` (B, S) token ids, after ``patch_embeds`` (B, P,
+    d) for a ``vlm`` model (required there, refused elsewhere), and decode
+    ``num_tokens`` greedy tokens on ``device`` (the card unless the caller
+    asks for the CPU; with no card it raises).  ``model`` must already lie
+    on that device."""
     dev = resolve_device(device)
     if model.device.type != dev.type:
         raise ValueError(f"model is on {model.device}, serving on {dev}")
@@ -51,13 +57,26 @@ def serve(model, prompts, num_tokens: int,
         raise ValueError(f"num_tokens must be >= 1, got {num_tokens}")
     cfg = model.cfg
     tokens = torch.as_tensor(prompts, dtype=torch.int64).to(model.device)
-    S = tokens.shape[1]
-    prefill = api.make_prefill_fn(cfg, max_len=S + num_tokens)
+    B, S = tokens.shape
+    batch = {"tokens": tokens}
+    if cfg.family == "vlm":
+        want = (B, cfg.num_patches, cfg.d_model)
+        got = None if patch_embeds is None else tuple(patch_embeds.shape)
+        if got != want:
+            raise ValueError(f"{cfg.name} serves with patch_embeds of shape "
+                             f"{want}, got {got}")
+        batch["patch_embeds"] = torch.as_tensor(patch_embeds).to(
+            model.device)
+    elif patch_embeds is not None:
+        raise ValueError(f"{cfg.name} (family {cfg.family!r}) takes no "
+                         "patch_embeds")
+    start = S + (cfg.num_patches if cfg.family == "vlm" else 0)
+    prefill = api.make_prefill_fn(cfg, max_len=start + num_tokens)
     decode = api.make_decode_fn(cfg)
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, caches = prefill(model, {"tokens": tokens})
+    logits, caches = prefill(model, batch)
     tok = logits.argmax(-1)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
@@ -65,7 +84,7 @@ def serve(model, prompts, num_tokens: int,
     out, decode_s = [tok], []
     for i in range(num_tokens - 1):
         t0 = time.perf_counter()
-        logits, caches = decode(model, tok, S + i, caches)
+        logits, caches = decode(model, tok, start + i, caches)
         tok = logits.argmax(-1)
         _sync(dev)
         decode_s.append(time.perf_counter() - t0)

@@ -4,16 +4,21 @@ Counterpart of ``repro.lm.train`` on one card (no mesh): the same flags
 and loop, plus ``--device`` (the card unless the caller asks for the
 CPU).  The default trains the architecture's smoke config, ``--full`` its
 full config; the model is drawn from a generator seeded 0 on the device.
-``--arch`` defaults to ``glm4_9b``, as the reference's; its gradient runs
-through the flash-attention backward kernel, RWKV-6's through the WKV6
-one.  GLM-4 9B's full config (9.4 B weights, ~150 GB of weights,
-gradients and moments) does not fit one 80 GB card; a caller trains it
-cut in depth, ``train(get_config("glm4_9b").replace(num_layers=8),
-...)``.
+``--arch`` defaults to ``glm4_9b``, as the reference's; the attention
+families' gradients (``dense``, ``moe``, ``vlm``) run through the
+flash-attention backward kernel, RWKV-6's through the WKV6 one.
+Granite-MoE's loss adds its balance term (``moe_aux``, kept a step in
+:class:`TrainResult`); Pixtral's batches carry their patch embeddings.
+GLM-4 9B's full config (9.4 B weights, ~150 GB of weights, gradients and
+moments) and Pixtral 12B's (~196 GB) do not fit one 80 GB card; a caller
+trains them cut in depth, ``train(get_config("glm4_9b").replace(
+num_layers=8), ...)``.
 
   python3 -m repro_torch.lm.train --device cuda --steps 20
   python3 -m repro_torch.lm.train --arch rwkv6_1_6b --full --device cuda \\
       --seq 1024 --microbatches 4
+  python3 -m repro_torch.lm.train --arch granite_moe_1b_a400m --full \\
+      --device cuda --seq 4096 --microbatches 4
   ... --resume            # continue from the latest committed checkpoint
 
 Checkpoints (``{"params": state dict, "opt": optimizer state}``) are
@@ -53,6 +58,7 @@ class TrainResult:
     start: int                    # first step run (after a resume)
     losses: List[float]           # a step's loss, per step run
     grad_norms: List[float]
+    moe_aux: List[float]          # the last microbatch's balance term
     walls: List[float]            # a step's wall, ending in a sync
     skipped: int                  # batches the loader reused
 
@@ -97,7 +103,7 @@ def train(cfg, steps: int, batch: int = 8, seq: int = 64, lr: float = 3e-4,
     loader = ft.PrefetchingLoader(batch_iterator(cfg, shape,
                                                  start_step=start))
     writer = None
-    losses, gnorms, walls = [], [], []
+    losses, gnorms, auxes, walls = [], [], [], []
     try:
         for step in range(start, steps):
             host = loader.next_batch()
@@ -110,6 +116,7 @@ def train(cfg, steps: int, batch: int = 8, seq: int = 64, lr: float = 3e-4,
             walls.append(time.perf_counter() - t0)
             losses.append(loss)
             gnorms.append(gnorm)
+            auxes.append(float(metrics["moe_aux"]))
             if log and step % log_every == 0:
                 log(f"step {step} loss {loss:.4f} "
                     f"lr {float(metrics['lr']):.2e} gnorm {gnorm:.3f} "
@@ -130,7 +137,7 @@ def train(cfg, steps: int, batch: int = 8, seq: int = 64, lr: float = 3e-4,
             if writer.is_alive():
                 raise TimeoutError(f"checkpoint writer still running after "
                                    f"{WRITER_TIMEOUT_S} s")
-    return TrainResult(model, opt_state, start, losses, gnorms, walls,
+    return TrainResult(model, opt_state, start, losses, gnorms, auxes, walls,
                        loader.skipped)
 
 

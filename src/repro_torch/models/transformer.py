@@ -1,18 +1,22 @@
 """Decoder-only LM assembly: prefill and decode (``attn`` and ``rwkv`` blocks).
 
 Counterpart of ``repro.models.transformer`` for the ``attn`` block type
-(pre-norm GQA attention + dense FFN, the ``dense`` family) and the
-attention-free RWKV-6 stack (``rwkv``, the ``ssm`` family): an embedding,
-``num_layers`` blocks in an ``nn.ModuleList`` (the reference stacks them
-on a leading L axis for ``lax.scan``; here a Python loop runs them), the
-final norm and an untied ``lm_head``.  Under ``cfg.remat`` and grad mode
-each block runs through ``torch.utils.checkpoint`` (non-reentrant), as
-the reference remats each scanned layer: its activations are recomputed
-in the backward, its kernel launched a second time (the WKV6 recurrence,
-or the flash attention with its rows' log-sum-exp), and then its backward
-kernel once.  The ``hybrid`` block
-type, MoE, tied embeddings, prefix embeddings, sliding windows and the
-sharding hints are not ported (ROADMAP A.11).
+(pre-norm GQA attention + an FFN: dense in the ``dense`` and ``vlm``
+families, the capacity-factor MoE in ``moe``) and the attention-free
+RWKV-6 stack (``rwkv``, the ``ssm`` family): an embedding, ``num_layers``
+blocks in an ``nn.ModuleList`` (the reference stacks them on a leading L
+axis for ``lax.scan``; here a Python loop runs them), the final norm and
+an untied ``lm_head``.  The ``vlm`` family prepends precomputed patch
+embeddings (``prefix_embeds``) to the token embeddings; positions run over
+the whole sequence.  The MoE's balance term is summed over the layers, as
+the reference's scan carries it.  Under ``cfg.remat`` and grad mode each
+block runs through ``torch.utils.checkpoint`` (non-reentrant), as the
+reference remats each scanned layer: its activations (and its balance
+term) are recomputed in the backward, its kernel launched a second time
+(the WKV6 recurrence, or the flash attention with its rows' log-sum-exp),
+and then its backward kernel once.  The ``hybrid`` block type, tied
+embeddings, sliding windows and the sharding hints are not ported
+(ROADMAP A.11).
 
 Decode caches keep the reference's layout, stacked L-leading:
 ``{"kv": {"k": (L, B, T, K, hd), "v": ...}}`` for ``attn`` (T the decode
@@ -37,7 +41,7 @@ from repro_torch.models.common import (apply_norm, draw_device, dtype_of,
                                        embed_init, init_norm)
 
 #: Model families the port builds.
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "ssm", "moe", "vlm")
 
 
 def require_ported(cfg) -> None:
@@ -69,24 +73,28 @@ class AttnBlock(nn.Module):
 
 
 def block_seq(block, x: torch.Tensor, cfg, positions: torch.Tensor,
-              collect_cache: bool) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """One block over a full sequence: (x, cache or None)."""
+              collect_cache: bool):
+    """One block over a full sequence: (x, aux, cache or None); ``aux`` the
+    MoE's balance term, a Python 0.0 for the other blocks."""
     if cfg.block_type == "rwkv":
         x, state = block(x)
-        return x, (state if collect_cache else None)
+        return x, 0.0, (state if collect_cache else None)
     h = apply_norm(block.ln1, x, cfg)
     q, k, v = attn.compute_qkv(block.attn, h, cfg, positions)
     ctx = attn.attention_ctx(q, k, v, cfg, causal=True)
     x = x + attn.project_out(block.attn, ctx)
-    y, _ = ffn_mod.apply_ffn(block.ffn, apply_norm(block.ln2, x, cfg), cfg)
-    return x + y, ({"kv": {"k": k, "v": v}} if collect_cache else None)
+    y, aux = ffn_mod.apply_ffn(block.ffn, apply_norm(block.ln2, x, cfg), cfg)
+    return (x + y, aux,
+            {"kv": {"k": k, "v": v}} if collect_cache else None)
 
 
 def block_decode(block, x: torch.Tensor, cfg, pos: int,
                  positions: torch.Tensor, cache: Dict
                  ) -> Tuple[torch.Tensor, Dict]:
     """One block, one token: x (B, 1, d) at position ``pos`` (``positions``
-    the same as a (1,) tensor on x's device) -> (x, new cache)."""
+    the same as a (1,) tensor on x's device) -> (x, new cache).  The MoE's
+    balance term is dropped, as the reference's ``block_decode`` drops it:
+    decode has no loss."""
     if cfg.block_type == "rwkv":
         return block(x, cache)
     h = apply_norm(block.ln1, x, cfg)
@@ -132,17 +140,28 @@ class LM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embed[tokens].to(dtype_of(self.cfg.compute_dtype))
+    def _embed(self, tokens: torch.Tensor,
+               prefix_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Token embeddings, after ``prefix_embeds`` (B, P, d) where given
+        (cast to the embedding's dtype first, as the reference's
+        ``_embed``), in the compute dtype."""
+        x = self.embed[tokens]
+        if prefix_embeds is not None:
+            x = torch.cat([prefix_embeds.to(x.dtype), x], 1)
+        return x.to(dtype_of(self.cfg.compute_dtype))
 
     def _unembed(self, x: torch.Tensor) -> torch.Tensor:
         return apply_norm(self.ln_f, x, self.cfg) @ self.lm_head
 
-    def lm_forward(self, tokens: torch.Tensor, collect_cache: bool = False,
-                   last_only: bool = False, with_aux: bool = False):
-        """tokens (B, S) -> (logits (B, S, V), caches or None), or with
+    def lm_forward(self, tokens: torch.Tensor,
+                   prefix_embeds: Optional[torch.Tensor] = None,
+                   collect_cache: bool = False, last_only: bool = False,
+                   with_aux: bool = False):
+        """tokens (B, S), after ``prefix_embeds`` (B, P, d) for the ``vlm``
+        family -> (logits (B, P + S, V), caches or None), or with
         ``with_aux`` the reference's ``(logits, aux, caches)``: ``aux`` is
-        the MoE balance term, an fp32 0 for the ported families.
+        the MoE balance term summed over the layers (fp32; 0 without
+        experts).
 
         ``last_only`` unembeds only the last position (logits (B, 1, V)),
         all that prefill returns.  On the card every block runs one kernel
@@ -150,26 +169,27 @@ class LM(nn.Module):
         (``attn``); in training under ``cfg.remat``, two, and its backward
         kernel one.
         """
-        x = self._embed(tokens)
-        positions = torch.arange(tokens.shape[1], device=x.device)
+        x = self._embed(tokens, prefix_embeds)
+        positions = torch.arange(x.shape[1], device=x.device)
         remat = (self.cfg.remat and torch.is_grad_enabled()
                  and not collect_cache)
-        caches = []
+        caches, aux = [], 0.0
         for block in self.blocks:
             if remat:
-                x = checkpoint(_block_out, block, x, self.cfg, positions,
-                               use_reentrant=False)
+                x, a = checkpoint(_block_out, block, x, self.cfg, positions,
+                                  use_reentrant=False)
                 cache = None
             else:
-                x, cache = block_seq(block, x, self.cfg, positions,
-                                     collect_cache)
+                x, a, cache = block_seq(block, x, self.cfg, positions,
+                                        collect_cache)
+            aux = aux + a
             caches.append(cache)
         if last_only:
             x = x[:, -1:]
         logits = self._unembed(x)
         caches = _stack(caches) if collect_cache else None
         if with_aux:
-            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
             return logits, aux, caches
         return logits, caches
 
@@ -193,10 +213,10 @@ class LM(nn.Module):
                         else _stack(new))
 
 
-def _block_out(block, x: torch.Tensor, cfg,
-               positions: torch.Tensor) -> torch.Tensor:
-    """One block's output over a full sequence (the remat body)."""
-    return block_seq(block, x, cfg, positions, False)[0]
+def _block_out(block, x: torch.Tensor, cfg, positions: torch.Tensor):
+    """One block's output and balance term over a full sequence (the remat
+    body)."""
+    return block_seq(block, x, cfg, positions, False)[:2]
 
 
 def _layer(tree: Dict, layer: int) -> Dict:

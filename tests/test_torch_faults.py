@@ -448,6 +448,28 @@ def test_device_loss_no_survivors_fails_typed_never_bisected():
     assert b.totals.retried == 0
 
 
+@pytest.mark.parametrize("stall_rate", [0.0, 1.0])
+def test_device_loss_in_a_stalled_call_is_counted(stall_rate):
+    """A device loss that fires in a call already stalled past the launch
+    timeout surfaces after its batch failed as LaunchStalled:
+    ``injected["device_loss_after_stall"]`` counts such losses and no
+    other, so a chaos run can require DeviceLost for every other loss."""
+    inner = CollisionEngine(_tree(3), EngineConfig(mode="wavefront_fused",
+                                                   shards=1), device="cpu")
+    fe = FaultyEngine(inner, FaultPlan(stall_rate=stall_rate,
+                                       device_loss_rate=1.0, stall_s=STALL,
+                                       seed=0))
+    with RequestBatcher(fe, max_wait_ms=1.0, launch_timeout_s=0.1) as b:
+        t = b.submit(_obbs(4, 13))
+        with pytest.raises(LaunchStalled if stall_rate else DeviceLost):
+            t.result(timeout=WAIT)
+        end = time.monotonic() + WAIT
+        while not fe.injected["device_loss"] and time.monotonic() < end:
+            time.sleep(0.01)
+    assert fe.injected["device_loss"] == 1
+    assert fe.injected["device_loss_after_stall"] == int(stall_rate)
+
+
 def test_chaos_device_loss_recovery_on_eight_cpu_entries():
     """run_service under deterministic device loss (8 -> 5 -> 2 shard
     devices): recovery happens below the batcher, so every request

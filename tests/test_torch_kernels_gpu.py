@@ -1284,12 +1284,15 @@ def test_planner_training_step_card_matches_cpu(cuda):
         assert torch.allclose(pc[n].cpu(), ph[n], **tol), n
 
 
-@pytest.mark.parametrize("arch", ["glm4_9b", "starcoder2_7b"])
+@pytest.mark.parametrize("arch", ["glm4_9b", "starcoder2_7b",
+                                  "granite_moe_1b_a400m", "pixtral_12b"])
 def test_dense_family_training_card_matches_cpu(cuda, arch, monkeypatch):
     """The smoke model's loss and every gradient on the card (fp32, TF32
     off: ``flash_fp32`` and the fp32 backward) against the same weights
     and batch on the CPU, rtol = atol = 1e-4; under remat each layer
-    launches ``flash_attention`` twice and ``flash_attention_bwd`` once."""
+    launches ``flash_attention`` twice and ``flash_attention_bwd`` once.
+    Also Granite-MoE's smoke model (its balance term in the loss) and
+    Pixtral's (the pipeline's batch carries its patch embeddings)."""
     from repro_torch.data.pipeline import synth_batch
     from repro_torch.configs.base import ShapeSpec
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
@@ -1316,6 +1319,73 @@ def test_dense_family_training_card_matches_cpu(cuda, arch, monkeypatch):
     for (n, _), a, b in zip(cpu.named_parameters(), gc, gh):
         assert bool(a.isfinite().all()), n
         assert torch.allclose(a.cpu(), b, rtol=1e-4, atol=1e-4), n
+
+
+def test_moe_layer_at_granite_width_card_matches_cpu(cuda, monkeypatch):
+    """One MoE layer at Granite-MoE 1B's full width (d 1,024, 32 experts
+    of 512, top 8) in fp32 (TF32 off), on 4 x 64 tokens (C 20 against a
+    mean load of 16: pairs drop) and on a decode group of 8 rows (C 8, none
+    drop): every route (expert ids, buffer
+    positions, kept flags) equal to the CPU's, y and the balance term
+    within 1e-4."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import ffn
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_config("granite_moe_1b_a400m").replace(
+        param_dtype="float32", compute_dtype="float32")
+    cpu = ffn.init_moe(cfg, torch.Generator().manual_seed(0), torch.float32,
+                       "cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    rs = np.random.RandomState(1)
+    for shape in ((4, 64, cfg.d_model), (8, 1, cfg.d_model)):
+        x = torch.from_numpy(rs.normal(size=shape).astype(np.float32))
+        out = {}
+        for name, params, dev in (("card", card, cuda), ("cpu", cpu, "cpu")):
+            with torch.no_grad():
+                route = ffn.moe_route(params, x.to(dev).reshape(
+                    (1, shape[0], -1) if shape[1] == 1 else shape), cfg)
+                y, aux = ffn.apply_moe(params, x.to(dev), cfg)
+            out[name] = [t.cpu() for t in route[2:]], y.cpu(), aux.cpu()
+        (rc, yc, ac), (rh, yh, ah) = out["card"], out["cpu"]
+        for a, b in zip(rc, rh):
+            assert torch.equal(a, b), shape
+        assert bool((~rh[2]).any()) == (shape[1] > 1), shape
+        assert torch.allclose(yc, yh, rtol=1e-4, atol=1e-4), shape
+        assert torch.allclose(ac, ah, rtol=1e-4, atol=1e-6), shape
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hkv,group,T,d", [
+    (8, 8, 2, 1024, 64), (2, 8, 4, 1280, 128)],
+    ids=["granite_prefill", "pixtral_prefill"])
+def test_flash_attention_at_the_moe_and_vlm_prefill_shapes(
+        cuda, B, Hkv, group, T, d, dtype):
+    """The forward at Granite-MoE's prefill (d 64, 16 heads on 8) and at
+    Pixtral's (256 patches + 1,024 tokens = 1,280, 32 heads on 8 of 128;
+    B cut from 8 to 2 here) against its plain version."""
+    case = flash_cases.make_case(B, Hkv, group, T, T, d, True, "bthd",
+                                 seed=T + d)
+    q, k, v = flash_cases.tensors(case, cuda, dtype)
+    o = flash_ops.flash_attention(q, k, v, True)
+    want = attention_ref(q, k, v, True)
+    assert flash_cases.within_tol(o, want, str(dtype)[6:]) <= 0
+
+
+def test_flash_attention_bwd_at_granite_training_microbatch(cuda):
+    """The forward and the backward at Granite-MoE's training microbatch
+    (B 8 x S 4,096 in 4 microbatches: q (2, 16, 4096, 64), k and v (2, 8,
+    4096, 64), bf16 views of (B, T, H, d)): the forward within
+    ``cases.TOL`` of its plain version, the backward row by row against
+    the fp32 plain version, one launch, deterministic."""
+    case = flash_cases.make_case(2, 8, 2, 4096, 4096, 64, True, "bthd",
+                                 seed=64)
+    case["do"] = np.random.RandomState(64).normal(
+        size=case["q"].shape).astype(np.float32)
+    q, k, v = flash_cases.tensors(case, cuda, torch.bfloat16)
+    o = flash_ops.flash_attention(q, k, v, True)
+    assert flash_cases.within_tol(o, attention_ref(q, k, v, True),
+                                  "bfloat16") <= 0
+    _flash_bwd_held(case, cuda)
 
 
 def _flash_grads(q, k, v, do, causal):

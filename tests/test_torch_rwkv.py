@@ -233,18 +233,18 @@ def test_caches_are_stacked_layer_leading():
 
 def test_unported_architectures_raise_naming_roadmap():
     with pytest.raises(NotImplementedError, match="A.11"):
-        get_config("granite_moe_1b_a400m")
+        get_config("whisper_medium")
     with pytest.raises(NotImplementedError, match="A.11"):
         get_smoke_config("hymba_1_5b")
     with pytest.raises(KeyError):
         get_config("no_such_model")
-    moe = ModelConfig(name="tiny", family="moe", num_layers=1, d_model=16,
-                      num_heads=2, num_kv_heads=2, d_ff=32, vocab_size=8,
-                      num_experts=4, experts_per_token=2)
+    hybrid = ModelConfig(name="tiny", family="hybrid", num_layers=1,
+                         d_model=16, num_heads=2, num_kv_heads=2, d_ff=32,
+                         vocab_size=8, ssm_state=4)
     with pytest.raises(NotImplementedError, match="A.11"):
-        api.init_params(moe, device="cpu")
+        api.init_params(hybrid, device="cpu")
     with pytest.raises(NotImplementedError, match="A.11"):
-        LM(moe, device="cpu")
+        LM(hybrid, device="cpu")
 
 
 def test_serve_on_cuda_raises_without_a_card(models, prompts):
