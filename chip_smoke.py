@@ -223,10 +223,14 @@ non-zero and prints no result):
 25. the other workloads at their benchmark scale (``other_workloads``):
    (a) the ``march`` kernel against ``march_ref``, bit for bit (pos, dist,
    active, and both ray casts' ranges and cells with the plain march
-   swapped in), on Fig. 19's grid and a 70 x 130 grid without walls, on
-   Fig. 19's 4,608 scan rays, rays grazing cell corners and edges along
-   the axes and diagonals, and rays leaving the grid, at 1, 16 and every
-   step of a 6 m cast; (b) ``benchmarks/run.py::fig19_mcl``: the corridor
+   swapped in), on Fig. 19's grid, a 70 x 130 grid without walls and a
+   600 x 600 corridor grid (past the kernel's shared-memory copy), on
+   every ray case of ``kernels/march/cases.py`` (Fig. 19's 4,608 scan
+   rays, rays grazing cell corners and edges along the axes and
+   diagonals, rays leaving the grid, one ray, 997 rays, rays whose first
+   hit falls on every step 0..63), from fresh rays and from the state a
+   16-step chunk leaves, at 1, 7, 16, 33 and every step of a 6 m cast;
+   (b) ``benchmarks/run.py::fig19_mcl``: the corridor
    grid of 192 cells, 24 scan angles, true pose (5, 5, 0.4), 192
    particles, 8 iterations, sigma 0.5, under the ``dense``, ``compacted``
    and ``dynamic`` (threshold 60) policies, each iteration's engine,
@@ -235,8 +239,9 @@ non-zero and prints no result):
    CPU on the card's directions; ranges and cells equal, weights within
    rtol 1e-5, resampling indices equal away from the cumulative
    weights), the dense and compacted casts against each other, and
-   ``march`` timed at the scan's shape (the call, the kernel alone)
-   against its plain version and bound; (c) the filter with its
+   ``march`` timed at the scan's shape and at the compacted cast's
+   first chunk (the call, the kernel alone) against its plain version
+   and bound; (c) the filter with its
    collision gate (the grid's walls 0.8 m tall as points, depth 7,
    ``wavefront_persistent``), every step's gate against the CPU engine
    on the card's footprint OBBs; (d) ``table4_pray_psphere`` at
@@ -603,9 +608,12 @@ def other_workloads(dev, card: str, main_launches: dict, add_check_launches,
     from repro_torch.kernels import _build
     from repro_torch.kernels.ballquery import ops as bq_ops
     from repro_torch.kernels.march import ops as march_ops
-    from repro_torch.kernels.march.cases import (FIG19_GRID_SEED,
+    from repro_torch.kernels.march.cases import (CHUNK_STEPS,
+                                                 FIG19_GRID_SEED,
+                                                 LARGE_GRID_SIZE,
+                                                 STEP_COUNTS,
                                                  nonsquare_grid, ray_cases,
-                                                 wall_points)
+                                                 start_states, wall_points)
     from repro_torch.kernels.march.ref import march_ref
     S = sizes
     t_phase = time.perf_counter()
@@ -661,7 +669,9 @@ def other_workloads(dev, card: str, main_launches: dict, add_check_launches,
     grids = {"fig19": tmcl.make_corridor_world(FIG19_GRID_SEED,
                                                size=S["grid"], device=dev),
              "nonsquare": tmcl.OccupancyGrid(
-                 occ=torch.from_numpy(nonsquare_grid()).to(dev), cell=0.05)}
+                 occ=torch.from_numpy(nonsquare_grid()).to(dev), cell=0.05),
+             "large": tmcl.make_corridor_world(
+                 FIG19_GRID_SEED, size=LARGE_GRID_SIZE, device=dev)}
     add_check_launches()
     mism = compared = 0
     march_err = 0.0
@@ -669,21 +679,24 @@ def other_workloads(dev, card: str, main_launches: dict, add_check_launches,
         steps = int(np.ceil(R_MAX / grid.cell)) + 1
         for case, (org, ang) in ray_cases(grid.shape, grid.cell).items():
             dirv = tmcl.ray_directions(torch.from_numpy(ang).to(dev))
-            for n in (1, 16, steps):
-                runs = []
-                for fn in (march_ops.march, march_ref):
-                    st = (torch.tensor(org, device=dev), dirv,
-                          torch.zeros(len(ang), device=dev),
-                          torch.ones(len(ang), dtype=torch.bool, device=dev))
-                    fn(grid.occ, grid.origin, grid.cell, *st, R_MAX, n)
-                    runs.append(st)
-                sync()
-                compared += 1
-                for got, want in zip(runs[0], runs[1]):
-                    if not torch.equal(got, want):
-                        mism += 1
-                        march_err = max(march_err, float(
-                            (got.double() - want.double()).abs().max()))
+            for st0 in start_states(grid.occ, grid.origin, grid.cell, org,
+                                    dirv, R_MAX).values():
+                for n in STEP_COUNTS + (steps,):
+                    runs = []
+                    for fn in (march_ops.march, march_ref):
+                        st = tuple(x.clone() for x in st0)
+                        fn(grid.occ, grid.origin, grid.cell, st[0], dirv,
+                           st[1], st[2], R_MAX, n)
+                        runs.append(st)
+                    sync()
+                    compared += 1
+                    for got, want in zip(runs[0], runs[1]):
+                        if not torch.equal(got, want):
+                            mism += 1
+                            march_err = max(march_err, float(
+                                (got.double() - want.double()).abs().max()))
+        if gname == "large":
+            continue
         org, ang = ray_cases(grid.shape, grid.cell)["scan"]
         for cast in (tmcl.ray_cast_dense, tmcl.ray_cast_compacted):
             got = cast(grid, torch.from_numpy(org).to(dev),
@@ -704,10 +717,15 @@ def other_workloads(dev, card: str, main_launches: dict, add_check_launches,
                          f"{march_err})")
     log("25 other", f"(a) march == plain, bit for bit (pos, dist, active; "
         f"both casts' ranges and cells with the plain march swapped in): "
-        f"{compared} comparisons on the Fig. 19 grid ({S['grid']}^2) and a "
-        f"70 x 130 grid without walls; scan (4,608 rays), grazing (1,152: "
-        f"cell corners and edges at 0, +-pi/4, +-pi/2, +-3pi/4, pi) and "
-        f"leaving rays (48); 1, 16 and every step of a {R_MAX} m cast")
+        f"{compared} comparisons on the Fig. 19 grid ({S['grid']}^2), a "
+        f"70 x 130 grid without walls and a {LARGE_GRID_SIZE}^2 corridor "
+        f"grid (read through L1); scan (4,608 rays), grazing (1,152: cell "
+        f"corners and edges at 0, +-pi/4, +-pi/2, +-3pi/4, pi), leaving "
+        f"(48), one, 997 and first-hit rays (390: first hits on every step "
+        f"0..63); from fresh rays and from a {CHUNK_STEPS}-step chunk's "
+        f"state; "
+        f"{', '.join(map(str, STEP_COUNTS))} and every step of a {R_MAX} m "
+        f"cast")
     add_check_launches()
 
     # (b) Fig. 19: the filter under each policy
@@ -816,38 +834,45 @@ def other_workloads(dev, card: str, main_launches: dict, add_check_launches,
         f"1e-6 of a cumulative weight); dense vs compacted cast on the "
         f"card: ranges equal, cells {cc} <= {cd}")
 
-    # march timed at Fig. 19's shape: a dense cast of the scan rays, each
-    # launch on a fresh copy of the rays' state
+    # march timed at Fig. 19's shape: a dense cast of the scan rays and the
+    # compacted cast's first chunk, each launch on a fresh copy of the
+    # rays' state
     dirv = tmcl.ray_directions(An).contiguous()
     n_steps = int(np.ceil(R_MAX / grid.cell)) + 1
-    fresh = [(O.clone(), torch.zeros(len(ang), device=dev),
-              torch.ones(len(ang), dtype=torch.bool, device=dev))
-             for _ in range(S["march_reps"] * 3 + 40)]
-    it_fresh = iter(fresh)
 
-    def one(fn=march_ops.march):
-        pos, dist, active = next(it_fresh)
-        fn(grid.occ, grid.origin, grid.cell, pos, dirv, dist, active, R_MAX,
-           n_steps)
-    if dev.type == "cuda":
-        ms = cuda_time_ms(one, S["march_reps"])
-        k_ms = kernel_device_ms(one, "march_kernel", 10, "march",
-                                required=False)
-        plain_ms = cuda_time_ms(lambda: one(march_ref), 2)
-    else:
-        ms = k_ms = plain_ms = float("nan")
-    live_steps = int(torch.round(fresh[0][1] / grid.cell).sum())
+    def march_times(n):
+        fresh = [(O.clone(), torch.zeros(len(ang), device=dev),
+                  torch.ones(len(ang), dtype=torch.bool, device=dev))
+                 for _ in range(S["march_reps"] * 3 + 40)]
+        it_fresh = iter(fresh)
+
+        def one(fn=march_ops.march):
+            pos, dist, active = next(it_fresh)
+            fn(grid.occ, grid.origin, grid.cell, pos, dirv, dist, active,
+               R_MAX, n)
+        if dev.type != "cuda":
+            return fresh[0], float("nan"), float("nan"), float("nan")
+        return (fresh[0], cuda_time_ms(one, S["march_reps"]),
+                kernel_device_ms(one, "march_kernel", 10, "march",
+                                 required=False),
+                cuda_time_ms(lambda: one(march_ref), 2))
+    marched, ms, k_ms, plain_ms = march_times(n_steps)
+    _, chunk_ms, chunk_k_ms, _ = march_times(16)
+    live_steps = int(torch.round(marched[1] / grid.cell).sum())
     H, W = grid.shape
     bms, by = bound_ms(H * W + BYTES_MARCH_RAY * len(ang),
                        OPS_MARCH_STEP * live_steps)
     add_check_launches()
+
+    def kms(x):
+        return "not measured" if x is None else f"{x:.4f} ms"
     log("25 other", f"(b) march at Fig. 19's shape ({len(ang)} rays, "
         f"{n_steps} steps, {live_steps} live ray-steps, the longest ray "
-        f"{int(torch.round(fresh[0][1].max() / grid.cell))}): call "
-        f"{ms:.4f} ms, the kernel alone "
-        + ("not measured" if k_ms is None else f"{k_ms:.4f} ms")
-        + f" (torch.profiler), plain {plain_ms:.3f} ms, bound {bms:.6f} ms "
-        f"({by}) | {card}")
+        f"{int(torch.round(marched[1].max() / grid.cell))}): call "
+        f"{ms:.4f} ms, the kernel alone {kms(k_ms)} (torch.profiler), "
+        f"plain {plain_ms:.3f} ms, bound {bms:.6f} ms ({by}); the compacted "
+        f"cast's first chunk (16 steps): call {chunk_ms:.4f} ms, the kernel "
+        f"alone {kms(chunk_k_ms)} | {card}")
     march_line = dict(
         name="march", route="cuda",
         source="src/repro_torch/kernels/march/csrc/march.cu",

@@ -1,11 +1,17 @@
 """Dispatch for the occupancy-grid ray-march kernel.
 
-:func:`march` runs the CUDA kernel (``csrc/march.cu``: one thread a ray,
-the ``n_steps`` steps in a loop inside the kernel, a ray that has ended
-leaving it) on CUDA tensors and its plain PyTorch version
-(:func:`repro_torch.kernels.march.ref.march_ref`) on CPU tensors; a build
-or launch failure raises.  Both update ``pos``, ``dist`` and ``active``
-in place.
+:func:`march` runs the CUDA kernel on CUDA tensors and its plain PyTorch
+version (:func:`repro_torch.kernels.march.ref.march_ref`) on CPU tensors;
+a build or launch failure raises.  Both update ``pos``, ``dist`` and
+``active`` in place.  The kernel (``csrc/march.cu``) spreads each ray over
+16 lanes of a warp and marches it in rounds of 16 steps, one a lane:
+every lane runs the ray's serial sums itself and keeps its own step's
+position, the round's divides and grid loads go out with no dependence
+between them, and a ballot finds the first step that hits, whose lane
+writes the outputs (``ref.py::march_grouped_ref`` is that schedule in
+PyTorch).  A grid of up to 48 KB is copied into shared memory first; a
+larger one, or one whose storage is not 16-byte aligned, is read through
+L1.  A ray inactive on entry costs no divide and no load.
 
 The reference has no Pallas kernel here: its march is a
 ``jax.lax.fori_loop`` over ``repro/core/mcl.py::_march_step``, one
@@ -23,6 +29,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.march.ref import march_ref
 
 _launch = None
+#: The raw current stream of a device, without building a Stream object
+#: (a call is paced by the host: a few microseconds matter here).
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+_F32 = torch.float32
 
 
 def _lib():
@@ -66,27 +76,46 @@ def march(occ: torch.Tensor, origin: Sequence[float], cell: float,
           active: torch.Tensor, max_range: float, n_steps: int) -> None:
     """March every active ray ``n_steps`` cells, in place (see
     :mod:`repro_torch.kernels.march.ref` for the step)."""
-    _check(occ, pos, dirv, dist, active)
-    dev = pos.device
-    if dev.type == "cpu":
-        march_ref(occ, origin, cell, pos, dirv, dist, active, max_range,
-                  n_steps)
-        return
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    if pos.data_ptr() % 8 or dirv.data_ptr() % 8:
-        raise ValueError("march reads pos and dirv as float2: 8-byte "
-                         "aligned storage")
+    # What the kernel takes, in as few host operations as the happy path
+    # allows; anything else goes through the checks spelled out.
+    idx = pos.get_device()
     R = pos.shape[0]
+    ok = (idx >= 0 and pos.dtype is _F32 and dirv.dtype is _F32
+          and dist.dtype is _F32 and active.dtype is torch.bool
+          and (occ.dtype is torch.bool or occ.dtype is torch.uint8)
+          and occ.ndim == 2 and pos.ndim == 2 and pos.shape[1] == 2
+          and dirv.shape == pos.shape and dist.shape == (R,)
+          and active.shape == (R,) and occ.get_device() == idx
+          and dirv.get_device() == idx and dist.get_device() == idx
+          and active.get_device() == idx and occ.is_contiguous()
+          and pos.is_contiguous() and dirv.is_contiguous()
+          and dist.is_contiguous() and active.is_contiguous()
+          and pos.data_ptr() % 8 == 0 and dirv.data_ptr() % 8 == 0)
+    if not ok:
+        _check(occ, pos, dirv, dist, active)
+        dev = pos.device
+        if dev.type == "cpu":
+            march_ref(occ, origin, cell, pos, dirv, dist, active, max_range,
+                      n_steps)
+            return
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        if pos.data_ptr() % 8 or dirv.data_ptr() % 8:
+            raise ValueError("march reads pos and dirv as float2: 8-byte "
+                             "aligned storage")
     if R == 0 or n_steps <= 0:
         return
     H, W = occ.shape
     launch = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = launch(occ.data_ptr(), H, W, float(origin[0]),
-                        float(origin[1]), float(cell), float(max_range),
-                        pos.data_ptr(), dirv.data_ptr(), dist.data_ptr(),
-                        active.data_ptr(), R, int(n_steps), stream)
+    stream = (_raw_stream(idx) if _raw_stream is not None
+              else torch.cuda.current_stream(pos.device).cuda_stream)
+    args = (occ.data_ptr(), H, W, float(origin[0]), float(origin[1]),
+            float(cell), float(max_range), pos.data_ptr(), dirv.data_ptr(),
+            dist.data_ptr(), active.data_ptr(), R, int(n_steps), stream)
+    if idx == torch.cuda.current_device():
+        status = launch(*args)
+    else:
+        with torch.cuda.device(idx):
+            status = launch(*args)
     _build.check(status, "march")
     _build.count_launch("march")

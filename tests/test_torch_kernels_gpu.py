@@ -52,8 +52,9 @@ from repro_torch.kernels.fps import ops as fps_ops
 from repro_torch.kernels.fps.cases import tie_cloud
 from repro_torch.kernels.fps.ref import fps_ref
 from repro_torch.kernels.march import ops as march_ops
-from repro_torch.kernels.march.cases import (nonsquare_grid, ray_cases,
-                                             wall_points)
+from repro_torch.kernels.march.cases import (LARGE_GRID_SIZE, STEP_COUNTS,
+                                             nonsquare_grid, ray_cases,
+                                             start_states, wall_points)
 from repro_torch.kernels.march.ref import march_ref
 from repro_torch.kernels.persist import ops as persist_ops
 from repro_torch.kernels.persist.cases import (grazing_pool, owner_group_pool,
@@ -1621,40 +1622,55 @@ def test_cuda_glm4_serving_matches_cpu(cuda, monkeypatch):
 
 
 def _march_grids(cuda):
-    """Fig. 19's grid (192 x 192, walls and boxes) and one that is not
-    square, with no walls (rays leave it)."""
+    """Fig. 19's grid (192 x 192, walls and boxes), the same grid in storage
+    that is not 16-byte aligned, one that is not square, with no walls
+    (rays leave it), and a corridor grid too large for the kernel's
+    shared-memory copy: the last two the kernel reads through L1."""
     fig19 = tmcl.make_corridor_world(0, size=192, device=cuda)
+    flat = torch.zeros(fig19.occ.numel() + 1, dtype=torch.bool, device=cuda)
+    unaligned = flat[1:].view(fig19.shape)
+    unaligned.copy_(fig19.occ)
     return {"fig19": fig19,
+            "unaligned": tmcl.OccupancyGrid(occ=unaligned, cell=fig19.cell),
             "nonsquare": tmcl.OccupancyGrid(
-                occ=torch.from_numpy(nonsquare_grid()).to(cuda), cell=0.05)}
+                occ=torch.from_numpy(nonsquare_grid()).to(cuda), cell=0.05),
+            "large": tmcl.make_corridor_world(0, size=LARGE_GRID_SIZE,
+                                              device=cuda)}
 
 
-@pytest.mark.parametrize("grid_name", ["fig19", "nonsquare"])
+@pytest.mark.parametrize("grid_name",
+                         ["fig19", "nonsquare", "large", "unaligned"])
 def test_march_kernel_matches_plain(cuda, grid_name):
-    """Fig. 19's 4,608 scan rays, rays grazing cell edges and corners along
-    the axes and diagonals, rays leaving the grid: 1, 16 and every step of
-    a 6 m cast, pos, dist and active bit for bit."""
+    """Every ray case of ``kernels/march/cases.py`` (Fig. 19's 4,608 scan
+    rays, rays grazing cell edges and corners along the axes and
+    diagonals, rays leaving the grid, one ray, 997 rays, rays whose first
+    hit falls on every step 0..63), from fresh rays and from the state a
+    chunk leaves, at each of ``STEP_COUNTS`` and every step of a 6 m
+    cast: pos, dist and active bit for bit, one launch a call."""
     grid = _march_grids(cuda)[grid_name]
     max_range = 6.0
     steps = int(np.ceil(max_range / grid.cell)) + 1
     for name, (org, ang) in ray_cases(grid.shape, grid.cell).items():
         dirv = tmcl.ray_directions(torch.from_numpy(ang).to(cuda))
-        for n in (1, 16, steps):
-            runs = []
-            for fn in (march_ops.march, march_ref):
-                st = (torch.tensor(org, device=cuda), dirv,
-                      torch.zeros(len(ang), device=cuda),
-                      torch.ones(len(ang), dtype=torch.bool, device=cuda))
-                before = _build.launch_counts()["march"]
-                fn(grid.occ, grid.origin, grid.cell, *st, max_range, n)
-                torch.cuda.synchronize()
-                launched = _build.launch_counts()["march"] - before
-                assert launched == (fn is march_ops.march), (name, n)
-                runs.append(st)
-            for got, want in zip(runs[0], runs[1]):
-                assert torch.equal(got, want), (grid_name, name, n)
-            if n == steps:
-                assert not bool(runs[0][3].any()), (grid_name, name)
+        states = start_states(grid.occ, grid.origin, grid.cell, org, dirv,
+                              max_range)
+        for start, st0 in states.items():
+            for n in STEP_COUNTS + (steps,):
+                runs = []
+                for fn in (march_ops.march, march_ref):
+                    st = tuple(x.clone() for x in st0)
+                    before = _build.launch_counts()["march"]
+                    fn(grid.occ, grid.origin, grid.cell, st[0], dirv, st[1],
+                       st[2], max_range, n)
+                    torch.cuda.synchronize()
+                    launched = _build.launch_counts()["march"] - before
+                    assert launched == (fn is march_ops.march), (name, n)
+                    runs.append(st)
+                for got, want in zip(runs[0], runs[1]):
+                    assert torch.equal(got, want), (grid_name, name, start,
+                                                    n)
+                if n == steps:
+                    assert not bool(runs[0][2].any()), (grid_name, name)
 
 
 def test_ray_casts_on_the_card_match_cpu(cuda):
