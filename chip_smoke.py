@@ -346,16 +346,33 @@ non-zero and prints no result):
    heads of 128 on d 5,120; decode at ``256 + S + i``); (e) Pixtral
    trained at full width cut to ``MOE_VLM["pixtral_layers"]`` of its 40
    layers;
-30. one JSON line listing every kernel with its launches on the main paths
-   (``launches``, phases 8, 13, 17, 20, 21, 22, 23, 24, 25, 26, 27, 28 and
-   29) and elsewhere (``check_launches``), error, times (for ``persist``,
+30. the ``encdec`` family, Whisper-medium (``encdec_phase``): (a) at full
+   width cut to 2 encoder and 2 decoder layers, fp32, card against CPU
+   through ``dense_cut_vs_cpu`` (B 2, a 64-token prompt against 100
+   frames, 4 teacher-forced steps: logits, ``kv``, ``xk`` and ``xv``
+   within ``LM_FP32_TOL``); (b) its full 24 + 24-layer bf16 serve through
+   ``dense_serve``: 8 segments of 1,500 frames drawn from a seed, each
+   decoder prompt Whisper's 4-token start-of-transcript sequence, 32
+   greedy tokens; 72 ``flash_attention`` launches a prefill (the
+   encoder's non-causal 1,500 x 1,500, the decoder's causal 4 x 4, the
+   cross-attention's 4 x 1,500), none in decode, each against its plain
+   version, each shape timed against its bound, plain version and SDPA
+   (non-causal where the kernel is); walls, busy shares, peak memory and
+   the consistency; (c) the flash backward at the training microbatch's
+   shapes (q, k, v (2, 16, 1500, 64), non-causal and causal) against its
+   bound and SDPA's backward, Whisper trained at full width and depth
+   through ``lm/train.py`` (B 8 x S 1,500 in 4 microbatches, 5 steps;
+   losses that fall) and its 2-layer fp32 cut's step card against CPU;
+31. one JSON line listing every kernel with its launches on the main paths
+   (``launches``, phases 8, 13, 17, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29
+   and 30) and elsewhere (``check_launches``), error, times (for ``persist``,
    ``sact_dense``, ``fps``, ``ballquery``, ``wkv6_bwd`` and
    ``flash_attention_bwd`` also ``kernel_ms``, the kernel alone by
    ``torch.profiler``; ``sact_dense``'s at ``naive``'s block shape, with
    phase 10's plane as ``plane_*``; for ``ballquery`` also
    ``single_plan``, the single plan's three layers; ``flash_attention``'s
-   and ``flash_attention_bwd``'s ``shape``, and phase 29's shapes under
-   ``shapes``) and bound; the last line is
+   and ``flash_attention_bwd``'s ``shape``, and phases 29 and 30's shapes
+   under ``shapes``) and bound; the last line is
    ``{"ok": true, "device": {...}}``.
 
 Each phase prints its seconds.
@@ -375,6 +392,7 @@ import sys
 import threading
 import time
 from pathlib import Path
+from typing import Optional, Sequence
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, non-tensor fp32, and
 # dense bf16 and TF32 on the tensor cores.
@@ -413,8 +431,12 @@ LM_CONSIST_ATOL = 0.25
 LM_BATCH, LM_PROMPT, LM_TOKENS = 8, 1024, 32
 LM_CUT_LAYERS, LM_CUT_BATCH, LM_CUT_PROMPT, LM_CUT_STEPS = 2, 2, 64, 4
 # The attention models' warm walls (dense_serve): the median of this many
-# serves.
-LM_WARM_SERVES = 10
+# serves; the busy shares (traced_serves): a warm prefill, then a serve of
+# this many tokens, both traced.  Kept small for the script's time limit:
+# the serves' repetitions and traces took ~220 s of it at 10 serves and 32
+# traced tokens.
+LM_WARM_SERVES = 5
+LM_TRACED_TOKENS = 9
 # GLM-4 9B serving (phases 19-20) uses the same sizes and tolerances, so the
 # two LM paths read alike: the same reasons hold (fp32 products summed in
 # another order; bf16 roundings that cuBLAS places differently for 8 rows
@@ -1497,7 +1519,7 @@ def traced_busy(fn, on_card: bool):
 
 def traced_serves(serve_n, host: bool = False) -> list:
     """A warm prefill alone (``serve_n(1)``), then a warm serve of
-    ``LM_TOKENS`` tokens, each under the profiler: for each, (traced wall
+    ``LM_TRACED_TOKENS`` tokens, each under the profiler: for each, (traced wall
     s, device s, device records, the device's key averages); decode's
     busy share is the difference of the two.  The LM serves record the
     card's activity alone: the host's operator records (~100k a serve)
@@ -1509,7 +1531,7 @@ def traced_serves(serve_n, host: bool = False) -> list:
     from torch.profiler import ProfilerActivity, profile
     acts = ([ProfilerActivity.CPU] if host else []) + [ProfilerActivity.CUDA]
     traced = []
-    for n_tok in (1, LM_TOKENS):
+    for n_tok in (1, LM_TRACED_TOKENS):
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             serve_n(n_tok)
@@ -2048,13 +2070,17 @@ def compare_routes(tag: str, card_calls, cpu_calls, batch: int,
 
 def dense_cut_vs_cpu(arch: str, phase: str, cuda, card: str,
                      add_check_launches, lap) -> None:
-    """Phases 19, 28 (d) and 29 (a, d): the attention model ``arch`` at
-    full width cut to ``LM_CUT_LAYERS`` layers, in fp32 (TF32 off), weights
-    drawn on the card and copied to a CPU twin: B = ``LM_CUT_BATCH``, a
-    prompt of ``LM_CUT_PROMPT`` tokens and ``LM_CUT_STEPS`` teacher-forced
-    decode steps, logits and the k and v caches within ``LM_FP32_TOL``.  A
+    """Phases 19, 28 (d), 29 (a, d) and 30 (a): the attention model
+    ``arch`` at full width cut to ``LM_CUT_LAYERS`` layers (an ``encdec``
+    model's encoder too), in fp32 (TF32 off), weights drawn on the card and
+    copied to a CPU twin: B = ``LM_CUT_BATCH``, a prompt of
+    ``LM_CUT_PROMPT`` tokens and ``LM_CUT_STEPS`` teacher-forced decode
+    steps, logits and every cache tensor (the k and v caches; an
+    ``encdec`` model's cross caches too) within ``LM_FP32_TOL``.  A
     ``vlm`` model's prompts follow ``num_patches`` patch embeddings drawn
-    from a seed, and its decode positions follow both.  A MoE model's
+    from a seed, and its decode positions follow both; an ``encdec``
+    model's attend ``ENCDEC["cut_frames"]`` frames drawn from a seed.  A
+    MoE model's
     routes are held card against CPU at every layer of every call
     (:func:`compare_routes`), and the share of pairs dropped is
     printed."""
@@ -2065,7 +2091,9 @@ def dense_cut_vs_cpu(arch: str, phase: str, cuda, card: str,
     from repro_torch.models import ffn as ffn_mod
     g_full = get_config(arch)
     g_cut = g_full.replace(num_layers=LM_CUT_LAYERS, param_dtype="float32",
-                           compute_dtype="float32")
+                           compute_dtype="float32",
+                           encoder_layers=min(g_full.encoder_layers,
+                                              LM_CUT_LAYERS))
     t0 = time.perf_counter()
     g_card = lm_api.init_params(
         g_cut, torch.Generator(device=cuda).manual_seed(7), device=cuda)
@@ -2082,6 +2110,10 @@ def dense_cut_vs_cpu(arch: str, phase: str, cuda, card: str,
     if P:
         host["patch_embeds"] = torch.from_numpy(rs.normal(
             size=(LM_CUT_BATCH, P, g_cut.d_model)).astype(np.float32))
+    n_frames = ENCDEC["cut_frames"] if g_cut.family == "encdec" else 0
+    if n_frames:
+        host["frames"] = torch.from_numpy(rs.normal(
+            size=(LM_CUT_BATCH, n_frames, g_cut.d_model)).astype(np.float32))
     prefill_g = lm_api.make_prefill_fn(g_cut,
                                        P + LM_CUT_PROMPT + LM_CUT_STEPS)
     decode_g = lm_api.make_decode_fn(g_cut)
@@ -2116,6 +2148,8 @@ def dense_cut_vs_cpu(arch: str, phase: str, cuda, card: str,
         lh, ch = want
         pairs = [("logits", lg, lh, 0)] + [
             (f"kv.{key}", cg["kv"][key], ch["kv"][key], 1) for key in "kv"]
+        pairs += [(key, cg[key], ch[key], 1) for key in ("xk", "xv")
+                  if key in cg]
         for key, a, b, dim in pairs:
             a = a.cpu()
             if a.shape != b.shape:
@@ -2154,7 +2188,9 @@ def dense_cut_vs_cpu(arch: str, phase: str, cuda, card: str,
             f"{sorted(excluded)}; the prefill (C {C} a row) drops "
             f"{pre_drop} of {pre} pairs ({100 * pre_drop / max(pre, 1):.2f} "
             f"%), the decode steps {routes['dropped'] - pre_drop}")
-    log(phase, f"full width, {LM_CUT_LAYERS} layers, B="
+    log(phase, f"full width, {LM_CUT_LAYERS} layers"
+        + (f" (and {g_cut.encoder_layers} encoder layers over {n_frames} "
+           f"frames)" if n_frames else "") + f", B="
         f"{LM_CUT_BATCH}, {f'{P} patch embeddings + ' if P else ''}prompt "
         f"{LM_CUT_PROMPT}, {LM_CUT_STEPS} teacher-forced steps (positions "
         f"from {P + LM_CUT_PROMPT}): card == CPU within {LM_FP32_TOL}; max "
@@ -2163,23 +2199,58 @@ def dense_cut_vs_cpu(arch: str, phase: str, cuda, card: str,
         f"in {t_init:.1f} s | {lap():.1f} s | {card}")
 
 
+def attention_calls(cfg) -> int:
+    """The flash-attention calls of one forward of ``cfg``: one a layer,
+    and an ``encdec`` model's encoder self-attention and decoder
+    cross-attention besides (72 for Whisper-medium)."""
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + 2 * cfg.num_layers
+    return cfg.num_layers
+
+
+def flash_fwd_bound(q, k, causal: bool = True):
+    """The bf16 flash-attention forward's bound: q, k and v read once and o
+    written once over the memory rate, against its operations: per seen
+    pair (a query row and each key at or before it when causal, every key
+    otherwise) q.k and p*v, 2 d products and 2 d sums on the bf16 tensor
+    cores, and the softmax (scale, max, exp, sum, rescale: ~6 fp32
+    operations a pair) beside them on the CUDA cores, so the least time is
+    the larger of the two.  Returns (ms, bound_by, bytes, tensor
+    operations, fp32 operations)."""
+    Bq, Hq, Tq, d = q.shape
+    Tk = k.shape[2]
+    pairs = (sum(min(i + 1, Tk) for i in range(Tq)) if causal
+             else Tq * Tk) * Bq * Hq
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    mma, fp32 = 4 * d * pairs, 6 * pairs
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = max(mma / PEAK_BF16_PER_S, fp32 / PEAK_FP32_PER_S)
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, mma, fp32)
+
+
 def dense_serve(arch: str, phase: str, cuda, card: str, main_launches: dict,
-                add_check_launches, lap, num_layers: int = 0) -> dict:
-    """Phases 20, 28 (d) and 29 (b, d): ``lm.serve.serve`` on the bf16
-    attention model ``arch`` at full width and depth (cut to
-    ``num_layers`` where given; weights drawn on the card
-    from a seeded generator), ``LM_BATCH`` prompts of ``LM_PROMPT`` tokens
-    (after ``num_patches`` patch embeddings drawn from a seed for a
-    ``vlm`` model) and ``LM_TOKENS`` greedy tokens; one ``flash_attention``
-    a layer in the prefill and none in decode; the kernel against its
-    plain version on the captured prefill inputs; warm walls (the median of
-    ``LM_WARM_SERVES``), peak memory,
-    busy shares, the kernel's time against its bound, plain version and
-    ``scaled_dot_product_attention``; a MoE model's share of pairs dropped
-    in the prefill; prefill/decode consistency (a MoE model's at capacity
-    factor 8 on the same weights: the prefill drops pairs that a decode
-    group never does).  Returns the ``flash_attention`` line of the JSON
-    result."""
+                add_check_launches, lap, num_layers: int = 0,
+                prompt: Optional[Sequence[int]] = None) -> dict:
+    """Phases 20, 28 (d), 29 (b, d) and 30 (b): ``lm.serve.serve`` on the
+    bf16 attention model ``arch`` at full width and depth (cut to
+    ``num_layers`` where given; weights drawn on the card from a seeded
+    generator), ``LM_BATCH`` prompts of ``LM_PROMPT`` random tokens (or
+    each the ``prompt`` given; after ``num_patches`` patch embeddings drawn
+    from a seed for a ``vlm`` model, against ``ENCDEC["frames"]`` frames
+    drawn from a seed for an ``encdec`` one) and ``LM_TOKENS`` greedy
+    tokens; :func:`attention_calls` ``flash_attention`` launches in the
+    prefill and none in decode; the kernel against its plain version on
+    every captured prefill input; warm walls (the median of
+    ``LM_WARM_SERVES``), peak memory, busy shares, the kernel's time
+    against its bound, plain version and ``scaled_dot_product_attention``
+    at each shape the prefill gives it (one in a decoder-only model;
+    Whisper's encoder, decoder and cross-attention); a MoE model's share of
+    pairs dropped in the prefill; prefill/decode consistency (a MoE model's
+    at capacity factor 8 on the same weights: the prefill drops pairs that
+    a decode group never does).  Returns the ``flash_attention`` line of
+    the JSON result: the first shape's figures, and where the prefill gave
+    the kernel more than one shape, every shape's under ``shapes``."""
     import numpy as np
     import torch
     from repro_torch.configs.base import get_config
@@ -2204,14 +2275,22 @@ def dense_serve(arch: str, phase: str, cuda, card: str, main_launches: dict,
     n_weights = sum(p.numel() for p in lm.parameters())
     w_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
     rs = np.random.RandomState(0)
-    prompts = rs.randint(0, g_full.vocab_size, (LM_BATCH, LM_PROMPT))
+    prompts = (np.tile(np.asarray(prompt), (LM_BATCH, 1)) if prompt
+               else rs.randint(0, g_full.vocab_size, (LM_BATCH, LM_PROMPT)))
+    S = prompts.shape[1]
     P = g_full.num_patches if g_full.family == "vlm" else 0
     patches = (torch.from_numpy(rs.normal(size=(
         LM_BATCH, P, g_full.d_model)).astype(np.float32)).to(cuda)
                if P else None)
+    n_frames = ENCDEC["frames"] if g_full.family == "encdec" else 0
+    frames = (torch.from_numpy(rs.normal(size=(
+        LM_BATCH, n_frames, g_full.d_model)).astype(np.float32)).to(cuda)
+              if n_frames else None)
+    n_calls = attention_calls(g_full)
+    decode = lm_api.make_decode_fn(g_full)
 
     def serve_(n: int):
-        return serve(lm, prompts, n, patch_embeds=patches)
+        return serve(lm, prompts, n, patch_embeds=patches, frames=frames)
     serve_(2)                                              # warm-up
     add_check_launches()
     torch.cuda.synchronize()
@@ -2224,32 +2303,33 @@ def dense_serve(arch: str, phase: str, cuda, card: str, main_launches: dict,
     peak = torch.cuda.max_memory_allocated()
     for name, n in counts.items():
         main_launches[name] += n
-    want = {name: (g_full.num_layers if name == "flash_attention" else 0)
+    want = {name: (n_calls if name == "flash_attention" else 0)
             for name in counts}
     if counts != want:
         raise SystemExit(f"FAIL: {arch} serve launched {counts}, want {want} "
-                         "(one flash_attention per layer in the prefill, "
-                         "none in decode)")
-    with torch.inference_mode():                 # the next free KV slot
-        lm.lm_decode_step(res.tokens[:, -1], P + LM_PROMPT + LM_TOKENS - 1,
-                           res.caches)
+                         f"({n_calls} flash_attention in the prefill, none "
+                         f"in decode)")
+    decode(lm, res.tokens[:, -1], P + S + LM_TOKENS - 1,   # the next slot
+           res.caches)
     torch.cuda.synchronize()
     if any(_build.launch_counts().values()):
         raise SystemExit(f"FAIL: a {arch} decode step launched "
                          f"{_build.launch_counts()}")
     gen_toks = res.tokens.cpu()
     kv_shape = tuple(res.caches["kv"]["k"].shape)
+    L, K, hd = g_full.num_layers, g_full.num_kv_heads, g_full.hd
+    x_shape = (tuple(res.caches["xk"].shape) if n_frames
+               else (L, LM_BATCH, n_frames, K, hd))
     if not (gen_toks.shape == (LM_BATCH, LM_TOKENS)
             and bool(((gen_toks >= 0)
                       & (gen_toks < g_full.vocab_size)).all())
             and bool(res.logits.float().isfinite().all())
-            and kv_shape == (g_full.num_layers, LM_BATCH,
-                             P + LM_PROMPT + LM_TOKENS, g_full.num_kv_heads,
-                             g_full.hd)):
+            and kv_shape == (L, LM_BATCH, P + S + LM_TOKENS, K, hd)
+            and x_shape == (L, LM_BATCH, n_frames, K, hd)):
         raise SystemExit(f"FAIL: {arch} serve: bad tokens, logits or caches "
-                         f"{kv_shape}")
-    # the kernel on the prefill inputs of one serve (a layer each), against
-    # its plain version on the same inputs; a MoE model's routes
+                         f"{kv_shape}, {x_shape}")
+    # the kernel on the prefill inputs of one serve, against its plain
+    # version on the same inputs; a MoE model's routes
     targets = {"flash": (flash_ops, "flash_attention")}
     if g_full.num_experts:
         targets["route"] = (ffn_mod, "moe_route")
@@ -2268,12 +2348,13 @@ def dense_serve(arch: str, phase: str, cuda, card: str, main_launches: dict,
         drop_note = (f" | the prefill drops {pairs_ - kept} of {pairs_} "
                      f"(token, slot) pairs over its {g_full.num_layers} "
                      f"layers ({100 * (pairs_ - kept) / pairs_:.2f} %; C "
-                     f"{ffn_mod.moe_capacity(g_full, P + LM_PROMPT)} a row "
-                     f"of {P + LM_PROMPT} tokens)")
-    if len(calls) != g_full.num_layers:
+                     f"{ffn_mod.moe_capacity(g_full, P + S)} a row "
+                     f"of {P + S} tokens)")
+    if len(calls) != n_calls:
         raise SystemExit(f"FAIL: recorder saw {len(calls)} flash_attention "
-                         "calls")
-    fa_err = 0.0
+                         f"calls, want {n_calls}")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    groups = {}               # (q shape, k shape, causal) -> [errs, call]
     with torch.inference_mode():
         for li, (fn, ca, ck) in enumerate(calls):
             o = fn(*ca, **ck)
@@ -2281,41 +2362,48 @@ def dense_serve(arch: str, phase: str, cuda, card: str, main_launches: dict,
             ex = flash_cases.within_tol(o, wo, "bfloat16")
             if ex > 0:
                 raise SystemExit(f"FAIL: flash_attention differs from plain "
-                                 f"on layer {li}'s prefill input (excess "
+                                 f"on call {li}'s prefill input (excess "
                                  f"{ex:.3g})")
-            fa_err = max(fa_err, float((o.float() - wo.float()).abs().max()))
-        fn, ca, ck = calls[0]
-        q, k, v = ca[:3]
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib_err = float((sdpa(q, k, v, is_causal=True, enable_gqa=True)
-                         .float() - attention_ref(q, k, v).float())
-                        .abs().max())
-        ms = cuda_time_ms(lambda: fn(*ca, **ck), 20)
-        plain_ms = cuda_time_ms(lambda: attention_ref(*ca, **ck), 2)
-        lib_ms = cuda_time_ms(
-            lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), 20)
+            causal = bool(ca[3] if len(ca) > 3 else ck.get("causal", True))
+            key = (tuple(ca[0].shape), tuple(ca[1].shape), causal)
+            group = groups.setdefault(key, [[], (fn, ca, ck)])
+            group[0].append(float((o.float() - wo.float()).abs().max()))
+        figures = []
+        for (_, _, causal), (errs, (fn, ca, ck)) in groups.items():
+            q, k, v = ca[:3]
+
+            def lib(q=q, k=k, v=v, causal=causal):
+                return sdpa(q, k, v, is_causal=causal, enable_gqa=True)
+            lib_err = float((lib().float() - attention_ref(q, k, v, causal)
+                             .float()).abs().max())
+            ms = cuda_time_ms(lambda: fn(*ca, **ck), 20)
+            # the kernel alone: a small shape's call is paced by the host
+            kern_ms = kernel_device_ms(lambda: fn(*ca, **ck), "flash_hopper",
+                                       20, "flash_attention", required=False)
+            plain_ms = cuda_time_ms(lambda: attention_ref(*ca, **ck), 2)
+            lib_ms = cuda_time_ms(lib, 20)
+            bound, by, nbytes, mma, fp32 = flash_fwd_bound(q, k, causal)
+            figures.append(dict(
+                max_abs_err=max(errs), ms=ms, kernel_ms=kern_ms,
+                plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=lib_ms,
+                shape=dict(q=list(q.shape), k=list(k.shape)), causal=causal,
+                calls=len(errs), lib_err=lib_err, nbytes=nbytes, mma=mma,
+                fp32=fp32, q_strides=q.stride(), v_strides=v.stride(),
+                dtype=q.dtype))
     add_check_launches()
-    Bq, Hq, T, d = q.shape
-    Hkv, Tk = k.shape[1], k.shape[2]
-    # read once: q, k, v; written once: o (all bf16).  Operations: per
-    # query row i and key j <= i, q.k and p*v, 2 d products and 2 d sums
-    # on the bf16 tensor cores; the softmax (scale, max, exp, sum,
-    # rescale: ~6 fp32 operations a pair) runs beside them on the CUDA
-    # cores, so the least time is the larger of the two.
-    pairs = sum(min(i + 1, Tk) for i in range(T)) * Bq * Hq
-    fa_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    fa_mma, fa_fp32 = 4 * d * pairs, 6 * pairs
-    t_bytes = fa_bytes / PEAK_BYTES_PER_S
-    t_ops = max(fa_mma / PEAK_BF16_PER_S, fa_fp32 / PEAK_FP32_PER_S)
-    fa_bound, fa_by = (1e3 * max(t_bytes, t_ops),
-                       "bytes" if t_bytes >= t_ops else "operations")
     line = dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/flash_attention/csrc/flash_attn.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:25",
-        max_abs_err=fa_err, ms=ms, plain_ms=plain_ms, bound_ms=fa_bound,
-        bound_by=fa_by, library_ms=lib_ms,
-        shape=dict(q=list(q.shape), k=list(k.shape)))
+        **{key: figures[0][key] for key in (
+            "max_abs_err", "ms", "kernel_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "shape")})
+    if len(figures) > 1:
+        line["shapes"] = [{key: f[key] for key in (
+            "shape", "causal", "calls", "max_abs_err", "ms", "kernel_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            for f in figures]
     # warm walls
     t_checks = time.perf_counter()
     pre, dec = [], []
@@ -2328,23 +2416,27 @@ def dense_serve(arch: str, phase: str, cuda, card: str, main_launches: dict,
     pre_ms, dec_ms = (1e3 * statistics.median(x) for x in (pre, dec))
     t_warm = time.perf_counter()
     # prefill/decode consistency: decode token S+1 after prefilling S
-    # tokens (after the prefix) against the last logits of a forward pass
-    # over S+1 tokens; a MoE model at capacity factor 8, where no pair drops
+    # tokens (after the prefix, against the frames) against the last logits
+    # of a forward pass over S+1 tokens; a MoE model at capacity factor 8,
+    # where no pair drops
     c_cfg = (g_full.replace(moe_capacity_factor=8.0) if g_full.num_experts
              else g_full)
     tokens = torch.from_numpy(prompts).to(cuda)
     batch = {"tokens": tokens}
     if P:
         batch["patch_embeds"] = patches
+    if n_frames:
+        batch["frames"] = frames
     lm.cfg = c_cfg
     try:
         logits, caches = lm_api.make_prefill_fn(c_cfg)(lm, batch)
         nxt = logits.argmax(-1)
-        step, _ = lm_api.make_decode_fn(c_cfg)(lm, nxt, P + LM_PROMPT,
-                                               caches)
+        step, _ = lm_api.make_decode_fn(c_cfg)(lm, nxt, P + S, caches)
+        longer = torch.cat([tokens, nxt[:, None]], 1)
         with torch.inference_mode():
-            full, _ = lm.lm_forward(torch.cat([tokens, nxt[:, None]], 1),
-                                     patches, last_only=True)
+            full = (lm.encdec_forward(frames, longer, last_only=True)
+                    if n_frames else
+                    lm.lm_forward(longer, patches, last_only=True))[0]
     finally:
         lm.cfg = g_full
     step, full = step.float(), full[:, -1].float()
@@ -2372,32 +2464,54 @@ def dense_serve(arch: str, phase: str, cuda, card: str, main_launches: dict,
               f"{time.perf_counter() - t_consist:.1f} s")
     top_pre = sorted(on_pre, key=device_us, reverse=True)[:5]
     top = sorted(on_card, key=device_us, reverse=True)[:5]
+    x_note = ""
+    if n_frames:
+        xk = res.caches["xk"]
+        x_bytes = 2 * xk.numel() * xk.element_size()
+        x_note = (f", cross caches {x_shape} ({x_bytes / 1e9:.3f} GB, read "
+                  f"whole by every decode step: "
+                  f"{1e3 * x_bytes / PEAK_BYTES_PER_S:.4f} ms at "
+                  f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s)")
     log(phase, f"{g_full.name}"
         + (f" cut to {num_layers} of its {get_config(arch).num_layers} "
            f"layers" if num_layers else "") + f": {n_weights} weights, "
         f"{w_bytes / 1e9:.3f} GB bf16, drawn on the card in {t_init:.1f} s "
         f"| B={LM_BATCH} {f'{P} patch embeddings + ' if P else ''}prompt "
-        f"{LM_PROMPT}, {LM_TOKENS} greedy tokens, KV "
-        f"caches {kv_shape} | main-path launches {counts} (decode step: 0) "
+        f"{S}{f' against {n_frames} frames' if n_frames else ''}, "
+        f"{LM_TOKENS} greedy tokens, KV caches {kv_shape}{x_note} | "
+        f"main-path launches {counts} (decode step: 0) "
         f"| warm median of {LM_WARM_SERVES}: prefill {pre_ms:.3f} ms, "
         f"decode {dec_ms:.3f} "
         f"ms/token, {LM_BATCH / (dec_ms / 1e3):.1f} tokens/s | peak mem "
         f"{peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB held before the "
         f"serve, of which {base / 2**30:.3f} GiB before the model)"
         f"{drop_note} | {card}")
-    log(phase, f"flash_attention on the {len(calls)} captured "
-        f"prefill inputs (B={Bq}, Hq={Hq}, Hkv={Hkv}, T={T}, d={d}, "
-        f"{q.dtype}, q strides {q.stride()}, v strides {v.stride()}): "
-        f"kernel within cases.TOL of plain, max abs err {fa_err:.4g}; "
-        f"kernel {ms:.4f} ms a launch ({g_full.num_layers * ms:.3f} ms a "
-        f"prefill), plain on card {plain_ms:.3f} ms, "
-        f"scaled_dot_product_attention(enable_gqa) {lib_ms:.4f} ms (max abs "
-        f"diff to plain {lib_err:.4g}), bound {fa_bound:.5f} ms ({fa_by}: "
-        f"{fa_bytes} B, {fa_mma} bf16 tensor ops, {fa_fp32} fp32 ops) | "
-        f"achieved {fa_mma / ms / 1e9:.1f} TFLOP/s on the tensor cores, "
-        f"{100 * fa_bound / ms:.1f} % of the bound, {ms / lib_ms:.3f}x "
-        f"scaled_dot_product_attention | {card}")
-    log(phase, f"prefill/decode consistency at {P + LM_PROMPT + 1} "
+    for f in figures:
+        Bq, Hq, T, d = f["shape"]["q"]
+        Hkv, Tk = f["shape"]["k"][1:3]
+        ms = f["ms"]
+        kern = ("not measured" if f["kernel_ms"] is None
+                else f"{f['kernel_ms']:.4f} ms")
+        log(phase, f"flash_attention on the {f['calls']} captured "
+            f"prefill inputs (B={Bq}, Hq={Hq}, Hkv={Hkv}, T={T}"
+            + (f", Tk={Tk}" if Tk != T else "")
+            + f", d={d}, {'causal' if f['causal'] else 'non-causal'}, "
+            f"{f['dtype']}, q strides {f['q_strides']}, v strides "
+            f"{f['v_strides']}): kernel within cases.TOL of plain, max abs "
+            f"err {f['max_abs_err']:.4g}; call {ms:.4f} ms a launch "
+            f"({f['calls'] * ms:.3f} ms a prefill), the kernel alone "
+            f"{kern} (torch.profiler), plain on card "
+            f"{f['plain_ms']:.3f} ms, scaled_dot_product_attention("
+            f"enable_gqa{'' if f['causal'] else ', is_causal=False'}) "
+            f"{f['library_ms']:.4f} ms (max abs diff to plain "
+            f"{f['lib_err']:.4g}), bound {f['bound_ms']:.5f} ms "
+            f"({f['bound_by']}: {f['nbytes']} B, {f['mma']} bf16 tensor "
+            f"ops, {f['fp32']} fp32 ops) | achieved "
+            f"{f['mma'] / ms / 1e9:.1f} TFLOP/s on the tensor cores, "
+            f"{100 * f['bound_ms'] / ms:.1f} % of the bound, "
+            f"{ms / f['library_ms']:.3f}x scaled_dot_product_attention | "
+            f"{card}")
+    log(phase, f"prefill/decode consistency at {P + S + 1} "
         f"positions{' (capacity factor 8)' if g_full.num_experts else ''}: "
         f"max|d| logits {delta:.4g} (bound {LM_CONSIST_ATOL}), "
         f"greedy agrees on {int(agree.sum())} of {LM_BATCH} rows, smallest "
@@ -2408,15 +2522,15 @@ def dense_serve(arch: str, phase: str, cuda, card: str, main_launches: dict,
         f"{100 * d_pre / w_pre:.1f} %), {n_pre} kernels and copies, largest: "
         + "; ".join(f"{e.key[:48]} {device_us(e) / 1e3:.3f} ms x{e.count}"
                     for e in top_pre)
-        + f" | its {LM_TOKENS - 1} decode steps, traced wall "
+        + f" | its {LM_TRACED_TOKENS - 1} decode steps, traced wall "
         f"{1e3 * (w_all - w_pre):.3f} ms, device time "
         f"{1e3 * (d_all - d_pre):.3f} ms (busy "
         f"{100 * (d_all - d_pre) / (w_all - w_pre):.1f} %), "
-        f"{(n_all - n_pre) // (LM_TOKENS - 1)} kernels and copies a token; "
-        f"largest over the serve: "
+        f"{(n_all - n_pre) // (LM_TRACED_TOKENS - 1)} kernels and copies a "
+        f"token; largest over the serve: "
         + "; ".join(f"{e.key[:48]} {device_us(e) / 1e3:.3f} ms x{e.count}"
                     for e in top) + f" | {stages} | {lap():.1f} s | {card}")
-    del lm, rec_f, calls, q, k, v, res, patches
+    del lm, rec_f, calls, groups, q, k, v, res, patches, frames
     return line
 
 
@@ -2453,14 +2567,14 @@ def flash_bwd_bound(q, k, causal: bool = True):
 
 
 def flash_bwd_timed(dev, shape, seed: int, reps: int, phase: str,
-                    what: str, card: str) -> dict:
+                    what: str, card: str, causal: bool = True) -> dict:
     """The flash-attention backward at a training microbatch ``shape`` (B,
     Hq, Hkv, T, d): bf16 (B, H, T, d) views of (B, T, H, d) projections,
-    causal, against the fp32 plain version row by row and bit for bit on a
-    second call; timed (the call by CUDA events, its four kernels alone by
-    ``torch.profiler``) beside its bound, the plain version,
-    ``scaled_dot_product_attention``'s backward, and the forward with and
-    without its lse.  Returns the JSON line's numbers."""
+    causal or not, against the fp32 plain version row by row and bit for
+    bit on a second call; timed (the call by CUDA events, its four kernels
+    alone by ``torch.profiler``) beside its bound, the plain version,
+    ``scaled_dot_product_attention``'s backward (as causal), and the
+    forward with and without its lse.  Returns the JSON line's numbers."""
     import torch
     from repro_torch.kernels.flash_attention import cases as flash_cases
     from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -2473,14 +2587,14 @@ def flash_bwd_timed(dev, shape, seed: int, reps: int, phase: str,
         return torch.randn((Bq, T, h, d), generator=gen, device=dev,
                            dtype=torch.bfloat16).transpose(1, 2)
     q, k, v, do = view(Hq), view(Hkv), view(Hkv), view(Hq)
-    o, lse = flash_ops._forward(q, k, v, True, True)
-    got = flash_ops._backward(q, k, v, o, lse, do, True)
-    again = flash_ops._backward(q, k, v, o, lse, do, True)
+    o, lse = flash_ops._forward(q, k, v, causal, True)
+    got = flash_ops._backward(q, k, v, o, lse, do, causal)
+    again = flash_ops._backward(q, k, v, o, lse, do, causal)
     torch.cuda.synchronize()
-    _, want_lse = attention_lse_ref(q, k, v, True)
+    _, want_lse = attention_lse_ref(q, k, v, causal)
     ex = flash_cases.lse_within_tol(lse, want_lse)
     del want_lse
-    want = flash_attention_bwd_ref(q, k, v, o, lse, do, True)
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
     bwd_err, excesses = 0.0, []
     for name, g, g2, w in zip(("dq", "dk", "dv"), got, again, want):
         exg = flash_cases.bwd_within_tol(g, w, "bfloat16")
@@ -2494,7 +2608,7 @@ def flash_bwd_timed(dev, shape, seed: int, reps: int, phase: str,
     del got, again, want
 
     def bwd_call():
-        return flash_ops._backward(q, k, v, o, lse, do, True)
+        return flash_ops._backward(q, k, v, o, lse, do, causal)
 
     ms = cuda_time_ms(bwd_call, reps)
     # the call's four kernels (the partials' sum runs only where the group
@@ -2506,23 +2620,24 @@ def flash_bwd_timed(dev, shape, seed: int, reps: int, phase: str,
                               "bwd_dkdv_reduce", "bwd_dq_hopper")}
     kern_ms = sum(x for x in kern_parts.values() if x is not None)
     plain_ms = cuda_time_ms(
-        lambda: flash_attention_bwd_ref(q, k, v, o, lse, do, True), 1,
+        lambda: flash_attention_bwd_ref(q, k, v, o, lse, do, causal), 1,
         warmup=0)
-    fwd_ms = cuda_time_ms(lambda: flash_ops._forward(q, k, v, True,
+    fwd_ms = cuda_time_ms(lambda: flash_ops._forward(q, k, v, causal,
                                                      False), 10)
-    fwd_lse_ms = cuda_time_ms(lambda: flash_ops._forward(q, k, v, True,
+    fwd_lse_ms = cuda_time_ms(lambda: flash_ops._forward(q, k, v, causal,
                                                          True), 10)
     # the yardstick, never used by the port: SDPA's backward alone, its
     # forward's graph kept
     xs = [x.detach().requires_grad_() for x in (q, k, v)]
     out = torch.nn.functional.scaled_dot_product_attention(
-        *xs, is_causal=True, enable_gqa=True)
+        *xs, is_causal=causal, enable_gqa=True)
     lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
         out, xs, do, retain_graph=True), 10)
     del xs, out
-    bms, by, bwd_bytes, bwd_mma = flash_bwd_bound(q, k)
+    bms, by, bwd_bytes, bwd_mma = flash_bwd_bound(q, k, causal)
     log(phase, f"flash_attention_bwd at {what} training microbatch (B {Bq}, "
-        f"Hq {Hq}, Hkv {Hkv}, T {T}, d {d}, causal, bf16 views): within "
+        f"Hq {Hq}, Hkv {Hkv}, T {T}, d {d}, "
+        f"{'causal' if causal else 'non-causal'}, bf16 views): within "
         f"cases.BWD_TOL of the fp32 plain version row by row (largest "
         f"excess over a row's bound: {', '.join(excesses)}), deterministic, "
         f"max abs err {bwd_err:.4g}; call {ms:.4f} ms, the kernels on the "
@@ -2539,20 +2654,23 @@ def flash_bwd_timed(dev, shape, seed: int, reps: int, phase: str,
     return dict(max_abs_err=bwd_err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=lib_ms, kernel_ms=kern_ms,
                 fwd_ms=fwd_ms, fwd_lse_ms=fwd_lse_ms,
-                shape=dict(q=[Bq, Hq, T, d], k=[Bq, Hkv, T, d]))
+                shape=dict(q=[Bq, Hq, T, d], k=[Bq, Hkv, T, d]),
+                causal=causal)
 
 
 def lm_train_on_card(cfg, phase: str, dev, card: str, main_launches: dict,
-                     add_check_launches, S: dict) -> None:
-    """Phases 28 (b) and 29 (c, e): the attention model ``cfg`` (bf16, at
-    full width, cut in depth where its full state does not fit the card)
-    trained ``S["lm_steps"]`` steps of B ``S["lm_batch"]`` x S
+                     add_check_launches, S: dict) -> list:
+    """Phases 28 (b), 29 (c, e) and 30 (c): the attention model ``cfg``
+    (bf16, at full width, cut in depth where its full state does not fit
+    the card) trained ``S["lm_steps"]`` steps of B ``S["lm_batch"]`` x S
     ``S["lm_seq"]`` in ``cfg.train_microbatches`` microbatches through
     ``lm/train.py``: launches 2 ``flash_attention`` and 1
-    ``flash_attention_bwd`` a layer a microbatch a step and nothing else,
-    finite losses and gradient norms, step walls, tokens/s (a ``vlm``
-    batch's patch positions counted), the MoE balance term, a traced
-    step's busy share and largest kernels, peak memory under the card's."""
+    ``flash_attention_bwd`` an attention (:func:`attention_calls`) a
+    microbatch a step and nothing else, finite losses and gradient norms,
+    step walls, tokens/s (a ``vlm`` batch's patch positions counted; an
+    ``encdec`` batch's decoder tokens), the MoE balance term, a traced
+    step's busy share and largest kernels, peak memory under the card's.
+    Returns the losses."""
     import numpy as np
     import torch
     from repro_torch.configs.base import ShapeSpec, get_config
@@ -2579,16 +2697,16 @@ def lm_train_on_card(cfg, phase: str, dev, card: str, main_launches: dict,
         main_launches[n_] += c_
     peak = torch.cuda.max_memory_allocated()
     total = torch.cuda.get_device_properties(dev).total_memory
-    fwd_want = 2 * cfg.num_layers * micro * steps
+    fwd_want = 2 * attention_calls(cfg) * micro * steps
     want_counts = {n_: (fwd_want if n_ == "flash_attention" else
                         fwd_want // 2 if n_ == "flash_attention_bwd" else 0)
                    for n_ in counts}
     if counts != want_counts:
         raise SystemExit(f"FAIL: {phase} {cfg.name} training launched "
                          f"{counts}; want {want_counts} (flash_attention "
-                         f"twice a layer a microbatch a step, forward and "
-                         f"remat, and flash_attention_bwd once; no other "
-                         f"kernel)")
+                         f"twice an attention a microbatch a step, forward "
+                         f"and remat, and flash_attention_bwd once; no "
+                         f"other kernel)")
     if not (np.isfinite(res.losses).all()
             and np.isfinite(res.grad_norms).all()):
         raise SystemExit(f"FAIL: {phase} {cfg.name} training: losses "
@@ -2612,7 +2730,8 @@ def lm_train_on_card(cfg, phase: str, dev, card: str, main_launches: dict,
     w_tr, d_tr, top = traced_busy(lambda: traced.update(
         m=step_fn(res.model, res.opt_state, batch)[2]), True)
     losses, gnorms, walls = res.losses, res.grad_norms, res.walls
-    auxes, traced_aux = res.moe_aux, float(traced["m"]["moe_aux"])
+    auxes = res.moe_aux
+    traced_aux = float(traced["m"].get("moe_aux", 0.0))
     del res, batch, step_fn, traced
     add_check_launches()
     warm = statistics.median(walls[1:])
@@ -2627,6 +2746,8 @@ def lm_train_on_card(cfg, phase: str, dev, card: str, main_launches: dict,
         + f": {n_weights} weights ({n_active} active a token), bf16, B "
         f"{S['lm_batch']} x S {S['lm_seq']}"
         + (f" after {P} patch embeddings" if P else "")
+        + (f" against as many frames ({cfg.encoder_layers} encoder layers)"
+           if cfg.family == "encdec" else "")
         + f" in {micro} microbatches, {steps} steps through lm/train.py: "
         f"losses " + ", ".join(f"{x:.4f}" for x in losses) + "; grad norms "
         + ", ".join(f"{x:.3f}" for x in gnorms) + aux_note
@@ -2640,12 +2761,14 @@ def lm_train_on_card(cfg, phase: str, dev, card: str, main_launches: dict,
         f"{t_run:.1f} s (steps {sum(walls):.1f} s; the rest the draw of the "
         f"weights) | {card}")
     log(phase, f"the traced step's largest: {top}")
+    return losses
 
 
 def lm_train_cut_vs_cpu(arch: str, phase: str, dev, card: str,
                         add_check_launches, S: dict) -> None:
-    """Phases 28 (c) and 29 (c): the model ``arch`` at full width cut to
-    ``S["cut_layers"]`` layers in fp32 (TF32 off: ``flash_fp32`` and the
+    """Phases 28 (c), 29 (c) and 30 (c): the model ``arch`` at full width
+    cut to ``S["cut_layers"]`` layers (an ``encdec`` model's encoder too)
+    in fp32 (TF32 off: ``flash_fp32`` and the
     fp32 backward), weights drawn on the card and copied to the CPU: loss,
     every gradient and the parameters after ``S["cut_opt_steps"]`` AdamW
     steps within ``LM_TRAIN_TOL``."""
@@ -2653,9 +2776,11 @@ def lm_train_cut_vs_cpu(arch: str, phase: str, dev, card: str,
     from repro_torch.configs.base import ShapeSpec, get_config
     from repro_torch.data.pipeline import synth_batch
     from repro_torch.models import api as lm_api
-    cut = get_config(arch).replace(num_layers=S["cut_layers"],
-                                   param_dtype="float32",
-                                   compute_dtype="float32")
+    full = get_config(arch)
+    cut = full.replace(num_layers=S["cut_layers"], param_dtype="float32",
+                       compute_dtype="float32",
+                       encoder_layers=min(full.encoder_layers,
+                                          S["cut_layers"]))
     t0 = time.perf_counter()
     card_lm = lm_api.init_params(
         cut, torch.Generator(device=dev).manual_seed(7), device=dev)
@@ -2802,6 +2927,13 @@ MOE_VLM = dict(bwd_shape=(2, 16, 8, 4096, 64), bwd_reps=10,
                cut_layers=2, cut_batch=2, cut_seq=64, cut_opt_steps=2)
 
 
+def shape_figures(line: dict) -> dict:
+    """A kernel's figures at one shape, for the JSON line's ``shapes``."""
+    return {key: line[key] for key in (
+        "shape", "causal", "max_abs_err", "ms", "plain_ms", "bound_ms",
+        "bound_by", "library_ms", "kernel_ms") if key in line}
+
+
 def moe_vlm_phase(dev, card: str, main_launches: dict, add_check_launches,
                   lap):
     """Phase 29: the ``moe`` and ``vlm`` families on the card.
@@ -2821,11 +2953,6 @@ def moe_vlm_phase(dev, card: str, main_launches: dict, add_check_launches,
     from repro_torch.configs.base import get_config
     S = MOE_VLM
     fa_shapes, bwd_shapes = {}, {}
-
-    def shape_figures(line):
-        return {key: line[key] for key in (
-            "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "kernel_ms") if key in line}
 
     # ---- (a) Granite-MoE, 2 layers at full width, fp32, card vs CPU -------
     dense_cut_vs_cpu("granite_moe_1b_a400m", "29 moe (a) fp32", dev, card,
@@ -2857,6 +2984,88 @@ def moe_vlm_phase(dev, card: str, main_launches: dict, add_check_launches,
         main_launches, add_check_launches, S)
     torch.cuda.empty_cache()
     log("29 vlm", f"(e) phase part {lap():.1f} s")
+    return fa_shapes, bwd_shapes
+
+
+#: Phase 30's sizes: Whisper-medium (24 encoder and 24 decoder layers, d
+#: 1,024, 16 heads of 64) at full width and depth, which fits one card
+#: for serving and training.  ``frames``: a 30-second window after
+#: Whisper's stride-2 conv stem (which the reference stubs), 8 segments a
+#: serve; ``cut_frames``, the 2-layer fp32 cut's, no multiple of a tile;
+#: the flash backward at the training microbatch (B, Hq, Hkv, T, d) of B 8
+#: x S 1,500 in 4 microbatches (frames and tokens share S in the
+#: reference's pipeline, so the encoder's and the cross-attention's shape
+#: is one, non-causal; the decoder's causal); 5 training steps; the 2-layer
+#: fp32 cut's training step card against CPU at phase 28's size.
+ENCDEC = dict(frames=1500, cut_frames=100, bwd_shape=(2, 16, 16, 1500, 64),
+              bwd_reps=10, lm_batch=8, lm_seq=1500, lm_steps=5, cut_layers=2,
+              cut_batch=2, cut_seq=64, cut_opt_steps=2)
+#: Whisper's start-of-transcript sequence in its multilingual vocabulary of
+#: 51,865 tokens: <|startoftranscript|> <|en|> <|transcribe|>
+#: <|notimestamps|>, each serve's decoder prompt.
+WHISPER_SOT = (50258, 50259, 50359, 50363)
+
+
+def encdec_phase(dev, card: str, main_launches: dict, add_check_launches,
+                 lap):
+    """Phase 30: the ``encdec`` family, Whisper-medium, on the card.
+
+    (a) At full width cut to 2 encoder and 2 decoder layers, fp32, card
+    against CPU (:func:`dense_cut_vs_cpu`: B 2, a 64-token prompt against
+    ``ENCDEC["cut_frames"]`` frames, 4 teacher-forced steps; logits,
+    ``kv``, ``xk`` and ``xv``); (b) served at full width and depth, bf16
+    (:func:`dense_serve`: ``LM_BATCH`` segments of ``ENCDEC["frames"]``
+    frames drawn from a seed, each decoder prompt :data:`WHISPER_SOT`,
+    ``LM_TOKENS`` greedy tokens; 72 ``flash_attention`` launches a
+    prefill, none in decode, each against its plain version; the encoder's,
+    the decoder's and the cross-attention's shapes timed against their
+    bounds, plain version and SDPA); (c) the flash backward at the training
+    microbatch's non-causal and causal shapes (:func:`flash_bwd_timed`),
+    Whisper trained at full width and depth through ``lm/train.py`` (its
+    losses must fall) and the 2-layer fp32 cut's training step card
+    against CPU.  Sizes are :data:`ENCDEC`'s.  Returns the new shapes'
+    figures for the JSON line's ``flash_attention`` and
+    ``flash_attention_bwd`` entries."""
+    import torch
+    from repro_torch.configs.base import get_config
+    S = ENCDEC
+    arch = "whisper_medium"
+    fa_shapes, bwd_shapes = {}, {}
+
+    # ---- (a) 2 + 2 layers at full width, fp32, card vs CPU -----------------
+    dense_cut_vs_cpu(arch, "30 encdec (a) fp32", dev, card,
+                     add_check_launches, lap)
+    # ---- (b) served at full width and depth --------------------------------
+    line = dense_serve(arch, "30 encdec (b) serve", dev, card, main_launches,
+                       add_check_launches, lap, prompt=WHISPER_SOT)
+    for fig in line["shapes"]:
+        q, k = fig["shape"]["q"], fig["shape"]["k"]
+        role = ("decoder" if fig["causal"] else
+                "encoder" if q[2] == k[2] else "cross")
+        fa_shapes[f"whisper_{role}"] = shape_figures(fig)
+    if set(fa_shapes) != {"whisper_encoder", "whisper_decoder",
+                          "whisper_cross"}:
+        raise SystemExit(f"FAIL: 30 Whisper's prefill gave flash_attention "
+                         f"the shapes {line['shapes']}")
+    # ---- (c) trained at full width and depth -------------------------------
+    torch.cuda.empty_cache()             # the serve's cached blocks
+    for causal, role, what in (
+            (False, "encoder_cross", "Whisper-medium's encoder and "
+                                     "cross-attention"),
+            (True, "decoder", "Whisper-medium's decoder")):
+        bwd_shapes[f"whisper_{role}_microbatch"] = shape_figures(
+            flash_bwd_timed(dev, S["bwd_shape"], 30, S["bwd_reps"],
+                            "30 encdec (c)", what, card, causal=causal))
+        add_check_launches()
+    losses = lm_train_on_card(get_config(arch), "30 encdec (c) train", dev,
+                              card, main_launches, add_check_launches, S)
+    if not losses[-1] < losses[0]:
+        raise SystemExit(f"FAIL: 30 Whisper-medium's losses did not fall: "
+                         f"{losses}")
+    torch.cuda.empty_cache()
+    lm_train_cut_vs_cpu(arch, "30 encdec (c) fp32 train", dev, card,
+                        add_check_launches, S)
+    log("30 encdec", f"(c) phase part {lap():.1f} s")
     return fa_shapes, bwd_shapes
 
 
@@ -4247,12 +4456,12 @@ def main() -> int:
     log("17 rwkv6 serve", f"torch.profiler: a warm prefill, traced wall "
         f"{1e3 * w_pre:.3f} ms, device time {1e3 * d_pre:.3f} ms (busy "
         f"{100 * d_pre / w_pre:.1f} %), {n_pre} kernels and copies; its "
-        f"{LM_TOKENS - 1} decode steps, traced wall "
+        f"{LM_TRACED_TOKENS - 1} decode steps, traced wall "
         f"{1e3 * (w_all - w_pre):.3f} ms, device time "
         f"{1e3 * (d_all - d_pre):.3f} ms (busy "
         f"{100 * (d_all - d_pre) / (w_all - w_pre):.1f} %), "
-        f"{(n_all - n_pre) // (LM_TOKENS - 1)} kernels and copies a token; "
-        f"largest over the serve: "
+        f"{(n_all - n_pre) // (LM_TRACED_TOKENS - 1)} kernels and copies a "
+        f"token; largest over the serve: "
         + "; ".join(f"{e.key[:48]} {device_us(e) / 1e3:.3f} ms x{e.count}"
                     for e in top) + f" | {card}")
     del lm, rec_w, calls
@@ -5303,14 +5512,18 @@ def main() -> int:
     # ---- 29. the MoE and VLM families ---------------------------------------
     fa_shapes, bwd_shapes = moe_vlm_phase(cuda, card, main_launches,
                                           add_check_launches, lap)
-    by_name = {line["name"]: line for line in lines}
-    by_name["flash_attention"]["shapes"] = fa_shapes
-    by_name["flash_attention_bwd"]["shapes"] = bwd_shapes
 
-    # ---- 30. result -------------------------------------------------------
+    # ---- 30. the encoder-decoder family -------------------------------------
+    fa_more, bwd_more = encdec_phase(cuda, card, main_launches,
+                                     add_check_launches, lap)
+    by_name = {line["name"]: line for line in lines}
+    by_name["flash_attention"]["shapes"] = dict(fa_shapes, **fa_more)
+    by_name["flash_attention_bwd"]["shapes"] = dict(bwd_shapes, **bwd_more)
+
+    # ---- 31. result -------------------------------------------------------
     # launches on every main path (phases 8, 13, 17, 20, 21, 22, 23, 24, 25,
-    # 26, 27, 28 and 29) and in the checks
-    log("30 result", f"whole script {time.perf_counter() - t_start:.1f} s")
+    # 26, 27, 28, 29 and 30) and in the checks
+    log("31 result", f"whole script {time.perf_counter() - t_start:.1f} s")
     for line in lines:
         line["launches"] = main_launches[line["name"]]
         line["check_launches"] = check_launches[line["name"]]

@@ -132,7 +132,8 @@ ARCH_REGISTRY = (
 
 #: Architectures of ``ARCH_REGISTRY`` with a config file in the port.
 PORTED_ARCHS = ("rwkv6_1_6b", "glm4_9b", "starcoder2_7b",
-                "granite_moe_1b_a400m", "arctic_480b", "pixtral_12b")
+                "granite_moe_1b_a400m", "arctic_480b", "pixtral_12b",
+                "whisper_medium")
 
 
 def _config_module(name: str):

@@ -7,7 +7,8 @@ becomes this package's :class:`repro_torch.core.octree.Octree`; its
 ``OccupancyGrid`` becomes a :class:`repro_torch.core.mcl.OccupancyGrid`;
 the reference planner's parameter
 tree becomes a :class:`repro_torch.models.planner.Planner` state dict, the
-reference LM's a :class:`repro_torch.models.transformer.LM` state dict,
+reference LM's a :class:`repro_torch.models.transformer.LM` state dict, its
+encoder-decoder's an :class:`repro_torch.models.encdec.EncDec` one,
 and an optimizer state of either (``m``, ``v``, ``step``) the port's
 (:func:`opt_state_from_reference`).  So both packages can run on one
 scene, one planner and one LM, and train them, without this package
@@ -163,26 +164,45 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:
     return out
 
 
+def _unstacked(params: Mapping, stacks: Mapping[str, int]
+               ) -> Dict[str, torch.Tensor]:
+    """A reference tree as a state dict: each leaf under a stack named in
+    ``stacks`` (its leading axis of that many layers) split into
+    ``<stack>.<l>.<name>``, the other leaves as they are; the same
+    layouts and dtypes."""
+    state = {}
+    for path, leaf in _flatten(params).items():
+        stack, _, name = path.partition(".")
+        if stack not in stacks or not name:
+            state[path] = _tensor(leaf)
+            continue
+        stacked = np.asarray(leaf)
+        if stacked.shape[0] != stacks[stack]:
+            raise ValueError(f"{path}: leading axis {stacked.shape[0]}, "
+                             f"want {stacks[stack]} layers")
+        for layer in range(stacks[stack]):
+            state[f"{stack}.{layer}.{name}"] = _tensor(stacked[layer])
+    return state
+
+
 def lm_from_reference(cfg, params: Mapping) -> Dict[str, torch.Tensor]:
     """The reference LM's parameters (``init_lm``'s tree of numpy arrays:
     ``embed``, ``ln_f``, ``lm_head`` and ``blocks``, each block leaf
     stacked on a leading L axis; projections ``(in, out)``) as an
     :class:`LM` state dict (``blocks.<l>.<name>``, the same layouts and
     dtypes)."""
-    L = cfg.num_layers
-    state = {}
-    for path, leaf in _flatten(params).items():
-        if not path.startswith("blocks."):
-            state[path] = _tensor(leaf)
-            continue
-        stacked = np.asarray(leaf)
-        if stacked.shape[0] != L:
-            raise ValueError(f"{path}: leading axis {stacked.shape[0]}, "
-                             f"want num_layers={L}")
-        name = path[len("blocks."):]
-        for layer in range(L):
-            state[f"blocks.{layer}.{name}"] = _tensor(stacked[layer])
-    return state
+    return _unstacked(params, {"blocks": cfg.num_layers})
+
+
+def encdec_from_reference(cfg, params: Mapping) -> Dict[str, torch.Tensor]:
+    """The reference encoder-decoder's parameters (``init_encdec``'s tree:
+    ``embed``, ``ln_enc``, ``ln_f``, ``lm_head``, and ``enc_blocks`` and
+    ``dec_blocks``, stacked on ``encoder_layers`` and ``num_layers``) as an
+    :class:`repro_torch.models.encdec.EncDec` state dict
+    (``enc_blocks.<l>.<name>``, ``dec_blocks.<l>.<name>``; the same
+    layouts and dtypes)."""
+    return _unstacked(params, {"enc_blocks": cfg.encoder_layers,
+                               "dec_blocks": cfg.num_layers})
 
 
 def opt_state_from_reference(state: Mapping,
@@ -192,8 +212,9 @@ def opt_state_from_reference(state: Mapping,
     and ``v`` trees of numpy arrays shaped as the parameters, ``step``) as
     the port's (:func:`repro_torch.train.optimizer.init_opt_state`'s
     layout).  ``params_to_state`` converts a parameter-shaped tree:
-    :func:`planner_from_reference` (its transposes) or
-    ``functools.partial(lm_from_reference, cfg)`` (its unstacking).  The
+    :func:`planner_from_reference` (its transposes),
+    ``functools.partial(lm_from_reference, cfg)`` or
+    ``functools.partial(encdec_from_reference, cfg)`` (their unstacking).  The
     moments keep their dtype (fp32, or bf16 for ``state_dtype=
     "bfloat16"``); the tensors lie on the CPU."""
     out = {}

@@ -7,7 +7,10 @@ step's argmax, over RWKV-6's O(1) state or the attention models' KV
 caches (sized to the prefix, the prompt and the tokens decoded).  A
 ``vlm`` model takes its image as ``patch_embeds`` (B, ``num_patches``,
 d), prepended to the prompt: its decode positions continue after both,
-at ``num_patches + S + i``.  The stage walls end in
+at ``num_patches + S + i``.  An ``encdec`` model (Whisper) takes its
+audio as ``frames`` (B, S_enc, d), the stub front end's frame embeddings
+of any length S_enc, which the prefill encodes once; its decoder's
+positions run at ``S + i``.  The stage walls end in
 ``torch.cuda.synchronize()`` on the card, so they time the device's work
 and not the enqueue.
 
@@ -16,6 +19,7 @@ and not the enqueue.
     res = serve(model, prompts, num_tokens=32)      # device="cuda"
     res.tokens, res.prefill_s, res.decode_s
     serve(pixtral, prompts, 32, patch_embeds=patches)  # a vlm model
+    serve(whisper, start_tokens, 32, frames=frames)    # an encdec model
 """
 from __future__ import annotations
 
@@ -44,12 +48,14 @@ def _sync(dev: torch.device) -> None:
 
 
 def serve(model, prompts, num_tokens: int, device=DEFAULT_DEVICE,
-          patch_embeds: Optional[torch.Tensor] = None) -> ServeResult:
+          patch_embeds: Optional[torch.Tensor] = None,
+          frames: Optional[torch.Tensor] = None) -> ServeResult:
     """Prefill ``prompts`` (B, S) token ids, after ``patch_embeds`` (B, P,
-    d) for a ``vlm`` model (required there, refused elsewhere), and decode
-    ``num_tokens`` greedy tokens on ``device`` (the card unless the caller
-    asks for the CPU; with no card it raises).  ``model`` must already lie
-    on that device."""
+    d) for a ``vlm`` model, or against ``frames`` (B, S_enc, d) for an
+    ``encdec`` model (each required there and refused elsewhere), and
+    decode ``num_tokens`` greedy tokens on ``device`` (the card unless the
+    caller asks for the CPU; with no card it raises).  ``model`` must
+    already lie on that device."""
     dev = resolve_device(device)
     if model.device.type != dev.type:
         raise ValueError(f"model is on {model.device}, serving on {dev}")
@@ -70,6 +76,16 @@ def serve(model, prompts, num_tokens: int, device=DEFAULT_DEVICE,
     elif patch_embeds is not None:
         raise ValueError(f"{cfg.name} (family {cfg.family!r}) takes no "
                          "patch_embeds")
+    if cfg.family == "encdec":
+        got = None if frames is None else tuple(frames.shape)
+        if not (got and len(got) == 3 and got[0] == B and got[1] >= 1
+                and got[2] == cfg.d_model):
+            raise ValueError(f"{cfg.name} serves with frames of shape ({B}, "
+                             f"S_enc, {cfg.d_model}), got {got}")
+        batch["frames"] = torch.as_tensor(frames).to(model.device)
+    elif frames is not None:
+        raise ValueError(f"{cfg.name} (family {cfg.family!r}) takes no "
+                         "frames")
     start = S + (cfg.num_patches if cfg.family == "vlm" else 0)
     prefill = api.make_prefill_fn(cfg, max_len=start + num_tokens)
     decode = api.make_decode_fn(cfg)

@@ -5,10 +5,13 @@ and loop, plus ``--device`` (the card unless the caller asks for the
 CPU).  The default trains the architecture's smoke config, ``--full`` its
 full config; the model is drawn from a generator seeded 0 on the device.
 ``--arch`` defaults to ``glm4_9b``, as the reference's; the attention
-families' gradients (``dense``, ``moe``, ``vlm``) run through the
+families' gradients (``dense``, ``moe``, ``vlm``, ``encdec``) run through the
 flash-attention backward kernel, RWKV-6's through the WKV6 one.
 Granite-MoE's loss adds its balance term (``moe_aux``, kept a step in
-:class:`TrainResult`); Pixtral's batches carry their patch embeddings.
+:class:`TrainResult`; 0 for a model without one); Pixtral's batches carry
+their patch embeddings, Whisper-medium's (``--arch whisper_medium``, the
+``encdec`` family) its frame embeddings, as long as its tokens; its full
+config (0.81 B weights) trains at full width and depth on one card.
 GLM-4 9B's full config (9.4 B weights, ~150 GB of weights, gradients and
 moments) and Pixtral 12B's (~196 GB) do not fit one 80 GB card; a caller
 trains them cut in depth, ``train(get_config("glm4_9b").replace(
@@ -19,6 +22,8 @@ num_layers=8), ...)``.
       --seq 1024 --microbatches 4
   python3 -m repro_torch.lm.train --arch granite_moe_1b_a400m --full \\
       --device cuda --seq 4096 --microbatches 4
+  python3 -m repro_torch.lm.train --arch whisper_medium --full \\
+      --device cuda --seq 1500 --microbatches 4
   ... --resume            # continue from the latest committed checkpoint
 
 Checkpoints (``{"params": state dict, "opt": optimizer state}``) are
@@ -116,7 +121,7 @@ def train(cfg, steps: int, batch: int = 8, seq: int = 64, lr: float = 3e-4,
             walls.append(time.perf_counter() - t0)
             losses.append(loss)
             gnorms.append(gnorm)
-            auxes.append(float(metrics["moe_aux"]))
+            auxes.append(float(metrics.get("moe_aux", 0.0)))
             if log and step % log_every == 0:
                 log(f"step {step} loss {loss:.4f} "
                     f"lr {float(metrics['lr']):.2e} gnorm {gnorm:.3f} "

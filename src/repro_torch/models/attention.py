@@ -49,25 +49,29 @@ def init_attention(cfg, generator: Optional[torch.Generator], dtype,
     return nn.ParameterDict({k: nn.Parameter(v) for k, v in p.items()})
 
 
-def compute_qkv(params, x: torch.Tensor, cfg, positions: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def compute_qkv(params, x: torch.Tensor, cfg, positions: torch.Tensor,
+                parts: str = "qkv"
+                ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor],
+                           Optional[torch.Tensor]]:
     """x (B, S, d) -> q (B, S, H, hd), k, v (B, S, K, hd), RoPE applied at
-    ``positions`` (S,) over the sequence axis."""
+    ``positions`` (S,) over the sequence axis.  ``parts`` ``"q"`` or
+    ``"kv"`` projects only those (the others come back None): a
+    cross-attention's q from the decoder and its k and v from the encoder,
+    where the reference projects all three of each and drops the rest."""
     B, S, d = x.shape
 
-    def proj(w):                      # einsum("bsd,dhk->bshk") as one GEMM
-        return (x @ w.reshape(d, -1)).view(B, S, w.shape[1], w.shape[2])
-    q, k, v = proj(params["wq"]), proj(params["wk"]), proj(params["wv"])
-    if cfg.qkv_bias:
-        q = q + params["bq"]
-        k = k + params["bk"]
-        v = v + params["bv"]
-    if cfg.use_rope:
-        q = apply_rope(q.transpose(1, 2), positions, cfg.rope_theta
-                       ).transpose(1, 2)
-        k = apply_rope(k.transpose(1, 2), positions, cfg.rope_theta
-                       ).transpose(1, 2)
-    return q, k, v
+    def proj(name):                   # einsum("bsd,dhk->bshk") as one GEMM
+        if name not in parts:
+            return None
+        w = params["w" + name]
+        y = (x @ w.reshape(d, -1)).view(B, S, w.shape[1], w.shape[2])
+        if cfg.qkv_bias:
+            y = y + params["b" + name]
+        if cfg.use_rope and name != "v":
+            y = apply_rope(y.transpose(1, 2), positions, cfg.rope_theta
+                           ).transpose(1, 2)
+        return y
+    return proj("q"), proj("k"), proj("v")
 
 
 def project_out(params, ctx: torch.Tensor) -> torch.Tensor:

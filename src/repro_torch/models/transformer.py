@@ -16,7 +16,8 @@ term) are recomputed in the backward, its kernel launched a second time
 (the WKV6 recurrence, or the flash attention with its rows' log-sum-exp),
 and then its backward kernel once.  The ``hybrid`` block type, tied
 embeddings, sliding windows and the sharding hints are not ported
-(ROADMAP A.11).
+(ROADMAP A.11); the ``encdec`` family is :mod:`repro_torch.models.encdec`'s,
+which shares this module's cache helpers.
 
 Decode caches keep the reference's layout, stacked L-leading:
 ``{"kv": {"k": (L, B, T, K, hd), "v": ...}}`` for ``attn`` (T the decode
@@ -40,16 +41,29 @@ from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.common import (apply_norm, draw_device, dtype_of,
                                        embed_init, init_norm)
 
-#: Model families the port builds.
+#: Model families the decoder-only :class:`LM` builds (``encdec`` is
+#: :class:`repro_torch.models.encdec.EncDec`'s).
 PORTED_FAMILIES = ("dense", "ssm", "moe", "vlm")
 
 
 def require_ported(cfg) -> None:
-    """Raise for a config the port cannot build yet (ROADMAP A.11)."""
+    """Raise for a config the decoder-only :class:`LM` cannot build: the
+    ``encdec`` family, which ``models/encdec.py::EncDec`` builds, and what
+    the port lacks yet (ROADMAP A.11)."""
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"{cfg.name}: family 'encdec' is no decoder-only LM; "
+            "models/encdec.py::EncDec builds it (api.init_params picks it)")
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
-            f"A.11); the port runs {', '.join(PORTED_FAMILIES)}")
+            f"A.11); the port runs {', '.join(PORTED_FAMILIES)} and encdec")
+    require_options_ported(cfg)
+
+
+def require_options_ported(cfg) -> None:
+    """Raise for the attention options the port lacks yet (ROADMAP
+    A.11): tied embeddings and sliding windows."""
     if cfg.tie_embeddings:
         raise NotImplementedError(f"{cfg.name}: tied embeddings are not "
                                   "ported yet (ROADMAP A.11)")
@@ -187,7 +201,7 @@ class LM(nn.Module):
         if last_only:
             x = x[:, -1:]
         logits = self._unembed(x)
-        caches = _stack(caches) if collect_cache else None
+        caches = stack_caches(caches) if collect_cache else None
         if with_aux:
             aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
             return logits, aux, caches
@@ -206,11 +220,11 @@ class LM(nn.Module):
         new = []
         for layer, block in enumerate(self.blocks):
             x, cache = block_decode(block, x, self.cfg, pos, positions,
-                                    _layer(caches, layer))
+                                    cache_layer(caches, layer))
             new.append(cache)
         logits = self._unembed(x)[:, 0]
         return logits, (caches if self.cfg.block_type == "attn"
-                        else _stack(new))
+                        else stack_caches(new))
 
 
 def _block_out(block, x: torch.Tensor, cfg, positions: torch.Tensor):
@@ -219,16 +233,16 @@ def _block_out(block, x: torch.Tensor, cfg, positions: torch.Tensor):
     return block_seq(block, x, cfg, positions, False)[:2]
 
 
-def _layer(tree: Dict, layer: int) -> Dict:
+def cache_layer(tree: Dict, layer: int) -> Dict:
     """Layer ``layer``'s caches: views of the stacked tensors."""
-    return {key: (_layer(val, layer) if isinstance(val, dict)
+    return {key: (cache_layer(val, layer) if isinstance(val, dict)
                   else val[layer]) for key, val in tree.items()}
 
 
-def _stack(caches) -> Dict:
+def stack_caches(caches) -> Dict:
     """Per-layer cache dicts -> one dict of L-leading stacked tensors."""
     first = caches[0]
-    return {key: (_stack([c[key] for c in caches])
+    return {key: (stack_caches([c[key] for c in caches])
                   if isinstance(first[key], dict)
                   else torch.stack([c[key] for c in caches]))
             for key in first}
@@ -247,10 +261,10 @@ def init_decode_caches(cfg, batch: int, max_len: Optional[int] = None,
         raise ValueError(f"{cfg.name}: attention caches need a max_len")
     else:
         one = {"kv": attn.init_cache(cfg, batch, max_len, dtype, dev)}
-    return _broadcast(one, cfg.num_layers)
+    return broadcast_layers(one, cfg.num_layers)
 
 
-def _broadcast(tree: Dict, L: int) -> Dict:
-    return {key: (_broadcast(val, L) if isinstance(val, dict)
+def broadcast_layers(tree: Dict, L: int) -> Dict:
+    return {key: (broadcast_layers(val, L) if isinstance(val, dict)
                   else val[None].expand((L,) + val.shape).contiguous())
             for key, val in tree.items()}

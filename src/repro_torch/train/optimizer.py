@@ -14,10 +14,12 @@ from the card.
 
 Weight decay falls on the tensors that the reference decays, ``p.ndim >=
 2`` of its own tree.  The reference stacks an LM's blocks on a leading L
-axis, so every per-layer vector there is (L, d) and decayed; the port holds
-them as (d,) tensors named ``blocks.<l>.*``.  ``decay`` says which
+axis, and an encoder-decoder's two stacks each on its own, so every
+per-layer vector there is (L, d) and decayed; the port holds them as (d,)
+tensors named ``blocks.<l>.*``, ``enc_blocks.<l>.*`` and
+``dec_blocks.<l>.*`` (:data:`STACKED_PREFIXES`).  ``decay`` says which
 parameters are decayed: :func:`matrix_decay` (the planner, whose reference
-tree is not stacked) or :func:`stacked_decay` (the LM).  ``opt_state_pspecs``
+tree is not stacked) or :func:`stacked_decay` (the LMs).  ``opt_state_pspecs``
 is sharding and is not ported (ROADMAP A.11).
 """
 from __future__ import annotations
@@ -51,10 +53,16 @@ def matrix_decay(name: str, p: torch.Tensor) -> bool:
     return p.ndim >= 2
 
 
+#: The names of the parameters that the reference stacks on a leading
+#: layer axis: the LM's blocks and the encoder-decoder's two stacks.
+STACKED_PREFIXES = ("blocks.", "enc_blocks.", "dec_blocks.")
+
+
 def stacked_decay(name: str, p: torch.Tensor) -> bool:
     """The reference's rule on an LM, whose blocks it stacks on a leading L
-    axis: a ``blocks.<l>.*`` parameter counts that axis too."""
-    return p.ndim + int(name.startswith("blocks.")) >= 2
+    axis: a parameter of a stack (:data:`STACKED_PREFIXES`) counts that
+    axis too."""
+    return p.ndim + int(name.startswith(STACKED_PREFIXES)) >= 2
 
 
 def init_opt_state(params: Mapping[str, torch.Tensor],

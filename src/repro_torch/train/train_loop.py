@@ -1,13 +1,14 @@
 """The train step: loss, gradients (with microbatching), AdamW.
 
 Counterpart of ``repro.train.train_loop.make_train_step``.  The step takes
-the model (an :class:`repro_torch.models.transformer.LM`), the optimizer
+the model (an :class:`repro_torch.models.transformer.LM` or an
+:class:`repro_torch.models.encdec.EncDec`), the optimizer
 state of :mod:`repro_torch.train.optimizer` and a batch of tensors on the
 model's device, and updates the model's parameters in place.  With
 ``num_microbatches`` > 1 the batch is split along its leading axis and the
 gradients are summed in fp32, then divided, as the reference's scan does;
 the loss is the microbatches' mean, the other metrics the last
-microbatch's.  The LM decays its parameters by the reference's rank
+microbatch's.  The model decays its parameters by the reference's rank
 (:func:`repro_torch.train.optimizer.stacked_decay`).  The sharded steps
 (``make_sharded_train_step``, prefill, decode) are not ported (ROADMAP
 A.11): the port trains on one card.

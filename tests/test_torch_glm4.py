@@ -239,7 +239,7 @@ def test_apply_mlp_matches_reference(act):
 
 def test_unported_attention_options_raise_naming_roadmap():
     cfg = get_smoke_config(ARCH)
-    for bad in (cfg.replace(sliding_window=16), cfg.replace(family="encdec"),
+    for bad in (cfg.replace(sliding_window=16), cfg.replace(family="hybrid"),
                 cfg.replace(tie_embeddings=True)):
         with pytest.raises(NotImplementedError, match="A.11"):
             LM(bad, device="cpu")

@@ -1286,14 +1286,17 @@ def test_planner_training_step_card_matches_cpu(cuda):
 
 
 @pytest.mark.parametrize("arch", ["glm4_9b", "starcoder2_7b",
-                                  "granite_moe_1b_a400m", "pixtral_12b"])
+                                  "granite_moe_1b_a400m", "pixtral_12b",
+                                  "whisper_medium"])
 def test_dense_family_training_card_matches_cpu(cuda, arch, monkeypatch):
     """The smoke model's loss and every gradient on the card (fp32, TF32
     off: ``flash_fp32`` and the fp32 backward) against the same weights
-    and batch on the CPU, rtol = atol = 1e-4; under remat each layer
+    and batch on the CPU, rtol = atol = 1e-4; under remat each attention
     launches ``flash_attention`` twice and ``flash_attention_bwd`` once.
-    Also Granite-MoE's smoke model (its balance term in the loss) and
-    Pixtral's (the pipeline's batch carries its patch embeddings)."""
+    Also Granite-MoE's smoke model (its balance term in the loss),
+    Pixtral's (the pipeline's batch carries its patch embeddings) and
+    Whisper's (its frames; an encoder self-attention a layer, a decoder
+    self- and cross-attention a layer)."""
     from repro_torch.data.pipeline import synth_batch
     from repro_torch.configs.base import ShapeSpec
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
@@ -1311,10 +1314,12 @@ def test_dense_family_training_card_matches_cpu(cuda, arch, monkeypatch):
             loss, list(model.parameters())))
     torch.cuda.synchronize()
     after = _build.launch_counts()
+    calls = cfg.num_layers + (cfg.encoder_layers + cfg.num_layers
+                              if cfg.family == "encdec" else 0)
     assert after["flash_attention"] - before["flash_attention"] == \
-        2 * cfg.num_layers
+        2 * calls
     assert after["flash_attention_bwd"] - before["flash_attention_bwd"] == \
-        cfg.num_layers
+        calls
     (lc, gc), (lh, gh) = out["card"], out["cpu"]
     assert torch.allclose(lc.cpu(), lh, rtol=1e-4, atol=1e-4)
     for (n, _), a, b in zip(cpu.named_parameters(), gc, gh):
@@ -1386,6 +1391,29 @@ def test_flash_attention_bwd_at_granite_training_microbatch(cuda):
     o = flash_ops.flash_attention(q, k, v, True)
     assert flash_cases.within_tol(o, attention_ref(q, k, v, True),
                                   "bfloat16") <= 0
+    _flash_bwd_held(case, cuda)
+
+
+@pytest.mark.parametrize("Tq,Tk,causal", [(1500, 1500, False),
+                                          (4, 1500, False),
+                                          (1500, 1500, True)],
+                         ids=["encoder", "cross_prefill", "decoder"])
+def test_flash_attention_at_whisper_shapes(cuda, Tq, Tk, causal):
+    """Whisper-medium's attentions (d 64, 16 heads, group 1; B cut from 8
+    to 2): the encoder's non-causal 1,500 x 1,500, the prefill's
+    cross-attention of a 4-token prompt over 1,500 frames (124 of the
+    bf16 kernel's 128 query rows clipped), the decoder's causal; the
+    forward within ``cases.TOL`` of its plain version in bf16 and fp32,
+    the bf16 backward row by row against the fp32 plain version."""
+    case = flash_cases.make_case(2, 16, 1, Tq, Tk, 64, causal, "bthd",
+                                 seed=Tq + Tk)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = flash_cases.tensors(case, cuda, dtype)
+        o = flash_ops.flash_attention(q, k, v, causal)
+        assert flash_cases.within_tol(o, attention_ref(q, k, v, causal),
+                                      str(dtype)[6:]) <= 0, dtype
+    case["do"] = np.random.RandomState(Tq).normal(
+        size=case["q"].shape).astype(np.float32)
     _flash_bwd_held(case, cuda)
 
 

@@ -233,7 +233,7 @@ def test_caches_are_stacked_layer_leading():
 
 def test_unported_architectures_raise_naming_roadmap():
     with pytest.raises(NotImplementedError, match="A.11"):
-        get_config("whisper_medium")
+        get_config("qwen1_5_110b")
     with pytest.raises(NotImplementedError, match="A.11"):
         get_smoke_config("hymba_1_5b")
     with pytest.raises(KeyError):

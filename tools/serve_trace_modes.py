@@ -8,8 +8,9 @@ CUDA activities) lengthens the traced wall, and so lowers the busy share
 (device time over traced wall) that the serves report.  For RWKV-6 1.6B,
 GLM-4 9B and StarCoder2 7B on 8 of its 32 layers (the sizes those phases
 serve: full width, weights drawn on the card from seed 0, ``LM_BATCH``
-prompts of ``LM_PROMPT`` tokens from ``RandomState(0)``, ``LM_TOKENS``
-greedy tokens), this warms each serve up once, then runs
+prompts of ``LM_PROMPT`` tokens from ``RandomState(0)``, a traced serve
+of ``LM_TRACED_TOKENS`` greedy tokens), this warms each serve up once,
+then runs
 ``chip_smoke.traced_serves`` with the card's activity alone and with the
 host's too, and prints each setting's prefill and decode busy shares and
 traced walls.  Needs a CUDA device and ``nvcc``; run from the root of a
@@ -36,7 +37,8 @@ def main() -> int:
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("FAIL: torch sees no CUDA device")
-    from chip_smoke import LM_BATCH, LM_PROMPT, LM_TOKENS, traced_serves
+    from chip_smoke import (LM_BATCH, LM_PROMPT, LM_TRACED_TOKENS,
+                            traced_serves)
     from repro_torch.configs.base import get_config
     from repro_torch.lm.serve import serve
     from repro_torch.models import api as lm_api
@@ -66,7 +68,7 @@ def main() -> int:
                   f"{'CPU and CUDA' if host else 'CUDA alone'} traced: "
                   f"prefill wall {1e3 * w_pre:.3f} ms, device "
                   f"{1e3 * d_pre:.3f} ms (busy {100 * d_pre / w_pre:.1f} %)"
-                  f" | {LM_TOKENS - 1} decode steps wall "
+                  f" | {LM_TRACED_TOKENS - 1} decode steps wall "
                   f"{1e3 * (w_all - w_pre):.3f} ms, device "
                   f"{1e3 * (d_all - d_pre):.3f} ms (busy "
                   f"{100 * (d_all - d_pre) / (w_all - w_pre):.1f} %) | the "
