@@ -363,16 +363,30 @@ non-zero and prints no result):
    bound and SDPA's backward, Whisper trained at full width and depth
    through ``lm/train.py`` (B 8 x S 1,500 in 4 microbatches, 5 steps;
    losses that fall) and its 2-layer fp32 cut's step card against CPU;
-31. one JSON line listing every kernel with its launches on the main paths
-   (``launches``, phases 8, 13, 17, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29
-   and 30) and elsewhere (``check_launches``), error, times (for ``persist``,
+31. the ``hybrid`` family, Hymba 1.5B (``hybrid_phase``): (a) ``ssm_scan``
+   against its plain version on ``ssm_scan/cases.py`` (the final state
+   bit for bit, y within its ``TOL``), timed at B 8 x S 1,024 and B 1 x S
+   10,000; (b) the flash forward with a sliding window against its plain
+   version on ``window_cases`` (a window >= Tk bit for bit with none),
+   timed at the 10,000-token prefill with and without the 4,096 window
+   beside SDPA with the window's mask; (c) the 2-layer fp32 cut card
+   against CPU on a 4,200-token prompt (past the window: the ring's roll
+   and the mask act; logits, ``kv`` and ``ssm``); (d) the full 32-layer
+   bf16 serve through ``dense_serve`` (32 ``flash_attention`` and 32
+   ``ssm_scan`` a prefill, none in decode, each against its plain
+   version); (e) a long-context serve, B 1 x 10,000 tokens and 32 greedy
+   tokens past it: walls, peak memory and the consistency;
+32. one JSON line listing every kernel with its launches on the main paths
+   (``launches``, phases 8, 13, 17, 20, 21, 22, 23, 24, 25, 26, 27, 28,
+   29, 30 and 31) and elsewhere (``check_launches``), error, times (for ``persist``,
    ``sact_dense``, ``fps``, ``ballquery``, ``wkv6_bwd`` and
    ``flash_attention_bwd`` also ``kernel_ms``, the kernel alone by
    ``torch.profiler``; ``sact_dense``'s at ``naive``'s block shape, with
    phase 10's plane as ``plane_*``; for ``ballquery`` also
    ``single_plan``, the single plan's three layers; ``flash_attention``'s
-   and ``flash_attention_bwd``'s ``shape``, and phases 29 and 30's shapes
-   under ``shapes``) and bound; the last line is
+   and ``flash_attention_bwd``'s ``shape``, and phases 29-31's shapes
+   under ``shapes``; ``ssm_scan``'s at the serve's prefill, its two timed
+   shapes under ``shapes``) and bound; the last line is
    ``{"ok": true, "device": {...}}``.
 
 Each phase prints its seconds.
@@ -400,9 +414,13 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 PEAK_BF16_PER_S = 989e12
 PEAK_TF32_PER_S = 495e12
+# The special-function units' rate (ex2 and the like): 16 results a clock an
+# SM at compute capability 9.0 (CUDA C++ Programming Guide, throughput of
+# the arithmetic instructions), 132 SMs at the SXM part's 1.98 GHz boost.
+PEAK_SFU_PER_S = 132 * 16 * 1.98e9
 # A profiled window (kernel_device_ms) opens with this many kernels that it
 # does not count, and leaves this much idle time on either side of its calls.
-PROFILER_LEAD_IN = 4
+PROFILER_LEAD_IN = 16
 PROFILER_PAUSE_S = 0.05
 
 # fp32 operations the SACT runs per pair (adds, multiplies, compares,
@@ -493,16 +511,17 @@ def device_us(event) -> float:
 
 
 def kernel_device_ms(fn, key: str, reps: int, name: str,
-                     tries: int = 3, required: bool = True):
+                     tries: int = 6, required: bool = True):
     """The mean device time of a kernel whose name holds ``key``, over a
     window of ``reps`` calls of ``fn`` (``torch.profiler``), which must
     launch kernel ``name`` once a call (the wrappers' counters) and leave
     exactly one record a call.  Late in this script the profiler drops
     the first kernel record of a window (the card showed 19 records after
-    20 launches, the first one missing), so each window opens with a few
-    fills of a scratch word, which match no kernel's key, and idle time on
-    either side of the calls.  A window that still lost a record is
-    reported and taken again, up to ``tries`` windows; none is averaged.
+    20 launches, the first one missing; up to 8 missing, or a whole window,
+    on some machines), so each window opens with fills of a scratch word,
+    which match no kernel's key, and idle time on either side of the
+    calls.  A window that still lost a record is reported and taken again,
+    up to ``tries`` windows; none is averaged.
     A call timed back to back with CUDA events is paced by the host where
     the kernel is short: this is the kernel alone.  With ``required``
     False, a kernel whose records every window lost gives None."""
@@ -2069,14 +2088,16 @@ def compare_routes(tag: str, card_calls, cpu_calls, batch: int,
 
 
 def dense_cut_vs_cpu(arch: str, phase: str, cuda, card: str,
-                     add_check_launches, lap) -> None:
-    """Phases 19, 28 (d), 29 (a, d) and 30 (a): the attention model
+                     add_check_launches, lap, batch: int = LM_CUT_BATCH,
+                     prompt: int = LM_CUT_PROMPT,
+                     steps: int = LM_CUT_STEPS) -> None:
+    """Phases 19, 28 (d), 29 (a, d), 30 (a) and 31 (c): the attention model
     ``arch`` at full width cut to ``LM_CUT_LAYERS`` layers (an ``encdec``
     model's encoder too), in fp32 (TF32 off), weights drawn on the card and
-    copied to a CPU twin: B = ``LM_CUT_BATCH``, a prompt of
-    ``LM_CUT_PROMPT`` tokens and ``LM_CUT_STEPS`` teacher-forced decode
-    steps, logits and every cache tensor (the k and v caches; an
-    ``encdec`` model's cross caches too) within ``LM_FP32_TOL``.  A
+    copied to a CPU twin: B = ``batch``, a prompt of ``prompt`` tokens and
+    ``steps`` teacher-forced decode steps, logits and every cache tensor
+    (the k and v caches; an ``encdec`` model's cross caches, a ``hybrid``
+    model's SSM states too) within ``LM_FP32_TOL``.  A
     ``vlm`` model's prompts follow ``num_patches`` patch embeddings drawn
     from a seed, and its decode positions follow both; an ``encdec``
     model's attend ``ENCDEC["cut_frames"]`` frames drawn from a seed.  A
@@ -2102,20 +2123,20 @@ def dense_cut_vs_cpu(arch: str, phase: str, cuda, card: str,
     t_init = time.perf_counter() - t0
     rs = np.random.RandomState(1)
     toks = torch.from_numpy(rs.randint(0, g_cut.vocab_size,
-                                       (LM_CUT_BATCH, LM_CUT_PROMPT)))
+                                       (batch, prompt)))
     forced = torch.from_numpy(rs.randint(0, g_cut.vocab_size,
-                                         (LM_CUT_STEPS, LM_CUT_BATCH)))
+                                         (steps, batch)))
     P = g_cut.num_patches if g_cut.family == "vlm" else 0
     host = {"tokens": toks}
     if P:
         host["patch_embeds"] = torch.from_numpy(rs.normal(
-            size=(LM_CUT_BATCH, P, g_cut.d_model)).astype(np.float32))
+            size=(batch, P, g_cut.d_model)).astype(np.float32))
     n_frames = ENCDEC["cut_frames"] if g_cut.family == "encdec" else 0
     if n_frames:
         host["frames"] = torch.from_numpy(rs.normal(
-            size=(LM_CUT_BATCH, n_frames, g_cut.d_model)).astype(np.float32))
+            size=(batch, n_frames, g_cut.d_model)).astype(np.float32))
     prefill_g = lm_api.make_prefill_fn(g_cut,
-                                       P + LM_CUT_PROMPT + LM_CUT_STEPS)
+                                       P + prompt + steps)
     decode_g = lm_api.make_decode_fn(g_cut)
     targets = ({"route": (ffn_mod, "moe_route")} if g_cut.num_experts
                else {})
@@ -2130,7 +2151,7 @@ def dense_cut_vs_cpu(arch: str, phase: str, cuda, card: str,
             want = on_cpu()
         if targets:
             r = compare_routes(f"{phase} {tag}", rec_c.calls["route"],
-                               rec_h.calls["route"], LM_CUT_BATCH, excluded)
+                               rec_h.calls["route"], batch, excluded)
             for key in r:
                 routes[key] += r[key]
             if tag == "prefill":
@@ -2143,12 +2164,12 @@ def dense_cut_vs_cpu(arch: str, phase: str, cuda, card: str,
         """Logits and every cache tensor, card against CPU, now (the
         attention caches are written in place by the next step), on the
         rows no near-tie route has set apart."""
-        rows = [b for b in range(LM_CUT_BATCH) if b not in excluded]
+        rows = [b for b in range(batch) if b not in excluded]
         lg, cg = got
         lh, ch = want
         pairs = [("logits", lg, lh, 0)] + [
             (f"kv.{key}", cg["kv"][key], ch["kv"][key], 1) for key in "kv"]
-        pairs += [(key, cg[key], ch[key], 1) for key in ("xk", "xv")
+        pairs += [(key, cg[key], ch[key], 1) for key in ("xk", "xv", "ssm")
                   if key in cg]
         for key, a, b, dim in pairs:
             a = a.cpu()
@@ -2168,18 +2189,18 @@ def dense_cut_vs_cpu(arch: str, phase: str, cuda, card: str,
                                                for key, t in host.items()}),
                     lambda: prefill_g(g_cpu, host))
     for i, tok in enumerate(forced):
-        pos = P + LM_CUT_PROMPT + i
+        pos = P + prompt + i
         got, want = run(f"step {i}",
                         lambda: decode_g(g_card, tok.to(cuda), pos, got[1]),
                         lambda: decode_g(g_cpu, tok, pos, want[1]))
     del g_card, g_cpu, got, want
     add_check_launches()
-    if len(excluded) == LM_CUT_BATCH:
+    if len(excluded) == batch:
         raise SystemExit(f"FAIL: {arch}: near-tie routes left no row to "
                          "compare")
     route_note = ""
     if targets:
-        C = ffn_mod.moe_capacity(g_cut, LM_CUT_PROMPT)
+        C = ffn_mod.moe_capacity(g_cut, prompt)
         pre, pre_drop = routes["prefill_pairs"], routes["prefill_dropped"]
         route_note = (
             f" | routes (expert ids, buffer positions, kept flags) of every "
@@ -2191,9 +2212,9 @@ def dense_cut_vs_cpu(arch: str, phase: str, cuda, card: str,
     log(phase, f"full width, {LM_CUT_LAYERS} layers"
         + (f" (and {g_cut.encoder_layers} encoder layers over {n_frames} "
            f"frames)" if n_frames else "") + f", B="
-        f"{LM_CUT_BATCH}, {f'{P} patch embeddings + ' if P else ''}prompt "
-        f"{LM_CUT_PROMPT}, {LM_CUT_STEPS} teacher-forced steps (positions "
-        f"from {P + LM_CUT_PROMPT}): card == CPU within {LM_FP32_TOL}; max "
+        f"{batch}, {f'{P} patch embeddings + ' if P else ''}prompt "
+        f"{prompt}, {steps} teacher-forced steps (positions "
+        f"from {P + prompt}): card == CPU within {LM_FP32_TOL}; max "
         f"err " + ", ".join(f"{k} {v:.3g}" for k, v in g_err.items())
         + route_note + f" | weights drawn on the card and copied to the CPU "
         f"in {t_init:.1f} s | {lap():.1f} s | {card}")
@@ -2208,18 +2229,19 @@ def attention_calls(cfg) -> int:
     return cfg.num_layers
 
 
-def flash_fwd_bound(q, k, causal: bool = True):
+def flash_fwd_bound(q, k, causal: bool = True, window: int = 0):
     """The bf16 flash-attention forward's bound: q, k and v read once and o
     written once over the memory rate, against its operations: per seen
-    pair (a query row and each key at or before it when causal, every key
-    otherwise) q.k and p*v, 2 d products and 2 d sums on the bf16 tensor
+    pair (a query row and each key at or before it when causal, within
+    ``window`` keys of it where given, every key otherwise) q.k and p*v, 2
+    d products and 2 d sums on the bf16 tensor
     cores, and the softmax (scale, max, exp, sum, rescale: ~6 fp32
     operations a pair) beside them on the CUDA cores, so the least time is
     the larger of the two.  Returns (ms, bound_by, bytes, tensor
     operations, fp32 operations)."""
     Bq, Hq, Tq, d = q.shape
     Tk = k.shape[2]
-    pairs = (sum(min(i + 1, Tk) for i in range(Tq)) if causal
+    pairs = (sum(min(i + 1, Tk, window or Tq) for i in range(Tq)) if causal
              else Tq * Tk) * Bq * Hq
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     mma, fp32 = 4 * d * pairs, 6 * pairs
@@ -2231,11 +2253,15 @@ def flash_fwd_bound(q, k, causal: bool = True):
 
 def dense_serve(arch: str, phase: str, cuda, card: str, main_launches: dict,
                 add_check_launches, lap, num_layers: int = 0,
-                prompt: Optional[Sequence[int]] = None) -> dict:
-    """Phases 20, 28 (d), 29 (b, d) and 30 (b): ``lm.serve.serve`` on the
+                prompt: Optional[Sequence[int]] = None,
+                batch: int = LM_BATCH, prompt_len: int = LM_PROMPT,
+                repeats: bool = True,
+                scans_held: Optional[int] = None) -> dict:
+    """Phases 20, 28 (d), 29 (b, d), 30 (b) and 31 (d, e):
+    ``lm.serve.serve`` on the
     bf16 attention model ``arch`` at full width and depth (cut to
     ``num_layers`` where given; weights drawn on the card from a seeded
-    generator), ``LM_BATCH`` prompts of ``LM_PROMPT`` random tokens (or
+    generator), ``batch`` prompts of ``prompt_len`` random tokens (or
     each the ``prompt`` given; after ``num_patches`` patch embeddings drawn
     from a seed for a ``vlm`` model, against ``ENCDEC["frames"]`` frames
     drawn from a seed for an ``encdec`` one) and ``LM_TOKENS`` greedy
@@ -2248,9 +2274,16 @@ def dense_serve(arch: str, phase: str, cuda, card: str, main_launches: dict,
     Whisper's encoder, decoder and cross-attention); a MoE model's share of
     pairs dropped in the prefill; prefill/decode consistency (a MoE model's
     at capacity factor 8 on the same weights: the prefill drops pairs that
-    a decode group never does).  Returns the ``flash_attention`` line of
-    the JSON result: the first shape's figures, and where the prefill gave
-    the kernel more than one shape, every shape's under ``shapes``."""
+    a decode group never does).  A ``hybrid`` model's prefill also
+    launches ``ssm_scan`` once a layer: each captured scan (or
+    ``scans_held`` of them, spread over the layers) against its plain
+    version (the state bit for bit), and the scan timed against its bound
+    and plain version.  With ``repeats`` off, the walls are the counted
+    serve's, and the warm serves and the traced ones are left out.
+    Returns the ``flash_attention`` line of the
+    JSON result: the first shape's figures, and where the prefill gave the
+    kernel more than one shape, every shape's under ``shapes``; a
+    ``hybrid`` model's scan figures under ``scan``."""
     import numpy as np
     import torch
     from repro_torch.configs.base import get_config
@@ -2258,6 +2291,7 @@ def dense_serve(arch: str, phase: str, cuda, card: str, main_launches: dict,
     from repro_torch.kernels.flash_attention import cases as flash_cases
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.ssm_scan import ops as scan_ops
     from repro_torch.lm.serve import serve
     from repro_torch.models import api as lm_api
     from repro_torch.models import ffn as ffn_mod
@@ -2275,18 +2309,22 @@ def dense_serve(arch: str, phase: str, cuda, card: str, main_launches: dict,
     n_weights = sum(p.numel() for p in lm.parameters())
     w_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
     rs = np.random.RandomState(0)
-    prompts = (np.tile(np.asarray(prompt), (LM_BATCH, 1)) if prompt
-               else rs.randint(0, g_full.vocab_size, (LM_BATCH, LM_PROMPT)))
+    prompts = (np.tile(np.asarray(prompt), (batch, 1)) if prompt
+               else rs.randint(0, g_full.vocab_size, (batch, prompt_len)))
     S = prompts.shape[1]
     P = g_full.num_patches if g_full.family == "vlm" else 0
     patches = (torch.from_numpy(rs.normal(size=(
-        LM_BATCH, P, g_full.d_model)).astype(np.float32)).to(cuda)
+        batch, P, g_full.d_model)).astype(np.float32)).to(cuda)
                if P else None)
     n_frames = ENCDEC["frames"] if g_full.family == "encdec" else 0
     frames = (torch.from_numpy(rs.normal(size=(
-        LM_BATCH, n_frames, g_full.d_model)).astype(np.float32)).to(cuda)
+        batch, n_frames, g_full.d_model)).astype(np.float32)).to(cuda)
               if n_frames else None)
     n_calls = attention_calls(g_full)
+    hybrid = g_full.family == "hybrid"
+    prefill_launches = {"flash_attention": n_calls}
+    if hybrid:
+        prefill_launches["ssm_scan"] = g_full.num_layers
     decode = lm_api.make_decode_fn(g_full)
 
     def serve_(n: int):
@@ -2303,12 +2341,11 @@ def dense_serve(arch: str, phase: str, cuda, card: str, main_launches: dict,
     peak = torch.cuda.max_memory_allocated()
     for name, n in counts.items():
         main_launches[name] += n
-    want = {name: (n_calls if name == "flash_attention" else 0)
-            for name in counts}
+    want = {name: prefill_launches.get(name, 0) for name in counts}
     if counts != want:
         raise SystemExit(f"FAIL: {arch} serve launched {counts}, want {want} "
-                         f"({n_calls} flash_attention in the prefill, none "
-                         f"in decode)")
+                         f"({prefill_launches} in the prefill, none in "
+                         f"decode)")
     decode(lm, res.tokens[:, -1], P + S + LM_TOKENS - 1,   # the next slot
            res.caches)
     torch.cuda.synchronize()
@@ -2319,13 +2356,14 @@ def dense_serve(arch: str, phase: str, cuda, card: str, main_launches: dict,
     kv_shape = tuple(res.caches["kv"]["k"].shape)
     L, K, hd = g_full.num_layers, g_full.num_kv_heads, g_full.hd
     x_shape = (tuple(res.caches["xk"].shape) if n_frames
-               else (L, LM_BATCH, n_frames, K, hd))
-    if not (gen_toks.shape == (LM_BATCH, LM_TOKENS)
+               else (L, batch, n_frames, K, hd))
+    if not (gen_toks.shape == (batch, LM_TOKENS)
             and bool(((gen_toks >= 0)
                       & (gen_toks < g_full.vocab_size)).all())
             and bool(res.logits.float().isfinite().all())
-            and kv_shape == (L, LM_BATCH, P + S + LM_TOKENS, K, hd)
-            and x_shape == (L, LM_BATCH, n_frames, K, hd)):
+            and kv_shape == (L, batch, g_full.sliding_window
+                             or P + S + LM_TOKENS, K, hd)
+            and x_shape == (L, batch, n_frames, K, hd)):
         raise SystemExit(f"FAIL: {arch} serve: bad tokens, logits or caches "
                          f"{kv_shape}, {x_shape}")
     # the kernel on the prefill inputs of one serve, against its plain
@@ -2333,6 +2371,8 @@ def dense_serve(arch: str, phase: str, cuda, card: str, main_launches: dict,
     targets = {"flash": (flash_ops, "flash_attention")}
     if g_full.num_experts:
         targets["route"] = (ffn_mod, "moe_route")
+    if hybrid:
+        targets["scan"] = (scan_ops, "ssm_scan")
     with Recorder(targets) as rec_f:
         serve_(1)
     add_check_launches()
@@ -2353,7 +2393,6 @@ def dense_serve(arch: str, phase: str, cuda, card: str, main_launches: dict,
     if len(calls) != n_calls:
         raise SystemExit(f"FAIL: recorder saw {len(calls)} flash_attention "
                          f"calls, want {n_calls}")
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     groups = {}               # (q shape, k shape, causal) -> [errs, call]
     with torch.inference_mode():
         for li, (fn, ca, ck) in enumerate(calls):
@@ -2365,29 +2404,30 @@ def dense_serve(arch: str, phase: str, cuda, card: str, main_launches: dict,
                                  f"on call {li}'s prefill input (excess "
                                  f"{ex:.3g})")
             causal = bool(ca[3] if len(ca) > 3 else ck.get("causal", True))
-            key = (tuple(ca[0].shape), tuple(ca[1].shape), causal)
+            window = int(ca[4] if len(ca) > 4 else ck.get("window", 0))
+            key = (tuple(ca[0].shape), tuple(ca[1].shape), causal, window)
             group = groups.setdefault(key, [[], (fn, ca, ck)])
             group[0].append(float((o.float() - wo.float()).abs().max()))
         figures = []
-        for (_, _, causal), (errs, (fn, ca, ck)) in groups.items():
+        for (_, _, causal, window), (errs, (fn, ca, ck)) in groups.items():
             q, k, v = ca[:3]
-
-            def lib(q=q, k=k, v=v, causal=causal):
-                return sdpa(q, k, v, is_causal=causal, enable_gqa=True)
-            lib_err = float((lib().float() - attention_ref(q, k, v, causal)
-                             .float()).abs().max())
+            lib = sdpa_call(q, k, v, causal, window)
+            lib_err = float((lib().float() - attention_ref(
+                q, k, v, causal, window).float()).abs().max())
             ms = cuda_time_ms(lambda: fn(*ca, **ck), 20)
             # the kernel alone: a small shape's call is paced by the host
             kern_ms = kernel_device_ms(lambda: fn(*ca, **ck), "flash_hopper",
                                        20, "flash_attention", required=False)
             plain_ms = cuda_time_ms(lambda: attention_ref(*ca, **ck), 2)
             lib_ms = cuda_time_ms(lib, 20)
-            bound, by, nbytes, mma, fp32 = flash_fwd_bound(q, k, causal)
+            bound, by, nbytes, mma, fp32 = flash_fwd_bound(q, k, causal,
+                                                           window)
             figures.append(dict(
                 max_abs_err=max(errs), ms=ms, kernel_ms=kern_ms,
                 plain_ms=plain_ms,
                 bound_ms=bound, bound_by=by, library_ms=lib_ms,
                 shape=dict(q=list(q.shape), k=list(k.shape)), causal=causal,
+                window=window,
                 calls=len(errs), lib_err=lib_err, nbytes=nbytes, mma=mma,
                 fp32=fp32, q_strides=q.stride(), v_strides=v.stride(),
                 dtype=q.dtype))
@@ -2404,14 +2444,20 @@ def dense_serve(arch: str, phase: str, cuda, card: str, main_launches: dict,
             "shape", "causal", "calls", "max_abs_err", "ms", "kernel_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")}
             for f in figures]
+    if hybrid:
+        line["scan"] = scan_figures(rec_f.calls.pop("scan"), phase, card,
+                                    g_full.num_layers, scans_held)
+    add_check_launches()
     # warm walls
     t_checks = time.perf_counter()
-    pre, dec = [], []
-    for _ in range(LM_WARM_SERVES):
-        rr = serve_(LM_TOKENS)
-        pre.append(rr.prefill_s)
-        dec.append(statistics.mean(rr.decode_s))
-    del rr
+    pre, dec = [res.prefill_s], [statistics.mean(res.decode_s)]
+    if repeats:
+        pre, dec = [], []
+        for _ in range(LM_WARM_SERVES):
+            rr = serve_(LM_TOKENS)
+            pre.append(rr.prefill_s)
+            dec.append(statistics.mean(rr.decode_s))
+        del rr
     add_check_launches()
     pre_ms, dec_ms = (1e3 * statistics.median(x) for x in (pre, dec))
     t_warm = time.perf_counter()
@@ -2422,14 +2468,14 @@ def dense_serve(arch: str, phase: str, cuda, card: str, main_launches: dict,
     c_cfg = (g_full.replace(moe_capacity_factor=8.0) if g_full.num_experts
              else g_full)
     tokens = torch.from_numpy(prompts).to(cuda)
-    batch = {"tokens": tokens}
+    inputs = {"tokens": tokens}
     if P:
-        batch["patch_embeds"] = patches
+        inputs["patch_embeds"] = patches
     if n_frames:
-        batch["frames"] = frames
+        inputs["frames"] = frames
     lm.cfg = c_cfg
     try:
-        logits, caches = lm_api.make_prefill_fn(c_cfg)(lm, batch)
+        logits, caches = lm_api.make_prefill_fn(c_cfg)(lm, inputs)
         nxt = logits.argmax(-1)
         step, _ = lm_api.make_decode_fn(c_cfg)(lm, nxt, P + S, caches)
         longer = torch.cat([tokens, nxt[:, None]], 1)
@@ -2449,21 +2495,13 @@ def dense_serve(arch: str, phase: str, cuda, card: str, main_launches: dict,
     if not (delta <= LM_CONSIST_ATOL and bool((agree | near_tie).all())):
         raise SystemExit(f"FAIL: {arch} prefill/decode consistency: max|d| "
                          f"{delta:.4g} (bound {LM_CONSIST_ATOL}), greedy "
-                         f"agrees on {int(agree.sum())} of {LM_BATCH} rows")
+                         f"agrees on {int(agree.sum())} of {batch} rows")
     add_check_launches()
-    # busy share: one warm prefill alone, then one warm serve; decode's
-    # share is the difference of the two
     t_consist = time.perf_counter()
-    traced = traced_serves(serve_)
-    add_check_launches()
-    (w_pre, d_pre, n_pre, on_pre), (w_all, d_all, n_all, on_card) = traced
     stages = (f"stages: set-up and kernel checks {t_checks - t_begin:.1f} s, "
-              f"{LM_WARM_SERVES} warm serves {t_warm - t_checks:.1f} s, "
-              f"consistency "
-              f"{t_consist - t_warm:.1f} s, traced serves "
-              f"{time.perf_counter() - t_consist:.1f} s")
-    top_pre = sorted(on_pre, key=device_us, reverse=True)[:5]
-    top = sorted(on_card, key=device_us, reverse=True)[:5]
+              f"{LM_WARM_SERVES if repeats else 0} warm serves "
+              f"{t_warm - t_checks:.1f} s, consistency "
+              f"{t_consist - t_warm:.1f} s")
     x_note = ""
     if n_frames:
         xk = res.caches["xk"]
@@ -2476,13 +2514,14 @@ def dense_serve(arch: str, phase: str, cuda, card: str, main_launches: dict,
         + (f" cut to {num_layers} of its {get_config(arch).num_layers} "
            f"layers" if num_layers else "") + f": {n_weights} weights, "
         f"{w_bytes / 1e9:.3f} GB bf16, drawn on the card in {t_init:.1f} s "
-        f"| B={LM_BATCH} {f'{P} patch embeddings + ' if P else ''}prompt "
+        f"| B={batch} {f'{P} patch embeddings + ' if P else ''}prompt "
         f"{S}{f' against {n_frames} frames' if n_frames else ''}, "
         f"{LM_TOKENS} greedy tokens, KV caches {kv_shape}{x_note} | "
         f"main-path launches {counts} (decode step: 0) "
-        f"| warm median of {LM_WARM_SERVES}: prefill {pre_ms:.3f} ms, "
-        f"decode {dec_ms:.3f} "
-        f"ms/token, {LM_BATCH / (dec_ms / 1e3):.1f} tokens/s | peak mem "
+        + (f"| warm median of {LM_WARM_SERVES}: " if repeats
+           else "| the counted serve: ")
+        + f"prefill {pre_ms:.3f} ms, decode {dec_ms:.3f} "
+        f"ms/token, {batch / (dec_ms / 1e3):.1f} tokens/s | peak mem "
         f"{peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB held before the "
         f"serve, of which {base / 2**30:.3f} GiB before the model)"
         f"{drop_note} | {card}")
@@ -2496,7 +2535,9 @@ def dense_serve(arch: str, phase: str, cuda, card: str, main_launches: dict,
             f"prefill inputs (B={Bq}, Hq={Hq}, Hkv={Hkv}, T={T}"
             + (f", Tk={Tk}" if Tk != T else "")
             + f", d={d}, {'causal' if f['causal'] else 'non-causal'}, "
-            f"{f['dtype']}, q strides {f['q_strides']}, v strides "
+            f"{f['dtype']}"
+            + (f", window {f['window']}" if f["window"] else "")
+            + f", q strides {f['q_strides']}, v strides "
             f"{f['v_strides']}): kernel within cases.TOL of plain, max abs "
             f"err {f['max_abs_err']:.4g}; call {ms:.4f} ms a launch "
             f"({f['calls'] * ms:.3f} ms a prefill), the kernel alone "
@@ -2514,9 +2555,22 @@ def dense_serve(arch: str, phase: str, cuda, card: str, main_launches: dict,
     log(phase, f"prefill/decode consistency at {P + S + 1} "
         f"positions{' (capacity factor 8)' if g_full.num_experts else ''}: "
         f"max|d| logits {delta:.4g} (bound {LM_CONSIST_ATOL}), "
-        f"greedy agrees on {int(agree.sum())} of {LM_BATCH} rows, smallest "
+        f"greedy agrees on {int(agree.sum())} of {batch} rows, smallest "
         f"top-2 gap {float(gap.min()):.4g}, logits std "
-        f"{float(full.std()):.3f}")
+        f"{float(full.std()):.3f}" + ("" if repeats else
+                                      f" | {stages} | {lap():.1f} s"))
+    if not repeats:
+        del lm, rec_f, calls, groups, q, k, v, res, patches, frames
+        return line
+    # busy share: one warm prefill alone, then one warm serve; decode's
+    # share is the difference of the two
+    traced = traced_serves(serve_)
+    add_check_launches()
+    (w_pre, d_pre, n_pre, on_pre), (w_all, d_all, n_all, on_card) = traced
+    stages += (f", traced serves "
+               f"{time.perf_counter() - t_consist:.1f} s")
+    top_pre = sorted(on_pre, key=device_us, reverse=True)[:5]
+    top = sorted(on_card, key=device_us, reverse=True)[:5]
     log(phase, f"torch.profiler: a warm prefill, traced wall "
         f"{1e3 * w_pre:.3f} ms, device time {1e3 * d_pre:.3f} ms (busy "
         f"{100 * d_pre / w_pre:.1f} %), {n_pre} kernels and copies, largest: "
@@ -2532,6 +2586,106 @@ def dense_serve(arch: str, phase: str, cuda, card: str, main_launches: dict,
                     for e in top) + f" | {stages} | {lap():.1f} s | {card}")
     del lm, rec_f, calls, groups, q, k, v, res, patches, frames
     return line
+
+
+def sdpa_call(q, k, v, causal: bool, window: int = 0):
+    """One ``scaled_dot_product_attention`` call of the same function (the
+    library time beside the kernel's): ``is_causal``, or under a window
+    that masks something a boolean (Tq, Tk) mask of the keys each query
+    sees."""
+    import torch
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    Tq, Tk = q.shape[2], k.shape[2]
+    if not (causal and window and window < Tq):
+        return lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True)
+    i = torch.arange(Tq, device=q.device)[:, None]
+    j = torch.arange(Tk, device=q.device)[None, :]
+    mask = (i >= j) & (i - j < window)
+    return lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
+
+
+def ssm_scan_bound(xi, Bm, dt, h0=None):
+    """The selective scan's bound: its inputs read once (xi, B, C, dt, A,
+    h0) and y and the state written once (fp32) over the memory rate,
+    against its operations, each type at its rate: B S di n exponentials
+    (one a state element) on the special-function units, and 6 fp32
+    operations a state element (dt A, (dt x) B, decay h, the add, h C and
+    the sum over n) with B S di products dt x (one a channel, shared by
+    its n lanes) at the fp32 rate.  Returns (ms, bound_by, bytes, fp32
+    operations, exponentials)."""
+    Bb, S, di = xi.shape
+    n = Bm.shape[2]
+    es = xi.element_size()
+    nbytes = (es * (xi.numel() + 2 * Bb * S * n + Bb * S) + 4 * di * n
+              + 4 * Bb * S * di + 4 * Bb * di * n * (2 if h0 is not None
+                                                      else 1))
+    exps = Bb * S * di * n
+    ops = 6 * exps + Bb * S * di
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = max(ops / PEAK_FP32_PER_S, exps / PEAK_SFU_PER_S)
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops, exps)
+
+
+def scan_figures(calls, phase: str, card: str, layers: int,
+                 held: Optional[int] = None) -> dict:
+    """A ``hybrid`` prefill's captured ``ssm_scan`` calls: each (or
+    ``held`` of them, the first and the last layer's among them) against
+    its plain version (the final state bit for bit, y within
+    ``ssm_scan/cases.py::TOL``), then the first call's inputs timed: the
+    call (CUDA events), the kernel alone (``torch.profiler``), the plain
+    version, and the bound."""
+    import torch
+    from repro_torch.kernels.ssm_scan import cases as scan_cases
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+    if len(calls) != layers:
+        raise SystemExit(f"FAIL: {phase}: recorder saw {len(calls)} ssm_scan "
+                         f"calls, want {layers}")
+    errs = []
+    which = (range(layers) if held is None else
+             sorted({round(i * (layers - 1) / (held - 1))
+                     for i in range(held)}))
+    with torch.inference_mode():
+        for li in which:
+            fn, ca, ck = calls[li]
+            y, h = fn(*ca, **ck)
+            wy, wh = ssm_scan_ref(*ca, **ck)
+            ex = scan_cases.within_tol(y, wy)
+            if ex > 0 or not torch.equal(h, wh):
+                raise SystemExit(
+                    f"FAIL: {phase}: ssm_scan differs from plain on layer "
+                    f"{li}'s prefill input (y excess {ex:.3g}, state max "
+                    f"diff {float((h - wh).abs().max()):.3g})")
+            errs.append(float((y - wy).abs().max()))
+        fn, ca, ck = calls[0]
+        fig = scan_timed(lambda: fn(*ca, **ck), lambda: ssm_scan_ref(
+            *ca, **ck), ca, phase, card)
+    fig.update(max_abs_err=max(errs), calls=len(calls), held=len(errs))
+    return fig
+
+
+def scan_timed(call, plain, ins, phase: str, card: str,
+               reps: int = 20) -> dict:
+    """``ssm_scan`` timed on ``ins`` (xi, Bm, Cm, dt, A, h0): the call by
+    CUDA events, the kernel alone by ``torch.profiler``, the plain version
+    once, and its bound; logged beside the card."""
+    xi, Bm, _, dt, _, h0 = (tuple(ins) + (None,))[:6]
+    ms = cuda_time_ms(call, reps)
+    kern_ms = kernel_device_ms(call, "ssm_scan_kernel", reps, "ssm_scan",
+                               required=False)
+    plain_ms = cuda_time_ms(plain, 1)
+    bound, by, nbytes, ops, exps = ssm_scan_bound(xi, Bm, dt, h0)
+    kern = "not measured" if kern_ms is None else f"{kern_ms:.4f} ms"
+    log(phase, f"ssm_scan at B={xi.shape[0]}, S={xi.shape[1]}, "
+        f"di={xi.shape[2]}, n={Bm.shape[2]}, {xi.dtype} gates"
+        f"{', h0' if h0 is not None else ''}: call {ms:.4f} ms, kernel "
+        f"{kern} (torch.profiler), plain on card {plain_ms:.2f} ms, bound "
+        f"{bound:.5f} ms ({by}: {nbytes} B, {exps} exponentials, {ops} "
+        f"fp32 operations); "
+        f"{100 * bound / (kern_ms or ms):.1f} % of the bound | {card}")
+    return dict(ms=ms, kernel_ms=kern_ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=None,
+                shape=dict(xi=list(xi.shape), n=Bm.shape[2]))
 
 
 #: Phase 28's sizes: the backward at GLM-4 9B's training microbatch (B,
@@ -3067,6 +3221,250 @@ def encdec_phase(dev, card: str, main_launches: dict, add_check_launches,
                         add_check_launches, S)
     log("30 encdec", f"(c) phase part {lap():.1f} s")
     return fa_shapes, bwd_shapes
+
+
+#: Phase 31's sizes: the scan timed at Hymba's two serving prefills (B 8 x
+#: S 1,024, B 1 x S 10,000), the windowed flash forward at the long one
+#: (q (1, 25, 10,000, 64), k and v (1, 5, 10,000, 64), window 4,096), the
+#: 2-layer fp32 cut on one prompt of 4,200 tokens (past the window: the
+#: ring's roll and the window's mask act) with 4 teacher-forced steps, and
+#: the long-context serve (B 1, 10,000 tokens, ``LM_TOKENS`` greedy).
+HYBRID = dict(scan_shapes=((8, 1024), (1, 10000)), scan_reps=20,
+              flash_long=(1, 25, 5, 10000, 64), flash_reps=10, cut_batch=1,
+              cut_prompt=4200, cut_steps=4, long_prompt=10000,
+              long_scans_held=2)
+
+
+def key_tiles(T: int, window: int, tile: int = 128) -> int:
+    """The key tiles the bf16 flash kernel's causal items visit at Tq = Tk
+    = T by ``flash_attn.cu::item_of``'s schedule, copied here for the log
+    (computed, not measured): each 128-row query tile from its first row's
+    window, rounded down to a tile, to its diagonal."""
+    n = 0
+    for q0 in range(0, T, tile):
+        tend = -(-min(T, q0 + tile) // tile)
+        t0 = min(max(0, q0 - window + 1) // tile, tend - 1) if window else 0
+        n += tend - t0
+    return n
+
+
+def hybrid_phase(dev, card: str, main_launches: dict, add_check_launches,
+                 lap):
+    """Phase 31: the ``hybrid`` family, Hymba 1.5B, served on the card.
+
+    (a) ``ssm_scan`` against its plain version on ``ssm_scan/cases.py``
+    (the final state bit for bit, y within ``TOL``; fp32 and bf16 gates),
+    then timed at B 8 x S 1,024 and B 1 x S 10,000; (b) the windowed
+    flash forward against its plain version on ``window_cases`` (a window
+    that masks nothing gives the bits of none), then at the long prefill
+    with and without the window beside SDPA with the window's mask; (c)
+    the 2-layer fp32 cut card against CPU on a prompt past the window
+    (:func:`dense_cut_vs_cpu`: logits, the ring caches and the SSM
+    states); (d) the full 32-layer bf16 serve (:func:`dense_serve`: 32
+    ``flash_attention`` and 32 ``ssm_scan`` launches a prefill, none in
+    decode, every captured input against its plain version); (e) a
+    long-context serve through :func:`dense_serve`, B 1, a 10,000-token
+    prompt and ``LM_TOKENS`` greedy tokens decoded at positions 10,000 on
+    (the ring full, each step overwriting its oldest slot): the counted
+    serve's walls, peak memory, launches, its prefill's windowed flash
+    inputs (every layer's) and scan inputs (``long_scans_held`` layers')
+    against their plain versions, and the consistency of the decode logits
+    with a forward over S + 1.  Sizes are
+    :data:`HYBRID`'s.  Returns the JSON line's ``ssm_scan`` entry and
+    ``flash_attention``'s new shapes."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import cases as flash_cases
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.ssm_scan import cases as scan_cases
+    from repro_torch.kernels.ssm_scan import ops as scan_ops
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+    Z = HYBRID
+    arch = "hymba_1_5b"
+    cfg = get_config(arch)
+    phase = "31 hybrid"
+    t_phase = time.perf_counter()
+
+    # ---- (a) the selective scan against its plain version, then timed -----
+    n_cases, scan_err = 0, 0.0
+    for case in scan_cases.hard_cases():
+        for dtype in (torch.float32, torch.bfloat16):
+            ins = scan_cases.tensors(case, dev, dtype)
+            with torch.inference_mode():
+                y, h = scan_ops.ssm_scan(*ins)
+                wy, wh = ssm_scan_ref(*ins)
+            torch.cuda.synchronize()
+            ex = scan_cases.within_tol(y, wy)
+            if (ex > 0 or not torch.equal(h, wh)
+                    or not bool(y.isfinite().all())):
+                raise SystemExit(
+                    f"FAIL: ssm_scan differs from plain on {case['name']} "
+                    f"{str(dtype)[6:]} (y excess {ex:.3g}, state max diff "
+                    f"{float((h - wh).abs().max()):.3g})")
+            scan_err = max(scan_err, float((y - wy).abs().max()))
+            n_cases += 1
+    add_check_launches()
+    log(phase, f"(a) ssm_scan: the final state equal to plain bit for bit "
+        f"and y within cases.TOL {scan_cases.TOL} on {n_cases} cases (S "
+        f"{'/'.join(map(str, scan_cases.LENGTHS))}, di up to 1600, n 8 and "
+        f"16, B 1/3/8, with and without h0, strong decays; fp32 and bf16 "
+        f"gates), max abs err of y {scan_err:.3g} | {card}")
+    scan_shapes = {}
+    for i, (Bq, Sq) in enumerate(Z["scan_shapes"]):
+        case = scan_cases.make_case(Bq, Sq, cfg.d_model, cfg.ssm_state,
+                                    seed=3100 + i)
+        ins = scan_cases.tensors(case, dev, torch.bfloat16)
+        del case
+        with torch.inference_mode():
+            y, h = scan_ops.ssm_scan(*ins)
+            wy, wh = ssm_scan_ref(*ins)
+            ex = scan_cases.within_tol(y, wy)
+            if ex > 0 or not torch.equal(h, wh):
+                raise SystemExit(f"FAIL: ssm_scan differs from plain at B "
+                                 f"{Bq} x S {Sq} (y excess {ex:.3g})")
+            fig = scan_timed(lambda: scan_ops.ssm_scan(*ins),
+                             lambda: ssm_scan_ref(*ins), ins,
+                             f"{phase} (a)", card, Z["scan_reps"])
+        fig["max_abs_err"] = float((y - wy).abs().max())
+        scan_shapes[f"hymba_B{Bq}_S{Sq}"] = fig
+        del ins, y, h, wy, wh
+    add_check_launches()
+    log(phase, f"(a) phase part {lap():.1f} s")
+
+    # ---- (b) the windowed flash forward ------------------------------------
+    n_cases, fa_err = 0, 0.0
+    for case in flash_cases.window_cases():
+        w = case["window"]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_cases.tensors(case, dev, dtype)
+            o = flash_ops.flash_attention(q, k, v, True, w)
+            want = attention_ref(q, k, v, True, w)
+            torch.cuda.synchronize()
+            dname = str(dtype)[6:]
+            ex = flash_cases.within_tol(o, want, dname)
+            bad = ex > 0 or not bool(o.isfinite().all())
+            if case.get("same_as_none"):
+                bad |= not torch.equal(o, flash_ops.flash_attention(
+                    q, k, v, True))
+            dead = k.shape[2] + w - 1
+            if q.shape[2] > dead:
+                bad |= not bool((o[:, :, dead:] == 0).all())
+            if bad:
+                raise SystemExit(f"FAIL: windowed flash_attention differs "
+                                 f"from plain on {case['name']} {dname} "
+                                 f"(excess {ex:.3g})")
+            fa_err = max(fa_err, float((o.float() - want.float()).abs()
+                                       .max()))
+            n_cases += 1
+    add_check_launches()
+    log(phase, f"(b) flash_attention with a window: within cases.TOL of "
+        f"plain on {n_cases} cases (windows "
+        f"{'/'.join(map(str, flash_cases.WINDOWS))} and >= Tk, group 5, d "
+        f"32 and 64, T 333 and 4,200, rows that see no key; fp32 and bf16); "
+        f"a window >= Tk gives the bits of none; max abs err {fa_err:.3g} "
+        f"| {card}")
+    Bq, Hq, Hkv, T, d = Z["flash_long"]
+    rs = np.random.RandomState(31)
+
+    def bthd(H):           # (B, H, T, d) views of (B, T, H, d), as the model
+        return torch.from_numpy(rs.normal(size=(Bq, T, H, d)).astype(
+            np.float32)).to(dev, torch.bfloat16).transpose(1, 2)
+    q, k, v = bthd(Hq), bthd(Hkv), bthd(Hkv)
+    fa_shapes = {}
+    all_tiles = key_tiles(T, 0)
+    for w in (cfg.sliding_window, 0):
+        def call(w=w):
+            return flash_ops.flash_attention(q, k, v, True, w)
+        o = call()
+        want = attention_ref(q, k, v, True, w)
+        ex = flash_cases.within_tol(o, want, "bfloat16")
+        if ex > 0:
+            raise SystemExit(f"FAIL: flash_attention differs from plain at "
+                             f"the long prefill, window {w} (excess "
+                             f"{ex:.3g})")
+        err = float((o.float() - want.float()).abs().max())
+        del o, want
+        ms = cuda_time_ms(call, Z["flash_reps"])
+        kern_ms = kernel_device_ms(call, "flash_hopper", Z["flash_reps"],
+                                   "flash_attention", required=False)
+        plain_ms = cuda_time_ms(lambda: attention_ref(q, k, v, True, w), 1)
+        torch.cuda.empty_cache()
+        lib = sdpa_call(q, k, v, True, w)
+        lib_ms = cuda_time_ms(lib, Z["flash_reps"])
+        bound, by, nbytes, mma, fp32 = flash_fwd_bound(q, k, True, w)
+        tiles = key_tiles(T, w)
+        fa_shapes["hymba_long" + ("_window" if w else "_causal")] = dict(
+            shape=dict(q=list(q.shape), k=list(k.shape)), causal=True,
+            window=w, max_abs_err=err, ms=ms, kernel_ms=kern_ms,
+            plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+            library_ms=lib_ms)
+        kern = "not measured" if kern_ms is None else f"{kern_ms:.4f} ms"
+        log(phase, f"(b) flash_attention at q {tuple(q.shape)}, k, v "
+            f"{tuple(k.shape)}, causal, bf16, "
+            + (f"window {w}" if w else "no window")
+            + f": call {ms:.4f} ms, kernel {kern} (torch.profiler), plain "
+            f"{plain_ms:.2f} ms, scaled_dot_product_attention("
+            + ("the window's boolean mask" if w else "is_causal")
+            + f") {lib_ms:.4f} ms, bound {bound:.5f} ms ({by}: {nbytes} B, "
+            f"{mma} bf16 tensor ops, {fp32} fp32 ops), {tiles} key tiles "
+            f"a walk by item_of's schedule ({tiles / all_tiles:.3f} of the "
+            f"causal walk's {all_tiles}; computed, not measured); "
+            f"{100 * bound / (kern_ms or ms):.1f} % of the "
+            f"bound | {card}")
+        del lib
+    del q, k, v
+    torch.cuda.empty_cache()
+    add_check_launches()
+    log(phase, f"(b) phase part {lap():.1f} s")
+
+    # ---- (c) 2 layers at full width, fp32, card vs CPU, past the window ---
+    dense_cut_vs_cpu(arch, f"{phase} (c) fp32", dev, card,
+                     add_check_launches, lap, batch=Z["cut_batch"],
+                     prompt=Z["cut_prompt"], steps=Z["cut_steps"])
+    torch.cuda.empty_cache()
+
+    # ---- (d) served at full width and depth --------------------------------
+    line = dense_serve(arch, f"{phase} (d) serve", dev, card, main_launches,
+                       add_check_launches, lap)
+    scan_main = line.pop("scan")
+    fa_shapes["hymba_prefill"] = dict(shape_figures(line),
+                                      window=cfg.sliding_window)
+    torch.cuda.empty_cache()
+
+    # ---- (e) a long-context serve -------------------------------------------
+    S = Z["long_prompt"]
+    line = dense_serve(arch, f"{phase} (e) long serve", dev, card,
+                       main_launches, add_check_launches, lap, batch=1,
+                       prompt_len=S, repeats=False,
+                       scans_held=Z["long_scans_held"])
+    scan_long = line.pop("scan")
+    fa_shapes["hymba_long_serve"] = dict(shape_figures(line),
+                                         window=cfg.sliding_window)
+    torch.cuda.empty_cache()
+    log(phase, f"(e) B=1, a {S}-token prompt: {LM_TOKENS} greedy tokens "
+        f"at positions {S}-{S + LM_TOKENS - 2} (ring slots "
+        f"{S % cfg.sliding_window}-"
+        f"{(S + LM_TOKENS - 2) % cfg.sliding_window} of "
+        f"{cfg.sliding_window}, each step overwriting the oldest key); the "
+        f"prefill's {cfg.num_layers} windowed flash_attention inputs and "
+        f"{scan_long['held']} of its "
+        f"{scan_long['calls']} ssm_scan inputs held against their plain "
+        f"versions; phase 31 {time.perf_counter() - t_phase:.1f} s")
+
+    scan_line = dict(
+        name="ssm_scan", route="cuda",
+        source="src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+        replaces="src/repro/models/ssm.py:47",
+        max_abs_err=max(scan_err, scan_main["max_abs_err"],
+                        scan_long["max_abs_err"],
+                        *(f["max_abs_err"] for f in scan_shapes.values())),
+        **{key: scan_main[key] for key in (
+            "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "shape")},
+        shapes=dict(scan_shapes, hymba_long_serve=scan_long))
+    return scan_line, fa_shapes
 
 
 def main() -> int:
@@ -5516,14 +5914,20 @@ def main() -> int:
     # ---- 30. the encoder-decoder family -------------------------------------
     fa_more, bwd_more = encdec_phase(cuda, card, main_launches,
                                      add_check_launches, lap)
+
+    # ---- 31. the hybrid family ------------------------------------------------
+    scan_line, fa_hybrid = hybrid_phase(cuda, card, main_launches,
+                                        add_check_launches, lap)
+    lines.append(scan_line)
     by_name = {line["name"]: line for line in lines}
-    by_name["flash_attention"]["shapes"] = dict(fa_shapes, **fa_more)
+    by_name["flash_attention"]["shapes"] = dict(fa_shapes, **fa_more,
+                                                **fa_hybrid)
     by_name["flash_attention_bwd"]["shapes"] = dict(bwd_shapes, **bwd_more)
 
-    # ---- 31. result -------------------------------------------------------
+    # ---- 32. result -------------------------------------------------------
     # launches on every main path (phases 8, 13, 17, 20, 21, 22, 23, 24, 25,
-    # 26, 27, 28, 29 and 30) and in the checks
-    log("31 result", f"whole script {time.perf_counter() - t_start:.1f} s")
+    # 26, 27, 28, 29, 30 and 31) and in the checks
+    log("32 result", f"whole script {time.perf_counter() - t_start:.1f} s")
     for line in lines:
         line["launches"] = main_launches[line["name"]]
         line["check_launches"] = check_launches[line["name"]]

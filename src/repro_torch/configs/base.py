@@ -133,7 +133,7 @@ ARCH_REGISTRY = (
 #: Architectures of ``ARCH_REGISTRY`` with a config file in the port.
 PORTED_ARCHS = ("rwkv6_1_6b", "glm4_9b", "starcoder2_7b",
                 "granite_moe_1b_a400m", "arctic_480b", "pixtral_12b",
-                "whisper_medium")
+                "whisper_medium", "hymba_1_5b")
 
 
 def _config_module(name: str):

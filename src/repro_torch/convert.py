@@ -190,7 +190,8 @@ def lm_from_reference(cfg, params: Mapping) -> Dict[str, torch.Tensor]:
     ``embed``, ``ln_f``, ``lm_head`` and ``blocks``, each block leaf
     stacked on a leading L axis; projections ``(in, out)``) as an
     :class:`LM` state dict (``blocks.<l>.<name>``, the same layouts and
-    dtypes)."""
+    dtypes: a hybrid block's ``ssm`` leaves too, ``a_log`` fp32 whatever
+    ``param_dtype`` is, as the reference keeps it)."""
     return _unstacked(params, {"blocks": cfg.num_layers})
 
 

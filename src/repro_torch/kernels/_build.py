@@ -11,7 +11,8 @@ an edited kernel never loads a stale library.  Libraries land in
 
 Every kernel builds with the same flags.  ``--fmad=false`` keeps every
 ``a*b+c`` two roundings, as in the plain PyTorch versions: the collision,
-sampling and ray-march kernels must agree with them bit for bit; ``wkv6``,
+sampling and ray-march kernels must agree with them bit for bit, and so
+must the selective scan's state; ``wkv6``,
 ``wkv6_bwd``, ``flash_attention`` and ``flash_attention_bwd``, which sum
 their dot products in another order (and their products on the tensor
 cores, which the flag does not touch; each writes the few ``fmaf`` its
@@ -48,6 +49,7 @@ SOURCES: Dict[str, str] = {
     "flash_attention": "kernels/flash_attention/csrc/flash_attn.cu",
     "flash_attention_bwd": "kernels/flash_attention/csrc/flash_attn_bwd.cu",
     "march": "kernels/march/csrc/march.cu",
+    "ssm_scan": "kernels/ssm_scan/csrc/ssm_scan.cu",
 }
 
 NVCC_FLAGS: List[str] = [

@@ -3,8 +3,9 @@
 Shared by the CPU tests and the card checks (``chip_smoke.py``,
 ``tests/test_torch_kernels_gpu.py``).  Each case is a dict of numpy
 float32 arrays ``q`` (B, Hq, Tq, d), ``k`` and ``v`` (B, Hkv, Tk, d), with
-its ``name``, ``causal``, ``layout`` and ``score_scale``; :func:`tensors`
-turns one into torch tensors in the layout it names.
+its ``name``, ``causal``, ``layout``, ``score_scale`` and ``window`` (0:
+none); :func:`tensors` turns one into torch tensors in the layout it
+names.
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ LARGE = 8.0
 
 def make_case(B: int, Hkv: int, group: int, Tq: int, Tk: int, d: int,
               causal: bool, layout: str = "bhtd", scale: float = 1.0,
-              seed: int = 0) -> Dict:
+              seed: int = 0, window: int = 0) -> Dict:
     """``layout`` ``"bthd"`` asks :func:`tensors` for (B, H, T, d) views of
     (B, T, H, d) tensors, as the model hands over its projections."""
     rs = np.random.RandomState(seed)
@@ -45,11 +46,13 @@ def make_case(B: int, Hkv: int, group: int, Tq: int, Tk: int, d: int,
     return dict(
         name=f"B={B} Hq={Hq} Hkv={Hkv} Tq={Tq} Tk={Tk} d={d} "
              f"{'causal' if causal else 'full'} {layout}"
-             + (f" x{scale:g}" if scale != 1.0 else ""),
+             + (f" x{scale:g}" if scale != 1.0 else "")
+             + (f" window={window}" if window else ""),
         q=(rs.normal(size=(B, Hq, Tq, d)) * scale).astype(f32),
         k=(rs.normal(size=(B, Hkv, Tk, d)) * scale).astype(f32),
         v=rs.normal(size=(B, Hkv, Tk, d)).astype(f32),
-        causal=causal, layout=layout, score_scale=scale * scale)
+        causal=causal, layout=layout, score_scale=scale * scale,
+        window=window)
 
 
 def hard_cases() -> List[Dict]:
@@ -93,6 +96,37 @@ def hard_cases() -> List[Dict]:
             seed += 1
             out.append(make_case(1, 2, 16, 200, 200, d, True, "bthd",
                                  scale=LARGE, seed=seed))
+    return out
+
+
+#: Sliding windows: one key, a few, the smoke config's 64, around the bf16
+#: kernel's 128-key tile, and Hymba's 4,096.
+WINDOWS = (1, 7, 64, 127, 128, 129, 4096)
+
+
+def window_cases() -> List[Dict]:
+    """Hymba's attention shape (5 query heads on one KV head, the model's
+    layout) at d 32 and 64, causal with every window of :data:`WINDOWS` at
+    Tq = Tk no multiple of 128 (past the window for 4,096); windows of Tk
+    and more, which mask nothing (``same_as_none``: the kernel must give
+    the bits of no window); and Tq > Tk + window - 1, whose last rows see
+    no key (o = 0)."""
+    out, seed = [], 300
+    for d in (32, 64):
+        for w in WINDOWS:
+            seed += 1
+            T = 4200 if w > 1000 else 333
+            out.append(make_case(1 if T > 1000 else 2, 1, 5, T, T, d, True,
+                                 "bthd", seed=seed, window=w))
+        for w in (333, 1000):
+            seed += 1
+            case = make_case(2, 1, 5, 333, 333, d, True, "bthd", seed=seed,
+                             window=w)
+            case["same_as_none"] = True
+            out.append(case)
+        seed += 1
+        out.append(make_case(2, 1, 5, 300, 100, d, True, "bthd", seed=seed,
+                             window=64))
     return out
 
 

@@ -1,11 +1,12 @@
-// Forward softmax attention with an online softmax (flash attention), GQA
-// and an optional causal mask:
+// Forward softmax attention with an online softmax (flash attention), GQA,
+// an optional causal mask and, with it, an optional sliding window:
 //
 //   o[b, h, i] = sum_j softmax_j(q[b, h, i] . k[b, h / group, j] / sqrt(d))
 //                      v[b, h / group, j]
 //
-// over the keys j < Tk (and j <= i when causal, both counted from 0), with
-// the scores, the running max, the denominator and the accumulator in
+// over the keys j < Tk (and j <= i when causal, both counted from 0; and
+// i - j < window with a window, the reference's models/attention.py::_mask),
+// with the scores, the running max, the denominator and the accumulator in
 // fp32; o is written once, in q's dtype.
 //
 // Replaces repro/kernels/flash_attention/kernel.py::flash_kernel (grid
@@ -85,6 +86,16 @@
 // lse tensor: natural-log units, the backward's input (flash_attn_bwd.cu).
 // With none, serving runs exactly as before.
 //
+// The sliding window (Hymba's 4,096; the reference runs it in jnp,
+// flash_jnp.py::_blk_mask): a query tile's keys start at its first row's
+// window, max(0, q0 - window + 1), rounded down to a key tile, so tiles
+// wholly below every row's window are never loaded (the producer's TMA loop
+// and the consumers walk the same tiles, item_of); the tiles that cross
+// the window's lower edge are masked as the diagonal's are.  A row that
+// sees no key (only where Tq > Tk + window - 1) keeps the rule of the
+// kernels' padded rows: weights 0, o = 0, lse NEG_INF.  A window of Tq or
+// more masks nothing and gives the bits of no window.
+//
 // Tensors are addressed by strides with a unit stride on d; every other
 // stride is a multiple of 16 bytes and the bases 16-byte aligned (the
 // wrapper checks), as TMA and the fp32 kernel's 16-byte loads need.
@@ -120,6 +131,7 @@ __host__ __device__ constexpr int smem_bytes(int d) {
 
 struct Args {
   int B, Hq, group, Tq, Tk, causal;
+  int window;                 // sliding window (causal only), or 0
   int nq;                     // query tiles a head
   float scale_log2;           // log2(e) / sqrt(d)
   float* lse;                 // (B, Hq, Tq) row log-sum-exp, or null
@@ -129,7 +141,8 @@ struct Args {
 // tile of every head first, so the persistent CTAs, which take items w =
 // blockIdx.x, + gridDim.x, ..., start on the longest ones.
 struct Item {
-  int b, h, hk, q0, n;        // n: key tiles, visited last first
+  int b, h, hk, q0;
+  int t0, n;                  // key tiles t0 .. t0 + n - 1, last first
 };
 
 __device__ __forceinline__ Item item_of(const Args& a, int w) {
@@ -141,7 +154,11 @@ __device__ __forceinline__ Item item_of(const Args& a, int w) {
   x.q0 = (a.nq - 1 - w / heads) * BQ;
   const int kend =
       a.causal ? min(a.Tk, min(a.Tq, x.q0 + BQ)) : a.Tk;
-  x.n = (kend + BK - 1) / BK;
+  const int tend = (kend + BK - 1) / BK;
+  // the first row's window; a tile whose rows see no key at all still
+  // visits its last key tile, masked whole
+  x.t0 = a.window > 0 ? min(max(0, x.q0 - a.window + 1) / BK, tend - 1) : 0;
+  x.n = tend - x.t0;
   return x;
 }
 
@@ -224,7 +241,7 @@ __global__ void __launch_bounds__(NT, 1)
         for (int it = 0; it < x.n; ++it, ++kv) {
           const int s = kv % STAGES;
           const uint32_t ph = (kv / STAGES) & 1;
-          const int k0 = (x.n - 1 - it) * BK;
+          const int k0 = (x.t0 + x.n - 1 - it) * BK;
           mbar_wait(k_empty + s, ph ^ 1);
           mbar_expect_tx(k_full + s, TILE);
 #pragma unroll
@@ -288,9 +305,11 @@ __global__ void __launch_bounds__(NT, 1)
       }
     };
     // Online softmax of the score tile of keys k0 ..: mask (edge tiles
-    // only), row max over the quad, rescale, P packed as A fragments.
+    // only: Tk, the diagonal, the window's lower edge), row max over the
+    // quad, rescale, P packed as A fragments.
     auto softmax = [&](int k0) {
-      const bool edge = k0 + BK > a.Tk || (a.causal && k0 + BK - 1 > rmin);
+      const bool edge = k0 + BK > a.Tk || (a.causal && k0 + BK - 1 > rmin) ||
+                        (a.window > 0 && rmin + 63 - k0 >= a.window);
       if (edge) {
 #pragma unroll
         for (int j = 0; j < BK / 8; ++j) {
@@ -298,7 +317,8 @@ __global__ void __launch_bounds__(NT, 1)
           for (int e = 0; e < 4; ++e) {
             const int col = k0 + j * 8 + 2 * t + (e & 1);
             const int row = e < 2 ? row0 : row1;
-            if (col >= a.Tk || (a.causal && col > row)) {
+            if (col >= a.Tk || (a.causal && col > row) ||
+                (a.window > 0 && row - col >= a.window)) {
               sacc[4 * j + e] = NEG_INF;
             }
           }
@@ -384,7 +404,7 @@ __global__ void __launch_bounds__(NT, 1)
         pin<BK / 2>(sacc);
         release(k_empty + s, lane);
         if (x.n == 1) release(q_empty, lane);   // the item's last S
-        softmax((x.n - 1) * BK);
+        softmax((x.t0 + x.n - 1) * BK);
       }
 #pragma unroll 1
       for (int it = 1; it < x.n; ++it) {
@@ -406,7 +426,7 @@ __global__ void __launch_bounds__(NT, 1)
         pin<BK / 2>(sacc);
         release(k_empty + s, lane);
         if (it == x.n - 1) release(q_empty, lane);
-        softmax((x.n - 1 - it) * BK);
+        softmax((x.t0 + x.n - 1 - it) * BK);
       }
       // the last tile's O += P V; warpgroup 1's last turn of all hands
       // over nothing
@@ -497,15 +517,20 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
-  int Hq, group, Tq, Tk, causal;
+  int Hq, group, Tq, Tk, causal, window;
   int64_t sqb, sqh, sqt, skb, skh, skt, svb, svh, svt, sob, soh, sot;
   float scale;
   float* lse;   // (B, Hq, Tq) row log-sum-exp (natural log), or null
 };
 
-// The keys a query tile starting at row q0 must visit: [0, end).
+// The keys a query tile starting at row q0 must visit: [key_begin,
+// key_end), key_begin its first row's window rounded down to a tile (a
+// tile whose rows see no key visits none: o = 0, lse NEG_INF).
 __device__ __forceinline__ int key_end(const Args& a, int q0) {
   return a.causal ? min(a.Tk, min(a.Tq, q0 + BQ)) : a.Tk;
+}
+__device__ __forceinline__ int key_begin(const Args& a, int q0) {
+  return a.window > 0 ? max(0, q0 - a.window + 1) / BK * BK : 0;
 }
 
 // Thread (tr, tc) = (tid / 8, tid % 8) owns rows 4 tr .. 4 tr + 3 of the
@@ -552,7 +577,7 @@ __global__ void __launch_bounds__(NT) flash_fp32(const Args a) {
   }
   const int kend = key_end(a, q0);
 
-  for (int k0 = 0; k0 < kend; k0 += BK) {
+  for (int k0 = key_begin(a, q0); k0 < kend; k0 += BK) {
     __syncthreads();
     for (int idx = tid; idx < BK * VEC; idx += NT) {
       const int r = idx / VEC, c = (idx % VEC) * 4;
@@ -598,19 +623,24 @@ __global__ void __launch_bounds__(NT) flash_fp32(const Args a) {
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
         const int j = k0 + tc + 8 * c;
-        const bool ok = j < a.Tk && (!a.causal || row >= j);
+        const bool ok = j < a.Tk && (!a.causal || row >= j) &&
+                        (a.window <= 0 || row - j < a.window);
         s[i][c] = ok ? s[i][c] * a.scale : NEG_INF;
         mx = fmaxf(mx, s[i][c]);
       }
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-      const float al = expf(m_r[i] - mx);
+      // a row that has seen only masked keys gets weights expf(NEG_INF) =
+      // 0, not expf(NEG_INF - NEG_INF) = 1 (the window's rows whose keys
+      // start in a later tile)
+      const float mb = mx == NEG_INF ? 0.f : mx;
+      const float al = expf(m_r[i] - mb);
       m_r[i] = mx;
       float sum = 0.f;
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
-        s[i][c] = expf(s[i][c] - mx);
+        s[i][c] = expf(s[i][c] - mb);
         sum += s[i][c];
         Ps[(4 * tr + i) * LDP + tc + 8 * c] = s[i][c];
       }
@@ -684,7 +714,7 @@ int launch_bf16(const Args& a, int B, int Hkv, cudaStream_t s) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int nq = (a.Tq + hop::BQ - 1) / hop::BQ;
-  const hop::Args ha{B,  a.Hq,     a.group, a.Tq, a.Tk, a.causal, nq,
+  const hop::Args ha{B,  a.Hq, a.group, a.Tq, a.Tk, a.causal, a.window, nq,
                      static_cast<float>(1.4426950408889634 /
                                         sqrt(static_cast<double>(D))),
                      a.lse};
@@ -714,7 +744,8 @@ int launch(const Args& a, int B, int Hkv, int bf16, cudaStream_t s) {
 
 // q (B, Hq, Tq, d), k and v (B, Hkv, Tk, d), o (B, Hq, Tq, d), each at its
 // strides (b, h, t, 1), in bf16 (bf16 != 0) or fp32; d in {16, 32, 64,
-// 128}; Hq a multiple of Hkv; Tk >= 1.  lse: null, or a (B, Hq, Tq) fp32
+// 128}; Hq a multiple of Hkv; Tk >= 1; window >= 0 (0: none; taken only
+// with causal).  lse: null, or a (B, Hq, Tq) fp32
 // contiguous tensor that takes each row's log-sum-exp of the scaled scores
 // in natural-log units (the backward's input; a row that saw no key gets
 // NEG_INF).  Returns the launch error, if any (cudaErrorInvalidValue for
@@ -725,17 +756,19 @@ extern "C" int flash_attn_launch(
     int Hkv, int Tq, int Tk, int d, long long sqb, long long sqh,
     long long sqt, long long skb, long long skh, long long skt,
     long long svb, long long svh, long long svt, long long sob,
-    long long soh, long long sot, int causal, int bf16, void* stream) {
+    long long soh, long long sot, int causal, int window, int bf16,
+    void* stream) {
   // the fp32 kernel's grid has a y axis of query tiles; the bf16 kernel
   // numbers its work items in an int
   if (B < 0 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 || Tq < 0 || Tk < 1 ||
-      (!bf16 && (Tq + BQ - 1) / BQ > 65535) ||
+      window < 0 || (!bf16 && (Tq + BQ - 1) / BQ > 65535) ||
       (bf16 && static_cast<long long>(B) * Hq * ((Tq + hop::BQ - 1) /
                                                   hop::BQ) >= (1LL << 31))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0 || Tq == 0) return 0;
   Args a{q,   k,   v,   o,   Hq,  Hq / Hkv, Tq,  Tk,  causal ? 1 : 0,
+         causal ? window : 0,
          sqb, sqh, sqt, skb, skh, skt,      svb, svh, svt, sob,
          soh, sot, 1.0f / sqrtf(static_cast<float>(d)), lse};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -29,7 +29,11 @@ consumer warpgroups of 64 query rows each run both products on ``wgmma``
 as it lies), the online softmax in base 2 between them, masks only on the
 tiles that cross the diagonal or Tk, and a TMA store of o.  fp32 inputs
 take a loop on the CUDA cores (the bf16 tensor cores would break the fp32
-contract); fp32 training runs it.
+contract); fp32 training runs it.  Both take a sliding ``window`` with
+``causal`` (Hymba's 4,096): a query tile visits only the key tiles its
+rows' windows reach, and the tiles that cross a window's lower edge are
+masked as the diagonal's; the backward has none yet, so a window in grad
+mode raises (ROADMAP A.11 step 2b).
 
 q (B, Hq, Tq, d), k and v (B, Hkv, Tk, d), fp32 or bf16, are read through
 their strides (TMA tensor maps over (d, T, H, B)): the (B, H, T, d) views
@@ -63,7 +67,7 @@ def _lib():
     fn = _build.load("flash_attention").flash_attn_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                       + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 2
+                       + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -134,14 +138,14 @@ def _bthd(B: int, H: int, T: int, d: int, like: torch.Tensor
                        device=like.device).transpose(1, 2)
 
 
-def _forward(q, k, v, causal: bool, with_lse: bool
+def _forward(q, k, v, causal: bool, with_lse: bool, window: int = 0
              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """``(o, lse or None)`` on checked inputs: the kernel on the card, the
     plain version on the CPU."""
     if q.device.type == "cpu":
         if with_lse:
-            return attention_lse_ref(q, k, v, causal)
-        return attention_ref(q, k, v, causal), None
+            return attention_lse_ref(q, k, v, causal, window)
+        return attention_ref(q, k, v, causal, window), None
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} is not 16-byte "
@@ -158,7 +162,7 @@ def _forward(q, k, v, causal: bool, with_lse: bool
                         o.data_ptr(), None if lse is None else lse.data_ptr(),
                         B, Hq, Hkv, Tq, Tk, d,
                         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                        *o.stride()[:3], int(causal),
+                        *o.stride()[:3], int(causal), window,
                         int(q.dtype == torch.bfloat16), stream)
     _build.check(status, "flash_attention")
     _build.count_launch("flash_attention")
@@ -253,10 +257,21 @@ class FlashAttentionFunction(torch.autograd.Function):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
     """Softmax attention over (B, H, T, d); k and v may have fewer heads
-    (GQA, KV head ``h // (Hq // Hkv)``).  Returns (B, Hq, Tq, d)."""
+    (GQA, KV head ``h // (Hq // Hkv)``).  ``window`` (causal only; 0: none)
+    keeps the keys ``i - window < j <= i``.  Returns (B, Hq, Tq, d)."""
     _check(q, k, v)
+    window = int(window)
+    if window < 0:
+        raise ValueError(f"flash_attention: window must be >= 0, got "
+                         f"{window}")
+    if window and not causal:
+        raise ValueError("flash_attention: a sliding window needs causal")
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        if window:
+            raise NotImplementedError(
+                "flash_attention: the backward kernel has no sliding window "
+                "yet (ROADMAP A.11 step 2b, Hymba training)")
         return FlashAttentionFunction.apply(q, k, v, causal)
-    return _forward(q, k, v, causal, False)[0]
+    return _forward(q, k, v, causal, False, window)[0]

@@ -12,6 +12,10 @@ ref.attention_ref``, with the contract of the reference's Pallas wrapper
   ``h % Hkv``);
 - causal: key j is seen by query i when ``i >= j``, both counted from 0,
   also when Tq != Tk;
+- ``window`` (with causal; 0: none): also only when ``i - j < window``, the
+  reference's ``models/attention.py::_mask``; a row that sees no key (only
+  where Tq > Tk + window - 1) gets o = 0 and lse ``NEG_INF``, the kernel's
+  rule for such rows;
 - scores, softmax and the weighted sum in fp32; the output in q's dtype.
 
 :func:`attention_lse_ref` adds the fp32 row log-sum-exp of the scaled
@@ -37,42 +41,65 @@ import torch
 NEG_INF = -1e30
 
 
-def _causal_mask(Tq: int, Tk: int, device) -> torch.Tensor:
+def _causal_mask(Tq: int, Tk: int, device, window: int = 0
+                 ) -> torch.Tensor:
     qi = torch.arange(Tq, device=device)[:, None]
     kj = torch.arange(Tk, device=device)[None, :]
+    if window:
+        return (qi >= kj) & (qi - kj < window)
     return qi >= kj
 
 
-def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool, window: int = 0
             ) -> torch.Tensor:
     """fp32 scaled scores (B, Hq, Tq, Tk), masked keys at -inf."""
     d, group = q.shape[3], q.shape[1] // k.shape[1]
     kf = k.float().repeat_interleave(group, dim=1)
     s = torch.matmul(q.float(), kf.transpose(-1, -2)) / (d ** 0.5)
     if causal:
-        s = s.masked_fill(~_causal_mask(q.shape[2], k.shape[2], q.device),
-                          float("-inf"))
+        s = s.masked_fill(~_causal_mask(q.shape[2], k.shape[2], q.device,
+                                        window), float("-inf"))
     return s
+
+
+def _unseen(q: torch.Tensor, k: torch.Tensor, window: int
+            ) -> Optional[torch.Tensor]:
+    """(Tq, 1) bool: the rows a window leaves without a key, or None."""
+    if not window or q.shape[2] <= k.shape[2] + window - 1:
+        return None
+    return ~_causal_mask(q.shape[2], k.shape[2], q.device, window).any(
+        -1, keepdim=True)
 
 
 def _weighted(p: torch.Tensor, v: torch.Tensor, group: int) -> torch.Tensor:
     return torch.matmul(p, v.float().repeat_interleave(group, dim=1))
 
 
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            window: int):
+    """(scores, rows a window leaves without a key or None, o)."""
+    s = _scores(q, k, causal, window)
+    p = torch.softmax(s, dim=-1)
+    unseen = _unseen(q, k, window)
+    if unseen is not None:        # softmax over no key: NaN -> weights 0
+        p = p.masked_fill(unseen, 0.0)
+    return s, unseen, _weighted(p, v, q.shape[1] // k.shape[1]).to(q.dtype)
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  causal: bool = True) -> torch.Tensor:
-    p = torch.softmax(_scores(q, k, causal), dim=-1)
-    return _weighted(p, v, q.shape[1] // k.shape[1]).to(q.dtype)
+                  causal: bool = True, window: int = 0) -> torch.Tensor:
+    return _attend(q, k, v, causal, window)[2]
 
 
 def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      causal: bool = True
+                      causal: bool = True, window: int = 0
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(o, lse)``: o as :func:`attention_ref`, lse (B, Hq, Tq) fp32."""
-    s = _scores(q, k, causal)
-    p = torch.softmax(s, dim=-1)
-    o = _weighted(p, v, q.shape[1] // k.shape[1]).to(q.dtype)
-    return o, torch.logsumexp(s, dim=-1)
+    s, unseen, o = _attend(q, k, v, causal, window)
+    lse = torch.logsumexp(s, dim=-1)
+    if unseen is not None:
+        lse = lse.masked_fill(unseen[:, 0], NEG_INF)
+    return o, lse
 
 
 def attention_bwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -4,7 +4,9 @@ The loop of the reference's ``examples/serve_lm.py::main`` on the card:
 one prefill of the prompt batch (its last logits give the first token),
 then ``num_tokens - 1`` greedy decode steps, each from the previous
 step's argmax, over RWKV-6's O(1) state or the attention models' KV
-caches (sized to the prefix, the prompt and the tokens decoded).  A
+caches (sized to the prefix, the prompt and the tokens decoded; under a
+sliding window, Hymba's, a ring of the window's slots beside the SSM
+state, whatever the horizon).  A
 ``vlm`` model takes its image as ``patch_embeds`` (B, ``num_patches``,
 d), prepended to the prompt: its decode positions continue after both,
 at ``num_patches + S + i``.  An ``encdec`` model (Whisper) takes its

@@ -79,7 +79,10 @@ def train(cfg, steps: int, batch: int = 8, seq: int = 64, lr: float = 3e-4,
           device=DEFAULT_DEVICE, seed: int = 0,
           log: Optional[Callable[[str], None]] = print) -> TrainResult:
     """Train ``cfg`` for steps ``[start, steps)`` (start 0, or the step
-    after the latest committed checkpoint with ``resume``) on ``device``."""
+    after the latest committed checkpoint with ``resume``) on ``device``.
+    A ``hybrid`` config (Hymba) raises: it serves, and trains only once
+    its backward kernels land (ROADMAP A.11 step 2b)."""
+    api.require_trainable(cfg)
     dev = resolve_device(device)
     shape = ShapeSpec("cli", seq, batch, "train")
     opt_cfg = opt_mod.OptConfig(lr=lr, total_steps=steps,

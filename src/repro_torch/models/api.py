@@ -1,7 +1,8 @@
 """Model API used by the server and the trainer.
 
 Counterpart of ``repro.models.api`` for the ``dense``, ``moe`` and ``vlm``
-(attention) and ``ssm`` (RWKV-6) families, built as
+(attention), ``hybrid`` (Hymba: attention with a sliding window beside a
+selective-scan SSM) and ``ssm`` (RWKV-6) families, built as
 :class:`repro_torch.models.transformer.LM`, and the ``encdec`` family
 (Whisper), built as :class:`repro_torch.models.encdec.EncDec`:
 ``init_params`` builds the model, ``make_prefill_fn`` and
@@ -19,9 +20,12 @@ S_enc, d), the stub front end's frame embeddings, which the encoder reads.
 ``batch_spec``, ``abstract_params`` and ``abstract_caches`` give shapes
 and dtypes as ``meta`` tensors (the reference's ShapeDtypeStructs and
 ``jax.eval_shape``).  Prefill pads the attention KV caches to the decode
-horizon with the reference's ``_pad_caches`` (the identity for RWKV's
-O(1) state; an ``encdec`` model's cross caches pass through).  The other
-families are not ported (ROADMAP A.11): each function raises for them.
+horizon with the reference's ``_pad_caches`` (to exactly the window under
+a sliding window, the ring's size; the identity for RWKV's O(1) state; an
+``encdec`` model's cross caches and a ``hybrid`` model's SSM state pass
+through).  The ``hybrid`` family serves only: its loss raises (ROADMAP
+A.11 step 2b: the selective scan and the windowed flash attention have
+no backward kernel yet).
 """
 from __future__ import annotations
 
@@ -67,8 +71,9 @@ def abstract_params(cfg) -> Model:
 def abstract_caches(cfg, shape) -> Dict:
     """The decode caches of an (arch, decode shape) cell on the ``meta``
     device: ``shape.global_batch`` rows, a KV horizon of
-    ``shape.seq_len`` (and as many frames for an ``encdec`` model's cross
-    caches, as the reference's)."""
+    ``shape.seq_len`` (a ring of ``min(seq_len, window)`` slots under a
+    sliding window, with a ``hybrid`` model's fp32 SSM state; as many
+    frames for an ``encdec`` model's cross caches, as the reference's)."""
     B, S = shape.global_batch, shape.seq_len
     if cfg.family == "encdec":
         return encdec_mod.init_encdec_caches(cfg, B, S, S, device="meta")
@@ -96,6 +101,17 @@ def batch_spec(cfg, shape) -> Dict[str, torch.Tensor]:
     return spec
 
 
+def require_trainable(cfg) -> None:
+    """Raise for a family the port serves but cannot train yet: ``hybrid``
+    (ROADMAP A.11 step 2b)."""
+    _require_ported(cfg)
+    if cfg.family == "hybrid":
+        raise NotImplementedError(
+            f"{cfg.name}: hybrid training is not ported yet (ROADMAP A.11 "
+            "step 2b): the selective scan and the windowed flash attention "
+            "have no backward kernel")
+
+
 def make_loss_fn(cfg) -> Callable:
     """``loss_fn(model, batch)`` -> ``(loss, metrics)``: the token-mean
     cross entropy of ``batch["labels"]`` under the logits of
@@ -105,7 +121,7 @@ def make_loss_fn(cfg) -> Callable:
     dropped), add :data:`AUX_LOSS_WEIGHT` times the MoE balance term
     summed over the layers (0 without experts) and return ``{"xent",
     "moe_aux"}``."""
-    _require_ported(cfg)
+    require_trainable(cfg)
 
     def loss_fn(model: Model, batch: Dict):
         if cfg.family == "encdec":
@@ -146,12 +162,14 @@ def make_prefill_fn(cfg, max_len: Optional[int] = None) -> Callable:
 
 def _pad_caches(caches: Dict, cfg, max_len: Optional[int]) -> Dict:
     """End-pad the (L, B, S, K, hd) KV caches to ``max_len`` so decode
-    appends have room; RWKV's state and an ``encdec`` model's cross
-    caches pass through."""
+    appends have room, or under a sliding window to exactly the window
+    (ring slot ``p % window``); RWKV's state, an ``encdec`` model's cross
+    caches and a ``hybrid`` model's SSM state pass through."""
     if cfg.block_type == "rwkv":
         return caches
     S = caches["kv"]["k"].shape[2]
-    pad = max(0, (max_len or (S + 128)) - S)
+    target = cfg.sliding_window or max_len or (S + 128)
+    pad = max(0, target - S)
 
     def padder(a):
         return torch.nn.functional.pad(a, (0, 0, 0, 0, 0, pad))

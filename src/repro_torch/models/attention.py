@@ -14,11 +14,14 @@ S and T, else chunked), the port's sends every size through
 :func:`repro_torch.kernels.flash_attention.ops.flash_attention`: the CUDA
 kernels on the card (the forward and, in grad mode, its hand-written
 backward), their plain versions on the CPU; the function is the same, the
-sums run in another order.  The sliding window, which the kernels, like
-the reference's Pallas kernel, do not have, is refused there (ROADMAP
-A.11); ``_mask`` and the plain functions take it.  Decode attends one
-token over the KV cache in tensor code, as the reference's
-``decode_attention`` (jnp there, no kernel).
+sums run in another order.  The sliding window (``cfg.sliding_window``,
+Hymba's) goes to the forward kernel, which, unlike the reference's Pallas
+kernel, has one (the reference runs windowed attention in jnp); the
+backward kernel has none yet, so a window in grad mode raises (ROADMAP
+A.11 step 2b).  Decode attends one token over the KV cache in tensor
+code, as the reference's ``decode_attention`` (jnp there, no kernel);
+under a window the cache is the reference's ring of ``min(max_len,
+window)`` slots, position p at slot ``p % L``.
 """
 from __future__ import annotations
 
@@ -166,15 +169,13 @@ def _pick_chunk(n: int, target: int, floor: int = 64) -> int:
 def attention_ctx(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg,
                   causal: bool = True) -> torch.Tensor:
     """(B, S, H, hd) x (B, T, K, hd) -> (B, S, H, hd), every size through
-    the flash-attention kernels (their plain versions on the CPU); in grad
-    mode the backward is the hand-written one."""
-    if cfg.sliding_window:
-        raise NotImplementedError(
-            f"{cfg.name}: sliding-window attention is not ported (ROADMAP "
-            "A.11): the flash-attention kernel, like the reference's, has "
-            "no window")
-    ctx = flash_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                    v.transpose(1, 2), causal)
+    the flash-attention kernels (their plain versions on the CPU), with
+    ``cfg.sliding_window`` when causal (the one model with a window,
+    Hymba, attends causally); in grad mode the backward is the
+    hand-written one."""
+    ctx = flash_ops.flash_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal,
+        window=cfg.sliding_window if causal else 0)
     return ctx.transpose(1, 2)
 
 
@@ -182,28 +183,34 @@ def attention_ctx(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg,
 # Decode with KV cache.
 # ---------------------------------------------------------------------------
 
-# The reference's sliding-window ring buffers (``init_cache``,
-# ``cache_update`` and ``decode_attention`` under ``cfg.sliding_window``)
-# wait with windowed prefill (ROADMAP A.11): ``transformer.require_ported``
-# refuses windowed configs.
+# Under ``cfg.sliding_window`` the caches are the reference's ring buffers:
+# ``init_cache`` makes ``min(max_len, window)`` slots, ``cache_update``
+# writes position p at slot ``p % L`` and ``decode_attention`` reads the
+# slots ``< min(pos + 1, L)``; prefill caches are rolled to the same slots
+# (``transformer._cache_from_prefill``).
 
 def init_cache(cfg, batch: int, max_len: int, dtype, device=None) -> Dict:
-    """Per-layer KV cache: k and v (B, max_len, K, hd)."""
+    """Per-layer KV cache: k and v (B, L, K, hd), L = max_len, or
+    ``min(max_len, window)`` under a sliding window (a ring)."""
     K, hd = cfg.num_kv_heads, cfg.hd
-    return {"k": torch.zeros((batch, max_len, K, hd), dtype=dtype,
-                             device=device),
-            "v": torch.zeros((batch, max_len, K, hd), dtype=dtype,
-                             device=device)}
+    L = (min(max_len, cfg.sliding_window) if cfg.sliding_window
+         else max_len)
+    return {"k": torch.zeros((batch, L, K, hd), dtype=dtype, device=device),
+            "v": torch.zeros((batch, L, K, hd), dtype=dtype, device=device)}
 
 
 def cache_update(cache: Dict, k_new: torch.Tensor, v_new: torch.Tensor,
-                 pos: int) -> Dict:
+                 pos: int, cfg=None) -> Dict:
     """Insert one step (B, 1, K, hd) at absolute position ``pos`` (RoPE
-    already applied there).  Unlike the reference's functional update, the
-    port writes the slot **in place** and returns the same dict: a decode
-    step then copies two rows a layer, not the whole cache."""
-    cache["k"][:, pos] = k_new[:, 0]
-    cache["v"][:, pos] = v_new[:, 0]
+    already applied there): at slot ``pos``, or ``pos % L`` under
+    ``cfg.sliding_window`` (the ring).  Unlike the reference's functional
+    update, the port writes the slot **in place** and returns the same
+    dict: a decode step then copies two rows a layer, not the whole
+    cache."""
+    slot = (pos % cache["k"].shape[1]
+            if cfg is not None and cfg.sliding_window else pos)
+    cache["k"][:, slot] = k_new[:, 0]
+    cache["v"][:, slot] = v_new[:, 0]
     return cache
 
 
@@ -227,12 +234,15 @@ def decode_partial(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
     return acc.reshape(B, H, hd), denom.reshape(B, H), m.reshape(B, H)
 
 
-def decode_attention(q: torch.Tensor, cache: Dict, pos: int
+def decode_attention(q: torch.Tensor, cache: Dict, pos: int, cfg=None
                      ) -> torch.Tensor:
-    """Single-step decode attention over the cache slots ``<= pos``:
+    """Single-step decode attention over the cache slots ``<= pos``, or
+    under ``cfg.sliding_window`` the ring's slots ``< min(pos + 1, L)``:
     (B, 1, H, hd)."""
     L = cache["k"].shape[1]
-    valid = torch.arange(L, device=q.device)[None, :] <= pos
+    idx = torch.arange(L, device=q.device)[None, :]
+    valid = (idx < min(pos + 1, L)
+             if cfg is not None and cfg.sliding_window else idx <= pos)
     acc, denom, _ = decode_partial(q, cache["k"], cache["v"], valid)
     out = acc / denom.clamp_min(1e-30)[..., None]
     return out[:, None].to(q.dtype)

@@ -51,6 +51,11 @@ def require_encdec(cfg) -> None:
         raise ValueError(f"{cfg.name}: EncDec builds the 'encdec' family, "
                          f"not {cfg.family!r}")
     require_options_ported(cfg)
+    if cfg.sliding_window:
+        raise NotImplementedError(
+            f"{cfg.name}: sliding windows are ported for the decoder-only "
+            "LM (the hybrid family), not for the encoder-decoder (ROADMAP "
+            "A.11)")
 
 
 class EncBlock(nn.Module):

@@ -1,9 +1,13 @@
-"""Decoder-only LM assembly: prefill and decode (``attn`` and ``rwkv`` blocks).
+"""Decoder-only LM assembly: prefill and decode (``attn``, ``hybrid`` and
+``rwkv`` blocks).
 
 Counterpart of ``repro.models.transformer`` for the ``attn`` block type
 (pre-norm GQA attention + an FFN: dense in the ``dense`` and ``vlm``
-families, the capacity-factor MoE in ``moe``) and the attention-free
-RWKV-6 stack (``rwkv``, the ``ssm`` family): an embedding, ``num_layers``
+families, the capacity-factor MoE in ``moe``), the ``hybrid`` block
+(Hymba: attention, with its sliding window, and the selective-scan SSM
+branch of :mod:`repro_torch.models.ssm` side by side on the same normed
+input, their mean in the compute dtype, then the FFN) and the
+attention-free RWKV-6 stack (``rwkv``, the ``ssm`` family): an embedding, ``num_layers``
 blocks in an ``nn.ModuleList`` (the reference stacks them on a leading L
 axis for ``lax.scan``; here a Python loop runs them), the final norm and
 an untied ``lm_head``.  The ``vlm`` family prepends precomputed patch
@@ -14,15 +18,19 @@ block runs through ``torch.utils.checkpoint`` (non-reentrant), as the
 reference remats each scanned layer: its activations (and its balance
 term) are recomputed in the backward, its kernel launched a second time
 (the WKV6 recurrence, or the flash attention with its rows' log-sum-exp),
-and then its backward kernel once.  The ``hybrid`` block type, tied
-embeddings, sliding windows and the sharding hints are not ported
-(ROADMAP A.11); the ``encdec`` family is :mod:`repro_torch.models.encdec`'s,
-which shares this module's cache helpers.
+and then its backward kernel once.  The ``hybrid`` block serves only: its
+scan and its windowed attention have no backward kernel yet (ROADMAP A.11
+step 2b).  Tied embeddings and the sharding hints are not ported (ROADMAP
+A.11); the ``encdec`` family is :mod:`repro_torch.models.encdec`'s, which
+shares this module's cache helpers.
 
 Decode caches keep the reference's layout, stacked L-leading:
 ``{"kv": {"k": (L, B, T, K, hd), "v": ...}}`` for ``attn`` (T the decode
-horizon; a step writes its slot in place, see
-:func:`repro_torch.models.attention.cache_update`) and ``{"wkv": (L, B,
+horizon, or under a sliding window a ring of ``min(T, window)`` slots; a
+step writes its slot in place, see
+:func:`repro_torch.models.attention.cache_update`), the same plus ``"ssm":
+(L, B, di, n)`` fp32 for ``hybrid`` (a step writes each layer's state in
+place too) and ``{"wkv": (L, B,
 H, D, D) fp32, "tm_shift": (L, B, d), "cm_shift": (L, B, d)}`` for
 ``rwkv``.
 """
@@ -38,12 +46,13 @@ from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (apply_norm, draw_device, dtype_of,
                                        embed_init, init_norm)
 
 #: Model families the decoder-only :class:`LM` builds (``encdec`` is
 #: :class:`repro_torch.models.encdec.EncDec`'s).
-PORTED_FAMILIES = ("dense", "ssm", "moe", "vlm")
+PORTED_FAMILIES = ("dense", "ssm", "moe", "vlm", "hybrid")
 
 
 def require_ported(cfg) -> None:
@@ -62,14 +71,11 @@ def require_ported(cfg) -> None:
 
 
 def require_options_ported(cfg) -> None:
-    """Raise for the attention options the port lacks yet (ROADMAP
-    A.11): tied embeddings and sliding windows."""
+    """Raise for the option the port lacks yet (ROADMAP A.11): tied
+    embeddings."""
     if cfg.tie_embeddings:
         raise NotImplementedError(f"{cfg.name}: tied embeddings are not "
                                   "ported yet (ROADMAP A.11)")
-    if cfg.sliding_window:
-        raise NotImplementedError(f"{cfg.name}: sliding-window attention is "
-                                  "not ported yet (ROADMAP A.11)")
 
 
 class AttnBlock(nn.Module):
@@ -86,6 +92,17 @@ class AttnBlock(nn.Module):
         self.ffn = ffn_mod.init_ffn(cfg, generator, dtype, dev)
 
 
+class HybridBlock(AttnBlock):
+    """The reference's ``init_block`` for ``block_type == "hybrid"``: the
+    attention block's ``ln1``, ``attn``, ``ln2``, ``ffn``, then ``ssm``."""
+
+    def __init__(self, cfg, generator: Optional[torch.Generator], dtype,
+                 device=None):
+        super().__init__(cfg, generator, dtype, device)
+        self.ssm = ssm_mod.init_ssm(cfg, generator, dtype,
+                                    draw_device(generator, device))
+
+
 def block_seq(block, x: torch.Tensor, cfg, positions: torch.Tensor,
               collect_cache: bool):
     """One block over a full sequence: (x, aux, cache or None); ``aux`` the
@@ -96,10 +113,28 @@ def block_seq(block, x: torch.Tensor, cfg, positions: torch.Tensor,
     h = apply_norm(block.ln1, x, cfg)
     q, k, v = attn.compute_qkv(block.attn, h, cfg, positions)
     ctx = attn.attention_ctx(q, k, v, cfg, causal=True)
-    x = x + attn.project_out(block.attn, ctx)
+    branch = attn.project_out(block.attn, ctx)
+    cache = {"kv": _cache_from_prefill(k, v, cfg)} if collect_cache else None
+    if cfg.block_type == "hybrid":
+        ssm_out, state = ssm_mod.ssm_scan(block.ssm, h, cfg)
+        branch = 0.5 * (branch + ssm_out)
+        if collect_cache:
+            cache["ssm"] = state
+    x = x + branch
     y, aux = ffn_mod.apply_ffn(block.ffn, apply_norm(block.ln2, x, cfg), cfg)
-    return (x + y, aux,
-            {"kv": {"k": k, "v": v}} if collect_cache else None)
+    return x + y, aux, cache
+
+
+def _cache_from_prefill(k: torch.Tensor, v: torch.Tensor, cfg) -> Dict:
+    """(B, S, K, hd) prefill keys and values -> the decode cache layout:
+    as they are, or under a sliding window w < S the last w rolled by ``S
+    % w``, so position p sits at ring slot ``p % w`` (the slot rule of
+    :func:`repro_torch.models.attention.cache_update`)."""
+    S, w = k.shape[1], cfg.sliding_window
+    if w and S > w:
+        k = torch.roll(k[:, -w:], S % w, dims=1)
+        v = torch.roll(v[:, -w:], S % w, dims=1)
+    return {"k": k, "v": v}
 
 
 def block_decode(block, x: torch.Tensor, cfg, pos: int,
@@ -113,11 +148,17 @@ def block_decode(block, x: torch.Tensor, cfg, pos: int,
         return block(x, cache)
     h = apply_norm(block.ln1, x, cfg)
     q, k, v = attn.compute_qkv(block.attn, h, cfg, positions)
-    kv = attn.cache_update(cache["kv"], k, v, pos)
-    ctx = attn.decode_attention(q, kv, pos)
-    x = x + attn.project_out(block.attn, ctx)
+    kv = attn.cache_update(cache["kv"], k, v, pos, cfg)
+    ctx = attn.decode_attention(q, kv, pos, cfg)
+    branch = attn.project_out(block.attn, ctx)
+    new = {"kv": kv}
+    if cfg.block_type == "hybrid":
+        ssm_out, new["ssm"] = ssm_mod.ssm_step(block.ssm, h, cache["ssm"],
+                                               cfg)
+        branch = 0.5 * (branch + ssm_out)
+    x = x + branch
     y, _ = ffn_mod.apply_ffn(block.ffn, apply_norm(block.ln2, x, cfg), cfg)
-    return x + y, {"kv": kv}
+    return x + y, new
 
 
 class LM(nn.Module):
@@ -139,7 +180,8 @@ class LM(nn.Module):
             generator = torch.Generator().manual_seed(0)
         draw = dev if dev.type == "meta" else draw_device(generator, None)
         dtype = dtype_of(cfg.param_dtype)
-        block = rwkv_mod.RWKVBlock if cfg.block_type == "rwkv" else AttnBlock
+        block = {"rwkv": rwkv_mod.RWKVBlock, "hybrid": HybridBlock,
+                 "attn": AttnBlock}[cfg.block_type]
         self.cfg = cfg
         self.embed = nn.Parameter(embed_init(
             generator, (cfg.vocab_size, cfg.d_model), dtype, draw))
@@ -214,17 +256,20 @@ class LM(nn.Module):
         """token (B,) at position ``pos`` -> (logits (B, V), new caches).
         The RWKV blocks ignore ``pos`` (their state carries the position),
         as in the reference; the attention blocks write their KV slot in
-        place, so the caches returned are the ones passed in."""
+        place, and the hybrid blocks their SSM state too, so the caches
+        returned are the ones passed in."""
         x = self._embed(token[:, None])
         positions = torch.arange(pos, pos + 1, device=x.device)
         new = []
         for layer, block in enumerate(self.blocks):
             x, cache = block_decode(block, x, self.cfg, pos, positions,
                                     cache_layer(caches, layer))
+            if self.cfg.block_type == "hybrid":
+                caches["ssm"][layer].copy_(cache["ssm"])
             new.append(cache)
         logits = self._unembed(x)[:, 0]
-        return logits, (caches if self.cfg.block_type == "attn"
-                        else stack_caches(new))
+        return logits, (stack_caches(new) if self.cfg.block_type == "rwkv"
+                        else caches)
 
 
 def _block_out(block, x: torch.Tensor, cfg, positions: torch.Tensor):
@@ -251,7 +296,9 @@ def stack_caches(caches) -> Dict:
 def init_decode_caches(cfg, batch: int, max_len: Optional[int] = None,
                        device=DEFAULT_DEVICE) -> Dict:
     """Zero decode caches, stacked L-leading.  ``max_len`` is the KV
-    horizon of the attention caches; RWKV's O(1) state needs none."""
+    horizon of the attention caches (a ring of ``min(max_len, window)``
+    slots under a sliding window); RWKV's O(1) state needs none; a hybrid
+    model's adds its fp32 SSM state (B, di, n)."""
     require_ported(cfg)
     dev = resolve_device(device)
     dtype = dtype_of(cfg.compute_dtype)
@@ -261,6 +308,10 @@ def init_decode_caches(cfg, batch: int, max_len: Optional[int] = None,
         raise ValueError(f"{cfg.name}: attention caches need a max_len")
     else:
         one = {"kv": attn.init_cache(cfg, batch, max_len, dtype, dev)}
+        if cfg.block_type == "hybrid":
+            one["ssm"] = torch.zeros(
+                (batch, ssm_mod.inner_width(cfg), cfg.ssm_state),
+                dtype=torch.float32, device=dev)
     return broadcast_layers(one, cfg.num_layers)
 
 

@@ -12,7 +12,8 @@ the SACT planes put pairs that graze a separating plane on their
 diagonal.  ``wkv6``, ``wkv6_bwd``, ``flash_attention`` and
 ``flash_attention_bwd`` sum their dot products in another order than
 their plain versions and are held to the tolerances of their
-``cases.py``.
+``cases.py``; so is ``ssm_scan``'s y, whose state equals the plain
+version's bit for bit.
 """
 import copy
 import subprocess
@@ -65,6 +66,9 @@ from repro_torch.kernels.persist.ref import persist_tiles_ref
 from repro_torch.kernels.sact import ops as sact_ops
 from repro_torch.kernels.sact.cases import grazing_plane
 from repro_torch.kernels.sact.ref import sact_ref
+from repro_torch.kernels.ssm_scan import cases as scan_cases
+from repro_torch.kernels.ssm_scan import ops as scan_ops
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 from repro_torch.kernels.traverse import ops as traverse_ops
 from repro_torch.kernels.traverse.cases import grazing_frontier
 from repro_torch.kernels.traverse.ref import traverse_test_ref
@@ -1645,6 +1649,95 @@ def test_cuda_glm4_serving_matches_cpu(cuda, monkeypatch):
     want_step, want_caches = decode(cpu, tok, 40, want_caches)
     for got, want in [(logits, want_logits), (step, want_step)] + [
             (caches["kv"][key], want_caches["kv"][key]) for key in "kv"]:
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", scan_cases.hard_cases(),
+                         ids=lambda c: c["name"])
+def test_ssm_scan_kernel_matches_plain(cuda, case, dtype):
+    """One launch; the final state bit for bit, y within ``cases.TOL``;
+    bf16 gates as the model hands them over (B and C strided halves of
+    one tensor)."""
+    ins = scan_cases.tensors(case, cuda, dtype)
+    before = _build.launch_counts()["ssm_scan"]
+    with torch.inference_mode():
+        y, h = scan_ops.ssm_scan(*ins)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["ssm_scan"] == before + 1
+    wy, wh = ssm_scan_ref(*ins)
+    assert y.dtype == h.dtype == torch.float32
+    assert bool(y.isfinite().all()) and bool(h.isfinite().all())
+    assert torch.equal(h, wh)
+    assert scan_cases.within_tol(y, wy) <= 0
+
+
+def test_ssm_scan_kernel_refuses_grad_mode_and_bad_inputs(cuda):
+    ins = scan_cases.tensors(scan_cases.make_case(1, 5, 16, 8), cuda)
+    xi = ins[0].clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="A.11 step 2b"):
+        scan_ops.ssm_scan(xi, *ins[1:])
+    with pytest.raises(ValueError, match="several devices"):
+        scan_ops.ssm_scan(ins[0].cpu(), *ins[1:])
+    with torch.no_grad():
+        y, _ = scan_ops.ssm_scan(xi, *ins[1:])
+    assert scan_cases.within_tol(y, ssm_scan_ref(*ins)[0]) <= 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", flash_cases.window_cases(),
+                         ids=lambda c: c["name"])
+def test_flash_attention_window_matches_plain(cuda, case, dtype):
+    """The sliding window at Hymba's group of 5, d 32 and 64, in both
+    kernels; a window that masks nothing gives the bits of no window; the
+    rows a window leaves without a key get o = 0."""
+    q, k, v = flash_cases.tensors(case, cuda, dtype)
+    w = case["window"]
+    before = _build.launch_counts()["flash_attention"]
+    o = flash_ops.flash_attention(q, k, v, True, w)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["flash_attention"] == before + 1
+    assert bool(o.isfinite().all())
+    want = attention_ref(q, k, v, True, w)
+    assert flash_cases.within_tol(o, want, str(dtype)[6:]) <= 0
+    if case.get("same_as_none"):
+        assert torch.equal(o, flash_ops.flash_attention(q, k, v, True))
+    if q.shape[2] > k.shape[2] + w - 1:
+        assert bool((o[:, :, k.shape[2] + w - 1:] == 0).all())
+
+
+def test_cuda_hymba_serving_matches_cpu(cuda, monkeypatch):
+    """``hymba_smoke`` (window 64) card against CPU: a 100-token prefill
+    (one ``flash_attention`` with the window and one ``ssm_scan`` a layer;
+    the ring rolled), decode steps at positions 126-129 (slots 62, 63, 0,
+    1: the ring wraps), none launching a kernel; logits, the ring caches
+    and the SSM states, rtol = atol = 1e-4."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_smoke_config("hymba_1_5b")
+    cpu = LM(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (2, 100)))
+    prefill, decode = (lm_api.make_prefill_fn(cfg),
+                       lm_api.make_decode_fn(cfg))
+    before = _build.launch_counts()
+    logits, caches = prefill(card, {"tokens": tokens.to(cuda)})
+    torch.cuda.synchronize()
+    want_logits, want_caches = prefill(cpu, {"tokens": tokens})
+    pairs = [(logits, want_logits)]
+    for i, tok in enumerate(torch.tensor([[3, 7], [5, 1], [9, 9], [2, 4]])):
+        pos = 126 + i
+        step, caches = decode(card, tok.to(cuda), pos, caches)
+        want_step, want_caches = decode(cpu, tok, pos, want_caches)
+        pairs.append((step, want_step))
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    for name in ("flash_attention", "ssm_scan"):
+        assert after[name] - before[name] == cfg.num_layers, name
+    pairs += [(caches["kv"][k], want_caches["kv"][k]) for k in "kv"]
+    pairs.append((caches["ssm"], want_caches["ssm"]))
+    for got, want in pairs:
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
                                    rtol=1e-4, atol=1e-4)
 

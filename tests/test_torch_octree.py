@@ -269,7 +269,11 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.kernels.ballquery.ops",
             "repro_torch.models.planner",
             "repro_torch.kernels.flash_attention.ops",
-            "repro_torch.models.attention"} <= set(mods)
+            "repro_torch.models.attention", "repro_torch.models.ssm",
+            "repro_torch.kernels.ssm_scan.ops",
+            "repro_torch.kernels.ssm_scan.ref",
+            "repro_torch.kernels.ssm_scan.cases",
+            "repro_torch.configs.hymba_1_5b"} <= set(mods)
 
 
 def test_card_scripts_import_neither_jax_nor_repro():

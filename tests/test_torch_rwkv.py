@@ -235,16 +235,16 @@ def test_unported_architectures_raise_naming_roadmap():
     with pytest.raises(NotImplementedError, match="A.11"):
         get_config("qwen1_5_110b")
     with pytest.raises(NotImplementedError, match="A.11"):
-        get_smoke_config("hymba_1_5b")
+        get_smoke_config("nemotron_4_340b")
     with pytest.raises(KeyError):
         get_config("no_such_model")
-    hybrid = ModelConfig(name="tiny", family="hybrid", num_layers=1,
-                         d_model=16, num_heads=2, num_kv_heads=2, d_ff=32,
-                         vocab_size=8, ssm_state=4)
+    tied = ModelConfig(name="tiny", family="dense", num_layers=1,
+                       d_model=16, num_heads=2, num_kv_heads=2, d_ff=32,
+                       vocab_size=8, tie_embeddings=True)
     with pytest.raises(NotImplementedError, match="A.11"):
-        api.init_params(hybrid, device="cpu")
+        api.init_params(tied, device="cpu")
     with pytest.raises(NotImplementedError, match="A.11"):
-        LM(hybrid, device="cpu")
+        LM(tied, device="cpu")
 
 
 def test_serve_on_cuda_raises_without_a_card(models, prompts):
